@@ -1,0 +1,197 @@
+"""Dynamic dual-index search with decision-tree early termination (Alg 4).
+
+Phase 1 searches the hot index (the paper's NSSG subgraph,
+``hot_mode="graph"``).  Its pool seeds phase 2 over the full graph, where
+every lane re-evaluates the decision tree each time its (full-phase)
+distance count crosses a multiple of ``eval_gap``; a stop verdict (+ an
+optional ``add_step`` grace) retires the lane.
+
+All ids in phase 2 are global.  The hot graph uses local ids 0..H-1 with
+its own sentinel H; ``hot_ids_pad`` maps local→global.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from . import beam_search as bs
+from .decision_tree import TreeArrays, predict
+from .features import feature_matrix, hot_features
+from .types import (INF_DIST, INT_MAX, HotFeatures, PoolState, SearchResult,
+                    SearchStats)
+
+__all__ = ["dynamic_search", "hot_phase", "hot_phase_graph",
+           "DynamicState"]
+
+
+class DynamicState(NamedTuple):
+    beam: bs.BeamState
+    evals_done: torch.Tensor   # (B,) int32 — DT evaluations performed
+    stop_at: torch.Tensor      # (B,) int32 — dist_count deadline (add_step)
+
+
+def hot_phase_graph(x_hot_pad, adj_hot_pad, hot_entries, queries, *,
+                    pool_size: int, max_hops: int):
+    """Phase 1, paper-faithful: beam search over the hot NSSG."""
+    state = bs.init_state(x_hot_pad, queries, hot_entries, pool_size)
+    state = bs.beam_loop(x_hot_pad, adj_hot_pad, queries, state, max_hops)
+    return state.pool, state.stats
+
+
+def hot_phase_mxu(*_, **__):
+    raise NotImplementedError(
+        "hot_mode='mxu' (the brute-force scorer) comes with the "
+        "fused_topk_l2 slice of the port")
+
+
+def hot_phase_stacked(*_, **__):
+    raise NotImplementedError("stacked hot tables come with the tenancy "
+                              "slice of the port")
+
+
+def _exact_rerank(*_, **__):
+    raise NotImplementedError("the exact rerank comes with the "
+                              "quantization slice of the port")
+
+
+def hot_phase(x_hot_pad, adj_hot_pad, hot_entries, queries, *, pool_size,
+              max_hops, mode: str = "graph", use_kernel: bool = False):
+    if mode == "graph":
+        return hot_phase_graph(x_hot_pad, adj_hot_pad, hot_entries, queries,
+                               pool_size=pool_size, max_hops=max_hops)
+    return hot_phase_mxu(x_hot_pad, queries, pool_size=pool_size,
+                         use_kernel=use_kernel)
+
+
+def _seed_full_state(hot_pool: PoolState, hot_ids_pad: torch.Tensor,
+                     n: int, pool_size: int,
+                     live_pad: Optional[torch.Tensor] = None) -> bs.BeamState:
+    """Map the hot pool to global ids and seed the phase-2 state.
+
+    Alg 4 line 11: all entries arrive unexpanded; line 12: counters reset.
+    ``live_pad`` masks hot results whose global row was tombstoned.
+    """
+    B, s_l = hot_pool.ids.shape
+    dev = hot_pool.ids.device
+    gids = hot_ids_pad[hot_pool.ids.long()]
+    gids = torch.where(hot_pool.dists >= INF_DIST, n, gids).to(torch.int32)
+    dists = hot_pool.dists
+    if live_pad is not None:
+        dead = ~live_pad[gids.long()]
+        gids = torch.where(dead, n, gids)
+        dists = torch.where(dead, INF_DIST, dists)
+    take = min(s_l, pool_size)
+    order = torch.sort(dists, dim=1, stable=True).indices[:, :take]
+    gids = gids.gather(1, order)
+    gdist = dists.gather(1, order)
+    pad = pool_size - take
+    pool = PoolState(
+        ids=torch.cat([gids, torch.full((B, pad), n, dtype=torch.int32,
+                                        device=dev)], dim=1),
+        dists=torch.cat([gdist, torch.full((B, pad), INF_DIST,
+                                           dtype=torch.float32, device=dev)],
+                        dim=1),
+        expanded=torch.zeros((B, pool_size), dtype=torch.bool, device=dev))
+    seen = torch.zeros((B, n + 1), dtype=torch.bool, device=dev)
+    seen[torch.arange(B, device=dev)[:, None], pool.ids.long()] = True
+    seen[:, n] = True
+    zeros = lambda: torch.zeros((B,), dtype=torch.int32, device=dev)
+    stats = SearchStats(
+        dist_count=zeros(), update_count=zeros(), hops=zeros(),
+        terminated_early=torch.zeros((B,), dtype=torch.bool, device=dev))
+    return bs.BeamState(pool, seen, stats,
+                        torch.ones((B,), dtype=torch.bool, device=dev))
+
+
+def _full_phase(x_pad, adj_pad, queries, state: bs.BeamState,
+                hot: HotFeatures, tree: Optional[TreeArrays], *,
+                k: int, eval_gap: int, add_step: int, tree_depth: int,
+                max_hops: int,
+                live_pad: Optional[torch.Tensor] = None) -> bs.BeamState:
+    """Phase 2 with periodic decision-tree termination checks."""
+    B = queries.shape[0]
+    dev = queries.device
+    ds = DynamicState(
+        beam=state,
+        evals_done=torch.zeros((B,), dtype=torch.int32, device=dev),
+        stop_at=torch.full((B,), INT_MAX, dtype=torch.int32, device=dev))
+    while bool(ds.beam.active.any()):
+        s = bs.expand_step(x_pad, adj_pad, queries, ds.beam, live_pad)
+        s = s._replace(active=s.active & (s.stats.hops < max_hops))
+        evals_done, stop_at = ds.evals_done, ds.stop_at
+        if tree is not None:
+            due = (s.stats.dist_count // eval_gap) > evals_done
+            due = due & s.active
+            feats = feature_matrix(hot, s.pool, s.stats, k)
+            verdict_stop = predict(tree, feats, tree_depth) < 0.5
+            newly = due & verdict_stop & (stop_at == INT_MAX)
+            stop_at = torch.where(newly, s.stats.dist_count + add_step,
+                                  stop_at)
+            evals_done = torch.where(due, s.stats.dist_count // eval_gap,
+                                     evals_done)
+            stop_now = s.stats.dist_count >= stop_at
+            s = s._replace(
+                active=s.active & ~stop_now,
+                stats=s.stats._replace(
+                    terminated_early=s.stats.terminated_early
+                    | (stop_now & s.active)))
+        ds = DynamicState(s, evals_done, stop_at)
+    return ds.beam
+
+
+def dynamic_search(
+    x_pad: torch.Tensor,           # (n+1, d) padded dataset
+    adj_pad: torch.Tensor,         # (n+1, R) padded full adjacency
+    x_hot_pad: torch.Tensor,       # (H+1, d) padded hot vectors
+    adj_hot_pad: torch.Tensor,     # (H+1, Rh) padded hot adjacency
+    hot_ids_pad: torch.Tensor,     # (H+1,) local→global (pad slot → n)
+    hot_entries: torch.Tensor,     # (E,) local entry ids into the hot graph
+    tree: Optional[TreeArrays],
+    queries: torch.Tensor,         # (B, d)
+    *,
+    k: int,
+    hot_pool_size: int,
+    full_pool_size: int,
+    eval_gap: int,
+    add_step: int,
+    tree_depth: int,
+    max_hops: int = 512,
+    hot_mode: str = "graph",
+    use_kernel: bool = False,
+    qtable=None,
+    rerank_k: int = 0,
+    live_pad: Optional[torch.Tensor] = None,
+    fused: bool = False,
+    fused_hops: int = 8,
+) -> tuple[SearchResult, SearchStats, HotFeatures]:
+    """Algorithm 4 end to end. Returns (result, hot_phase_stats, hot_feats).
+
+    ``result.stats`` covers the full phase only (after the line-12 reset).
+    ``fused=True`` runs the full phase through the fused wave-hop kernel,
+    with bit-identical results.
+    """
+    if qtable is not None or rerank_k:
+        _exact_rerank()
+    n = bs.table_n(x_pad)
+    hot_pool, hot_stats = hot_phase(
+        x_hot_pad, adj_hot_pad, hot_entries, queries,
+        pool_size=hot_pool_size, max_hops=max_hops, mode=hot_mode,
+        use_kernel=use_kernel)
+    hfeats = hot_features(hot_pool, k)
+    state = _seed_full_state(hot_pool, hot_ids_pad, n, full_pool_size,
+                             live_pad)
+    if fused:
+        state = bs.fused_beam_loop(
+            x_pad, adj_pad, queries, state, max_hops, live_pad,
+            fused_hops=fused_hops, tree=tree, hot=hfeats, k=k,
+            eval_gap=eval_gap, add_step=add_step, tree_depth=tree_depth)
+    else:
+        state = _full_phase(
+            x_pad, adj_pad, queries, state, hfeats, tree, k=k,
+            eval_gap=eval_gap, add_step=add_step, tree_depth=tree_depth,
+            max_hops=max_hops, live_pad=live_pad)
+    ids, dists = bs.topk_from_pool(state.pool, k)
+    return (SearchResult(ids=ids, dists=dists, stats=state.stats),
+            hot_stats, hfeats)

@@ -1,0 +1,289 @@
+// Fused wave-hop kernel: `hops` beam expansions per search lane in one launch.
+//
+// Replaces: repro/kernels/fused_hop.py::fused_hop_pallas (body _hop_kernel),
+// float32 score mode, with and without the liveness bitmap and the decision
+// tree.  Contract: repro_torch/kernels/ref.py::fused_hop, which this kernel
+// equals bit for bit.  Each hop follows ref.fused_hop_body line for line:
+// frontier, adjacency row, seen/live dedup, score, stable merge, counters,
+// hop cap, tree check.
+//
+// Design (first, simple, correct):
+//   * one thread block of 128 threads per lane; the lane's pool lives in
+//     shared memory for all hops as sort_len = next_pow2(L + R) keys, ids,
+//     expanded flags and positions;
+//   * the lane's `seen` row stays in device memory as bytes, (B, n+1), and
+//     is updated in place; all R seen bytes of a hop are read before any is
+//     written (a __syncthreads between), so an id that appears twice in one
+//     adjacency row is valid, scored and merged twice, as in the plain
+//     version;
+//   * one warp scores one neighbour: lane i holds components i + 32 j, the
+//     M = max(next_pow2(d), 32) / 32 registers are halved in place, then
+//     __shfl_down_sync 16..1 finishes the pairwise halving sum of
+//     ref.sq_l2 in the same order, with __fsub_rn/__fmul_rn/__fadd_rn
+//     (and the file is built with --fmad=false);
+//   * the merge is the stable (key, position) bitonic network of
+//     bitonic.cuh over [pool (L) | candidates (R) | +inf pad];
+//   * the tree walk runs on thread 0; inactive lanes leave the hop loop at
+//     once (their remaining hops are exact no-ops).
+//
+// Bound on the H100: device-memory bytes.  A hop moves one adjacency row
+// (R x 4 bytes), R seen bytes read and written, R liveness bytes, and one
+// table row (d x 4 bytes) per valid neighbour: in all about
+// sum(dist_count) x d x 4 + hops x R x (4 + 1 + 1) bytes, plus the pool
+// state read and written once per launch.  There are almost no FLOPs.
+//
+// Left for later PRs: the row loads of one warp are issued one neighbour
+// after another (no cp.async/TMA prefetch of the next rows), the frontier
+// pick and the bitonic stages synchronise the whole block, the tree walk is
+// serial, and one block per lane leaves most of each block idle during the
+// serial parts.  The sq8/pq score modes come with the quantization slice.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "bitonic.cuh"
+
+#define DQF_INF_DIST 3.0e38f
+#define DQF_EPS 1e-12f
+#define DQF_INT_MAX 2147483647
+#define DQF_THREADS 128
+
+struct HopArgs {
+  // state in
+  const int32_t* ids_in;
+  const float* dists_in;
+  const uint8_t* exp_in;
+  const uint8_t* active_in;
+  const int32_t* dist_count_in;
+  const int32_t* update_count_in;
+  const int32_t* hops_in;
+  const uint8_t* terminated_in;
+  const int32_t* evals_done_in;
+  const int32_t* stop_at_in;
+  // state out
+  int32_t* ids_out;
+  float* dists_out;
+  uint8_t* exp_out;
+  uint8_t* active_out;
+  int32_t* dist_count_out;
+  int32_t* update_count_out;
+  int32_t* hops_out;
+  uint8_t* terminated_out;
+  int32_t* evals_done_out;
+  int32_t* stop_at_out;
+  // (B, n+1) seen bitmap, updated in place
+  uint8_t* seen;
+  // tables
+  const int32_t* adj;      // (n+1, R)
+  const float* table;      // (n+1, d)
+  const float* queries;    // (B, d)
+  const uint8_t* live;     // (n+1,) or null
+  // decision tree (null t_feature = no tree)
+  const int32_t* t_feature;
+  const float* t_threshold;
+  const int32_t* t_left;
+  const int32_t* t_right;
+  const float* t_value;
+  const float* hot_first;  // (B,)
+  const float* hot_ratio;  // (B,)
+  int32_t B, L, R, n, d;
+  int32_t hops, max_hops, k, eval_gap, add_step, tree_depth, sort_len;
+};
+
+template <int M>
+__global__ void __launch_bounds__(DQF_THREADS)
+fused_hop_kernel(const HopArgs a) {
+  extern __shared__ unsigned char smem[];
+  const int S = a.sort_len, L = a.L, R = a.R, n = a.n, d = a.d;
+  float* keys = reinterpret_cast<float*>(smem);   // S
+  int* pos = reinterpret_cast<int*>(keys + S);    // S
+  int* vid = pos + S;                              // S
+  int* vexp = vid + S;                             // S
+  int* nbr = vexp + S;                             // R: cols (sentinel n)
+  int* valid = nbr + R;                            // R
+  float* d2 = reinterpret_cast<float*>(valid + R); // R
+  __shared__ int s_slot, s_inserted, s_nvalid, s_stop;
+
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int warp = tid >> 5, wl = tid & 31, nwarps = nthreads >> 5;
+  const bool has_tree = a.t_feature != nullptr;
+
+  for (int i = tid; i < L; i += nthreads) {
+    keys[i] = a.dists_in[(size_t)b * L + i];
+    vid[i] = a.ids_in[(size_t)b * L + i];
+    vexp[i] = a.exp_in[(size_t)b * L + i] != 0;
+  }
+  // Block-uniform lane state, kept identical in every thread.
+  bool active = a.active_in[b] != 0;
+  int dist_count = a.dist_count_in[b];
+  int update_count = a.update_count_in[b];
+  int hops_ct = a.hops_in[b];
+  bool terminated = a.terminated_in[b] != 0;
+  int evals_done = a.evals_done_in[b];
+  int stop_at = a.stop_at_in[b];
+
+  float q[M];
+#pragma unroll
+  for (int j = 0; j < M; ++j) {
+    const int c = wl + 32 * j;
+    q[j] = c < d ? a.queries[(size_t)b * d + c] : 0.f;
+  }
+  uint8_t* seen = a.seen + (size_t)b * (n + 1);
+
+  for (int h = 0; h < a.hops; ++h) {
+    // --- 1. frontier: first unexpanded, non-sentinel slot ---
+    if (tid == 0) s_slot = DQF_INT_MAX;
+    __syncthreads();
+    for (int i = tid; i < L; i += nthreads)
+      if (!vexp[i] && vid[i] != n) atomicMin(&s_slot, i);
+    __syncthreads();
+    const int slot = s_slot;
+    if (!(active && slot != DQF_INT_MAX)) {
+      // lane is False: the plain hop scatters only the sentinel column and
+      // retires the lane; every later hop is the same no-op.
+      if (tid == 0) seen[n] = 1;
+      active = false;
+      break;
+    }
+    const int p = vid[slot];
+    if (tid == 0) vexp[slot] = 1;
+
+    // --- 2+3. adjacency row, then seen/live dedup: read all, then write ---
+    for (int r = tid; r < R; r += nthreads) {
+      const int v = a.adj[(size_t)p * R + r];
+      bool ok = v != n && !seen[v];
+      if (a.live != nullptr) ok = ok && a.live[v] != 0;
+      nbr[r] = ok ? v : n;
+      valid[r] = ok;
+    }
+    __syncthreads();
+    for (int r = tid; r < R; r += nthreads) seen[nbr[r]] = 1;
+
+    // --- 4. score: one warp per neighbour, halving-sum order ---
+    for (int r = warp; r < R; r += nwarps) {
+      float acc = DQF_INF_DIST;
+      if (valid[r]) {
+        const float* row = a.table + (size_t)nbr[r] * d;
+        float v[M];
+#pragma unroll
+        for (int j = 0; j < M; ++j) {
+          const int c = wl + 32 * j;
+          const float diff = __fsub_rn(c < d ? row[c] : 0.f, q[j]);
+          v[j] = __fmul_rn(diff, diff);
+        }
+#pragma unroll
+        for (int w = M / 2; w >= 1; w >>= 1) {
+#pragma unroll
+          for (int j = 0; j < w; ++j) v[j] = __fadd_rn(v[j], v[j + w]);
+        }
+        float s = v[0];
+#pragma unroll
+        for (int off = 16; off >= 1; off >>= 1)
+          s = __fadd_rn(s, __shfl_down_sync(0xffffffffu, s, off));
+        acc = s;
+      }
+      if (wl == 0) d2[r] = acc;
+    }
+    __syncthreads();
+
+    // --- 5. stable merge of [pool | candidates | +inf pad] ---
+    if (tid == 0) {
+      const float worst = keys[L - 1];
+      int ins = 0, nv = 0;
+      for (int r = 0; r < R; ++r) {
+        ins += d2[r] < worst;
+        nv += valid[r];
+      }
+      s_inserted = ins;
+      s_nvalid = nv;
+    }
+    for (int i = L + tid; i < S; i += nthreads) {
+      const int r = i - L;
+      keys[i] = r < R ? d2[r] : __int_as_float(0x7f800000);  // +inf pad
+      vid[i] = r < R ? nbr[r] : 0;
+      vexp[i] = 0;
+    }
+    for (int i = tid; i < S; i += nthreads) pos[i] = i;
+    bitonic_sort_stable(keys, pos, vid, vexp, S);
+
+    // --- 6+7. counters, liveness, hop cap ---
+    dist_count += s_nvalid;
+    update_count += s_inserted;
+    hops_ct += 1;
+    int mine = 0;
+    for (int i = tid; i < L; i += nthreads) mine |= (!vexp[i] && vid[i] != n);
+    const bool still = __syncthreads_or(mine) != 0;
+    active = active && still && hops_ct < a.max_hops;
+
+    // --- 8. decision-tree termination ---
+    if (has_tree) {
+      const bool due = (dist_count / a.eval_gap) > evals_done && active;
+      if (due) {
+        if (tid == 0) {
+          const float first = keys[0];
+          const float kth = keys[(a.k < L ? a.k : L) - 1];
+          float feats[6];
+          feats[0] = a.hot_first[b];
+          feats[1] = a.hot_ratio[b];
+          feats[2] = first;
+          feats[3] = __fdiv_rn(first, __fadd_rn(kth, DQF_EPS));
+          feats[4] = __int2float_rn(dist_count);
+          feats[5] = __int2float_rn(update_count);
+          int node = 0;
+          for (int t = 0; t < a.tree_depth; ++t) {
+            const int f = max(a.t_feature[node], 0);
+            node = feats[f] <= a.t_threshold[node] ? a.t_left[node]
+                                                    : a.t_right[node];
+          }
+          s_stop = a.t_value[node] < 0.5f;
+        }
+        __syncthreads();
+        if (s_stop && stop_at == DQF_INT_MAX) stop_at = dist_count + a.add_step;
+        evals_done = dist_count / a.eval_gap;
+      }
+      const bool stop_now = dist_count >= stop_at;
+      terminated = terminated || (stop_now && active);
+      active = active && !stop_now;
+    }
+  }
+
+  for (int i = tid; i < L; i += nthreads) {
+    a.dists_out[(size_t)b * L + i] = keys[i];
+    a.ids_out[(size_t)b * L + i] = vid[i];
+    a.exp_out[(size_t)b * L + i] = vexp[i] != 0;
+  }
+  if (tid == 0) {
+    a.active_out[b] = active;
+    a.dist_count_out[b] = dist_count;
+    a.update_count_out[b] = update_count;
+    a.hops_out[b] = hops_ct;
+    a.terminated_out[b] = terminated;
+    a.evals_done_out[b] = evals_done;
+    a.stop_at_out[b] = stop_at;
+  }
+}
+
+extern "C" int dqf_fused_hop_f32(const HopArgs* a, void* stream) {
+  if (a->B == 0) return 0;
+  int width = 1;
+  while (width < a->d) width <<= 1;
+  const int m = width < 32 ? 1 : width / 32;
+  const size_t smem = (size_t)a->sort_len * 16 + (size_t)a->R * 12;
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  const dim3 grid(a->B), block(DQF_THREADS);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (m) {
+    case 1: fused_hop_kernel<1><<<grid, block, smem, st>>>(*a); break;
+    case 2: fused_hop_kernel<2><<<grid, block, smem, st>>>(*a); break;
+    case 4: fused_hop_kernel<4><<<grid, block, smem, st>>>(*a); break;
+    case 8: fused_hop_kernel<8><<<grid, block, smem, st>>>(*a); break;
+    case 16: fused_hop_kernel<16><<<grid, block, smem, st>>>(*a); break;
+    case 32: fused_hop_kernel<32><<<grid, block, smem, st>>>(*a); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" const char* dqf_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

@@ -1,0 +1,201 @@
+"""Plain PyTorch versions of the port's kernels.
+
+These are the semantics contracts: each hand-written kernel in
+:mod:`repro_torch.kernels` is held against the function of the same name
+here, bit for bit, on the card.  On the CPU they are the execution path
+(:mod:`repro_torch.kernels.ops` sends a CPU tensor here and nowhere else).
+
+Mirrors ``repro/kernels/ref.py`` expression by expression, with two
+deliberate choices:
+
+* every squared-L2 score goes through :func:`sq_l2`, a pairwise halving sum
+  whose order the code fixes, so the CUDA kernel can repeat it exactly;
+* every ``jnp.argsort`` becomes ``torch.sort(..., stable=True)``.
+
+The ``seen`` bitmap of a :class:`HopState` is updated in place: at a
+million rows it is a megabyte per lane, and a functional copy per hop would
+move more bytes than the hop itself.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+__all__ = ["HopState", "sq_l2", "fused_hop_body", "fused_hop",
+           "tree_predict", "next_pow2"]
+
+# Mirrors of repro_torch.core.types constants (kernels sit below core).
+INF_DIST = float(torch.tensor(3.0e38, dtype=torch.float32))
+INT_MAX = torch.iinfo(torch.int32).max
+EPS = 1e-12          # == repro_torch.core.features.EPS
+
+
+class HopState(NamedTuple):
+    """Flat per-lane search state the fused wave-hop kernel advances."""
+
+    ids: torch.Tensor           # (B, L) int32 pool ids, sentinel = n
+    dists: torch.Tensor         # (B, L) float32, INF_DIST for empty slots
+    expanded: torch.Tensor      # (B, L) bool
+    seen: torch.Tensor          # (B, n+1) bool, updated in place
+    active: torch.Tensor        # (B,) bool
+    dist_count: torch.Tensor    # (B,) int32
+    update_count: torch.Tensor  # (B,) int32
+    hops: torch.Tensor          # (B,) int32
+    terminated: torch.Tensor    # (B,) bool — stopped by the decision tree
+    evals_done: torch.Tensor    # (B,) int32 — tree evaluations performed
+    stop_at: torch.Tensor       # (B,) int32 — dist_count deadline (add_step)
+
+
+def next_pow2(n: int) -> int:
+    p = 1
+    while p < n:
+        p <<= 1
+    return p
+
+
+def sq_l2(g: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Squared L2 over the last axis as a pairwise halving sum.
+
+    Square each component, zero-pad the width to a power of two, then add
+    the upper half onto the lower half until one value is left.  The
+    order is fixed by this code alone, so the CUDA kernel repeats it with
+    ``__fmul_rn``/``__fadd_rn`` and both give the same bits.
+    """
+    diff = g - q
+    s = diff * diff
+    d = s.shape[-1]
+    width = next_pow2(d)
+    if width != d:
+        s = torch.nn.functional.pad(s, (0, width - d))
+    while s.shape[-1] > 1:
+        h = s.shape[-1] // 2
+        s = s[..., :h] + s[..., h:]
+    return s[..., 0]
+
+
+def first_true(mask: torch.Tensor) -> torch.Tensor:
+    """Index of the first True along dim 1 (0 when none), as ``jnp.argmax``."""
+    return mask.to(torch.uint8).argmax(dim=1)
+
+
+def tree_predict(tree, feats: torch.Tensor, depth: int) -> torch.Tensor:
+    """P(continue) for (B, 6) feature rows; ``tree`` = (feature, threshold,
+    left, right, value)."""
+    feature, threshold, left, right, value = tree
+    node = torch.zeros(feats.shape[0], dtype=torch.long, device=feats.device)
+    for _ in range(depth):
+        f = feature[node].clamp(min=0).long()
+        val = feats.gather(1, f[:, None])[:, 0]
+        node = torch.where(val <= threshold[node], left[node],
+                           right[node]).long()
+    return value[node]
+
+
+def _gather_score(mode: str, t0, queries, cols):
+    if mode == "f32":
+        return sq_l2(t0[cols.long()], queries[:, None, :])
+    if mode in ("sq8", "pq"):
+        raise NotImplementedError(
+            f"score mode {mode!r} comes with the quantization slice")
+    raise ValueError(f"unknown score mode {mode!r}")
+
+
+def fused_hop_body(hs: HopState, adj_pad, queries, live_pad, mode: str,
+                   t0, tree, hot_first, hot_ratio, *, max_hops: int,
+                   k: int, eval_gap: int, add_step: int,
+                   tree_depth: int) -> HopState:
+    """One fused hop: expand → gather → score → merge → terminate.
+
+    A verbatim mirror of ``repro/kernels/ref.py::fused_hop_body``:
+    :func:`repro_torch.core.beam_search.expand_step` followed by the loop
+    body bookkeeping (hop cap, then the decision-tree check).  Inactive
+    lanes are exact no-ops.
+    """
+    n = adj_pad.shape[0] - 1
+    B, L = hs.ids.shape
+    rows = torch.arange(B, device=hs.ids.device)
+
+    # --- expansion target ---
+    unexp = (~hs.expanded) & (hs.ids != n)
+    lane = hs.active & unexp.any(dim=1)
+    slot = first_true(unexp)
+    p = torch.where(lane, hs.ids[rows, slot], n)
+    expanded = hs.expanded.clone()
+    expanded[rows, slot] = hs.expanded[rows, slot] | lane
+
+    # --- adjacency gather + dedup (read every seen byte before writing) ---
+    nbrs = adj_pad[p.long()]                               # (B, R)
+    already = hs.seen.gather(1, nbrs.long())
+    valid = (nbrs != n) & (~already) & lane[:, None]
+    if live_pad is not None:
+        valid &= live_pad[nbrs.long()]
+    cols = torch.where(valid, nbrs, n)
+    seen = hs.seen
+    seen[rows[:, None], cols.long()] = True
+
+    # --- score ---
+    d2 = _gather_score(mode, t0, queries, cols)
+    d2 = torch.where(valid, d2, INF_DIST)
+
+    # --- merge (stable, == beam_search._merge_pool) ---
+    worst = hs.dists[:, -1]
+    inserted = (d2 < worst[:, None]).sum(dim=1, dtype=torch.int32)
+    cat_i = torch.cat([hs.ids, cols.to(torch.int32)], dim=1)
+    cat_d = torch.cat([hs.dists, d2], dim=1)
+    cat_e = torch.cat([expanded, torch.zeros_like(valid)], dim=1)
+    order = torch.sort(cat_d, dim=1, stable=True).indices[:, :L]
+    lane_c = lane[:, None]
+    ids = torch.where(lane_c, cat_i.gather(1, order), hs.ids)
+    dists = torch.where(lane_c, cat_d.gather(1, order), hs.dists)
+    expanded = torch.where(lane_c, cat_e.gather(1, order), expanded)
+
+    # --- counters + liveness ---
+    dist_count = hs.dist_count + torch.where(
+        lane, valid.sum(dim=1, dtype=torch.int32), 0)
+    update_count = hs.update_count + torch.where(lane, inserted, 0)
+    hops_ct = hs.hops + lane.to(torch.int32)
+    still = ((~expanded) & (ids != n)).any(dim=1)
+    active = hs.active & still & (hops_ct < max_hops)
+
+    # --- decision-tree termination (loop-body semantics) ---
+    terminated = hs.terminated
+    evals_done, stop_at = hs.evals_done, hs.stop_at
+    if tree is not None:
+        due = ((dist_count // eval_gap) > evals_done) & active
+        first = dists[:, 0]
+        kth = dists[:, min(k, L) - 1]
+        feats = torch.stack(
+            [hot_first, hot_ratio, first, first / (kth + EPS),
+             dist_count.to(torch.float32), update_count.to(torch.float32)],
+            dim=1)
+        verdict_stop = tree_predict(tree, feats, tree_depth) < 0.5
+        newly = due & verdict_stop & (stop_at == INT_MAX)
+        stop_at = torch.where(newly, dist_count + add_step, stop_at)
+        evals_done = torch.where(due, dist_count // eval_gap, evals_done)
+        stop_now = dist_count >= stop_at
+        terminated = terminated | (stop_now & active)
+        active = active & ~stop_now
+
+    return HopState(ids, dists, expanded, seen, active, dist_count,
+                    update_count, hops_ct, terminated, evals_done, stop_at)
+
+
+def fused_hop(hs: HopState, adj_pad, queries, live_pad, mode: str, t0,
+              tree=None, hot_first=None, hot_ratio=None, *, hops: int,
+              max_hops: int, k: int = 1, eval_gap: int = 1,
+              add_step: int = 0, tree_depth: int = 1) -> HopState:
+    """Advance a wave ``hops`` fused expansions (plain version).
+
+    ``mode`` is ``"f32"`` (``t0`` = padded float32 rows); ``tree`` is the
+    unpacked decision-tree arrays ``(feature, threshold, left, right,
+    value)`` or None, with ``hot_first``/``hot_ratio`` the frozen hot-phase
+    features.  ``hs.seen`` is updated in place.
+    """
+    for _ in range(hops):
+        hs = fused_hop_body(hs, adj_pad, queries, live_pad, mode, t0, tree,
+                            hot_first, hot_ratio, max_hops=max_hops, k=k,
+                            eval_gap=eval_gap, add_step=add_step,
+                            tree_depth=tree_depth)
+    return hs

@@ -1,0 +1,111 @@
+"""The fused wave-hop CUDA kernel against its plain version, bit for bit.
+
+Imports nothing of JAX, so it runs where only the port is installed:
+
+    PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
+
+Without a CUDA device every test here skips (the kernel has no CPU mode).
+The synthetic worlds are shared with ``tests/test_torch_fused_hop.py``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import beam_search as tbs
+from repro_torch.kernels import ref as tref
+
+
+def make_world(n=220, d=18, R=10, seed=0, dead_every=13,
+               sentinel_rows=(3, 50)):
+    """tests/test_fused_hop.py's world plus explicit duplicate-id rows."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    x_pad = np.concatenate([x, np.full((1, d), 1e9, np.float32)])
+    adj = rng.integers(0, n, (n, R)).astype(np.int32)
+    adj[::7, 1] = adj[::7, 0]                   # an id twice in one row
+    for r in sentinel_rows:
+        adj[r] = n
+    adj[adj % 11 == 0] = n
+    adj_pad = np.concatenate([adj, np.full((1, R), n, np.int32)])
+    live = np.ones(n + 1, bool)
+    if dead_every:
+        live[::dead_every] = False
+    live[n] = False
+    return x_pad, adj_pad, live
+
+
+def make_tree(seed=1, T=15):
+    rng = np.random.default_rng(seed)
+    return (rng.integers(-1, 6, T).astype(np.int32),
+            (rng.standard_normal(T) * 40 + 80).astype(np.float32),
+            np.minimum(np.arange(T) * 2 + 1, T - 1).astype(np.int32),
+            np.minimum(np.arange(T) * 2 + 2, T - 1).astype(np.int32),
+            rng.uniform(0, 1, T).astype(np.float32))
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 64])
+@pytest.mark.parametrize("use_tree", [False, True])
+@pytest.mark.parametrize("use_live", [False, True])
+def test_cuda_kernel_bit_identical(cuda_device, B, use_tree, use_live):
+    from repro_torch.kernels.fused_hop import fused_hop_cuda
+
+    dev = cuda_device
+    x_pad, adj_pad, live = (torch.as_tensor(a, device=dev)
+                            for a in make_world(seed=B))
+    live_pad = live if use_live else None
+    rng = np.random.default_rng(9)
+    q = torch.as_tensor(rng.standard_normal((B, 18)).astype(np.float32),
+                        device=dev)
+    entries = torch.arange(0, 220, 37, dtype=torch.int32, device=dev)
+    st = tbs.init_state(x_pad, q, entries, 16, live_pad)
+    tree = hf = hr = None
+    if use_tree:
+        tree = tuple(torch.as_tensor(a, device=dev) for a in make_tree())
+        hf = torch.as_tensor(rng.uniform(1, 6, B).astype(np.float32),
+                             device=dev)
+        hr = torch.as_tensor(rng.uniform(0.5, 1.5, B).astype(np.float32),
+                             device=dev)
+    kw = dict(hops=15, max_hops=40, k=5, eval_gap=25, add_step=6,
+              tree_depth=4)
+    fresh = lambda: tbs.to_hop_state(st._replace(seen=st.seen.clone()))
+    want = tref.fused_hop(fresh(), adj_pad, q, live_pad, "f32", x_pad, tree,
+                          hf, hr, **kw)
+    before = fused_hop_cuda.launches
+    got = fused_hop_cuda(fresh(), adj_pad, q, live_pad, x_pad, tree, hf, hr,
+                         **kw)
+    torch.cuda.synchronize()
+    assert fused_hop_cuda.launches == before + 1
+    for f in tref.HopState._fields:
+        a, b = getattr(want, f).cpu(), getattr(got, f).cpu()
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), f
+
+
+@pytest.mark.cuda
+def test_cuda_dispatch_and_refusals(cuda_device):
+    from repro_torch.kernels import ops
+
+    dev = cuda_device
+    x_pad, adj_pad, live = (torch.as_tensor(a, device=dev)
+                            for a in make_world())
+    q = torch.zeros((4, 18), device=dev)
+    st = tbs.init_state(x_pad, q, torch.arange(0, 220, 53, device=dev), 8,
+                        live)
+    hs = tbs.to_hop_state(st)
+    out = ops.fused_hop(hs, adj_pad, q, live, x_pad, hops=2, max_hops=8)
+    assert out.ids.device.type == "cuda"
+    with pytest.raises(ValueError, match="cpu|device"):
+        ops.fused_hop(hs, adj_pad.cpu(), q, live, x_pad, hops=2, max_hops=8)
+    with pytest.raises(TypeError):
+        ops.fused_hop(hs._replace(dists=hs.dists.double()), adj_pad, q, live,
+                      x_pad, hops=2, max_hops=8)
