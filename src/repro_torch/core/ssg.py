@@ -31,6 +31,7 @@ __all__ = ["SSGParams", "SSGIndex", "ssg_prune", "build_ssg",
 
 _BLOCK_ELEMS = 1 << 27      # largest (rows, candidates, d) block gathered
 _GREEDY_ROWS = 8192         # rows per greedy-filter block
+_SPARE_HOSTS = 8            # hosts tried per orphan once a repair stalls
 
 
 @dataclasses.dataclass(frozen=True)
@@ -173,7 +174,7 @@ def _nearest_hosts(xt, missing, reach, k: int, chunk: int = 1024):
 
 
 def ensure_connected(x, adj, entry: int, max_rounds: int = 32,
-                     device="cpu", spare_hosts: int = 8) -> np.ndarray:
+                     device="cpu") -> np.ndarray:
     """NSG-style repair: make every node reachable from ``entry``.
 
     Each round marks the reachable set and, in id order, attaches every
@@ -184,10 +185,11 @@ def ensure_connected(x, adj, entry: int, max_rounds: int = 32,
     One departure from the reference, taken only once a round leaves as
     many nodes missing as the round before: from then on, when every slot
     of the nearest host already holds a repair edge, the orphan goes to
-    the nearest of its ``spare_hosts`` nearest reachable nodes that still
+    the nearest of its ``_SPARE_HOSTS`` nearest reachable nodes that still
     has a free or unprotected slot.  The reference evicts a repair edge
-    there, and at a million rows of clustered data that re-orphans the
-    same nodes round after round and never converges.  The round's
+    there, which re-orphans the node that edge attached: when more orphans
+    share one nearest host than it has slots, the same nodes are orphaned
+    round after round and the repair never converges.  The round's
     nearest hosts are found in one batch on the device; the per-orphan
     bookkeeping is host numpy.
     """
@@ -207,7 +209,7 @@ def ensure_connected(x, adj, entry: int, max_rounds: int = 32,
         stalled = stalled or missing.numel() >= last_missing
         last_missing = missing.numel()
         hosts = _nearest_hosts(xt, missing, torch.nonzero(seen_t)[:, 0],
-                               spare_hosts if stalled else 1).cpu().numpy()
+                               _SPARE_HOSTS if stalled else 1).cpu().numpy()
         seen = seen_t.cpu().numpy()
         for m, cands in zip(missing.cpu().numpy(), hosts):
             if seen[m]:

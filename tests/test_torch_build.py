@@ -87,6 +87,50 @@ def test_ensure_connected_reaches_every_node(data, knn_graph, R):
         assert rows_identical(fixed, want) >= 0.99
 
 
+def star_graph(orphans: int, R: int = 4, C: int = 20, d: int = 8):
+    """A reachable ring of C nodes far from the origin (entry 0), a hub at
+    the origin (id C, its row full of ring edges, reached from node 5),
+    and ``orphans`` isolated nodes at ±e_i: the hub is every orphan's
+    nearest reachable node, and orphans are farther from each other."""
+    rng = np.random.default_rng(0)
+    n = C + 1 + orphans
+    x = np.zeros((n, d), np.float32)
+    x[:C] = 10.0 * np.eye(d, dtype=np.float32)[0] \
+        + 0.1 * rng.standard_normal((C, d)).astype(np.float32)
+    axes = np.concatenate([np.eye(d), -np.eye(d)]).astype(np.float32)
+    x[C + 1:] = axes[:orphans]
+    adj = np.full((n, R), n, np.int32)
+    ring = np.arange(C)
+    adj[:C, 0], adj[:C, 1] = (ring + 1) % C, (ring - 1) % C
+    adj[5, 2] = C
+    adj[C] = [1, 2, 3, 4]
+    return x, adj, C
+
+
+def test_ensure_connected_evictions_match_reference():
+    """As many orphans as the hub has slots: each evicts a ring edge, in
+    the reference's order, and the port's graph is the reference's."""
+    x, adj, _ = star_graph(orphans=4)
+    want = jssg.ensure_connected(x, adj, 0)
+    np.testing.assert_array_equal(tssg.ensure_connected(x, adj, 0), want)
+
+
+def test_ensure_connected_repairs_where_reference_stalls():
+    """Sixteen orphans share a hub of four slots.  The reference evicts a
+    repair edge for each orphan past the fourth, re-orphaning another,
+    and never converges; the port, once a round makes no progress, sends
+    an orphan to its nearest reachable node that still has room."""
+    x, adj, hub = star_graph(orphans=16)
+    with pytest.raises(RuntimeError, match="did not converge"):
+        jssg.ensure_connected(x, adj, 0)
+    got = tssg.ensure_connected(x, adj, 0)
+    assert jssg._reachable(got, 0).all()
+    np.testing.assert_array_equal(got[:hub], adj[:hub])   # ring untouched
+    added = got[got != adj]
+    assert added.size and np.all(added > hub)             # orphans only
+    assert np.all(got[hub] > hub)       # the hub's row is repair edges
+
+
 def test_medoid_and_entries_match_reference(data, knn_graph):
     assert tssg.medoid(data) == jssg.medoid(data)
     p = dict(knn_k=12, out_degree=12)
