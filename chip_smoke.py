@@ -5,23 +5,43 @@
 Phases, in order; any failure exits non-zero:
 
 1. card: torch/CUDA versions, the card's name and power limit, TF32 off;
-2. build: every CUDA source of ``src/repro_torch/kernels/csrc`` with nvcc;
-3. the fused wave-hop kernel against its plain version on synthetic
-   worlds (sentinel rows, scattered sentinel slots, dead rows, duplicate
-   ids in a row; B in {1, 64, 1000}; tree and liveness on and off; a wave
-   that runs dry): every HopState field must be bit-identical;
-4. the main path at one million rows x 128: DQF build → warm → fit_tree
-   → 4 searches of 1024 queries, fused kernel on, with build, warm and
-   fit times, per-batch search time and QPS, recall@10, mean dist_count,
-   early-termination share, peak memory, and the kernel's launches in
-   the 4 searches (counted from 0 just before them; must be > 0);
+2. build: every CUDA source of ``src/repro_torch/kernels/csrc`` with nvcc,
+   one process per source, all started together;
+3. the fused wave-hop kernel (f32 mode) against its plain version on
+   synthetic worlds (sentinel rows, scattered sentinel slots, dead rows,
+   duplicate ids in a row; B in {1, 64, 1000}; tree and liveness on and
+   off; a wave that runs dry): every HopState field must be bit-identical;
+3b. the same in sq8 and pq mode, codes trained by the port's quantizers on
+   each world's rows (d=18 with M in {2, 6}, d=128 with M=8; K in
+   {64, 256});
+3c. the brute-force top-k kernel against its plain version (B in
+   {1, 64, 1000}, N in {1, 31, 5000, 5003}, k in {1, 10, 32, 64}, d in
+   {18, 128}, duplicated rows so ties occur): dists and ids bit-identical;
+4. the graph main path at one million rows x 128: DQF build → warm →
+   fit_tree → 4 searches of 1024 queries, fused kernel on, with build, warm
+   and fit times, per-batch search time and QPS, recall@10, mean
+   dist_count, early-termination share, peak memory, and the kernel's
+   launches in the 4 searches (counted from 0 just before them; > 0);
 5. the same 1024 queries through the composed path (fused=False): ids,
    dists and counters must be bit-identical to the fused run;
-6. kernel timing at the main path's shapes beside its plain version and
-   its bound, printed as one ``{"kernels": [...]}`` line.
+6. one batch's phase split and kernel timing at the main path's shapes
+   beside the plain versions, the bounds and, for the top-k, the library
+   pair ``torch.topk`` of the ``torch.matmul`` expansion;
+7. the mxu main path on phase 4's index (``hot_mode="mxu"``): 4 searches,
+   top-k launches counted around them, the plain top-k against the
+   kernel's on batch 0 bit for bit, the phase split;
+8. the quantized main path, sq8 then pq: quantizer trained on the host,
+   phase 4's graph, hot index and counter carried over under the reference
+   checkpoint keys, fit_tree on the codes, 4 searches, fused against
+   composed on batch 0 bit for bit, the phase split and the hop's timing.
 
-The last line is ``{"ok": true, "device": {...}}``.  There is no CPU path:
-without a CUDA device the script exits non-zero before any result.
+Recall guards against breakage, not a target: 0.5 for the float32 paths,
+half of phase 4's recall for the quantized ones.  Phases 7 and 8 search
+with ``record=False``, so every path searches the same hot index.
+
+One ``{"kernels": [...]}`` line lists every kernel.  The last line is
+``{"ok": true, "device": {...}}``.  There is no CPU path: without a CUDA
+device the script exits non-zero before any result.
 """
 
 from __future__ import annotations
@@ -143,9 +163,9 @@ def phase_synthetic(dev):
             hr = torch.as_tensor(rng.uniform(0.5, 1.5, B).astype(np.float32),
                                  device=dev)
         want = ref.fused_hop(clone_state(hs), adj_pad, q, live_pad, "f32",
-                             x_pad, tree, hf, hr, **w["kw"])
-        got = fused_hop_cuda(clone_state(hs), adj_pad, q, live_pad, x_pad,
-                             tree, hf, hr, **w["kw"])
+                             x_pad, None, None, tree, hf, hr, **w["kw"])
+        got = fused_hop_cuda(clone_state(hs), adj_pad, q, live_pad, "f32",
+                             x_pad, None, None, tree, hf, hr, **w["kw"])
         torch.cuda.synchronize()
         bad = [f for f in ref.HopState._fields
                if not bits_equal(getattr(want, f), getattr(got, f))]
@@ -162,7 +182,190 @@ def phase_synthetic(dev):
     return len(cases), max_err
 
 
+# ----------------------------------------------------------------- phase 3b
+def quantize(x: np.ndarray, mode: str, m: int = 8, k: int = 256,
+             iters: int = 4):
+    """A QuantState over ``x`` from the port's own trainers."""
+    from repro_torch.quant import (QuantState, pq_encode, sq_encode,
+                                   train_pq, train_sq)
+
+    if mode == "sq8":
+        cb = train_sq(x)
+        return QuantState("sq8", sq_encode(x, cb), sq=cb)
+    cb = train_pq(x, m=m, k=k, iters=iters, seed=0)
+    return QuantState("pq", pq_encode(x, cb), pq=cb)
+
+
+def phase_quant_synthetic(dev):
+    from repro_torch.core import beam_search as bs
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.fused_hop import fused_hop_cuda
+
+    rng = np.random.default_rng(8)
+    small = dict(n=600, d=18, R=10, L=16, dead_every=13,
+                 sentinel_rows=(3, 50), kw=dict(
+                     hops=15, max_hops=40, k=5, eval_gap=25, add_step=6,
+                     tree_depth=4), scale=80.0)
+    large = dict(n=50_000, d=128, R=32, L=64, dead_every=13,
+                 sentinel_rows=(3, 50), kw=dict(
+                     hops=24, max_hops=64, k=10, eval_gap=50, add_step=0,
+                     tree_depth=6), scale=200.0)
+    tables = [("sq8", small, None), ("sq8", large, None),
+              ("pq", small, (2, 64)), ("pq", small, (6, 256)),
+              ("pq", large, (8, 64)), ("pq", large, (8, 256))]
+    saved = fused_hop_cuda.launches
+    n_cases = 0
+    for i, (mode, w, mk) in enumerate(tables):
+        x_pad, adj_pad, live = synthetic_world(
+            w["n"], w["d"], w["R"], 100 + i, w["dead_every"],
+            w["sentinel_rows"], dev)
+        m, k = mk if mk else (0, 0)
+        state = quantize(x_pad[:-1].cpu().numpy(), mode, m, k)
+        table = state.device_table(device=dev)
+        for B in (1, 64, 1000):
+            q = torch.as_tensor(rng.standard_normal((B, w["d"]))
+                                .astype(np.float32), device=dev)
+            spec = ops.table_spec(bs.as_view(table, q))
+            entries = torch.arange(0, w["n"], max(1, w["n"] // 6),
+                                   dtype=torch.int32, device=dev)[:6]
+            for use_tree in (False, True):
+                for use_live in (False, True):
+                    live_pad = live if use_live else None
+                    hs = bs.to_hop_state(bs.init_state(
+                        x_pad, q, entries, w["L"], live_pad))
+                    tree = hf = hr = None
+                    if use_tree:
+                        tree = synthetic_tree(i, 31, dev, w["scale"])
+                        hf = torch.as_tensor(rng.uniform(1, 6, B)
+                                             .astype(np.float32), device=dev)
+                        hr = torch.as_tensor(rng.uniform(0.5, 1.5, B)
+                                             .astype(np.float32), device=dev)
+                    want = ref.fused_hop(clone_state(hs), adj_pad, q,
+                                         live_pad, *spec, tree, hf, hr,
+                                         **w["kw"])
+                    got = fused_hop_cuda(clone_state(hs), adj_pad, q,
+                                         live_pad, *spec, tree, hf, hr,
+                                         **w["kw"])
+                    torch.cuda.synchronize()
+                    bad = [f for f in ref.HopState._fields
+                           if not bits_equal(getattr(want, f),
+                                             getattr(got, f))]
+                    tag = (f"{mode} n={w['n']} d={w['d']} M={m or w['d']} "
+                           f"K={k or '-'} B={B} tree={use_tree} "
+                           f"live={use_live}")
+                    if bad:
+                        raise SystemExit(f"quantized world {tag}: fields "
+                                         f"differ: {bad}")
+                    n_cases += 1
+        log(f"  {mode} n={w['n']} d={w['d']} M={m or w['d']} K={k or '-'}: "
+            f"12 cases bit-identical")
+    fused_hop_cuda.launches = saved
+    return n_cases
+
+
+# ----------------------------------------------------------------- phase 3c
+def duplicated_rows(N, d, seed, dev):
+    """Rows with exact duplicates, so equal distances occur."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((N, d)).astype(np.float32)
+    if N > 3:
+        x[N // 2:N // 2 + N // 4] = x[:N // 4]
+    return torch.as_tensor(x, device=dev)
+
+
+def phase_topk_synthetic(dev):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fused_topk_l2 import fused_topk_l2_cuda
+
+    rng = np.random.default_rng(9)
+    saved = fused_topk_l2_cuda.launches
+    n_cases, max_err = 0, 0.0
+    for d in (18, 128):
+        for N in (1, 31, 5000, 5003):
+            x = duplicated_rows(N, d, N + d, dev)
+            for B in (1, 64, 1000):
+                q = torch.as_tensor(rng.standard_normal((B, d))
+                                    .astype(np.float32), device=dev)
+                q[0] = x[0]                    # a zero-distance tie
+                for k in (1, 10, 32, 64):
+                    want_d, want_i = ref.fused_topk_l2(q, x, k=k)
+                    got_d, got_i = fused_topk_l2_cuda(q, x, k=k)
+                    torch.cuda.synchronize()
+                    if not (bits_equal(want_d, got_d)
+                            and bits_equal(want_i, got_i)):
+                        raise SystemExit(f"fused_topk_l2 B={B} N={N} k={k} "
+                                         f"d={d} differs from plain version")
+                    fin = torch.isfinite(want_d)
+                    if bool(fin.any()):
+                        max_err = max(max_err, float(
+                            (want_d[fin] - got_d[fin]).abs().max()))
+                    n_cases += 1
+        log(f"  d={d}: N in (1, 31, 5000, 5003) x B in (1, 64, 1000) x "
+            f"k in (1, 10, 32, 64) bit-identical")
+    fused_topk_l2_cuda.launches = saved
+    return n_cases, max_err
+
+
 # ------------------------------------------------------------ phases 4 + 5
+def run_searches(dqf, batches, gt, counters, *, record=True,
+                 min_recall=0.5):
+    """The 4 timed searches through ``DQF.search``: each counter in
+    ``counters`` (a wrapper with ``launches``) is set to 0 just before
+    them and read just after.  ``min_recall`` is a breakage guard, not a
+    target.  Returns (results, per-batch ms, launches, summary)."""
+    results, times = [], []
+    for c in counters:
+        c.launches = 0
+    for i, q in enumerate(batches):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        res = dqf.search(q, record=record)
+        end.record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ms = start.elapsed_time(end)
+        times.append(ms)
+        results.append(res)
+        log(f"  search batch {i}: {ms:.3f} ms (CUDA events), wall "
+            f"{wall * 1e3:.3f} ms, {len(q) / (ms / 1e3):.1f} QPS")
+    launches = [c.launches for c in counters]
+    n = dqf.x.shape[0]
+    ids = torch.cat([r.ids for r in results]).cpu().numpy()
+    dists = torch.cat([r.dists for r in results])
+    dc = torch.cat([r.stats.dist_count for r in results]).float()
+    term = torch.cat([r.stats.terminated_early for r in results]).float()
+    nq = sum(len(q) for q in batches)
+    if ids.shape != (nq, dqf.cfg.k) or not bool(torch.isfinite(dists).all()):
+        raise SystemExit("search output malformed (shape or non-finite)")
+    if ids.min() < 0 or ids.max() >= n:
+        raise SystemExit("search returned ids outside the index")
+    from repro_torch.core.recall import recall_at_k
+    recall = recall_at_k(ids, gt)
+    qps = nq / (sum(times) / 1e3)
+    summary = dict(recall=recall, qps=qps, dist_count=float(dc.mean()),
+                   terminated=float(term.mean()), search_ms=times)
+    log(f"  recall@10 {recall:.4f}  mean QPS {qps:.1f}  mean dist_count "
+        f"{summary['dist_count']:.2f}  terminated early "
+        f"{summary['terminated']:.4f}")
+    if recall < min_recall:
+        raise SystemExit(f"recall@10 {recall:.4f} is below {min_recall:.4f}")
+    return results, times, launches, summary
+
+
+def compare_results(a, b, what):
+    pairs = [("ids", a.ids, b.ids), ("dists", a.dists, b.dists)]
+    for f in ("dist_count", "hops", "terminated_early", "update_count"):
+        pairs.append((f, getattr(a.stats, f), getattr(b.stats, f)))
+    bad = [name for name, u, v in pairs if not bits_equal(u, v)]
+    if bad:
+        raise SystemExit(f"{what} differ in {bad}")
+    log(f"  {what}: ids, dists, dist_count, hops, terminated_early, "
+        f"update_count bit-identical")
+
+
 def phase_main(dev, n, seed):
     from repro_torch.core import DQF, DQFConfig, ZipfWorkload
     from repro_torch.core.recall import ground_truth, recall_at_k
@@ -195,62 +398,22 @@ def phase_main(dev, n, seed):
         f"({warm_launches} fused_hop launches in its baseline search)  "
         f"fit_tree {t_fit:.3f} s  (hot index {dqf.hot.size} rows, "
         f"tree {dqf.tree.arrays.value.numel()} nodes)")
-    results, times = [], []
-    fused_hop_cuda.launches = 0
-    for i, q in enumerate(batches):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        start.record()
-        res = dqf.search(q)
-        end.record()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        ms = start.elapsed_time(end)
-        times.append(ms)
-        results.append(res)
-        log(f"  search batch {i}: {ms:.3f} ms (CUDA events), wall "
-            f"{wall * 1e3:.3f} ms, {1024 / (ms / 1e3):.1f} QPS")
-    launches = fused_hop_cuda.launches
-    peak = torch.cuda.max_memory_allocated()
-
-    ids = torch.cat([r.ids for r in results]).cpu().numpy()
-    dists = torch.cat([r.dists for r in results])
-    dc = torch.cat([r.stats.dist_count for r in results]).float()
-    term = torch.cat([r.stats.terminated_early for r in results]).float()
-    if ids.shape != (4096, 10) or not bool(torch.isfinite(dists).all()):
-        raise SystemExit("search output malformed (shape or non-finite)")
-    if ids.min() < 0 or ids.max() >= n:
-        raise SystemExit("search returned ids outside the index")
     gt = ground_truth(x, np.concatenate(batches), 10, device=dev)
-    recall = recall_at_k(ids, gt)
-    qps = 4 * 1024 / (sum(times) / 1e3)
-    log(f"  recall@10 {recall:.4f}  mean QPS {qps:.1f}  mean dist_count "
-        f"{float(dc.mean()):.2f}  terminated early {float(term.mean()):.4f}")
+    _, _, (launches,), summary = run_searches(dqf, batches, gt,
+                                              [fused_hop_cuda])
+    peak = torch.cuda.max_memory_allocated()
     log(f"  fused_hop launches in the 4 searches: {launches}  peak device "
         f"memory {peak / 2**30:.3f} GiB")
     if launches <= 0:
         raise SystemExit("the 4 searches never launched the fused_hop kernel")
-    if recall < 0.5:
-        raise SystemExit(f"recall@10 {recall:.4f} is below 0.5")
 
     # --- phase 5: composed path on the same queries, bit for bit ---
     log("phase 5: fused vs composed search on batch 0")
     fused_res = dqf.search(batches[0], record=False)
     composed = copy.copy(dqf)
     composed.cfg = dataclasses.replace(cfg, fused=False)
-    comp_res = composed.search(batches[0], record=False)
-    pairs = [("ids", fused_res.ids, comp_res.ids),
-             ("dists", fused_res.dists, comp_res.dists)]
-    for f in ("dist_count", "hops", "terminated_early", "update_count"):
-        pairs.append((f, getattr(fused_res.stats, f),
-                      getattr(comp_res.stats, f)))
-    bad = [name for name, a, b in pairs if not bits_equal(a, b)]
-    if bad:
-        raise SystemExit(f"fused and composed searches differ in {bad}")
-    log("  fused and composed: ids, dists, dist_count, hops, "
-        "terminated_early, update_count bit-identical")
+    compare_results(fused_res, composed.search(batches[0], record=False),
+                    "fused and composed searches")
     gt0 = gt[:1024]
     for name, res in (("dqf", fused_res),
                       ("dual index, no tree",
@@ -260,9 +423,8 @@ def phase_main(dev, n, seed):
         log(f"  batch 0, {name}: recall@10 "
             f"{recall_at_k(res.ids.cpu().numpy(), gt0):.4f}, mean "
             f"dist_count {float(res.stats.dist_count.float().mean()):.2f}")
-    return dqf, batches[0], launches, dict(
-        recall=recall, qps=qps, build_s=t_build, warm_s=t_warm,
-        fit_s=t_fit, search_ms=times)
+    return dict(dqf=dqf, x=x, cfg=cfg, batches=batches, fit_q=fit_q, gt=gt,
+                launches=launches, summary=summary)
 
 
 # ------------------------------------------------------------------ phase 6
@@ -284,38 +446,67 @@ def _event_ms(fn, reps, before=None):
     return total / reps, out
 
 
-def phase_timing(dqf, q, launches):
+def batch_split(dqf, q, label):
+    """One search batch, phase by phase (CUDA events): hot phase, seed,
+    fused full phase and, for a quantized index, the exact rerank.
+    Returns what the hop timing needs: (queries, table view, seed fn,
+    hot features)."""
     from repro_torch.core import beam_search as bs
-    from repro_torch.core.dynamic_search import _seed_full_state, hot_phase
+    from repro_torch.core.dynamic_search import (_exact_rerank,
+                                                 _seed_full_state, hot_phase)
     from repro_torch.core.features import hot_features
-    from repro_torch.kernels import ref
     from repro_torch.kernels.fused_hop import fused_hop_cuda
+    from repro_torch.kernels.fused_topk_l2 import fused_topk_l2_cuda
 
     c = dqf.cfg
     hd = dqf.hot_tables()
     qt = dqf._queries(q)
     x_pad, adj_pad, live = (dqf._dev["x_pad"], dqf._dev["adj_pad"],
                             dqf._dev["live_pad"])
-    tree = dqf.tree.arrays
-    saved = fused_hop_cuda.launches
-
-    # one search batch, phase by phase (CUDA events)
+    saved = fused_hop_cuda.launches, fused_topk_l2_cuda.launches
     hot_ms, (hot_pool, _) = _event_ms(lambda: hot_phase(
         hd["x_hot_pad"], hd["adj_hot_pad"], hd["hot_entries"], qt,
-        pool_size=c.hot_pool, max_hops=c.max_hops), 1)
+        pool_size=c.hot_pool, max_hops=c.max_hops, mode=c.hot_mode), 1)
     hot = hot_features(hot_pool, c.k)
     seed = lambda: _seed_full_state(hot_pool, hd["hot_ids_pad"],
                                     x_pad.shape[0] - 1, c.full_pool, live)
     seed_ms, state = _event_ms(seed, 1)
-    full_ms, _ = _event_ms(lambda: bs.fused_beam_loop(
-        x_pad, adj_pad, qt, state, c.max_hops, live,
-        fused_hops=c.fused_hops, tree=tree, hot=hot, k=c.k,
+    qtable = dqf._quant_table()
+    view_ms, table = _event_ms(
+        lambda: x_pad if qtable is None else qtable.with_queries(qt), 1)
+    full_ms, state = _event_ms(lambda: bs.fused_beam_loop(
+        table, adj_pad, qt, state, c.max_hops, live,
+        fused_hops=c.fused_hops, tree=dqf.tree.arrays, hot=hot, k=c.k,
         eval_gap=c.eval_gap, add_step=c.add_step,
         tree_depth=c.tree_depth), 1)
-    log(f"  one batch of {qt.shape[0]}: hot phase {hot_ms:.3f} ms, seed "
-        f"{seed_ms:.3f} ms, fused full phase {full_ms:.3f} ms "
-        f"({fused_hop_cuda.launches - saved} launches)")
+    hops = fused_hop_cuda.launches - saved[0]
+    rr_ms = 0.0
+    if qtable is not None and dqf._rerank_k > 0:
+        rr_ms, _ = _event_ms(lambda: _exact_rerank(
+            x_pad, qt, state.pool, k=c.k, rerank_k=dqf._rerank_k,
+            live_pad=live), 1)
+    fused_hop_cuda.launches, fused_topk_l2_cuda.launches = saved
+    log(f"  {label}, one batch of {qt.shape[0]}: hot phase ({c.hot_mode}) "
+        f"{hot_ms:.3f} ms, seed {seed_ms:.3f} ms, table view "
+        f"{view_ms:.3f} ms, fused full phase {full_ms:.3f} ms ({hops} "
+        f"launches), rerank {rr_ms:.3f} ms")
+    return qt, table, seed, hot
 
+
+def time_hop(dqf, q, launches, label):
+    """``fused_hop`` at the main path's shapes beside its plain version
+    and its bound; its first launch of the full phase of batch ``q``."""
+    from repro_torch.core import beam_search as bs
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.fused_hop import fused_hop_cuda
+
+    c = dqf.cfg
+    qt, table, seed, hot = batch_split(dqf, q, label)
+    adj_pad, live = dqf._dev["adj_pad"], dqf._dev["live_pad"]
+    tree = dqf.tree.arrays
+    spec = ops.table_spec(table)
+    mode = spec[0]
+    saved = fused_hop_cuda.launches
     hs0 = bs.to_hop_state(seed())
     seen0 = hs0.seen.clone()
     hf, hr = hot.first.contiguous(), hot.first_div_kth.contiguous()
@@ -323,47 +514,193 @@ def phase_timing(dqf, q, launches):
               eval_gap=c.eval_gap, add_step=c.add_step,
               tree_depth=c.tree_depth)
     reset = lambda: hs0.seen.copy_(seen0)
+    launch = lambda: fused_hop_cuda(hs0, adj_pad, qt, live, *spec, tree, hf,
+                                    hr, **kw)
     for _ in range(3):                                       # warm up
         reset()
-        fused_hop_cuda(hs0, adj_pad, qt, live, x_pad, tree, hf, hr, **kw)
-    ms, got = _event_ms(lambda: fused_hop_cuda(hs0, adj_pad, qt, live, x_pad,
-                                               tree, hf, hr, **kw), 20, reset)
+        launch()
+    ms, got = _event_ms(launch, 20, reset)
     fused_hop_cuda.launches = saved
     seen_kernel = hs0.seen.clone()
     reset()
-    ref.fused_hop(hs0, adj_pad, qt, live, "f32", x_pad, tree, hf, hr, **kw)
+    ref.fused_hop(hs0, adj_pad, qt, live, *spec, tree, hf, hr, **kw)
     plain_ms, want = _event_ms(lambda: ref.fused_hop(
-        hs0, adj_pad, qt, live, "f32", x_pad, tree, hf, hr, **kw), 5, reset)
+        hs0, adj_pad, qt, live, *spec, tree, hf, hr, **kw), 5, reset)
     bad = [f for f in ref.HopState._fields if f != "seen"
            and not bits_equal(getattr(want, f), getattr(got, f))]
     if not torch.equal(hs0.seen, seen_kernel):
         bad.append("seen")
     del seen_kernel
     if bad:
-        raise SystemExit(f"timed launch differs from plain version: {bad}")
+        raise SystemExit(f"timed {mode} launch differs from plain version: "
+                         f"{bad}")
     err = float((want.dists - got.dists).abs().max())
 
     B, L = hs0.ids.shape
-    R, d = adj_pad.shape[1], x_pad.shape[1]
+    R, d = adj_pad.shape[1], qt.shape[1]
     rows = int((got.dist_count - hs0.dist_count).sum())
     hops = int((got.hops - hs0.hops).sum())
     state = B * L * (4 + 4 + 1) * 2 + B * 7 * 4 * 2 + B * d * 4 + B * 8
-    moved = rows * d * 4 + hops * R * (4 + 1 + 1 + 1) + state
-    flops = rows * d * 3
+    row_bytes = {"f32": d * 4, "sq8": d, "pq": spec[1].shape[1]}[mode]
+    extra = {"f32": 0, "sq8": 2 * d * 4,
+             "pq": 0 if mode != "pq" else spec[2].numel() * 4}[mode]
+    moved = rows * row_bytes + hops * R * (4 + 1 + 1 + 1) + state + extra
+    flops = rows * {"f32": 3 * d, "sq8": 5 * d, "pq": row_bytes}[mode]
     bytes_ms = moved / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / FP32_FLOPS * 1e3
     bound_ms = max(bytes_ms, ops_ms)
-    log(f"  fused_hop at B={B} L={L} R={R} d={d} hops={c.fused_hops}: "
+    log(f"  fused_hop {mode} at B={B} L={L} R={R} d={d} hops={c.fused_hops}: "
         f"{ms:.4f} ms/launch, plain {plain_ms:.4f} ms, bound "
         f"{bound_ms:.5f} ms ({moved} bytes, {rows} rows scored), "
         f"{bound_ms / ms:.4f} of bound")
-    return {"name": "fused_hop", "route": "cuda",
+    return {"name": f"fused_hop ({mode})", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/fused_hop.cu",
             "replaces": "src/repro/kernels/fused_hop.py:313",
             "launches": launches, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None, "bound_share": bound_ms / ms}
+            "library_ms": None,
+            "library_note": "no single PyTorch call computes a graph hop",
+            "bound_share": bound_ms / ms}
+
+
+def time_topk(dqf, q, launches):
+    """``fused_topk_l2`` over the hot rows at the mxu path's shapes beside
+    its plain version, its bound and ``torch.topk`` of the
+    ``torch.matmul`` expansion (TF32 off)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fused_topk_l2 import fused_topk_l2_cuda
+
+    qt = dqf._queries(q)
+    x = dqf.hot_tables()["x_hot_pad"][:-1]
+    k = dqf.cfg.hot_pool
+    saved = fused_topk_l2_cuda.launches
+    launch = lambda: fused_topk_l2_cuda(qt, x, k=k)
+    for _ in range(3):
+        launch()
+    ms, (got_d, got_i) = _event_ms(launch, 20)
+    fused_topk_l2_cuda.launches = saved
+    ref.fused_topk_l2(qt, x, k=k)
+    plain_ms, (want_d, want_i) = _event_ms(
+        lambda: ref.fused_topk_l2(qt, x, k=k), 5)
+    if not (bits_equal(got_d, want_d) and bits_equal(got_i, want_i)):
+        raise SystemExit("timed fused_topk_l2 differs from plain version")
+    fin = torch.isfinite(want_d)
+    err = float((got_d[fin] - want_d[fin]).abs().max()) if bool(
+        fin.any()) else 0.0
+
+    def library():
+        d2 = ((qt * qt).sum(1)[:, None] + (x * x).sum(1)[None, :]
+              - 2.0 * torch.matmul(qt, x.T))
+        return torch.topk(d2, min(k, d2.shape[1]), dim=1, largest=False,
+                          sorted=True)
+
+    library()
+    library_ms, _ = _event_ms(library, 20)
+    B, d = qt.shape
+    N = x.shape[0]
+    flops = 2 * B * N * d + 3 * B * N + 2 * (B + N) * d
+    moved = (B + N) * d * 4 + B * k * 8
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / FP32_FLOPS * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    log(f"  fused_topk_l2 at B={B} N={N} d={d} k={k}: {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, torch.topk of the matmul expansion "
+        f"{library_ms:.4f} ms, bound {bound_ms:.5f} ms ({flops} FLOP, "
+        f"{moved} bytes), {bound_ms / ms:.4f} of bound")
+    return {"name": "fused_topk_l2", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/fused_topk_l2.cu",
+            "replaces": "src/repro/kernels/fused_scorer.py:82",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": library_ms,
+            "library_note": "torch.topk(largest=False) of q²+x²−2·matmul, "
+                            "TF32 off; ties unordered",
+            "bound_share": bound_ms / ms}
+
+
+# ------------------------------------------------------------------ phase 7
+def phase_mxu(ctx):
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.fused_hop import fused_hop_cuda
+    from repro_torch.kernels.fused_topk_l2 import fused_topk_l2_cuda
+
+    mxu = copy.copy(ctx["dqf"])
+    mxu.cfg = dataclasses.replace(ctx["cfg"], hot_mode="mxu")
+    results, _, (launches, hop_launches), summary = run_searches(
+        mxu, ctx["batches"], ctx["gt"], [fused_topk_l2_cuda, fused_hop_cuda],
+        record=False)
+    log(f"  fused_topk_l2 launches in the 4 searches: {launches}  "
+        f"(fused_hop: {hop_launches})")
+    if launches <= 0:
+        raise SystemExit("the 4 mxu searches never launched fused_topk_l2")
+    kernel_topk = ops.fused_topk_l2
+    ops.fused_topk_l2 = lambda q, x, *, k: ref.fused_topk_l2(q, x, k=k)
+    try:
+        plain_res = mxu.search(ctx["batches"][0], record=False)
+    finally:
+        ops.fused_topk_l2 = kernel_topk
+    compare_results(results[0], plain_res,
+                    "mxu search with the kernel and with the plain top-k")
+    return mxu, launches, summary
+
+
+# ------------------------------------------------------------------ phase 8
+def reference_arrays(dqf) -> dict:
+    """The port DQF's state under the reference checkpoint keys."""
+    return {"x": dqf.x, "store_alive": dqf.alive,
+            "store_capacity": np.array(dqf.capacity),
+            "full_adj": dqf.full.adj, "full_entries": dqf.full.entries,
+            "counts": dqf.counter.counts,
+            "counter_since": np.array(dqf.counter.since_rebuild),
+            "hot_adj": np.asarray(dqf.hot.graph.adj),
+            "hot_entries": np.asarray(dqf.hot.graph.entries),
+            "hot_ids": dqf.hot.ids, "hot_version": np.array(dqf.hot.version)}
+
+
+def phase_quant(ctx, mode, dev):
+    from repro_torch.convert import dqf_from_arrays
+    from repro_torch.core import QuantConfig
+    from repro_torch.kernels.fused_hop import fused_hop_cuda
+    from repro_torch.quant import build_quantizer
+
+    qcfg = QuantConfig(mode=mode, rerank_k=64)
+    t0 = time.perf_counter()
+    state = build_quantizer(ctx["x"], qcfg)
+    t_train = time.perf_counter() - t0
+    log(f"  {mode}: quantizer trained on the host in {t_train:.3f} s "
+        f"({state.nbytes()} bytes of codes and codebook, "
+        f"{ctx['x'].nbytes / state.nbytes():.1f}x smaller than the rows)")
+    arrays = reference_arrays(ctx["dqf"])
+    arrays.update(state.to_arrays())
+    cfg = dataclasses.replace(ctx["cfg"], quant=qcfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dqf = dqf_from_arrays(arrays, cfg, device=dev)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dqf.fit_tree(ctx["fit_q"])
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    log(f"  {mode}: dqf_from_arrays {t_load:.3f} s, fit_tree on the codes "
+        f"{t_fit:.3f} s (tree {dqf.tree.arrays.value.numel()} nodes)")
+    results, _, (launches,), summary = run_searches(
+        dqf, ctx["batches"], ctx["gt"], [fused_hop_cuda], record=False,
+        min_recall=0.5 * ctx["summary"]["recall"])
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  {mode}: fused_hop launches in the 4 searches: {launches}  peak "
+        f"device memory {peak / 2**30:.3f} GiB")
+    if launches <= 0:
+        raise SystemExit(f"the 4 {mode} searches never launched fused_hop")
+    composed = copy.copy(dqf)
+    composed.cfg = dataclasses.replace(cfg, fused=False)
+    compare_results(results[0], composed.search(ctx["batches"][0],
+                                                record=False),
+                    f"{mode} fused and composed searches")
+    summary.update(train_s=t_train, fit_s=t_fit, peak_gib=peak / 2**30)
+    return dqf, launches, summary
 
 
 def main() -> int:
@@ -377,6 +714,14 @@ def main() -> int:
     from repro_torch.kernels import _build
 
     t_all = time.perf_counter()
+    t_phase = [t_all]
+
+    def phase(title):
+        now = time.perf_counter()
+        log(f"  ({now - t_phase[0]:.1f} s)")
+        t_phase[0] = now
+        log(title)
+
     dev = torch.device("cuda")
     log("phase 1: card")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -390,26 +735,51 @@ def main() -> int:
         f" ({smi})")
     log("  allow_tf32: matmul False, cudnn False")
 
-    log("phase 2: build")
+    phase("phase 2: build")
     secs = _build.build_all()
-    log(f"  nvcc build {secs:.2f} s")
+    log(f"  nvcc build {secs:.2f} s ({', '.join(_build.SOURCES)})")
     for name, text in _build.build_logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
-    log("phase 3: fused_hop kernel vs plain version, synthetic worlds")
+    phase("phase 3: fused_hop kernel (f32) vs plain version, synthetic "
+          "worlds")
     n_cases, syn_err = phase_synthetic(dev)
     log(f"  {n_cases} worlds bit-identical")
+    phase("phase 3b: fused_hop kernel (sq8, pq) vs plain version, synthetic "
+          "worlds")
+    log(f"  {phase_quant_synthetic(dev)} cases bit-identical")
+    phase("phase 3c: fused_topk_l2 kernel vs plain version")
+    n_topk, topk_err = phase_topk_synthetic(dev)
+    log(f"  {n_topk} cases bit-identical")
 
-    log(f"phase 4: main path n={N} d=128")
-    dqf, q0, launches, _ = phase_main(dev, N, args.seed)
+    phase(f"phase 4: graph main path n={N} d=128")
+    ctx = phase_main(dev, N, args.seed)
+    q0 = ctx["batches"][0]
 
-    log("phase 6: kernel timing at the main path's shapes")
-    entry = phase_timing(dqf, q0, launches)
-    entry["max_abs_err"] = max(entry["max_abs_err"], syn_err)
+    phase("phase 6: phase split and kernel timing at the main path's shapes")
+    entries = [time_hop(ctx["dqf"], q0, ctx["launches"], "graph, float32")]
+    entries[0]["max_abs_err"] = max(entries[0]["max_abs_err"], syn_err)
+
+    phase("phase 7: mxu main path (hot_mode='mxu') on phase 4's index")
+    mxu, topk_launches, _ = phase_mxu(ctx)
+    batch_split(mxu, q0, "mxu, float32")
+    topk = time_topk(mxu, q0, topk_launches)
+    topk["max_abs_err"] = max(topk["max_abs_err"], topk_err)
+    del mxu
+
+    for mode in ("sq8", "pq"):
+        phase(f"phase 8: quantized main path, {mode}, on phase 4's index")
+        qdqf, launches, _ = phase_quant(ctx, mode, dev)
+        entries.append(time_hop(qdqf, q0, launches, f"graph, {mode}"))
+        del qdqf
+        torch.cuda.empty_cache()
+    entries.append(topk)
+
+    phase("done")
     log(f"  total {time.perf_counter() - t_all:.1f} s")
-    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,8 +3,8 @@
 :func:`dqf_from_arrays` takes a mapping of numpy arrays under the reference
 checkpoint's own keys (``repro.core.DQF.save`` writes them; ``np.load`` of
 its ``.npz`` is such a mapping) and returns a port :class:`DQF` that
-searches the same graph, hot index and tree.  Only the default tenant and
-a float32 index are carried; the port's other slices add the rest.
+searches the same graph, hot index, tree and quantizer.  Only the
+default tenant is carried; the port's other slices add the rest.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ from repro_torch.core.dqf import DQF, _to_free_slots
 from repro_torch.core.hot_index import HotIndex
 from repro_torch.core.ssg import SSGIndex
 from repro_torch.core.types import DQFConfig
+from repro_torch.quant import QuantState
 
 __all__ = ["dqf_from_arrays"]
 
@@ -25,7 +26,14 @@ def dqf_from_arrays(arrays, cfg: DQFConfig | None = None,
     """A port :class:`DQF` over the state saved under the reference keys
     ``x``, ``store_alive``, ``store_capacity``, ``full_adj``,
     ``full_entries``, ``counts``, ``counter_since``, ``hot_adj``,
-    ``hot_entries``, ``hot_ids``, ``hot_version`` and ``tree_*``."""
+    ``hot_entries``, ``hot_ids``, ``hot_version``, ``tree_*`` and
+    ``quant_*`` (``quant_mode``, ``quant_codes``, ``quant_scale``,
+    ``quant_zero``, ``quant_centroids``).
+
+    As the reference's ``DQF.load``: saved codes are used only when
+    ``cfg.quant`` asks for a quantized index, and then their mode must
+    match it.
+    """
     has = lambda key: key in arrays
     dqf = DQF(cfg, device=device)
     x = np.ascontiguousarray(arrays["x"], np.float32)
@@ -33,9 +41,19 @@ def dqf_from_arrays(arrays, cfg: DQFConfig | None = None,
     alive = (np.asarray(arrays["store_alive"], bool) if has("store_alive")
              else np.ones(n, bool))
     capacity = int(arrays["store_capacity"]) if has("store_capacity") else n
+    quant = None
+    if dqf.cfg.quant.enabled:
+        quant = QuantState.from_arrays(arrays)
+        if quant is None:
+            raise ValueError(f"cfg requests quant mode "
+                             f"{dqf.cfg.quant.mode!r} but the arrays hold "
+                             f"no quantizer")
+        if quant.mode != dqf.cfg.quant.mode:
+            raise ValueError(f"cfg quant mode {dqf.cfg.quant.mode!r} != "
+                             f"saved {quant.mode!r}")
     dqf._install(x, alive, capacity,
                  _to_free_slots(np.asarray(arrays["full_adj"]), n),
-                 np.asarray(arrays["full_entries"], np.int32))
+                 np.asarray(arrays["full_entries"], np.int32), quant)
     dqf.counter.counts = np.asarray(arrays["counts"], np.float64).copy()
     if has("counter_since"):
         dqf.counter.since_rebuild = int(arrays["counter_since"])

@@ -26,7 +26,7 @@ from .types import INF_DIST, INT_MAX, PoolState, SearchResult, SearchStats
 
 __all__ = [
     "BeamState", "init_state", "expand_step", "beam_loop", "beam_search",
-    "pad_dataset", "pad_adjacency", "table_n", "score_rows",
+    "pad_dataset", "pad_adjacency", "table_n", "as_view", "score_rows",
     "to_hop_state", "from_hop_state", "fused_beam_loop", "topk_from_pool",
 ]
 
@@ -52,15 +52,31 @@ def pad_adjacency(adj: torch.Tensor) -> torch.Tensor:
     return torch.cat([adj, pad], dim=0)
 
 
-def table_n(x_pad: torch.Tensor) -> int:
-    """Real row count of a padded ``(n+1, d)`` vector table."""
-    return x_pad.shape[-2] - 1
+def table_n(x_pad) -> int:
+    """Real row count of a padded ``(n+1, d)`` vector table *or* of a
+    quantized score table (:mod:`repro_torch.quant`)."""
+    if isinstance(x_pad, torch.Tensor):
+        return x_pad.shape[-2] - 1
+    return x_pad.n
 
 
-def score_rows(x_pad: torch.Tensor, queries: torch.Tensor,
+def as_view(x_pad, queries: torch.Tensor):
+    """Bind per-query search state (the PQ LUTs); identity otherwise."""
+    if isinstance(x_pad, torch.Tensor):
+        return x_pad
+    return x_pad.with_queries(queries)
+
+
+def score_rows(x_pad, queries: torch.Tensor,
                cols: torch.Tensor) -> torch.Tensor:
-    """(B, C) squared L2 of query b vs table row ``cols[b, c]``."""
-    return sq_l2(x_pad[cols.long()], queries[:, None, :])
+    """(B, C) squared L2 of query b vs table row ``cols[b, c]``.
+
+    Exact float32 for a plain tensor table; quantized-approximate for a
+    score table, which scores from its codes.
+    """
+    if isinstance(x_pad, torch.Tensor):
+        return sq_l2(x_pad[cols.long()], queries[:, None, :])
+    return x_pad.gather_score(queries, cols)
 
 
 def _merge_pool(pool: PoolState, cand_ids, cand_dists, cand_expanded,

@@ -1,9 +1,10 @@
 """DQF — the Dual-Index Query Framework (paper §4), end to end, in PyTorch.
 
 Host-side orchestrator of the full NSSG, the query counter and hot index
-of the default tenant, the decision tree and the search.  This slice of
-the port covers a resident float32 index; mutation, tenancy, tiering and
-quantization come with their own slices.
+of the default tenant, the decision tree, the optional quantized Full
+Index and the search.  This port covers a resident index (float32 rows,
+plus int8 or PQ codes when ``cfg.quant`` asks for them); mutation,
+tenancy and tiering come with their own slices.
 
 Typical flow::
 
@@ -15,7 +16,10 @@ Typical flow::
 
 Device tables are padded to ``capacity`` rows (sentinel id = capacity),
 as ``repro.store.VectorStore`` pads them, and ``live_pad`` is passed to
-every search as the reference passes it.
+every search as the reference passes it.  With quantization the code
+table is zero-padded the same way and kept beside ``x_pad``; the full
+phase scans it, ``fit_tree`` traces on it, and the pool's head is
+re-scored exactly from ``x_pad`` (``quant.rerank_k``).
 """
 
 from __future__ import annotations
@@ -26,6 +30,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from repro_torch.quant import QuantState, build_quantizer
 
 from . import beam_search as bs
 from .decision_tree import DecisionTree, train_tree
@@ -43,6 +49,7 @@ class _Timings:
     full_build: float = 0.0
     hot_build: float = 0.0
     tree_fit: float = 0.0
+    quant_train: float = 0.0
 
 
 def resolve_device(device=None) -> torch.device:
@@ -62,15 +69,13 @@ def _to_free_slots(adj: np.ndarray, n: int) -> np.ndarray:
 
 
 class DQF:
-    """Dual-Index Query Framework over a resident float32 index."""
+    """Dual-Index Query Framework over a resident index."""
 
     def __init__(self, cfg: DQFConfig | None = None, *, device=None):
         self.cfg = cfg or DQFConfig()
-        if self.cfg.quant.enabled:
-            raise NotImplementedError(
-                "quantized Full Index comes with the quantization slice")
         self.device = resolve_device(device)
         self.x: Optional[np.ndarray] = None
+        self.quant: Optional[QuantState] = None
         self.alive: Optional[np.ndarray] = None
         self.capacity = 0
         self.full: Optional[SSGIndex] = None
@@ -95,17 +100,24 @@ class DQF:
             raise ValueError(
                 f"build() got d={x.shape[1]} vectors but the config expects "
                 f"dim={self.cfg.dim}")
+        quant = None
+        if self.cfg.quant.enabled:
+            t0 = time.perf_counter()
+            quant = build_quantizer(x, self.cfg.quant)
+            self.timings.quant_train = time.perf_counter() - t0
         t0 = time.perf_counter()
         built = build_ssg(x, self._ssg_params, n_entry=self.cfg.n_entry,
                           device=self.device)
         self.timings.full_build = time.perf_counter() - t0
         self._install(x, np.ones(x.shape[0], bool), x.shape[0],
-                      _to_free_slots(built.adj, built.n), built.entries)
+                      _to_free_slots(built.adj, built.n), built.entries,
+                      quant)
         return self
 
-    def _install(self, x, alive, capacity, adj, entries) -> None:
-        """Install rows, liveness and a free-slot full graph; refresh the
-        padded device tables and start a cold counter."""
+    def _install(self, x, alive, capacity, adj, entries,
+                 quant: Optional[QuantState] = None) -> None:
+        """Install rows, liveness, a free-slot full graph and the quantizer;
+        refresh the padded device tables and start a cold counter."""
         n = x.shape[0]
         self.x, self.alive, self.capacity = x, alive, int(capacity)
         self.full = SSGIndex(adj=adj, entries=np.asarray(entries, np.int32),
@@ -125,6 +137,21 @@ class DQF:
             "entries": torch.as_tensor(self.full.entries, device=dev),
             "live_pad": torch.as_tensor(live, device=dev),
         }
+        self.quant = quant
+        if quant is not None:
+            self._dev["qtable"] = quant.device_table(cap, device=dev)
+
+    @property
+    def _quant_active(self) -> bool:
+        return self.quant is not None and self.cfg.quant.enabled
+
+    def _quant_table(self):
+        """The padded code table the full phase scans, or None (float32)."""
+        return self._dev["qtable"] if self._quant_active else None
+
+    @property
+    def _rerank_k(self) -> int:
+        return self.cfg.quant.rerank_k if self._quant_active else 0
 
     # ------------------------------------------------------------- hot index
     @property
@@ -204,8 +231,12 @@ class DQF:
         t0 = time.perf_counter()
         c = self.cfg
         hd = self.hot_tables()
+        # Train on what the deployed search will scan: the quantized table
+        # when quant is enabled, else the float32 vectors.
+        table = self._quant_table()
         feats, labels = collect_training_data(
-            self._dev["x_pad"], self._dev["adj_pad"],
+            self._dev["x_pad"] if table is None else table,
+            self._dev["adj_pad"],
             hd["x_hot_pad"], hd["adj_hot_pad"], hd["hot_ids_pad"],
             hd["hot_entries"], q, k=c.k, hot_pool_size=c.hot_pool,
             full_pool_size=c.full_pool, eval_gap=c.eval_gap,
@@ -236,7 +267,8 @@ class DQF:
             k=c.k, hot_pool_size=c.hot_pool, full_pool_size=c.full_pool,
             eval_gap=c.eval_gap, add_step=c.add_step,
             tree_depth=c.tree_depth, max_hops=c.max_hops,
-            hot_mode=c.hot_mode, live_pad=self._dev["live_pad"],
+            hot_mode=c.hot_mode, qtable=self._quant_table(),
+            rerank_k=self._rerank_k, live_pad=self._dev["live_pad"],
             fused=c.fused, fused_hops=c.fused_hops)
         return res
 

@@ -1,10 +1,13 @@
 """Dynamic dual-index search with decision-tree early termination (Alg 4).
 
-Phase 1 searches the hot index (the paper's NSSG subgraph,
-``hot_mode="graph"``).  Its pool seeds phase 2 over the full graph, where
-every lane re-evaluates the decision tree each time its (full-phase)
-distance count crosses a multiple of ``eval_gap``; a stop verdict (+ an
-optional ``add_step`` grace) retires the lane.
+Phase 1 searches the hot index — either the paper's NSSG subgraph
+(``hot_mode="graph"``) or the brute-force top-k scorer over the hot rows
+(``hot_mode="mxu"``, :func:`repro_torch.kernels.ops.fused_topk_l2`).  Its
+pool seeds phase 2 over the full graph, where every lane re-evaluates the
+decision tree each time its (full-phase) distance count crosses a multiple
+of ``eval_gap``; a stop verdict (+ an optional ``add_step`` grace) retires
+the lane.  Over a quantized Full Index phase 2 scans the codes and the
+pool's head is re-scored exactly (``_exact_rerank``).
 
 All ids in phase 2 are global.  The hot graph uses local ids 0..H-1 with
 its own sentinel H; ``hot_ids_pad`` maps local→global.
@@ -16,6 +19,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.kernels import ops as kops
+
 from . import beam_search as bs
 from .decision_tree import TreeArrays, predict
 from .features import feature_matrix, hot_features
@@ -23,7 +28,7 @@ from .types import (INF_DIST, INT_MAX, HotFeatures, PoolState, SearchResult,
                     SearchStats)
 
 __all__ = ["dynamic_search", "hot_phase", "hot_phase_graph",
-           "DynamicState"]
+           "hot_phase_mxu", "DynamicState"]
 
 
 class DynamicState(NamedTuple):
@@ -40,10 +45,28 @@ def hot_phase_graph(x_hot_pad, adj_hot_pad, hot_entries, queries, *,
     return state.pool, state.stats
 
 
-def hot_phase_mxu(*_, **__):
-    raise NotImplementedError(
-        "hot_mode='mxu' (the brute-force scorer) comes with the "
-        "fused_topk_l2 slice of the port")
+def hot_phase_mxu(x_hot, queries, *, pool_size: int,
+                  use_kernel: bool = False):
+    """Phase 1, beyond-paper: exact brute-force top-k over the hot rows.
+
+    The tensors' device picks the scorer (the CUDA kernel on the card, its
+    plain version on the CPU); ``use_kernel`` is kept so call sites read as
+    the reference's and decides nothing.
+    """
+    del use_kernel
+    H = x_hot.shape[0]
+    B = queries.shape[0]
+    dev = queries.device
+    dists, ids = kops.fused_topk_l2(queries, x_hot, k=pool_size)
+    pool = PoolState(
+        ids=ids, dists=dists,
+        expanded=torch.zeros((B, pool_size), dtype=torch.bool, device=dev))
+    zeros = lambda: torch.zeros((B,), dtype=torch.int32, device=dev)
+    stats = SearchStats(
+        dist_count=torch.full((B,), H, dtype=torch.int32, device=dev),
+        update_count=zeros(), hops=zeros(),
+        terminated_early=torch.zeros((B,), dtype=torch.bool, device=dev))
+    return pool, stats
 
 
 def hot_phase_stacked(*_, **__):
@@ -51,9 +74,23 @@ def hot_phase_stacked(*_, **__):
                               "slice of the port")
 
 
-def _exact_rerank(*_, **__):
-    raise NotImplementedError("the exact rerank comes with the "
-                              "quantization slice of the port")
+def _exact_rerank(x_pad, queries, pool: PoolState, *, k: int,
+                  rerank_k: int, live_pad: Optional[torch.Tensor] = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Re-score the pool's best ``rerank_k`` entries in float32, keep top-k.
+
+    The quantized full phase ranks the pool by approximate distances; this
+    recovers the exact order among the head of the pool.
+    """
+    n = bs.table_n(x_pad)
+    rr = min(max(rerank_k, k), pool.ids.shape[1])
+    ids = pool.ids[:, :rr]
+    d2 = bs.score_rows(x_pad, queries, ids)
+    d2 = torch.where(ids == n, INF_DIST, d2)
+    if live_pad is not None:
+        d2 = torch.where(live_pad[ids.long()], d2, INF_DIST)
+    order = torch.sort(d2, dim=1, stable=True).indices[:, :k]
+    return ids.gather(1, order), d2.gather(1, order)
 
 
 def hot_phase(x_hot_pad, adj_hot_pad, hot_entries, queries, *, pool_size,
@@ -61,7 +98,7 @@ def hot_phase(x_hot_pad, adj_hot_pad, hot_entries, queries, *, pool_size,
     if mode == "graph":
         return hot_phase_graph(x_hot_pad, adj_hot_pad, hot_entries, queries,
                                pool_size=pool_size, max_hops=max_hops)
-    return hot_phase_mxu(x_hot_pad, queries, pool_size=pool_size,
+    return hot_phase_mxu(x_hot_pad[:-1], queries, pool_size=pool_size,
                          use_kernel=use_kernel)
 
 
@@ -169,11 +206,12 @@ def dynamic_search(
     """Algorithm 4 end to end. Returns (result, hot_phase_stats, hot_feats).
 
     ``result.stats`` covers the full phase only (after the line-12 reset).
+    When ``qtable`` is given, phase 2 scores against the compressed codes
+    (the hot phase stays float32) and, with ``rerank_k > 0``, the pool's
+    head is re-scored exactly from ``x_pad`` before the final top-k.
     ``fused=True`` runs the full phase through the fused wave-hop kernel,
     with bit-identical results.
     """
-    if qtable is not None or rerank_k:
-        _exact_rerank()
     n = bs.table_n(x_pad)
     hot_pool, hot_stats = hot_phase(
         x_hot_pad, adj_hot_pad, hot_entries, queries,
@@ -182,16 +220,21 @@ def dynamic_search(
     hfeats = hot_features(hot_pool, k)
     state = _seed_full_state(hot_pool, hot_ids_pad, n, full_pool_size,
                              live_pad)
+    table = x_pad if qtable is None else qtable.with_queries(queries)
     if fused:
         state = bs.fused_beam_loop(
-            x_pad, adj_pad, queries, state, max_hops, live_pad,
+            table, adj_pad, queries, state, max_hops, live_pad,
             fused_hops=fused_hops, tree=tree, hot=hfeats, k=k,
             eval_gap=eval_gap, add_step=add_step, tree_depth=tree_depth)
     else:
         state = _full_phase(
-            x_pad, adj_pad, queries, state, hfeats, tree, k=k,
+            table, adj_pad, queries, state, hfeats, tree, k=k,
             eval_gap=eval_gap, add_step=add_step, tree_depth=tree_depth,
             max_hops=max_hops, live_pad=live_pad)
-    ids, dists = bs.topk_from_pool(state.pool, k)
+    if qtable is not None and rerank_k > 0:
+        ids, dists = _exact_rerank(x_pad, queries, state.pool, k=k,
+                                   rerank_k=rerank_k, live_pad=live_pad)
+    else:
+        ids, dists = bs.topk_from_pool(state.pool, k)
     return (SearchResult(ids=ids, dists=dists, stats=state.stats),
             hot_stats, hfeats)

@@ -47,20 +47,26 @@ def collect_training_data(
     eval_gap: int, max_hops: int, hot_mode: str = "graph",
     improve_tol: float = 1e-6, batch: int = 256, live_pad=None,
 ):
-    """Returns (features (N,6), labels (N,)) for CART training."""
+    """Returns (features (N,6), labels (N,)) for CART training.
+
+    ``x_pad`` may be a quantized score table: when the deployed search
+    scans compressed codes, the tree must see the same (approximate)
+    distance distributions at train time.
+    """
     feats_out, labels_out = [], []
     n = bs.table_n(x_pad)
     for s in range(0, queries.shape[0], batch):
         q = torch.as_tensor(np.asarray(queries[s: s + batch], np.float32),
-                            device=x_pad.device)
+                            device=adj_pad.device)
         hot_pool, _ = hot_phase(
             x_hot_pad, adj_hot_pad, hot_entries, q,
             pool_size=hot_pool_size, max_hops=max_hops, mode=hot_mode)
         hfeats = hot_features(hot_pool, k)
         state = _seed_full_state(hot_pool, hot_ids_pad, n, full_pool_size,
                                  live_pad)
-        rec = _trace_full_phase(x_pad, adj_pad, q, state, hfeats, k=k,
-                                hops=max_hops, live_pad=live_pad)
+        rec = _trace_full_phase(bs.as_view(x_pad, q), adj_pad, q, state,
+                                hfeats, k=k, hops=max_hops,
+                                live_pad=live_pad)
         f, lab = _label_trace(rec, eval_gap, improve_tol)
         feats_out.append(f)
         labels_out.append(lab)

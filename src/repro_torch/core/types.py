@@ -27,11 +27,7 @@ INT_MAX = torch.iinfo(torch.int32).max
 
 @dataclasses.dataclass(frozen=True)
 class QuantConfig:
-    """Compressed Full Index configuration.
-
-    Only ``mode="none"`` is searchable in the port so far; :class:`DQF`
-    raises ``NotImplementedError`` for the quantized modes.
-    """
+    """Compressed Full Index configuration (``repro_torch.quant``)."""
 
     mode: str = "none"       # "none" | "sq8" (int8 scalar) | "pq" (product)
     pq_m: int = 8

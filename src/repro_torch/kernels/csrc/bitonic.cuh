@@ -35,3 +35,34 @@ __device__ __forceinline__ void bitonic_sort_stable(float* keys, int* pos,
     }
   }
 }
+
+// The same network over `nseg` independent segments of `len` entries each
+// (segment s starts at keys + s * len), ordered by the strict total order
+// (key, tie).  `tie` rides along as the payload.  With a tie that grows
+// with position inside each segment this is again a stable sort; the top-k
+// kernel passes row ids, which do.  Every thread of the block must call it.
+__device__ __forceinline__ void bitonic_sort_stable_segments(float* keys,
+                                                             int* tie,
+                                                             int len,
+                                                             int nseg) {
+  __syncthreads();
+  const int half = len >> 1;
+  for (int k = 2; k <= len; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int t = threadIdx.x; t < half * nseg; t += blockDim.x) {
+        const int seg = t / half, u = t - seg * half;
+        const int lo = seg * len + 2 * j * (u / j) + (u % j);
+        const int hi = lo + j;
+        const bool desc = ((lo - seg * len) & k) != 0;
+        const float klo = keys[lo], khi = keys[hi];
+        const int tlo = tie[lo], thi = tie[hi];
+        const bool greater = (klo > khi) || (klo == khi && tlo > thi);
+        if (greater != desc) {
+          keys[lo] = khi; keys[hi] = klo;
+          tie[lo] = thi; tie[hi] = tlo;
+        }
+      }
+      __syncthreads();
+    }
+  }
+}

@@ -1,11 +1,17 @@
 // Fused wave-hop kernel: `hops` beam expansions per search lane in one launch.
 //
-// Replaces: repro/kernels/fused_hop.py::fused_hop_pallas (body _hop_kernel),
-// float32 score mode, with and without the liveness bitmap and the decision
-// tree.  Contract: repro_torch/kernels/ref.py::fused_hop, which this kernel
-// equals bit for bit.  Each hop follows ref.fused_hop_body line for line:
-// frontier, adjacency row, seen/live dedup, score, stable merge, counters,
-// hop cap, tree check.
+// Replaces: repro/kernels/fused_hop.py::fused_hop_pallas (body _hop_kernel)
+// in its three score modes, with and without the liveness bitmap and the
+// decision tree:
+//   f32  float32 rows (n+1, d);
+//   sq8  int8 codes (n+1, d) decoded as code * scale + zero, scale and
+//        zero (d,) float32;
+//   pq   uint8 codes (n+1, M) and per-lane LUTs (B, M, K) float32, the
+//        distance being the sum of M looked-up values.
+// Contract: repro_torch/kernels/ref.py::fused_hop, which this kernel
+// equals bit for bit in every mode.  Each hop follows ref.fused_hop_body
+// line for line: frontier, adjacency row, seen/live dedup, score, stable
+// merge, counters, hop cap, tree check.  The modes differ in step 4 only.
 //
 // Design (first, simple, correct):
 //   * one thread block of 128 threads per lane; the lane's pool lives in
@@ -17,10 +23,16 @@
 //     adjacency row is valid, scored and merged twice, as in the plain
 //     version;
 //   * one warp scores one neighbour: lane i holds components i + 32 j, the
-//     M = max(next_pow2(d), 32) / 32 registers are halved in place, then
-//     __shfl_down_sync 16..1 finishes the pairwise halving sum of
-//     ref.sq_l2 in the same order, with __fsub_rn/__fmul_rn/__fadd_rn
-//     (and the file is built with --fmad=false);
+//     M = max(next_pow2(width), 32) / 32 registers are halved in place,
+//     then __shfl_down_sync 16..1 finishes the pairwise halving sum of
+//     ref.halving_sum in the same order, with __fsub_rn/__fmul_rn/__fadd_rn
+//     (and the file is built with --fmad=false).  sq8 keeps its lane's
+//     scale and zero in registers and decodes (float)(int8_t)c first; pq
+//     stages the lane's (M, K) LUT in shared memory once per launch and
+//     sums the looked-up values in the same halving order (no square);
+//   * invalid neighbours (sentinel, seen, dead) are never scored: their
+//     key is INF_DIST before the merge, so the sentinel code row, which
+//     decodes to garbage, never reaches the pool;
 //   * the merge is the stable (key, position) bitonic network of
 //     bitonic.cuh over [pool (L) | candidates (R) | +inf pad];
 //   * the tree walk runs on thread 0; inactive lanes leave the hop loop at
@@ -28,15 +40,17 @@
 //
 // Bound on the H100: device-memory bytes.  A hop moves one adjacency row
 // (R x 4 bytes), R seen bytes read and written, R liveness bytes, and one
-// table row (d x 4 bytes) per valid neighbour: in all about
-// sum(dist_count) x d x 4 + hops x R x (4 + 1 + 1) bytes, plus the pool
-// state read and written once per launch.  There are almost no FLOPs.
+// table row per valid neighbour (d x 4 bytes in f32, d bytes in sq8, M
+// bytes in pq): in all about sum(dist_count) x row bytes + hops x R x
+// (4 + 1 + 1 + 1) bytes, plus the pool state read and written once per
+// launch and, in pq, the B x M x K x 4 bytes of LUTs.  There are almost no
+// FLOPs.
 //
 // Left for later PRs: the row loads of one warp are issued one neighbour
 // after another (no cp.async/TMA prefetch of the next rows), the frontier
 // pick and the bitonic stages synchronise the whole block, the tree walk is
 // serial, and one block per lane leaves most of each block idle during the
-// serial parts.  The sq8/pq score modes come with the quantization slice.
+// serial parts.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -46,6 +60,9 @@
 #define DQF_EPS 1e-12f
 #define DQF_INT_MAX 2147483647
 #define DQF_THREADS 128
+#define DQF_MODE_F32 0
+#define DQF_MODE_SQ8 1
+#define DQF_MODE_PQ 2
 
 struct HopArgs {
   // state in
@@ -74,7 +91,9 @@ struct HopArgs {
   uint8_t* seen;
   // tables
   const int32_t* adj;      // (n+1, R)
-  const float* table;      // (n+1, d)
+  const void* table;       // (n+1, tw): float32 | int8 | uint8 by mode
+  const float* t1;         // sq8: scale (d,); pq: LUTs (B, M, K)
+  const float* t2;         // sq8: zero (d,)
   const float* queries;    // (B, d)
   const uint8_t* live;     // (n+1,) or null
   // decision tree (null t_feature = no tree)
@@ -87,9 +106,10 @@ struct HopArgs {
   const float* hot_ratio;  // (B,)
   int32_t B, L, R, n, d;
   int32_t hops, max_hops, k, eval_gap, add_step, tree_depth, sort_len;
+  int32_t mode, tw, K;     // score mode, table row width, pq centroids
 };
 
-template <int M>
+template <int MODE, int M>
 __global__ void __launch_bounds__(DQF_THREADS)
 fused_hop_kernel(const HopArgs a) {
   extern __shared__ unsigned char smem[];
@@ -101,7 +121,9 @@ fused_hop_kernel(const HopArgs a) {
   int* nbr = vexp + S;                             // R: cols (sentinel n)
   int* valid = nbr + R;                            // R
   float* d2 = reinterpret_cast<float*>(valid + R); // R
+  float* lut = d2 + R;                             // pq: tw * K
   __shared__ int s_slot, s_inserted, s_nvalid, s_stop;
+  const int tw = a.tw;
 
   const int b = blockIdx.x;
   const int tid = threadIdx.x, nthreads = blockDim.x;
@@ -122,11 +144,20 @@ fused_hop_kernel(const HopArgs a) {
   int evals_done = a.evals_done_in[b];
   int stop_at = a.stop_at_in[b];
 
-  float q[M];
+  // Per-lane score operands: query components (f32, sq8), the decode
+  // parameters (sq8) or the lane's LUT in shared memory (pq).
+  float q[M], sc[M], ze[M];
 #pragma unroll
   for (int j = 0; j < M; ++j) {
     const int c = wl + 32 * j;
-    q[j] = c < d ? a.queries[(size_t)b * d + c] : 0.f;
+    q[j] = (MODE != DQF_MODE_PQ && c < d) ? a.queries[(size_t)b * d + c]
+                                          : 0.f;
+    sc[j] = (MODE == DQF_MODE_SQ8 && c < tw) ? a.t1[c] : 0.f;
+    ze[j] = (MODE == DQF_MODE_SQ8 && c < tw) ? a.t2[c] : 0.f;
+  }
+  if (MODE == DQF_MODE_PQ) {
+    const float* src = a.t1 + (size_t)b * tw * a.K;
+    for (int i = tid; i < tw * a.K; i += nthreads) lut[i] = src[i];
   }
   uint8_t* seen = a.seen + (size_t)b * (n + 1);
 
@@ -163,13 +194,26 @@ fused_hop_kernel(const HopArgs a) {
     for (int r = warp; r < R; r += nwarps) {
       float acc = DQF_INF_DIST;
       if (valid[r]) {
-        const float* row = a.table + (size_t)nbr[r] * d;
+        const size_t row0 = (size_t)nbr[r] * tw;
         float v[M];
 #pragma unroll
         for (int j = 0; j < M; ++j) {
           const int c = wl + 32 * j;
-          const float diff = __fsub_rn(c < d ? row[c] : 0.f, q[j]);
-          v[j] = __fmul_rn(diff, diff);
+          if (MODE == DQF_MODE_F32) {
+            const float* row = static_cast<const float*>(a.table) + row0;
+            const float diff = __fsub_rn(c < tw ? row[c] : 0.f, q[j]);
+            v[j] = __fmul_rn(diff, diff);
+          } else if (MODE == DQF_MODE_SQ8) {
+            const int8_t* row = static_cast<const int8_t*>(a.table) + row0;
+            const float g =
+                c < tw ? __fadd_rn(__fmul_rn((float)row[c], sc[j]), ze[j])
+                       : 0.f;
+            const float diff = __fsub_rn(g, q[j]);
+            v[j] = __fmul_rn(diff, diff);
+          } else {
+            const uint8_t* row = static_cast<const uint8_t*>(a.table) + row0;
+            v[j] = c < tw ? lut[c * a.K + (int)row[c]] : 0.f;
+          }
         }
 #pragma unroll
         for (int w = M / 2; w >= 1; w >>= 1) {
@@ -263,25 +307,45 @@ fused_hop_kernel(const HopArgs a) {
   }
 }
 
-extern "C" int dqf_fused_hop_f32(const HopArgs* a, void* stream) {
-  if (a->B == 0) return 0;
+template <int MODE, int M>
+static int launch(const HopArgs& a, size_t smem, cudaStream_t st) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fused_hop_kernel<MODE, M>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  fused_hop_kernel<MODE, M><<<a.B, DQF_THREADS, smem, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int MODE>
+static int launch_width(const HopArgs& a, size_t smem, cudaStream_t st) {
   int width = 1;
-  while (width < a->d) width <<= 1;
-  const int m = width < 32 ? 1 : width / 32;
-  const size_t smem = (size_t)a->sort_len * 16 + (size_t)a->R * 12;
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  const dim3 grid(a->B), block(DQF_THREADS);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (m) {
-    case 1: fused_hop_kernel<1><<<grid, block, smem, st>>>(*a); break;
-    case 2: fused_hop_kernel<2><<<grid, block, smem, st>>>(*a); break;
-    case 4: fused_hop_kernel<4><<<grid, block, smem, st>>>(*a); break;
-    case 8: fused_hop_kernel<8><<<grid, block, smem, st>>>(*a); break;
-    case 16: fused_hop_kernel<16><<<grid, block, smem, st>>>(*a); break;
-    case 32: fused_hop_kernel<32><<<grid, block, smem, st>>>(*a); break;
+  while (width < a.tw) width <<= 1;
+  switch (width < 32 ? 1 : width / 32) {
+    case 1: return launch<MODE, 1>(a, smem, st);
+    case 2: return launch<MODE, 2>(a, smem, st);
+    case 4: return launch<MODE, 4>(a, smem, st);
+    case 8: return launch<MODE, 8>(a, smem, st);
+    case 16: return launch<MODE, 16>(a, smem, st);
+    case 32: return launch<MODE, 32>(a, smem, st);
     default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+}
+
+extern "C" int dqf_fused_hop(const HopArgs* a, void* stream) {
+  if (a->B == 0) return 0;
+  size_t smem = (size_t)a->sort_len * 16 + (size_t)a->R * 12;
+  if (a->mode == DQF_MODE_PQ) smem += (size_t)a->tw * a->K * 4;
+  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (a->mode) {
+    case DQF_MODE_F32: return launch_width<DQF_MODE_F32>(*a, smem, st);
+    case DQF_MODE_SQ8: return launch_width<DQF_MODE_SQ8>(*a, smem, st);
+    case DQF_MODE_PQ: return launch_width<DQF_MODE_PQ>(*a, smem, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" const char* dqf_error_string(int err) {

@@ -1,9 +1,9 @@
 """Launch wrapper of the fused wave-hop CUDA kernel (``csrc/fused_hop.cu``).
 
-Replaces ``repro/kernels/fused_hop.py::fused_hop_pallas`` in float32 score
-mode.  The kernel advances every lane of a wave ``hops`` beam expansions
-(frontier, adjacency row, seen/live dedup, score, stable merge, counters,
-hop cap, decision-tree check) and equals
+Replaces ``repro/kernels/fused_hop.py::fused_hop_pallas`` in its three
+score modes (``f32``, ``sq8``, ``pq``).  The kernel advances every lane of
+a wave ``hops`` beam expansions (frontier, adjacency row, seen/live dedup,
+score, stable merge, counters, hop cap, decision-tree check) and equals
 :func:`repro_torch.kernels.ref.fused_hop` bit for bit.  See the source's
 header for its design and its bound.
 
@@ -34,19 +34,21 @@ class _HopArgs(ctypes.Structure):
         "update_count_in", "hops_in", "terminated_in", "evals_done_in",
         "stop_at_in", "ids_out", "dists_out", "exp_out", "active_out",
         "dist_count_out", "update_count_out", "hops_out", "terminated_out",
-        "evals_done_out", "stop_at_out", "seen", "adj", "table", "queries",
-        "live", "t_feature", "t_threshold", "t_left", "t_right", "t_value",
-        "hot_first", "hot_ratio")]
+        "evals_done_out", "stop_at_out", "seen", "adj", "table", "t1", "t2",
+        "queries", "live", "t_feature", "t_threshold", "t_left", "t_right",
+        "t_value", "hot_first", "hot_ratio")]
         + [(f, _I) for f in (
             "B", "L", "R", "n", "d", "hops", "max_hops", "k", "eval_gap",
-            "add_step", "tree_depth", "sort_len")])
+            "add_step", "tree_depth", "sort_len", "mode", "tw", "K")])
+
+_MODES = {"f32": 0, "sq8": 1, "pq": 2}
 
 
 def _lib():
     lib = _build.load("fused_hop")
-    if lib.dqf_fused_hop_f32.argtypes is None:
-        lib.dqf_fused_hop_f32.argtypes = [ctypes.POINTER(_HopArgs), _P]
-        lib.dqf_fused_hop_f32.restype = ctypes.c_int
+    if lib.dqf_fused_hop.argtypes is None:
+        lib.dqf_fused_hop.argtypes = [ctypes.POINTER(_HopArgs), _P]
+        lib.dqf_fused_hop.restype = ctypes.c_int
         lib.dqf_error_string.argtypes = [ctypes.c_int]
         lib.dqf_error_string.restype = ctypes.c_char_p
     return lib
@@ -65,17 +67,25 @@ def _check(name, t, dtype, shape, device):
     return t.data_ptr()
 
 
-def fused_hop_cuda(hs: HopState, adj_pad, queries, live_pad, t0,
-                   tree=None, hot_first=None, hot_ratio=None, *, hops: int,
-                   max_hops: int, k: int = 1, eval_gap: int = 1,
-                   add_step: int = 0, tree_depth: int = 1) -> HopState:
-    """One launch: ``hops`` fused expansions of every lane (CUDA tensors)."""
+def fused_hop_cuda(hs: HopState, adj_pad, queries, live_pad, mode: str, t0,
+                   t1=None, t2=None, tree=None, hot_first=None,
+                   hot_ratio=None, *, hops: int, max_hops: int, k: int = 1,
+                   eval_gap: int = 1, add_step: int = 0,
+                   tree_depth: int = 1) -> HopState:
+    """One launch: ``hops`` fused expansions of every lane (CUDA tensors).
+
+    ``mode``, ``t0``, ``t1`` and ``t2`` as in
+    :func:`repro_torch.kernels.ref.fused_hop`.
+    """
     dev = hs.ids.device
     if dev.type != "cuda":
         raise ValueError("fused_hop_cuda takes CUDA tensors")
+    if mode not in _MODES:
+        raise ValueError(f"unknown score mode {mode!r}")
     B, L = hs.ids.shape
     n1, R = adj_pad.shape
-    d = t0.shape[1]
+    d = queries.shape[1]
+    tw = t0.shape[1]
     if eval_gap < 1 or hops < 0:
         raise ValueError("eval_gap must be >= 1 and hops >= 0")
     sort_len = next_pow2(L + R)
@@ -96,8 +106,20 @@ def fused_hop_cuda(hs: HopState, adj_pad, queries, live_pad, t0,
         setattr(a, cname + "_out", outs[field].data_ptr())
     a.seen = _check("seen", hs.seen, u8, (B, n1), dev)
     a.adj = _check("adj_pad", adj_pad, i32, (n1, R), dev)
-    a.table = _check("table", t0, f32, (n1, d), dev)
     a.queries = _check("queries", queries, f32, (B, d), dev)
+    a.mode, a.tw, a.K = _MODES[mode], tw, 0
+    if mode == "f32":
+        a.table = _check("table", t0, f32, (n1, d), dev)
+    elif mode == "sq8":
+        a.table = _check("codes", t0, torch.int8, (n1, d), dev)
+        a.t1 = _check("scale", t1, f32, (d,), dev)
+        a.t2 = _check("zero", t2, f32, (d,), dev)
+    else:
+        a.table = _check("codes", t0, torch.uint8, (n1, tw), dev)
+        if t1 is None or t1.dim() != 3:
+            raise ValueError("pq mode needs (B, M, K) LUTs")
+        a.K = t1.shape[2]
+        a.t1 = _check("luts", t1, f32, (B, tw, a.K), dev)
     a.live = (None if live_pad is None
               else _check("live_pad", live_pad, u8, (n1,), dev))
     if tree is not None:
@@ -115,7 +137,7 @@ def fused_hop_cuda(hs: HopState, adj_pad, queries, live_pad, t0,
     a.add_step, a.tree_depth, a.sort_len = add_step, tree_depth, sort_len
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.dqf_fused_hop_f32(ctypes.byref(a), stream)
+    err = lib.dqf_fused_hop(ctypes.byref(a), stream)
     if err != 0:
         raise RuntimeError("fused_hop launch failed: "
                            + lib.dqf_error_string(err).decode())

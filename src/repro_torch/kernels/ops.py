@@ -12,20 +12,38 @@ import torch
 
 from . import ref
 from .fused_hop import fused_hop_cuda
+from .fused_topk_l2 import fused_topk_l2_cuda
 
-__all__ = ["table_spec", "fused_hop"]
+__all__ = ["table_spec", "fused_hop", "fused_topk_l2"]
+
+
+def _device_type(t: torch.Tensor) -> str:
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {t.device}")
+    return t.device.type
+
+
+def fused_topk_l2(q: torch.Tensor, x: torch.Tensor, *, k: int):
+    """(dists, ids), both (B, k): the k nearest rows of ``x`` per query by
+    squared L2, ties to the smaller id, k > N padded (+inf, N)."""
+    if _device_type(q) == "cpu":
+        return ref.fused_topk_l2(q, x, k=k)
+    return fused_topk_l2_cuda(q, x, k=k)
 
 
 def table_spec(table):
-    """Unpack a score table into the fused-hop kernel's ``(mode, t0)``.
-
-    Only the float32 padded row table exists in the port so far; the
-    quantized tables come with their slice.
-    """
+    """Unpack a score table into the fused-hop kernel's
+    ``(mode, t0, t1, t2)``: a float32 ``x_pad``, an ``SQTable`` or a
+    per-search ``PQView`` (``PQTable.with_queries``' result)."""
     if isinstance(table, torch.Tensor):
         if table.dtype != torch.float32 or table.dim() != 2:
             raise TypeError("fused hop needs a (n+1, d) float32 row table")
-        return "f32", table
+        return "f32", table, None, None
+    from repro_torch.quant.types import PQView, SQTable  # quant sits above
+    if isinstance(table, SQTable):
+        return "sq8", table.codes, table.scale, table.zero
+    if isinstance(table, PQView):
+        return "pq", table.codes, table.luts, None
     raise TypeError(
         f"fused hop needs a device-resident score table, got "
         f"{type(table).__name__}")
@@ -37,13 +55,9 @@ def fused_hop(hs: ref.HopState, adj_pad, queries, live_pad, table,
               add_step: int = 0, tree_depth: int = 1) -> ref.HopState:
     """Advance a wave ``hops`` fused beam expansions (one kernel launch on
     the card).  ``hs.seen`` is updated in place."""
-    mode, t0 = table_spec(table)
+    mode, t0, t1, t2 = table_spec(table)
     kw = dict(hops=hops, max_hops=max_hops, k=k, eval_gap=eval_gap,
               add_step=add_step, tree_depth=tree_depth)
-    if t0.device.type == "cpu":
-        return ref.fused_hop(hs, adj_pad, queries, live_pad, mode, t0, tree,
-                             hot_first, hot_ratio, **kw)
-    if t0.device.type != "cuda":
-        raise ValueError(f"no fused hop kernel for device {t0.device}")
-    return fused_hop_cuda(hs, adj_pad, queries, live_pad, t0, tree,
-                          hot_first, hot_ratio, **kw)
+    fn = ref.fused_hop if _device_type(t0) == "cpu" else fused_hop_cuda
+    return fn(hs, adj_pad, queries, live_pad, mode, t0, t1, t2, tree,
+              hot_first, hot_ratio, **kw)

@@ -5,12 +5,15 @@ These are the semantics contracts: each hand-written kernel in
 here, bit for bit, on the card.  On the CPU they are the execution path
 (:mod:`repro_torch.kernels.ops` sends a CPU tensor here and nowhere else).
 
-Mirrors ``repro/kernels/ref.py`` expression by expression, with two
+Mirrors ``repro/kernels/ref.py`` expression by expression, with these
 deliberate choices:
 
-* every squared-L2 score goes through :func:`sq_l2`, a pairwise halving sum
-  whose order the code fixes, so the CUDA kernel can repeat it exactly;
-* every ``jnp.argsort`` becomes ``torch.sort(..., stable=True)``.
+* every squared-L2 score and every PQ lookup sum goes through
+  :func:`halving_sum`, a pairwise sum whose order the code fixes, so the
+  CUDA kernel can repeat it exactly;
+* the three sums of :func:`pairwise_l2` run over d in index order;
+* every ``jnp.argsort`` becomes ``torch.sort(..., stable=True)``, and
+  ``lax.top_k`` a stable sort whose ties go to the smaller id.
 
 The ``seen`` bitmap of a :class:`HopState` is updated in place: at a
 million rows it is a megabyte per lane, and a functional copy per hop would
@@ -23,7 +26,8 @@ from typing import NamedTuple
 
 import torch
 
-__all__ = ["HopState", "sq_l2", "fused_hop_body", "fused_hop",
+__all__ = ["HopState", "halving_sum", "sq_l2", "sq8_score", "pq_score",
+           "pairwise_l2", "fused_topk_l2", "fused_hop_body", "fused_hop",
            "tree_predict", "next_pow2"]
 
 # Mirrors of repro_torch.core.types constants (kernels sit below core).
@@ -55,16 +59,14 @@ def next_pow2(n: int) -> int:
     return p
 
 
-def sq_l2(g: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """Squared L2 over the last axis as a pairwise halving sum.
+def halving_sum(s: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis as a pairwise halving sum.
 
-    Square each component, zero-pad the width to a power of two, then add
-    the upper half onto the lower half until one value is left.  The
-    order is fixed by this code alone, so the CUDA kernel repeats it with
-    ``__fmul_rn``/``__fadd_rn`` and both give the same bits.
+    Zero-pad the width to a power of two, then add the upper half onto the
+    lower half until one value is left.  The order is fixed by this code
+    alone, so the CUDA kernel repeats it with ``__fadd_rn`` and both give
+    the same bits.
     """
-    diff = g - q
-    s = diff * diff
     d = s.shape[-1]
     width = next_pow2(d)
     if width != d:
@@ -73,6 +75,92 @@ def sq_l2(g: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
         h = s.shape[-1] // 2
         s = s[..., :h] + s[..., h:]
     return s[..., 0]
+
+
+def sq_l2(g: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Squared L2 over the last axis: square each component, then
+    :func:`halving_sum`."""
+    diff = g - q
+    return halving_sum(diff * diff)
+
+
+def sq8_score(codes, scale, zero, queries, cols) -> torch.Tensor:
+    """(B, C) squared L2 of query b vs the int8 row ``cols[b, c]`` decoded
+    as ``code * scale + zero`` (two roundings, as the kernel decodes)."""
+    g = codes[cols.long()].to(torch.float32) * scale + zero
+    return sq_l2(g, queries[:, None, :])
+
+
+def pq_score(codes, luts, cols) -> torch.Tensor:
+    """(B, C) PQ asymmetric distance ``Σ_m luts[b, m, codes[cols[b, c], m]]``
+    summed in :func:`halving_sum` order."""
+    c = codes[cols.long()].long()                          # (B, C, M)
+    B, M = luts.shape[0], luts.shape[1]
+    rows = torch.arange(B, device=luts.device)[:, None, None]
+    sub = torch.arange(M, device=luts.device)[None, None, :]
+    return halving_sum(luts[rows, sub, c])
+
+
+# ------------------------------------------------------ brute-force scorer
+_CHUNK_ELEMS = 1 << 25       # (B, rows) elements per chunk of the plain top-k
+
+
+def _seq_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Row-wise dot products summed over the last axis in index order."""
+    acc = torch.zeros(a.shape[:-1], dtype=torch.float32, device=a.device)
+    for c in range(a.shape[-1]):
+        acc = acc + a[..., c] * b[..., c]
+    return acc
+
+
+def pairwise_l2(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """(B, N) squared L2 as ``(|q|² + |x|²) − 2 q·x``.
+
+    The association is that of ``repro/kernels/ref.py::pairwise_l2``; each
+    of the three sums runs over d in index order, one product and one add
+    per component (two roundings), so ``csrc/fused_topk_l2.cu`` repeats it
+    bit for bit.  The result may be slightly negative or differ from
+    ``Σ(x − q)²`` by an ulp: that is the contract.
+    """
+    q_sq = _seq_dot(q, q)                                  # (B,)
+    x_sq = _seq_dot(x, x)                                  # (N,)
+    dot = torch.zeros((q.shape[0], x.shape[0]), dtype=torch.float32,
+                      device=q.device)
+    for c in range(q.shape[1]):
+        dot = dot + q[:, None, c] * x[None, :, c]
+    return (q_sq[:, None] + x_sq[None, :]) - 2.0 * dot
+
+
+def fused_topk_l2(q: torch.Tensor, x: torch.Tensor, *, k: int):
+    """(dists, ids), both (B, k): the k nearest rows of x per query.
+
+    Order is (dist, id): ties go to the smaller id, as ``lax.top_k`` breaks
+    them.  With k > N the tail is +inf / id N.  Rows are taken in chunks
+    and each chunk is merged into a running top-k by a stable sort of
+    [running | chunk], which keeps the memory bounded and gives the same
+    order as one sort over all N.
+    """
+    B, N = q.shape[0], x.shape[0]
+    kk = min(k, N)
+    dev = q.device
+    run_d = torch.empty((B, 0), dtype=torch.float32, device=dev)
+    run_i = torch.empty((B, 0), dtype=torch.int32, device=dev)
+    step = max(1, _CHUNK_ELEMS // max(B, 1))
+    for s in range(0, N, step):
+        d2 = pairwise_l2(q, x[s:s + step])
+        ids = torch.arange(s, s + d2.shape[1], dtype=torch.int32,
+                           device=dev).expand(B, -1)
+        cat_d = torch.cat([run_d, d2], dim=1)
+        cat_i = torch.cat([run_i, ids], dim=1)
+        order = torch.sort(cat_d, dim=1, stable=True).indices[:, :kk]
+        run_d, run_i = cat_d.gather(1, order), cat_i.gather(1, order)
+    if kk < k:
+        run_d = torch.cat([run_d, torch.full((B, k - kk), float("inf"),
+                                             device=dev)], dim=1)
+        run_i = torch.cat([run_i, torch.full((B, k - kk), N,
+                                             dtype=torch.int32, device=dev)],
+                          dim=1)
+    return run_d, run_i
 
 
 def first_true(mask: torch.Tensor) -> torch.Tensor:
@@ -93,17 +181,21 @@ def tree_predict(tree, feats: torch.Tensor, depth: int) -> torch.Tensor:
     return value[node]
 
 
-def _gather_score(mode: str, t0, queries, cols):
+def _gather_score(mode: str, t0, t1, t2, queries, cols):
+    """(B, C) distances of query b vs table row ``cols[b, c]``: the same
+    scorers as the composed path's (``beam_search.score_rows``,
+    ``SQTable.gather_score``, ``PQView.gather_score``)."""
     if mode == "f32":
         return sq_l2(t0[cols.long()], queries[:, None, :])
-    if mode in ("sq8", "pq"):
-        raise NotImplementedError(
-            f"score mode {mode!r} comes with the quantization slice")
+    if mode == "sq8":
+        return sq8_score(t0, t1, t2, queries, cols)
+    if mode == "pq":
+        return pq_score(t0, t1, cols)
     raise ValueError(f"unknown score mode {mode!r}")
 
 
 def fused_hop_body(hs: HopState, adj_pad, queries, live_pad, mode: str,
-                   t0, tree, hot_first, hot_ratio, *, max_hops: int,
+                   t0, t1, t2, tree, hot_first, hot_ratio, *, max_hops: int,
                    k: int, eval_gap: int, add_step: int,
                    tree_depth: int) -> HopState:
     """One fused hop: expand → gather → score → merge → terminate.
@@ -136,7 +228,7 @@ def fused_hop_body(hs: HopState, adj_pad, queries, live_pad, mode: str,
     seen[rows[:, None], cols.long()] = True
 
     # --- score ---
-    d2 = _gather_score(mode, t0, queries, cols)
+    d2 = _gather_score(mode, t0, t1, t2, queries, cols)
     d2 = torch.where(valid, d2, INF_DIST)
 
     # --- merge (stable, == beam_search._merge_pool) ---
@@ -183,19 +275,22 @@ def fused_hop_body(hs: HopState, adj_pad, queries, live_pad, mode: str,
 
 
 def fused_hop(hs: HopState, adj_pad, queries, live_pad, mode: str, t0,
-              tree=None, hot_first=None, hot_ratio=None, *, hops: int,
-              max_hops: int, k: int = 1, eval_gap: int = 1,
+              t1=None, t2=None, tree=None, hot_first=None, hot_ratio=None,
+              *, hops: int, max_hops: int, k: int = 1, eval_gap: int = 1,
               add_step: int = 0, tree_depth: int = 1) -> HopState:
     """Advance a wave ``hops`` fused expansions (plain version).
 
-    ``mode`` is ``"f32"`` (``t0`` = padded float32 rows); ``tree`` is the
+    ``mode`` selects the scorer: ``"f32"`` (``t0`` = padded float32 rows),
+    ``"sq8"`` (``t0``/``t1``/``t2`` = int8 codes, scale, zero) or ``"pq"``
+    (``t0``/``t1`` = uint8 codes, per-query LUTs).  ``tree`` is the
     unpacked decision-tree arrays ``(feature, threshold, left, right,
     value)`` or None, with ``hot_first``/``hot_ratio`` the frozen hot-phase
     features.  ``hs.seen`` is updated in place.
     """
     for _ in range(hops):
-        hs = fused_hop_body(hs, adj_pad, queries, live_pad, mode, t0, tree,
-                            hot_first, hot_ratio, max_hops=max_hops, k=k,
+        hs = fused_hop_body(hs, adj_pad, queries, live_pad, mode, t0, t1,
+                            t2, tree, hot_first, hot_ratio,
+                            max_hops=max_hops, k=k,
                             eval_gap=eval_gap, add_step=add_step,
                             tree_depth=tree_depth)
     return hs

@@ -1,11 +1,15 @@
-"""The fused wave-hop CUDA kernel against its plain version, bit for bit.
+"""The port's CUDA kernels against their plain versions, bit for bit.
+
+The fused wave-hop in its f32, sq8 and pq score modes, and the brute-force
+top-k scorer of the mxu hot phase.
 
 Imports nothing of JAX, so it runs where only the port is installed:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
-Without a CUDA device every test here skips (the kernel has no CPU mode).
-The synthetic worlds are shared with ``tests/test_torch_fused_hop.py``.
+Without a CUDA device every test here skips (the kernels have no CPU
+mode).  The synthetic worlds are shared with ``tests/test_torch_fused_hop.py``
+and ``tests/test_torch_quant.py``.
 """
 
 import numpy as np
@@ -44,6 +48,34 @@ def make_tree(seed=1, T=15):
             rng.uniform(0, 1, T).astype(np.float32))
 
 
+def quant_table(x_pad, mode, queries, *, m=6, k=64):
+    """A padded score table over the world's rows, trained by the port's
+    own quantizers (``x_pad`` numpy, the table on ``queries``' device)."""
+    from repro_torch.quant import (PQTable, QuantState, sq_encode, pq_encode,
+                                   train_pq, train_sq)
+
+    x = x_pad[:-1]
+    if mode == "sq8":
+        cb = train_sq(x)
+        state = QuantState("sq8", sq_encode(x, cb), sq=cb)
+    else:
+        cb = train_pq(x, m=m, k=k, iters=4, seed=0)
+        state = QuantState("pq", pq_encode(x, cb), pq=cb)
+    table = state.device_table(device=queries.device)
+    if isinstance(table, PQTable):
+        return table.with_queries(queries)
+    return table
+
+
+def duplicated_rows(N, d, seed):
+    """Rows with exact duplicates, so equal distances occur."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((N, d)).astype(np.float32)
+    if N > 3:
+        x[N // 2:N // 2 + N // 4] = x[:N // 4]
+    return x
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -77,11 +109,11 @@ def test_cuda_kernel_bit_identical(cuda_device, B, use_tree, use_live):
     kw = dict(hops=15, max_hops=40, k=5, eval_gap=25, add_step=6,
               tree_depth=4)
     fresh = lambda: tbs.to_hop_state(st._replace(seen=st.seen.clone()))
-    want = tref.fused_hop(fresh(), adj_pad, q, live_pad, "f32", x_pad, tree,
-                          hf, hr, **kw)
+    want = tref.fused_hop(fresh(), adj_pad, q, live_pad, "f32", x_pad, None,
+                          None, tree, hf, hr, **kw)
     before = fused_hop_cuda.launches
-    got = fused_hop_cuda(fresh(), adj_pad, q, live_pad, x_pad, tree, hf, hr,
-                         **kw)
+    got = fused_hop_cuda(fresh(), adj_pad, q, live_pad, "f32", x_pad, None,
+                         None, tree, hf, hr, **kw)
     torch.cuda.synchronize()
     assert fused_hop_cuda.launches == before + 1
     for f in tref.HopState._fields:
@@ -109,3 +141,74 @@ def test_cuda_dispatch_and_refusals(cuda_device):
     with pytest.raises(TypeError):
         ops.fused_hop(hs._replace(dists=hs.dists.double()), adj_pad, q, live,
                       x_pad, hops=2, max_hops=8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["sq8", "pq"])
+@pytest.mark.parametrize("B", [1, 64])
+@pytest.mark.parametrize("use_tree", [False, True])
+@pytest.mark.parametrize("use_live", [False, True])
+def test_cuda_quant_hop_bit_identical(cuda_device, mode, B, use_tree,
+                                      use_live):
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fused_hop import fused_hop_cuda
+
+    dev = cuda_device
+    world = make_world(seed=B)
+    x_pad, adj_pad, live = (torch.as_tensor(a, device=dev) for a in world)
+    live_pad = live if use_live else None
+    rng = np.random.default_rng(11)
+    q = torch.as_tensor(rng.standard_normal((B, 18)).astype(np.float32),
+                        device=dev)
+    table = quant_table(world[0], mode, q)
+    entries = torch.arange(0, 220, 37, dtype=torch.int32, device=dev)
+    st = tbs.init_state(x_pad, q, entries, 16, live_pad)
+    tree = hf = hr = None
+    if use_tree:
+        tree = tuple(torch.as_tensor(a, device=dev) for a in make_tree())
+        hf = torch.as_tensor(rng.uniform(1, 6, B).astype(np.float32),
+                             device=dev)
+        hr = torch.as_tensor(rng.uniform(0.5, 1.5, B).astype(np.float32),
+                             device=dev)
+    kw = dict(hops=15, max_hops=40, k=5, eval_gap=25, add_step=6,
+              tree_depth=4)
+    fresh = lambda: tbs.to_hop_state(st._replace(seen=st.seen.clone()))
+    spec = ops.table_spec(table)
+    assert spec[0] == mode
+    want = tref.fused_hop(fresh(), adj_pad, q, live_pad, *spec, tree, hf,
+                          hr, **kw)
+    before = fused_hop_cuda.launches
+    got = fused_hop_cuda(fresh(), adj_pad, q, live_pad, *spec, tree, hf, hr,
+                         **kw)
+    torch.cuda.synchronize()
+    assert fused_hop_cuda.launches == before + 1
+    for f in tref.HopState._fields:
+        a, b = getattr(want, f).cpu(), getattr(got, f).cpu()
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,k,d", [
+    (1, 1, 1, 18), (5, 31, 10, 18), (64, 5003, 32, 128), (70, 7, 12, 24),
+    (1000, 5000, 64, 128)])
+def test_cuda_topk_bit_identical(cuda_device, B, N, k, d):
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fused_topk_l2 import fused_topk_l2_cuda
+
+    dev = cuda_device
+    rng = np.random.default_rng(B + N)
+    x = torch.as_tensor(duplicated_rows(N, d, N), device=dev)
+    q = torch.as_tensor(rng.standard_normal((B, d)).astype(np.float32),
+                        device=dev)
+    q[0] = x[0]                                  # a zero-distance tie
+    want_d, want_i = tref.fused_topk_l2(q, x, k=k)
+    before = fused_topk_l2_cuda.launches
+    got_d, got_i = ops.fused_topk_l2(q, x, k=k)
+    torch.cuda.synchronize()
+    assert fused_topk_l2_cuda.launches == before + 1
+    assert torch.equal(got_i, want_i)
+    assert torch.equal(got_d.view(torch.int32), want_d.view(torch.int32))
+    if k > N:
+        assert bool((got_i[:, N:] == N).all())

@@ -74,7 +74,7 @@ def test_hop_matches_jax_reference(B, use_tree, use_live):
                           None if tree is None else tuple(map(J, tree)),
                           J(hf), J(hr), **kw)
     got = tref.fused_hop(port_state(hs), T(adj_pad), T(q), T(live_pad),
-                         "f32", T(x_pad),
+                         "f32", T(x_pad), None, None,
                          None if tree is None else tuple(map(T, tree)),
                          T(hf), T(hr), **kw)
     assert diverging_lanes(want, got) == [], "lanes diverge from JAX"

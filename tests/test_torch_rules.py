@@ -25,15 +25,42 @@ def test_dqf_runs_on_the_card_by_default():
     assert DQF(DQFConfig(), device="cpu").device.type == "cpu"
 
 
-def test_quantized_config_is_refused():
-    from repro_torch.core.types import QuantConfig
-    with pytest.raises(NotImplementedError):
-        DQF(DQFConfig(quant=QuantConfig(mode="sq8")), device="cpu")
+@pytest.mark.parametrize("mode", ["sq8", "pq"])
+def test_quantized_dqf_builds_and_searches_on_cpu(mode):
+    from repro_torch.core import QuantConfig, ZipfWorkload
+    from tests.conftest import make_clustered
+
+    x = make_clustered(n=400, d=16, clusters=8)
+    cfg = DQFConfig(knn_k=8, out_degree=8, index_ratio=0.05, k=5,
+                    hot_pool=8, full_pool=16, max_hops=40, fused=True,
+                    fused_hops=4, quant=QuantConfig(mode=mode, pq_m=4,
+                                                    pq_iters=3))
+    dqf = DQF(cfg, device="cpu").build(x)
+    assert dqf.quant.mode == mode and dqf.timings.quant_train > 0
+    assert dqf._quant_table().n == 400
+    wl = ZipfWorkload(x, seed=2)
+    dqf.warm(wl.sample(300))
+    dqf.fit_tree(wl.sample(64))
+    res = dqf.search(wl.sample(16))
+    assert res.ids.shape == (16, 5) and bool(torch.isfinite(res.dists).all())
+    assert int(res.ids.min()) >= 0 and int(res.ids.max()) < 400
+
+
+def test_bogus_quant_mode_raises():
+    from repro_torch.core import QuantConfig
+    from repro_torch.quant import build_quantizer
+
+    with pytest.raises(ValueError, match="none|sq8|pq"):
+        QuantConfig(mode="bogus")
+    with pytest.raises(ValueError, match="unknown quant mode"):
+        build_quantizer(torch.zeros(4, 2).numpy(),
+                        type("Q", (), {"mode": "bogus"})())
 
 
 def test_port_imports_no_jax_and_nothing_of_repro():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.convert,"
-            " repro_torch.kernels.ops, repro_torch.kernels.fused_hop;"
+            " repro_torch.kernels.ops, repro_torch.kernels.fused_hop,"
+            " repro_torch.kernels.fused_topk_l2, repro_torch.quant;"
             "bad = [m for m in sys.modules if m in ('jax', 'repro') or "
             "m.startswith(('jax.', 'repro.'))]; print(bad)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

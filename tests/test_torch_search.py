@@ -52,11 +52,11 @@ def queries(small_data):
 
 
 def assert_lanes_match(ref, port, fields=("dist_count", "hops",
-                                          "terminated_early")):
+                                          "terminated_early"), atol=0.0):
     B = np.asarray(ref.ids).shape[0]
     bad = ~(np.asarray(ref.ids) == port.ids.cpu().numpy()).all(axis=1)
     bad |= ~np.isclose(np.asarray(ref.dists), port.dists.cpu().numpy(),
-                       rtol=1e-5, atol=0).all(axis=1)
+                       rtol=1e-5, atol=atol).all(axis=1)
     for f in fields:
         bad |= (np.asarray(getattr(ref.stats, f))
                 != getattr(port.stats, f).cpu().numpy())

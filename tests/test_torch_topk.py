@@ -1,0 +1,195 @@
+"""Port of the brute-force top-k scorer and the mxu hot phase, against the
+JAX package.
+
+* ``repro_torch.kernels.ref.fused_topk_l2`` ≡ ``repro.kernels.ref
+  .fused_topk_l2`` on integer-valued data, where every sum is exact, so
+  ids and dists are equal, ties (duplicated rows) and k > N included.
+* On continuous data against ``fused_topk_l2_pallas(interpret=True)``, as
+  ``tests/test_kernels.py`` runs it: ids equal, dists within rtol 1e-5
+  (the port sums over d in index order, XLA in its own).
+* ``hot_mode="mxu"`` ``dynamic_search`` against the reference's on the
+  reference's own index: hot pools' ids equal; ids, counters and flags
+  per lane, at most 1% of lanes diverging through a near-tie, listed.
+  Result dists that come from the hot phase keep their expansion value,
+  whose rounding error scales with ``|q|² + |x|²`` and not with the
+  distance (a query next to a row has a tiny distance and a large
+  cancellation), so dists are held within rtol 1e-5 plus an atol of
+  1e-5 · max(|q|² + |x|²).
+* The port's mxu recall ≥ its graph recall − 0.02, as
+  ``tests/test_dqf_system.py`` holds the reference.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from repro.core.dynamic_search import dynamic_search as j_dynamic
+from repro.core.dynamic_search import hot_phase as j_hot
+from repro.kernels import ref as jref
+from repro.kernels.fused_scorer import fused_topk_l2_pallas
+from repro_torch.convert import dqf_from_arrays
+from repro_torch.core import DQF, DQFConfig, ZipfWorkload
+from repro_torch.core.dynamic_search import dynamic_search as t_dynamic
+from repro_torch.core.dynamic_search import hot_phase as t_hot
+from repro_torch.core.recall import ground_truth, recall_at_k
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+from tests.test_torch_cuda import duplicated_rows
+from tests.test_torch_search import (assert_lanes_match, port_cfg,  # noqa: F401
+                                     queries, saved)
+
+
+@pytest.mark.parametrize("B,N,k,d", [
+    (5, 40, 10, 24), (4, 7, 12, 24), (33, 100, 7, 8), (1, 1, 1, 18),
+    (64, 256, 32, 24), (3, 31, 64, 18)])
+def test_topk_matches_jax_reference_exactly(B, N, k, d):
+    rng = np.random.default_rng(N + k)
+    x = rng.integers(-3, 4, (N, d)).astype(np.float32)
+    if N > 3:
+        x[N // 2:N // 2 + N // 4] = x[:N // 4]           # exact ties
+    q = rng.integers(-3, 4, (B, d)).astype(np.float32)
+    wd, wi = jref.fused_topk_l2(q, x, k=k)
+    gd, gi = tref.fused_topk_l2(torch.as_tensor(q), torch.as_tensor(x), k=k)
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+    np.testing.assert_array_equal(gd.numpy(), np.asarray(wd))
+    assert gi.dtype == torch.int32 and gd.dtype == torch.float32
+    if k > N:
+        assert (gi.numpy()[:, N:] == N).all()
+        assert np.isinf(gd.numpy()[:, N:]).all()
+
+
+@pytest.mark.parametrize("B,N,k,bq,bn", [
+    (5, 40, 10, 8, 8), (33, 100, 7, 16, 32), (64, 256, 32, 32, 64),
+    (4, 7, 12, 8, 8)])
+def test_topk_matches_pallas_interpret(B, N, k, bq, bn):
+    rng = np.random.default_rng(B * N)
+    q = rng.standard_normal((B, 24)).astype(np.float32)
+    x = rng.standard_normal((N, 24)).astype(np.float32)
+    wd, wi = fused_topk_l2_pallas(q, x, k=k, bq=bq, bn=bn, interpret=True)
+    gd, gi = tops.fused_topk_l2(torch.as_tensor(q), torch.as_tensor(x), k=k)
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+    finite = np.isfinite(np.asarray(wd))
+    np.testing.assert_array_equal(finite, np.isfinite(gd.numpy()))
+    np.testing.assert_allclose(gd.numpy()[finite], np.asarray(wd)[finite],
+                               rtol=1e-5, atol=1e-3)
+
+
+def test_topk_chunks_give_one_sort_order(monkeypatch):
+    """The running merge over row chunks equals one stable sort."""
+    x = torch.as_tensor(duplicated_rows(300, 18, 3))
+    q = torch.as_tensor(np.random.default_rng(4).standard_normal((6, 18))
+                        .astype(np.float32))
+    q[0] = x[0]
+    d2 = tref.pairwise_l2(q, x)
+    order = torch.sort(d2, dim=1, stable=True).indices[:, :20]
+    monkeypatch.setattr(tref, "_CHUNK_ELEMS", 6 * 7)   # 7-row chunks
+    gd, gi = tref.fused_topk_l2(q, x, k=20)
+    assert torch.equal(gi, order.to(torch.int32))
+    assert torch.equal(gd, d2.gather(1, order))
+    assert gi[0, 0] == 0 and gi[0, 1] == 150          # the tie, smaller id
+
+
+def test_pairwise_l2_is_the_sequential_expansion():
+    rng = np.random.default_rng(6)
+    q = rng.standard_normal((3, 5)).astype(np.float32)
+    x = rng.standard_normal((4, 5)).astype(np.float32)
+    want = np.empty((3, 4), np.float32)
+    for b in range(3):
+        for i in range(4):
+            qq = xx = dot = np.float32(0)
+            for c in range(5):
+                qq = np.float32(qq + np.float32(q[b, c] * q[b, c]))
+                xx = np.float32(xx + np.float32(x[i, c] * x[i, c]))
+                dot = np.float32(dot + np.float32(q[b, c] * x[i, c]))
+            want[b, i] = np.float32(np.float32(qq + xx)
+                                    - np.float32(2 * dot))
+    got = tref.pairwise_l2(torch.as_tensor(q), torch.as_tensor(x))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def expansion_atol(q, x):
+    """Rounding scale of (|q|² + |x|²) − 2 q·x on these inputs."""
+    return 1e-5 * float((q * q).sum(1).max() + (x * x).sum(1).max())
+
+
+def test_mxu_hot_phase_matches_reference(built_dqf, saved, queries):
+    dqf, _ = built_dqf
+    port = dqf_from_arrays(saved, port_cfg(dqf.cfg), device="cpu")
+    hd = dqf.tenants.default.hot_tables(dqf.store)
+    th = port.hot_tables()
+    kw = dict(pool_size=dqf.cfg.hot_pool, max_hops=dqf.cfg.max_hops,
+              mode="mxu")
+    want, want_stats = j_hot(hd["x_hot_pad"], hd["adj_hot_pad"],
+                             hd["hot_entries"], jnp.asarray(queries), **kw)
+    got, got_stats = t_hot(th["x_hot_pad"], th["adj_hot_pad"],
+                           th["hot_entries"], torch.as_tensor(queries), **kw)
+    np.testing.assert_array_equal(got.ids.numpy(), np.asarray(want.ids))
+    np.testing.assert_allclose(
+        got.dists.numpy(), np.asarray(want.dists), rtol=1e-5,
+        atol=expansion_atol(queries, dqf.x[dqf.hot.ids]))
+    assert not got.expanded.any()
+    np.testing.assert_array_equal(got_stats.dist_count.numpy(),
+                                  np.asarray(want_stats.dist_count))
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("with_tree", [False, True])
+def test_mxu_dynamic_search_matches_reference(built_dqf, saved, queries,
+                                              fused, with_tree):
+    dqf, _ = built_dqf
+    port = dqf_from_arrays(saved, port_cfg(dqf.cfg), device="cpu")
+    c = dqf.cfg
+    kw = dict(k=c.k, hot_pool_size=c.hot_pool, full_pool_size=c.full_pool,
+              eval_gap=c.eval_gap, add_step=c.add_step,
+              tree_depth=c.tree_depth, max_hops=c.max_hops, hot_mode="mxu")
+    hd = dqf.tenants.default.hot_tables(dqf.store)
+    want, want_hot, _ = j_dynamic(
+        dqf._dev["x_pad"], dqf._dev["adj_pad"], hd["x_hot_pad"],
+        hd["adj_hot_pad"], hd["hot_ids_pad"], hd["hot_entries"],
+        dqf.tree.arrays if with_tree else None, jnp.asarray(queries),
+        live_pad=dqf._dev["live_pad"], **kw)
+    th = port.hot_tables()
+    got, got_hot, _ = t_dynamic(
+        port._dev["x_pad"], port._dev["adj_pad"], th["x_hot_pad"],
+        th["adj_hot_pad"], th["hot_ids_pad"], th["hot_entries"],
+        port.tree.arrays if with_tree else None, torch.as_tensor(queries),
+        live_pad=port._dev["live_pad"], fused=fused, fused_hops=4, **kw)
+    assert_lanes_match(want, got, atol=expansion_atol(queries, dqf.x))
+    np.testing.assert_array_equal(np.asarray(want_hot.dist_count),
+                                  got_hot.dist_count.numpy())
+    assert (got_hot.dist_count.numpy() == dqf.hot.size).all()
+
+
+def test_mxu_search_through_dqf_matches_reference(built_dqf, saved, queries):
+    dqf, _ = built_dqf
+    cfg = dataclasses.replace(dqf.cfg, hot_mode="mxu")
+    port = dqf_from_arrays(saved, port_cfg(cfg, fused=True), device="cpu")
+    saved_cfg = dqf.cfg
+    dqf.cfg = cfg
+    try:
+        want = dqf.search(queries, record=False)
+    finally:
+        dqf.cfg = saved_cfg
+    assert_lanes_match(want, port.search(queries, record=False),
+                       atol=expansion_atol(queries, dqf.x))
+
+
+def test_mxu_hot_mode_matches_graph_recall(small_data):
+    """Port of tests/test_dqf_system.py::test_mxu_hot_mode_matches_graph_recall."""
+    cfg = DQFConfig(knn_k=12, out_degree=12, index_ratio=0.03, k=10,
+                    hot_pool=16, full_pool=32, max_hops=120, fused=True)
+    wl = ZipfWorkload(small_data, seed=5)
+    dqf = DQF(cfg, device="cpu").build(small_data)
+    _, t = wl.sample(3000, with_targets=True)
+    dqf.counter.record(t)
+    dqf.rebuild_hot()
+    q = wl.sample(96)
+    gt = ground_truth(small_data, q, 10)
+    r_graph = recall_at_k(dqf.search_dual_beam(q).ids.numpy(), gt)
+    dqf.cfg = dataclasses.replace(cfg, hot_mode="mxu")
+    r_mxu = recall_at_k(dqf.search_dual_beam(q).ids.numpy(), gt)
+    assert r_mxu >= r_graph - 0.02
