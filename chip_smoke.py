@@ -183,23 +183,12 @@ def phase_synthetic(dev):
 
 
 # ----------------------------------------------------------------- phase 3b
-def quantize(x: np.ndarray, mode: str, m: int = 8, k: int = 256,
-             iters: int = 4):
-    """A QuantState over ``x`` from the port's own trainers."""
-    from repro_torch.quant import (QuantState, pq_encode, sq_encode,
-                                   train_pq, train_sq)
-
-    if mode == "sq8":
-        cb = train_sq(x)
-        return QuantState("sq8", sq_encode(x, cb), sq=cb)
-    cb = train_pq(x, m=m, k=k, iters=iters, seed=0)
-    return QuantState("pq", pq_encode(x, cb), pq=cb)
-
-
 def phase_quant_synthetic(dev):
+    from repro_torch.core import QuantConfig
     from repro_torch.core import beam_search as bs
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.fused_hop import fused_hop_cuda
+    from repro_torch.quant import build_quantizer
 
     rng = np.random.default_rng(8)
     small = dict(n=600, d=18, R=10, L=16, dead_every=13,
@@ -210,17 +199,21 @@ def phase_quant_synthetic(dev):
                  sentinel_rows=(3, 50), kw=dict(
                      hops=24, max_hops=64, k=10, eval_gap=50, add_step=0,
                      tree_depth=6), scale=200.0)
-    tables = [("sq8", small, None), ("sq8", large, None),
-              ("pq", small, (2, 64)), ("pq", small, (6, 256)),
-              ("pq", large, (8, 64)), ("pq", large, (8, 256))]
+    pq = lambda m, bits: QuantConfig(mode="pq", pq_m=m, pq_bits=bits,
+                                     pq_iters=4)
+    tables = [(small, QuantConfig(mode="sq8")),
+              (large, QuantConfig(mode="sq8")),
+              (small, pq(2, 6)), (small, pq(6, 8)),
+              (large, pq(8, 6)), (large, pq(8, 8))]
     saved = fused_hop_cuda.launches
     n_cases = 0
-    for i, (mode, w, mk) in enumerate(tables):
+    for i, (w, qcfg) in enumerate(tables):
         x_pad, adj_pad, live = synthetic_world(
             w["n"], w["d"], w["R"], 100 + i, w["dead_every"],
             w["sentinel_rows"], dev)
-        m, k = mk if mk else (0, 0)
-        state = quantize(x_pad[:-1].cpu().numpy(), mode, m, k)
+        mode = qcfg.mode
+        m, k = (qcfg.pq_m, 2 ** qcfg.pq_bits) if mode == "pq" else (0, 0)
+        state = build_quantizer(x_pad[:-1].cpu().numpy(), qcfg)
         table = state.device_table(device=dev)
         for B in (1, 64, 1000):
             q = torch.as_tensor(rng.standard_normal((B, w["d"]))
@@ -264,25 +257,17 @@ def phase_quant_synthetic(dev):
 
 
 # ----------------------------------------------------------------- phase 3c
-def duplicated_rows(N, d, seed, dev):
-    """Rows with exact duplicates, so equal distances occur."""
-    rng = np.random.default_rng(seed)
-    x = rng.standard_normal((N, d)).astype(np.float32)
-    if N > 3:
-        x[N // 2:N // 2 + N // 4] = x[:N // 4]
-    return torch.as_tensor(x, device=dev)
-
-
 def phase_topk_synthetic(dev):
     from repro_torch.kernels import ref
     from repro_torch.kernels.fused_topk_l2 import fused_topk_l2_cuda
+    from tests.test_torch_cuda import duplicated_rows
 
     rng = np.random.default_rng(9)
     saved = fused_topk_l2_cuda.launches
     n_cases, max_err = 0, 0.0
     for d in (18, 128):
         for N in (1, 31, 5000, 5003):
-            x = duplicated_rows(N, d, N + d, dev)
+            x = torch.as_tensor(duplicated_rows(N, d, N + d), device=dev)
             for B in (1, 64, 1000):
                 q = torch.as_tensor(rng.standard_normal((B, d))
                                     .astype(np.float32), device=dev)
@@ -540,10 +525,12 @@ def time_hop(dqf, q, launches, label):
     R, d = adj_pad.shape[1], qt.shape[1]
     rows = int((got.dist_count - hs0.dist_count).sum())
     hops = int((got.hops - hs0.hops).sum())
-    state = B * L * (4 + 4 + 1) * 2 + B * 7 * 4 * 2 + B * d * 4 + B * 8
+    state = B * L * (4 + 4 + 1) * 2 + B * 7 * 4 * 2 + B * 8
     row_bytes = {"f32": d * 4, "sq8": d, "pq": spec[1].shape[1]}[mode]
-    extra = {"f32": 0, "sq8": 2 * d * 4,
-             "pq": 0 if mode != "pq" else spec[2].numel() * 4}[mode]
+    if mode == "pq":                  # the LUTs; pq mode reads no queries
+        extra = spec[2].numel() * 4
+    else:                             # the queries, and sq8's scale and zero
+        extra = B * d * 4 + (2 * d * 4 if mode == "sq8" else 0)
     moved = rows * row_bytes + hops * R * (4 + 1 + 1 + 1) + state + extra
     flops = rows * {"f32": 3 * d, "sq8": 5 * d, "pq": row_bytes}[mode]
     bytes_ms = moved / HBM_BYTES_PER_S * 1e3

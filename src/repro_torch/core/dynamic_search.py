@@ -95,6 +95,8 @@ def _exact_rerank(x_pad, queries, pool: PoolState, *, k: int,
 
 def hot_phase(x_hot_pad, adj_hot_pad, hot_entries, queries, *, pool_size,
               max_hops, mode: str = "graph", use_kernel: bool = False):
+    """Phase 1 by ``mode`` ("graph" or "mxu").  ``use_kernel`` is ignored:
+    the tensors' device picks the scorer."""
     if mode == "graph":
         return hot_phase_graph(x_hot_pad, adj_hot_pad, hot_entries, queries,
                                pool_size=pool_size, max_hops=max_hops)
@@ -210,7 +212,8 @@ def dynamic_search(
     (the hot phase stays float32) and, with ``rerank_k > 0``, the pool's
     head is re-scored exactly from ``x_pad`` before the final top-k.
     ``fused=True`` runs the full phase through the fused wave-hop kernel,
-    with bit-identical results.
+    with bit-identical results.  ``use_kernel`` is ignored: the tensors'
+    device picks kernel or plain version.
     """
     n = bs.table_n(x_pad)
     hot_pool, hot_stats = hot_phase(

@@ -33,20 +33,17 @@ def fused_topk_l2(q: torch.Tensor, x: torch.Tensor, *, k: int):
 
 def table_spec(table):
     """Unpack a score table into the fused-hop kernel's
-    ``(mode, t0, t1, t2)``: a float32 ``x_pad``, an ``SQTable`` or a
-    per-search ``PQView`` (``PQTable.with_queries``' result)."""
+    ``(mode, t0, t1, t2)``: a float32 ``x_pad``, or a device table that
+    gives its own (``SQTable``, ``PQView``: ``spec()``)."""
     if isinstance(table, torch.Tensor):
         if table.dtype != torch.float32 or table.dim() != 2:
             raise TypeError("fused hop needs a (n+1, d) float32 row table")
         return "f32", table, None, None
-    from repro_torch.quant.types import PQView, SQTable  # quant sits above
-    if isinstance(table, SQTable):
-        return "sq8", table.codes, table.scale, table.zero
-    if isinstance(table, PQView):
-        return "pq", table.codes, table.luts, None
-    raise TypeError(
-        f"fused hop needs a device-resident score table, got "
-        f"{type(table).__name__}")
+    if not callable(getattr(table, "spec", None)):
+        raise TypeError(
+            f"fused hop needs a device-resident score table, got "
+            f"{type(table).__name__}")
+    return table.spec()
 
 
 def fused_hop(hs: ref.HopState, adj_pad, queries, live_pad, table,

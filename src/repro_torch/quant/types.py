@@ -13,6 +13,7 @@ Two representations live side by side:
       table.n                        # number of real rows (sentinel = n)
       table.with_queries(q)          # per-search view (PQ builds its LUTs)
       view.gather_score(q, cols)     # (B, C) approx squared-L2 distances
+      view.spec()                    # the fused hop's (mode, t0, t1, t2)
 
   ``repro_torch.core.beam_search`` dispatches on this protocol: a plain
   tensor takes the exact float32 path, anything else scores itself.  The
@@ -76,6 +77,10 @@ class SQTable(NamedTuple):
     def with_queries(self, queries: torch.Tensor) -> "SQTable":
         return self
 
+    def spec(self):
+        """The fused hop's ``(mode, t0, t1, t2)``."""
+        return "sq8", self.codes, self.scale, self.zero
+
     def gather_score(self, queries: torch.Tensor,
                      cols: torch.Tensor) -> torch.Tensor:
         """(B, C) squared L2 against the decoded rows ``cols``."""
@@ -94,6 +99,10 @@ class PQView(NamedTuple):
 
     def with_queries(self, queries: torch.Tensor) -> "PQView":
         return self
+
+    def spec(self):
+        """The fused hop's ``(mode, t0, t1, t2)``."""
+        return "pq", self.codes, self.luts, None
 
     def gather_score(self, queries: torch.Tensor,
                      cols: torch.Tensor) -> torch.Tensor:

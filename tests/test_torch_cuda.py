@@ -9,7 +9,7 @@ Imports nothing of JAX, so it runs where only the port is installed:
 
 Without a CUDA device every test here skips (the kernels have no CPU
 mode).  The synthetic worlds are shared with ``tests/test_torch_fused_hop.py``
-and ``tests/test_torch_quant.py``.
+and ``tests/test_torch_quant.py``; ``duplicated_rows`` with ``chip_smoke.py``.
 """
 
 import numpy as np
@@ -51,17 +51,13 @@ def make_tree(seed=1, T=15):
 def quant_table(x_pad, mode, queries, *, m=6, k=64):
     """A padded score table over the world's rows, trained by the port's
     own quantizers (``x_pad`` numpy, the table on ``queries``' device)."""
-    from repro_torch.quant import (PQTable, QuantState, sq_encode, pq_encode,
-                                   train_pq, train_sq)
+    from repro_torch.core import QuantConfig
+    from repro_torch.quant import PQTable, build_quantizer
 
-    x = x_pad[:-1]
-    if mode == "sq8":
-        cb = train_sq(x)
-        state = QuantState("sq8", sq_encode(x, cb), sq=cb)
-    else:
-        cb = train_pq(x, m=m, k=k, iters=4, seed=0)
-        state = QuantState("pq", pq_encode(x, cb), pq=cb)
-    table = state.device_table(device=queries.device)
+    qcfg = QuantConfig(mode=mode, pq_m=m, pq_bits=k.bit_length() - 1,
+                       pq_iters=4)
+    table = build_quantizer(x_pad[:-1], qcfg).device_table(
+        device=queries.device)
     if isinstance(table, PQTable):
         return table.with_queries(queries)
     return table
