@@ -17,6 +17,12 @@ Phases, in order; any failure exits non-zero:
 3c. the brute-force top-k kernel against its plain version (B in
    {1, 64, 1000}, N in {1, 31, 5000, 5003}, k in {1, 10, 32, 64}, d in
    {18, 128}, duplicated rows so ties occur): dists and ids bit-identical;
+3d. the paged mode of the fused hop against its plain version: f32, sq8
+   and pq; tree and liveness on and off; page_cols in {64, 256}; B in
+   {1, 8, 256, 1000}; page tables drawn shuffled from a pool larger than
+   needed, random bytes in unreferenced pages and in the tails, padding
+   lanes aliasing one scratch row with identical inert state, and a wave
+   that runs dry: every HopState field and the whole pool bit-identical;
 4. the graph main path at one million rows x 128: DQF build → warm →
    fit_tree → 4 searches of 1024 queries, fused kernel on, with build, warm
    and fit times, per-batch search time and QPS, recall@10, mean
@@ -33,7 +39,20 @@ Phases, in order; any failure exits non-zero:
 8. the quantized main path, sq8 then pq: quantizer trained on the host,
    phase 4's graph, hot index and counter carried over under the reference
    checkpoint keys, fit_tree on the codes, 4 searches, fused against
-   composed on batch 0 bit for bit, the phase split and the hop's timing.
+   composed on batch 0 bit for bit, the phase split and the hop's timing;
+9. serving on phase 4's index, tree and hot index (the Alg-2 trigger out
+   of reach): ``WaveEngine(wave_size=256)`` and
+   ``PagedWaveEngine(capacity=256, page_cols=256)``, ``tick_hops=8``,
+   fused, serve phase 4's 4096 queries submitted at once, then as 8
+   open-loop bursts of 512 with ``step()`` calls between them, then a
+   two-tenant mix (tenant "b" warmed on a Zipf stream of another seed,
+   2048 queries of each tenant interleaved).  Per query the paged
+   engine's ids, dists and hops equal the fixed engine's bit for bit,
+   with equal tick counts; QPS, per-query p99 and queue-wait p99, ticks,
+   mean hops, recall@10, launches, peak memory and page-pool occupancy
+   per engine and run; then one ``fused_hop_paged`` launch at the
+   engine's shapes timed beside the dense hop, the plain version and the
+   bound.
 
 Recall guards against breakage, not a target: 0.5 for the float32 paths,
 half of phase 4's recall for the quantized ones.  Phases 7 and 8 search
@@ -288,6 +307,102 @@ def phase_topk_synthetic(dev):
         log(f"  d={d}: N in (1, 31, 5000, 5003) x B in (1, 64, 1000) x "
             f"k in (1, 10, 32, 64) bit-identical")
     fused_topk_l2_cuda.launches = saved
+    return n_cases, max_err
+
+
+# ----------------------------------------------------------------- phase 3d
+def phase_paged_synthetic(dev):
+    from repro_torch.core import QuantConfig
+    from repro_torch.core import beam_search as bs
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.fused_hop import fused_hop_paged_cuda
+    from repro_torch.quant import build_quantizer
+    from tests.test_torch_cuda import paged_case
+
+    rng = np.random.default_rng(10)
+    small = dict(n=600, d=18, R=10, L=16, dead_every=13,
+                 sentinel_rows=(3, 50), kw=dict(
+                     hops=15, max_hops=40, k=5, eval_gap=25, add_step=6,
+                     tree_depth=4), scale=80.0,
+                 qcfg={"sq8": QuantConfig(mode="sq8"),
+                       "pq": QuantConfig(mode="pq", pq_m=6, pq_bits=6,
+                                         pq_iters=4)},
+                 Bs=(1, 8, 256, 1000), flags=(False, True))
+    large = dict(n=50_000, d=128, R=32, L=64, dead_every=13,
+                 sentinel_rows=(3, 50), kw=dict(
+                     hops=24, max_hops=64, k=10, eval_gap=50, add_step=0,
+                     tree_depth=6), scale=200.0,
+                 qcfg={"sq8": QuantConfig(mode="sq8"),
+                       "pq": QuantConfig(mode="pq", pq_m=8, pq_bits=8,
+                                         pq_iters=4)},
+                 Bs=(256, 1000), flags=(True,))
+    dry = dict(n=40, d=18, R=4, L=8, dead_every=0, sentinel_rows=(1,),
+               kw=dict(hops=64, max_hops=512), qcfg={}, Bs=(9,),
+               flags=(False,))
+    saved = fused_hop_paged_cuda.launches
+    n_cases, max_err = 0, 0.0
+    for wi, w in enumerate((small, large, dry)):
+        x_pad, adj_pad, live = synthetic_world(
+            w["n"], w["d"], w["R"], 200 + wi, w["dead_every"],
+            w["sentinel_rows"], dev)
+        tables = {"f32": x_pad}
+        for mode, qcfg in w["qcfg"].items():
+            tables[mode] = build_quantizer(x_pad[:-1].cpu().numpy(),
+                                           qcfg).device_table(device=dev)
+        entries = torch.arange(0, w["n"], max(1, w["n"] // 6),
+                               dtype=torch.int32, device=dev)[:6]
+        for mode, table in tables.items():
+            for B in w["Bs"]:
+                q = torch.as_tensor(rng.standard_normal((B, w["d"]))
+                                    .astype(np.float32), device=dev)
+                spec = ops.table_spec(bs.as_view(table, q))
+                for pc in (64, 256):
+                    for use_tree in w["flags"]:
+                        for use_live in w["flags"]:
+                            live_pad = live if use_live else None
+                            hs, pt = paged_case(bs.to_hop_state(
+                                bs.init_state(x_pad, q, entries, w["L"],
+                                              live_pad)), pc,
+                                0 if B == 1 else max(1, B // 8), rng)
+                            tree = hf = hr = None
+                            if use_tree:
+                                tree = synthetic_tree(wi, 31, dev,
+                                                      w["scale"])
+                                hf = torch.as_tensor(rng.uniform(1, 6, B)
+                                                     .astype(np.float32),
+                                                     device=dev)
+                                hr = torch.as_tensor(
+                                    rng.uniform(0.5, 1.5, B)
+                                    .astype(np.float32), device=dev)
+                            args = (adj_pad, q, live_pad, *spec, tree, hf,
+                                    hr)
+                            kw = dict(page_cols=pc, **w["kw"])
+                            want = ref.fused_hop_paged(clone_state(hs), pt,
+                                                       *args, **kw)
+                            got = fused_hop_paged_cuda(clone_state(hs), pt,
+                                                       *args, **kw)
+                            torch.cuda.synchronize()
+                            bad = [f for f in ref.HopState._fields
+                                   if not bits_equal(getattr(want, f),
+                                                     getattr(got, f))]
+                            tag = (f"{mode} n={w['n']} d={w['d']} B={B} "
+                                   f"page_cols={pc} tree={use_tree} "
+                                   f"live={use_live}")
+                            if bad:
+                                raise SystemExit(f"paged hop {tag}: "
+                                                 f"fields differ: {bad}")
+                            fin = want.dists < 1e30
+                            if bool(fin.any()):
+                                max_err = max(max_err, float(
+                                    (want.dists[fin] - got.dists[fin])
+                                    .abs().max()))
+                            if w is dry and bool(got.active.any()):
+                                raise SystemExit("dry paged wave: lanes "
+                                                 "still active")
+                            n_cases += 1
+            log(f"  {mode} n={w['n']} d={w['d']}: B in {w['Bs']} x "
+                f"page_cols in (64, 256) bit-identical, pools included")
+    fused_hop_paged_cuda.launches = saved
     return n_cases, max_err
 
 
@@ -690,6 +805,262 @@ def phase_quant(ctx, mode, dev):
     return dqf, launches, summary
 
 
+# ------------------------------------------------------------------ phase 9
+def serve(eng, plan, counters, k):
+    """Drive ``eng`` through ``plan`` — a list of (tenant, queries,
+    steps after submitting) — then drain it, one ``step()`` at a time.
+    Every counter in ``counters`` is set to 0 just before and read just
+    after.  Returns (rids, results, launches, summary)."""
+    for c in counters:
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    occ = []
+    rids = []
+    t0 = time.perf_counter()
+    def step():
+        eng.step()
+        occ.append(eng._collect_metrics()["engine_occupancy_ratio"])
+
+    for tenant, q, steps in plan:
+        rids += eng.submit(q, tenant=tenant)
+        for _ in range(steps):
+            step()
+    while eng.queue or eng._any_live():
+        step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = [c.launches for c in counters]
+    split = {}
+    for ev in eng.timeline.events():
+        split[ev["name"]] = split.get(ev["name"], 0.0) + ev["dur"] / 1e3
+    res = [eng._results[r] for r in rids]
+    ids = np.stack([r["ids"] for r in res])
+    if ids.shape != (len(rids), k) or any(r["status"] != "ok"
+                                          for r in res):
+        raise SystemExit("serving output malformed (shape or status)")
+    st = eng.stats
+    summary = dict(qps=st.completed / wall, p99_ms=st.p99_ms(),
+                   queue_wait_p99_ms=st.queue_wait_p99_ms(),
+                   ticks=st.ticks, mean_hops=st.total_hops / st.completed,
+                   wall_s=wall, peak_gib=torch.cuda.max_memory_allocated()
+                   / 2**30, occupancy=float(np.mean(occ)), split_ms=split)
+    return rids, res, launches, summary
+
+
+def compare_serving(ra, rb, what, ticks=None):
+    """Per query ids, dists and hops bit for bit; ``ticks``, a pair, must
+    be equal too."""
+    bad = [i for i, (a, b) in enumerate(zip(ra, rb))
+           if not (np.array_equal(a["ids"], b["ids"])
+                   and np.array_equal(a["dists"].view(np.int32),
+                                      b["dists"].view(np.int32))
+                   and a["hops"] == b["hops"])]
+    if bad:
+        raise SystemExit(f"{what}: {len(bad)} queries differ, first "
+                         f"{bad[:10]}")
+    if ticks is not None and ticks[0] != ticks[1]:
+        raise SystemExit(f"{what}: ticks differ {ticks}")
+    log(f"  {what}: {len(ra)} queries, ids, dists and hops bit-identical"
+        + (f", {ticks[0]} ticks each" if ticks is not None else ""))
+
+
+def phase_serving(ctx, dev, seed):
+    """Phase 9: both engines on phase 4's index, tree and hot index."""
+    from repro_torch.convert import dqf_from_arrays
+    from repro_torch.core import ZipfWorkload
+    from repro_torch.core.recall import ground_truth, recall_at_k
+    from repro_torch.kernels.fused_hop import (fused_hop_cuda,
+                                               fused_hop_paged_cuda)
+    from repro_torch.obs import ObsConfig
+    from repro_torch.serving.engine import WaveEngine
+    from repro_torch.serving.paged_engine import PagedWaveEngine
+
+    cfg = dataclasses.replace(ctx["cfg"], n_query_trigger=10 ** 9)
+    dqf = dqf_from_arrays(reference_arrays(ctx["dqf"]), cfg, device=dev)
+    dqf.tree = ctx["dqf"].tree
+    t0 = time.perf_counter()
+    qb = ZipfWorkload(ctx["x"], seed=seed + 1)
+    dqf.warm(qb.sample(4096), tenant="b")
+    torch.cuda.synchronize()
+    log(f"  tenant b warmed in {time.perf_counter() - t0:.3f} s (hot index "
+        f"{dqf.tenants.get('b').hot.size} rows; the trigger is out of "
+        f"reach, so neither hot index changes while serving)")
+    queries = np.concatenate(ctx["batches"])
+    gt = ctx["gt"]
+    b_q = qb.sample(2048)
+    b_gt = ground_truth(ctx["x"], b_q, 10, device=dev)
+    counters = [fused_hop_cuda, fused_hop_paged_cuda]
+    # the timeline's spans give each run's split (a span ends after a
+    # device sync, so "tick.launch" covers the kernel)
+    obs = ObsConfig(timeline=True)
+    engines = (("fixed", lambda: WaveEngine(dqf, wave_size=256,
+                                            tick_hops=8, obs=obs)),
+               ("paged", lambda: PagedWaveEngine(dqf, capacity=256,
+                                                 tick_hops=8,
+                                                 page_cols=256, obs=obs)))
+    closed = [("default", queries, 0)]
+    bursts = [("default", queries[i:i + 512], 4)
+              for i in range(0, 4096, 512)]
+    mixed = []
+    for i in range(0, 2048, 64):
+        mixed += [("default", queries[i:i + 64], 0),
+                  ("b", b_q[i:i + 64], 0)]
+    mixed_gt = np.concatenate([np.concatenate([gt[i:i + 64],
+                                               b_gt[i:i + 64]])
+                               for i in range(0, 2048, 64)])
+    runs = (("closed loop, 4096 at once", closed, gt),
+            ("open loop, 8 bursts of 512, 4 steps apart", bursts, gt),
+            ("two tenants, 2048 each, interleaved by 64", mixed, mixed_gt))
+    out = {}
+    for title, plan, want_gt in runs:
+        got = {}
+        for name, make in engines:
+            eng = make()
+            rids, res, launches, summ = serve(eng, plan, counters,
+                                              dqf.cfg.k)
+            ids = np.stack([r["ids"] for r in res])
+            summ["recall"] = recall_at_k(ids, want_gt)
+            summ["launches"] = dict(zip(("fused_hop", "fused_hop_paged"),
+                                        launches))
+            if name == "paged":
+                pool = eng.pagepool
+                summ["pool"] = (pool.n_pages, pool.pages_per_lane,
+                                pool.n_pages * pool.page_cols)
+            log(f"  {title}, {name}: QPS {summ['qps']:.1f}, p99 "
+                f"{summ['p99_ms']:.3f} ms, queue-wait p99 "
+                f"{summ['queue_wait_p99_ms']:.3f} ms, ticks "
+                f"{summ['ticks']}, mean hops {summ['mean_hops']:.3f}, "
+                f"recall@10 {summ['recall']:.4f}, launches fused_hop "
+                f"{launches[0]} fused_hop_paged {launches[1]}, peak "
+                f"{summ['peak_gib']:.3f} GiB, mean occupancy "
+                f"{summ['occupancy']:.4f}"
+                + (f", pool {summ['pool'][0]} pages x "
+                   f"{eng.page_cols} B ({summ['pool'][1]} a lane, "
+                   f"{summ['pool'][2]} bytes)" if name == "paged" else ""))
+            sp = summ["split_ms"]
+            log(f"    split, ms summed over the run's "
+                f"{summ['wall_s'] * 1e3:.1f}: ticks "
+                f"{sp.get('tick', 0):.1f} = launch "
+                f"{sp.get('tick.launch', 0):.1f} + retire "
+                f"{sp.get('tick.retire', 0):.1f} (pool free "
+                f"{sp.get('retire.free', 0):.1f}) + refill "
+                f"{sp.get('tick.refill', 0):.1f} (hot phase and seed "
+                f"{sp.get('refill.hot_phase', 0):.1f}, pool alloc "
+                f"{sp.get('refill.alloc', 0):.1f}) + housekeeping "
+                f"{sp.get('tick.housekeeping', 0):.1f}")
+            if summ["recall"] < 0.5:
+                raise SystemExit(f"{title}, {name}: recall@10 "
+                                 f"{summ['recall']:.4f} is below 0.5")
+            if (launches[0] > 0) != (name == "fixed") \
+                    or (launches[1] > 0) != (name == "paged"):
+                raise SystemExit(f"{title}, {name}: launches (fused_hop, "
+                                 f"fused_hop_paged) = {launches}")
+            got[name] = (res, summ)
+            del eng
+            torch.cuda.empty_cache()
+        compare_serving(got["fixed"][0], got["paged"][0],
+                        f"{title}: paged vs fixed",
+                        (got["fixed"][1]["ticks"], got["paged"][1]["ticks"]))
+        out[title] = got
+    compare_serving(out[runs[0][0]]["paged"][0], out[runs[1][0]]["paged"][0],
+                    "open loop vs closed loop, paged")
+    return dqf, out
+
+
+def time_paged_hop(dqf, q, paged_launches, syn_err):
+    """One ``fused_hop_paged`` launch at the paged engine's shapes (a
+    256-lane bucket, pages of 256 from the engine's allocator, 8 hops)
+    beside the dense ``fused_hop`` at the same B, the plain paged version
+    and the bound."""
+    from repro_torch.core import beam_search as bs
+    from repro_torch.core.dynamic_search import _seed_full_state, hot_phase
+    from repro_torch.core.features import hot_features
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fused_hop import (fused_hop_cuda,
+                                               fused_hop_paged_cuda)
+    from repro_torch.serving.paged import PagePool
+
+    c = dqf.cfg
+    B, pc = 256, 256
+    qt = dqf._queries(q[:B])
+    hd = dqf.hot_tables()
+    x_pad, adj_pad, live = (dqf._dev["x_pad"], dqf._dev["adj_pad"],
+                            dqf._dev["live_pad"])
+    hot_pool, _ = hot_phase(hd["x_hot_pad"], hd["adj_hot_pad"],
+                            hd["hot_entries"], qt, pool_size=c.hot_pool,
+                            max_hops=c.max_hops, mode=c.hot_mode)
+    hot = hot_features(hot_pool, c.k)
+    hs0 = bs.to_hop_state(_seed_full_state(hot_pool, hd["hot_ids_pad"],
+                                           x_pad.shape[0] - 1, c.full_pool,
+                                           live))
+    n1 = adj_pad.shape[0]
+    alloc = PagePool(B, n1 - 1, page_cols=pc)
+    alloc.free(alloc.alloc(B // 2))         # recycled pages: shuffled order
+    pt = torch.as_tensor(alloc.page_table[alloc.alloc(B)], device=qt.device)
+    ppl = pt.shape[1]
+    pool0 = torch.zeros((alloc.n_pages, pc), dtype=torch.bool,
+                        device=qt.device)
+    pool0[pt.long()] = torch.nn.functional.pad(
+        hs0.seen, (0, ppl * pc - n1)).reshape(B, ppl, pc)
+    hp = hs0._replace(seen=pool0.clone())
+    seen0 = hs0.seen.clone()
+    hf, hr = hot.first.contiguous(), hot.first_div_kth.contiguous()
+    kw = dict(hops=c.fused_hops, max_hops=c.max_hops, k=c.k,
+              eval_gap=c.eval_gap, add_step=0, tree_depth=c.tree_depth)
+    args = (adj_pad, qt, live, "f32", x_pad, None, None, dqf.tree.arrays, hf,
+            hr)
+    saved = fused_hop_cuda.launches, fused_hop_paged_cuda.launches
+    reset_p = lambda: hp.seen.copy_(pool0)
+    reset_d = lambda: hs0.seen.copy_(seen0)
+    paged = lambda: fused_hop_paged_cuda(hp, pt, *args, page_cols=pc, **kw)
+    dense = lambda: fused_hop_cuda(hs0, *args, **kw)
+    for _ in range(3):
+        reset_p()
+        paged()
+        reset_d()
+        dense()
+    ms, got = _event_ms(paged, 20, reset_p)
+    dense_ms, _ = _event_ms(dense, 20, reset_d)
+    fused_hop_cuda.launches, fused_hop_paged_cuda.launches = saved
+    pool_kernel = hp.seen.clone()
+    reset_p()
+    ref.fused_hop_paged(hp, pt, *args, page_cols=pc, **kw)
+    plain_ms, want = _event_ms(lambda: ref.fused_hop_paged(
+        hp, pt, *args, page_cols=pc, **kw), 5, reset_p)
+    bad = [f for f in ref.HopState._fields if f != "seen"
+           and not bits_equal(getattr(want, f), getattr(got, f))]
+    if not torch.equal(hp.seen, pool_kernel):
+        bad.append("pool")
+    if bad:
+        raise SystemExit(f"timed paged launch differs from plain version: "
+                         f"{bad}")
+    err = max(syn_err, float((want.dists - got.dists).abs().max()))
+    L, R, d = hs0.ids.shape[1], adj_pad.shape[1], qt.shape[1]
+    rows = int((got.dist_count - hs0.dist_count).sum())
+    hops = int((got.hops - hs0.hops).sum())
+    state = B * L * (4 + 4 + 1) * 2 + B * 7 * 4 * 2 + B * 8
+    tail = ppl * pc - n1
+    moved = (rows * d * 4 + hops * R * (4 + 1 + 1 + 1 + 4) + state
+             + B * d * 4 + B * tail)
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = rows * 3 * d / FP32_FLOPS * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    log(f"  fused_hop_paged f32 at B={B} L={L} R={R} d={d} page_cols={pc} "
+        f"hops={c.fused_hops}: {ms:.4f} ms/launch, dense fused_hop "
+        f"{dense_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.5f} "
+        f"ms ({moved} bytes, {rows} rows scored, {hops} lane-hops), "
+        f"{bound_ms / ms:.4f} of bound")
+    return {"name": "fused_hop_paged", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/fused_hop.cu",
+            "replaces": "src/repro/kernels/fused_hop.py:431",
+            "launches": paged_launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None,
+            "library_note": "no single PyTorch call computes a graph hop",
+            "dense_ms": dense_ms, "bound_share": bound_ms / ms}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -740,6 +1111,9 @@ def main() -> int:
     phase("phase 3c: fused_topk_l2 kernel vs plain version")
     n_topk, topk_err = phase_topk_synthetic(dev)
     log(f"  {n_topk} cases bit-identical")
+    phase("phase 3d: fused_hop paged mode vs plain version")
+    n_paged, paged_err = phase_paged_synthetic(dev)
+    log(f"  {n_paged} cases bit-identical")
 
     phase(f"phase 4: graph main path n={N} d=128")
     ctx = phase_main(dev, N, args.seed)
@@ -763,6 +1137,13 @@ def main() -> int:
         del qdqf
         torch.cuda.empty_cache()
     entries.append(topk)
+
+    phase("phase 9: serving, fixed and paged engines, on phase 4's index")
+    sdqf, served = phase_serving(ctx, dev, args.seed)
+    paged_launches = served["closed loop, 4096 at once"]["paged"][1][
+        "launches"]["fused_hop_paged"]
+    entries.append(time_paged_hop(sdqf, q0, paged_launches, paged_err))
+    del sdqf
 
     phase("done")
     log(f"  total {time.perf_counter() - t_all:.1f} s")

@@ -11,6 +11,12 @@ sentinel ``n``; ``x_pad`` has an extra huge-valued row ``n``; ``adj_pad``
 has an extra row ``n`` of sentinels, so expanding the sentinel is a no-op.
 The ``seen`` bitmap of a :class:`BeamState` is updated in place by
 :func:`expand_step` and the fused loop.
+
+Tables may be shared ``(n+1, ·)``, per lane ``(B, n+1, ·)``, or a
+:class:`LaneTable` — lane b reads block ``tenant_idx[b]`` of a stacked
+``(T, n+1, ·)`` table without the per-lane copy ever being made (the
+stacked multi-tenant hot phase); entries may be shared ``(E,)`` or per
+lane ``(B, E)``.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ __all__ = [
     "BeamState", "init_state", "expand_step", "beam_loop", "beam_search",
     "pad_dataset", "pad_adjacency", "table_n", "as_view", "score_rows",
     "to_hop_state", "from_hop_state", "fused_beam_loop", "topk_from_pool",
+    "LaneTable", "next_expansions",
 ]
 
 
@@ -36,6 +43,31 @@ class BeamState(NamedTuple):
     seen: torch.Tensor         # (B, n+1) bool — ever inserted into pool
     stats: SearchStats         # (B,) counters
     active: torch.Tensor       # (B,) bool
+
+
+class LaneTable(NamedTuple):
+    """Lane b's table is block ``lane_idx[b]`` of a stacked table.
+
+    Rows are gathered by ``(lane_idx[b], id)`` where they are read, so a
+    wave over a ``(T, n+1, w)`` stack never materializes the ``(B, n+1,
+    w)`` per-lane copy.  Scores like a score table (``n``,
+    ``gather_score``), exactly in float32.
+    """
+
+    table: torch.Tensor      # (T, n+1, w)
+    lane_idx: torch.Tensor   # (B,) int64
+
+    @property
+    def n(self) -> int:
+        return self.table.shape[1] - 1
+
+    def rows(self, cols: torch.Tensor) -> torch.Tensor:
+        """(B, C, w): lane b's rows ``cols[b, c]``."""
+        return self.table[self.lane_idx[:, None], cols.long()]
+
+    def gather_score(self, queries: torch.Tensor,
+                     cols: torch.Tensor) -> torch.Tensor:
+        return sq_l2(self.rows(cols), queries[:, None, :])
 
 
 def pad_dataset(x: torch.Tensor, pad_value: float = 1e9) -> torch.Tensor:
@@ -71,12 +103,27 @@ def score_rows(x_pad, queries: torch.Tensor,
                cols: torch.Tensor) -> torch.Tensor:
     """(B, C) squared L2 of query b vs table row ``cols[b, c]``.
 
-    Exact float32 for a plain tensor table; quantized-approximate for a
-    score table, which scores from its codes.
+    Exact float32 for a plain tensor table, shared ``(n+1, d)`` or per
+    lane ``(B, n+1, d)``; a score table scores itself (from its codes, or
+    a :class:`LaneTable` from its stacked rows).
     """
     if isinstance(x_pad, torch.Tensor):
-        return sq_l2(x_pad[cols.long()], queries[:, None, :])
+        if x_pad.dim() == 3:                                 # per lane
+            rows = torch.arange(cols.shape[0], device=cols.device)
+            g = x_pad[rows[:, None], cols.long()]
+        else:
+            g = x_pad[cols.long()]
+        return sq_l2(g, queries[:, None, :])
     return x_pad.gather_score(queries, cols)
+
+
+def _adj_rows(adj_pad, p: torch.Tensor) -> torch.Tensor:
+    """(B, R) adjacency row ``p[b]`` of lane b's graph."""
+    if isinstance(adj_pad, LaneTable):
+        return adj_pad.table[adj_pad.lane_idx, p.long()]
+    if adj_pad.dim() == 3:                                   # per lane
+        return adj_pad[torch.arange(p.shape[0], device=p.device), p.long()]
+    return adj_pad[p.long()]
 
 
 def _merge_pool(pool: PoolState, cand_ids, cand_dists, cand_expanded,
@@ -103,14 +150,22 @@ def _merge_pool(pool: PoolState, cand_ids, cand_dists, cand_expanded,
 def init_state(x_pad, queries: torch.Tensor, entries: torch.Tensor,
                pool_size: int,
                live_pad: Optional[torch.Tensor] = None) -> BeamState:
-    """Seed every lane's pool with the entry points (Alg 3 line 1)."""
+    """Seed every lane's pool with the entry points (Alg 3 line 1).
+
+    ``entries`` is shared ``(E,)`` or per lane ``(B, E)``; per-lane entry
+    slots equal to the sentinel (stacked-table padding) score INF and
+    never enter the frontier.
+    """
     n = table_n(x_pad)
     B = queries.shape[0]
     E = entries.shape[-1]
     dev = queries.device
     if E > pool_size:
         raise ValueError(f"entries ({E}) exceed pool size ({pool_size})")
-    ids0 = entries[None, :].expand(B, E).to(torch.int32)
+    if entries.dim() == 1:
+        ids0 = entries[None, :].expand(B, E).to(torch.int32)
+    else:
+        ids0 = entries.to(torch.int32)
     d2 = score_rows(x_pad, queries, ids0)
     d2 = torch.where(ids0 == n, INF_DIST, d2)
     if live_pad is not None:
@@ -157,7 +212,7 @@ def expand_step(x_pad, adj_pad: torch.Tensor, queries: torch.Tensor,
     expanded = state.pool.expanded.clone()
     expanded[rows, slot] = state.pool.expanded[rows, slot] | lane
 
-    nbrs = adj_pad[p.long()]                                 # (B, R)
+    nbrs = _adj_rows(adj_pad, p)                             # (B, R)
     already = state.seen.gather(1, nbrs.long())
     valid = (nbrs != n) & (~already) & lane[:, None]
     if live_pad is not None:
@@ -180,6 +235,17 @@ def expand_step(x_pad, adj_pad: torch.Tensor, queries: torch.Tensor,
         terminated_early=state.stats.terminated_early)
     still = ((~pool.expanded) & (pool.ids != n)).any(dim=1)
     return BeamState(pool, seen, stats, state.active & still)
+
+
+def next_expansions(state: BeamState, sentinel: int) -> torch.Tensor:
+    """(B,) id each active lane expands next (``sentinel`` when none):
+    :func:`expand_step`'s frontier pick, for a host that prefetches the
+    next hop's rows while the current one runs."""
+    unexp = (~state.pool.expanded) & (state.pool.ids != sentinel)
+    has = unexp.any(dim=1) & state.active
+    rows = torch.arange(state.pool.ids.shape[0], device=unexp.device)
+    return torch.where(has, state.pool.ids[rows, first_true(unexp)],
+                       sentinel)
 
 
 def to_hop_state(state: BeamState, evals_done=None, stop_at=None) -> HopState:

@@ -20,6 +20,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.ref import sq_l2
 
 from . import beam_search as bs
 from .decision_tree import TreeArrays, predict
@@ -28,7 +29,7 @@ from .types import (INF_DIST, INT_MAX, HotFeatures, PoolState, SearchResult,
                     SearchStats)
 
 __all__ = ["dynamic_search", "hot_phase", "hot_phase_graph",
-           "hot_phase_mxu", "DynamicState"]
+           "hot_phase_mxu", "hot_phase_stacked", "DynamicState"]
 
 
 class DynamicState(NamedTuple):
@@ -45,15 +46,12 @@ def hot_phase_graph(x_hot_pad, adj_hot_pad, hot_entries, queries, *,
     return state.pool, state.stats
 
 
-def hot_phase_mxu(x_hot, queries, *, pool_size: int,
-                  use_kernel: bool = False):
+def hot_phase_mxu(x_hot, queries, *, pool_size: int):
     """Phase 1, beyond-paper: exact brute-force top-k over the hot rows.
 
-    The tensors' device picks the scorer (the CUDA kernel on the card, its
-    plain version on the CPU); ``use_kernel`` is kept so call sites read as
-    the reference's and decides nothing.
+    The tensors' device picks the scorer: the CUDA kernel on the card, its
+    plain version on the CPU.
     """
-    del use_kernel
     H = x_hot.shape[0]
     B = queries.shape[0]
     dev = queries.device
@@ -69,9 +67,68 @@ def hot_phase_mxu(x_hot, queries, *, pool_size: int,
     return pool, stats
 
 
-def hot_phase_stacked(*_, **__):
-    raise NotImplementedError("stacked hot tables come with the tenancy "
-                              "slice of the port")
+_STACKED_CHUNK = 1 << 25    # (lanes, H, d) elements per mxu scoring chunk
+
+
+def hot_phase_stacked(xs_hot, adjs_hot, entries_hot, mask_hot, tenant_idx,
+                      queries, *, pool_size: int, max_hops: int,
+                      mode: str = "graph"):
+    """Phase 1 over the *stacked* per-tenant hot tables (``repro_torch.
+    tenancy``).
+
+    ``xs_hot (T, H+1, d)``, ``adjs_hot (T, H+1, R)``, ``entries_hot
+    (T, E)`` and ``mask_hot (T, H+1)`` hold every tenant's hot index;
+    ``tenant_idx (B,)`` routes each query to its tenant's block, so a
+    mixed-tenant batch runs as one search.  Lane b reads its rows and
+    adjacency by ``(tenant_idx[b], local id)`` where it uses them
+    (:class:`~repro_torch.core.beam_search.LaneTable`); the per-lane
+    ``(B, H+1, ·)`` copies of the reference are never made.  Returns the
+    local-id pool and stats, as :func:`hot_phase` (local sentinel = H).
+
+    ``mode="mxu"`` brute-forces each lane against its tenant's hot rows as
+    a plain batched sum of squares (the reference's ``jnp.sum``, here in
+    :func:`~repro_torch.kernels.ref.sq_l2` order), one tenant and a chunk
+    of its lanes at a time; ties go to the smaller local id.
+    """
+    tidx = tenant_idx.long()
+    ent = entries_hot[tidx]                                # (B, E)
+    if mode == "graph":
+        x = bs.LaneTable(xs_hot, tidx)
+        state = bs.init_state(x, queries, ent, pool_size)
+        state = bs.beam_loop(x, bs.LaneTable(adjs_hot, tidx), queries,
+                             state, max_hops)
+        return state.pool, state.stats
+    B = queries.shape[0]
+    H = xs_hot.shape[1] - 1
+    dev = queries.device
+    valid = mask_hot[tidx][:, :H]                          # (B, H)
+    d2 = torch.empty((B, H), dtype=torch.float32, device=dev)
+    step = max(1, _STACKED_CHUNK // max(H * xs_hot.shape[2], 1))
+    for t in torch.unique(tidx).tolist():
+        lanes = torch.nonzero(tidx == t).flatten()
+        for s in range(0, lanes.numel(), step):
+            chunk = lanes[s:s + step]
+            d2[chunk] = sq_l2(xs_hot[t, None, :H, :],
+                              queries[chunk, None, :])
+    d2 = torch.where(valid, d2, INF_DIST)
+    take = min(pool_size, H)
+    order = torch.sort(d2, dim=1, stable=True).indices[:, :take]
+    dists = d2.gather(1, order)
+    ids = torch.where(dists >= INF_DIST, H, order).to(torch.int32)
+    pad = pool_size - take
+    pool = PoolState(
+        ids=torch.cat([ids, torch.full((B, pad), H, dtype=torch.int32,
+                                       device=dev)], dim=1),
+        dists=torch.cat([dists, torch.full((B, pad), INF_DIST,
+                                           dtype=torch.float32, device=dev)],
+                        dim=1),
+        expanded=torch.zeros((B, pool_size), dtype=torch.bool, device=dev))
+    zeros = lambda: torch.zeros((B,), dtype=torch.int32, device=dev)
+    stats = SearchStats(
+        dist_count=valid.sum(dim=1, dtype=torch.int32),
+        update_count=zeros(), hops=zeros(),
+        terminated_early=torch.zeros((B,), dtype=torch.bool, device=dev))
+    return pool, stats
 
 
 def _exact_rerank(x_pad, queries, pool: PoolState, *, k: int,
@@ -94,14 +151,12 @@ def _exact_rerank(x_pad, queries, pool: PoolState, *, k: int,
 
 
 def hot_phase(x_hot_pad, adj_hot_pad, hot_entries, queries, *, pool_size,
-              max_hops, mode: str = "graph", use_kernel: bool = False):
-    """Phase 1 by ``mode`` ("graph" or "mxu").  ``use_kernel`` is ignored:
-    the tensors' device picks the scorer."""
+              max_hops, mode: str = "graph"):
+    """Phase 1 by ``mode`` ("graph" or "mxu")."""
     if mode == "graph":
         return hot_phase_graph(x_hot_pad, adj_hot_pad, hot_entries, queries,
                                pool_size=pool_size, max_hops=max_hops)
-    return hot_phase_mxu(x_hot_pad[:-1], queries, pool_size=pool_size,
-                         use_kernel=use_kernel)
+    return hot_phase_mxu(x_hot_pad[:-1], queries, pool_size=pool_size)
 
 
 def _seed_full_state(hot_pool: PoolState, hot_ids_pad: torch.Tensor,
@@ -111,10 +166,15 @@ def _seed_full_state(hot_pool: PoolState, hot_ids_pad: torch.Tensor,
 
     Alg 4 line 11: all entries arrive unexpanded; line 12: counters reset.
     ``live_pad`` masks hot results whose global row was tombstoned.
+    ``hot_ids_pad`` is the shared ``(H+1,)`` local→global map, or per-lane
+    ``(B, H+1)`` rows gathered from a stacked multi-tenant table.
     """
     B, s_l = hot_pool.ids.shape
     dev = hot_pool.ids.device
-    gids = hot_ids_pad[hot_pool.ids.long()]
+    if hot_ids_pad.dim() == 2:                              # per lane
+        gids = hot_ids_pad.gather(1, hot_pool.ids.long())
+    else:
+        gids = hot_ids_pad[hot_pool.ids.long()]
     gids = torch.where(hot_pool.dists >= INF_DIST, n, gids).to(torch.int32)
     dists = hot_pool.dists
     if live_pad is not None:
@@ -198,7 +258,6 @@ def dynamic_search(
     tree_depth: int,
     max_hops: int = 512,
     hot_mode: str = "graph",
-    use_kernel: bool = False,
     qtable=None,
     rerank_k: int = 0,
     live_pad: Optional[torch.Tensor] = None,
@@ -212,14 +271,13 @@ def dynamic_search(
     (the hot phase stays float32) and, with ``rerank_k > 0``, the pool's
     head is re-scored exactly from ``x_pad`` before the final top-k.
     ``fused=True`` runs the full phase through the fused wave-hop kernel,
-    with bit-identical results.  ``use_kernel`` is ignored: the tensors'
-    device picks kernel or plain version.
+    with bit-identical results.  The tensors' device picks kernel or plain
+    version.
     """
     n = bs.table_n(x_pad)
     hot_pool, hot_stats = hot_phase(
         x_hot_pad, adj_hot_pad, hot_entries, queries,
-        pool_size=hot_pool_size, max_hops=max_hops, mode=hot_mode,
-        use_kernel=use_kernel)
+        pool_size=hot_pool_size, max_hops=max_hops, mode=hot_mode)
     hfeats = hot_features(hot_pool, k)
     state = _seed_full_state(hot_pool, hot_ids_pad, n, full_pool_size,
                              live_pad)

@@ -74,6 +74,9 @@ class HotIndex:
     def size(self) -> int:
         return int(self.ids.shape[0])
 
+    def nbytes(self) -> int:
+        return int(self.graph.adj.nbytes + self.ids.nbytes)
+
 
 def build_hot_index(x: np.ndarray, hot_ids: np.ndarray,
                     params: SSGParams, n_entry: int = 8, version: int = 0,

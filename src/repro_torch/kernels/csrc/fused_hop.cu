@@ -9,7 +9,22 @@
 //   pq   uint8 codes (n+1, M) and per-lane LUTs (B, M, K) float32, the
 //        distance being the sum of M looked-up values.
 // Contract: repro_torch/kernels/ref.py::fused_hop, which this kernel
-// equals bit for bit in every mode.  Each hop follows ref.fused_hop_body
+// equals bit for bit in every mode.
+//
+// Paged mode (a template flag beside MODE) also replaces
+// repro/kernels/fused_hop.py::fused_hop_paged_pallas; its contract is
+// ref.py::fused_hop_paged.  The seen bitmap then lives in a shared page
+// pool (n_pages, page_cols) bool, page_cols = 2^s, and bit v of lane b is
+// pool[pt[b, v >> s] * page_cols + (v & (page_cols - 1))] for the page
+// table pt (B, ppl) int32, ppl = ceil((n+1) / page_cols).  There is no
+// dense gather and no scatter: the lane reads and writes its bits in the
+// pool in place, and zeroes the columns [n+1, ppl * page_cols) of its last
+// page, which the plain version writes back as zeros for every lane.
+// The pages of active lanes must be distinct (the serving allocator,
+// repro_torch/serving/paged.py::PagePool, hands each lane its own).
+// Padding lanes may share the scratch lane's pages: they must be inactive
+// with identical state, so the only bytes they write (the sentinel column
+// and the zeroed tail) are the same bytes from every block.  Each hop follows ref.fused_hop_body
 // line for line: frontier, adjacency row, seen/live dedup, score, stable
 // merge, counters, hop cap, tree check.  The modes differ in step 4 only.
 //
@@ -39,7 +54,9 @@
 //     once (their remaining hops are exact no-ops).
 //
 // Bound on the H100: device-memory bytes.  A hop moves one adjacency row
-// (R x 4 bytes), R seen bytes read and written, R liveness bytes, and one
+// (R x 4 bytes), R seen bytes read and written (in paged mode also R x 4
+// bytes of page-table entries, and once per launch the zeroed tail of the
+// lane's last page), R liveness bytes, and one
 // table row per valid neighbour (d x 4 bytes in f32, d bytes in sq8, M
 // bytes in pq): in all about sum(dist_count) x row bytes + hops x R x
 // (4 + 1 + 1 + 1) bytes, plus the pool state read and written once per
@@ -104,12 +121,31 @@ struct HopArgs {
   const float* t_value;
   const float* hot_first;  // (B,)
   const float* hot_ratio;  // (B,)
+  // paged mode: `seen` is the page pool and pt the (B, ppl) page table;
+  // null pt = dense (B, n+1) seen rows
+  const int32_t* pt;
   int32_t B, L, R, n, d;
   int32_t hops, max_hops, k, eval_gap, add_step, tree_depth, sort_len;
   int32_t mode, tw, K;     // score mode, table row width, pq centroids
+  int32_t ppl, page_shift; // paged mode: pages per lane, log2(page_cols)
 };
 
-template <int MODE, int M>
+// One lane's seen bitmap: its dense row, or its pages of the pool reached
+// through its page-table row.
+template <bool PAGED>
+struct SeenRow {
+  uint8_t* base;       // dense: the lane's row; paged: the pool
+  const int32_t* pt;   // paged: the lane's page-table row (ppl,)
+  int shift;           // paged: log2(page_cols)
+  __device__ __forceinline__ uint8_t& operator[](int v) const {
+    if (PAGED)
+      return base[((size_t)pt[v >> shift] << shift)
+                  + (v & ((1 << shift) - 1))];
+    return base[v];
+  }
+};
+
+template <int MODE, int M, bool PAGED>
 __global__ void __launch_bounds__(DQF_THREADS)
 fused_hop_kernel(const HopArgs a) {
   extern __shared__ unsigned char smem[];
@@ -159,7 +195,23 @@ fused_hop_kernel(const HopArgs a) {
     const float* src = a.t1 + (size_t)b * tw * a.K;
     for (int i = tid; i < tw * a.K; i += nthreads) lut[i] = src[i];
   }
-  uint8_t* seen = a.seen + (size_t)b * (n + 1);
+  SeenRow<PAGED> seen;
+  if (PAGED) {
+    seen.base = a.seen;
+    seen.pt = a.pt + (size_t)b * a.ppl;
+    seen.shift = a.page_shift;
+    // columns past n of the last page: zeros, as the plain version writes
+    // them back; no hop reads or writes them
+    const int page_cols = 1 << a.page_shift;
+    uint8_t* last = a.seen + ((size_t)seen.pt[a.ppl - 1] << a.page_shift);
+    for (int c = (n + 1) - (a.ppl - 1) * page_cols + tid; c < page_cols;
+         c += nthreads)
+      last[c] = 0;
+  } else {
+    seen.base = a.seen + (size_t)b * (n + 1);
+    seen.pt = nullptr;
+    seen.shift = 0;
+  }
 
   for (int h = 0; h < a.hops; ++h) {
     // --- 1. frontier: first unexpanded, non-sentinel slot ---
@@ -307,29 +359,39 @@ fused_hop_kernel(const HopArgs a) {
   }
 }
 
-template <int MODE, int M>
+template <int MODE, int M, bool PAGED>
 static int launch(const HopArgs& a, size_t smem, cudaStream_t st) {
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        fused_hop_kernel<MODE, M>,
+        fused_hop_kernel<MODE, M, PAGED>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  fused_hop_kernel<MODE, M><<<a.B, DQF_THREADS, smem, st>>>(a);
+  fused_hop_kernel<MODE, M, PAGED><<<a.B, DQF_THREADS, smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <int MODE>
+template <int MODE, bool PAGED>
 static int launch_width(const HopArgs& a, size_t smem, cudaStream_t st) {
   int width = 1;
   while (width < a.tw) width <<= 1;
   switch (width < 32 ? 1 : width / 32) {
-    case 1: return launch<MODE, 1>(a, smem, st);
-    case 2: return launch<MODE, 2>(a, smem, st);
-    case 4: return launch<MODE, 4>(a, smem, st);
-    case 8: return launch<MODE, 8>(a, smem, st);
-    case 16: return launch<MODE, 16>(a, smem, st);
-    case 32: return launch<MODE, 32>(a, smem, st);
+    case 1: return launch<MODE, 1, PAGED>(a, smem, st);
+    case 2: return launch<MODE, 2, PAGED>(a, smem, st);
+    case 4: return launch<MODE, 4, PAGED>(a, smem, st);
+    case 8: return launch<MODE, 8, PAGED>(a, smem, st);
+    case 16: return launch<MODE, 16, PAGED>(a, smem, st);
+    case 32: return launch<MODE, 32, PAGED>(a, smem, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <bool PAGED>
+static int launch_mode(const HopArgs& a, size_t smem, cudaStream_t st) {
+  switch (a.mode) {
+    case DQF_MODE_F32: return launch_width<DQF_MODE_F32, PAGED>(a, smem, st);
+    case DQF_MODE_SQ8: return launch_width<DQF_MODE_SQ8, PAGED>(a, smem, st);
+    case DQF_MODE_PQ: return launch_width<DQF_MODE_PQ, PAGED>(a, smem, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -340,12 +402,8 @@ extern "C" int dqf_fused_hop(const HopArgs* a, void* stream) {
   if (a->mode == DQF_MODE_PQ) smem += (size_t)a->tw * a->K * 4;
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (a->mode) {
-    case DQF_MODE_F32: return launch_width<DQF_MODE_F32>(*a, smem, st);
-    case DQF_MODE_SQ8: return launch_width<DQF_MODE_SQ8>(*a, smem, st);
-    case DQF_MODE_PQ: return launch_width<DQF_MODE_PQ>(*a, smem, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (a->pt != nullptr) return launch_mode<true>(*a, smem, st);
+  return launch_mode<false>(*a, smem, st);
 }
 
 extern "C" const char* dqf_error_string(int err) {

@@ -1,16 +1,22 @@
-"""Launch wrapper of the fused wave-hop CUDA kernel (``csrc/fused_hop.cu``).
+"""Launch wrappers of the fused wave-hop CUDA kernel (``csrc/fused_hop.cu``).
 
-Replaces ``repro/kernels/fused_hop.py::fused_hop_pallas`` in its three
-score modes (``f32``, ``sq8``, ``pq``).  The kernel advances every lane of
-a wave ``hops`` beam expansions (frontier, adjacency row, seen/live dedup,
-score, stable merge, counters, hop cap, decision-tree check) and equals
-:func:`repro_torch.kernels.ref.fused_hop` bit for bit.  See the source's
-header for its design and its bound.
+:func:`fused_hop_cuda` replaces ``repro/kernels/fused_hop.py::
+fused_hop_pallas`` in its three score modes (``f32``, ``sq8``, ``pq``).
+The kernel advances every lane of a wave ``hops`` beam expansions
+(frontier, adjacency row, seen/live dedup, score, stable merge, counters,
+hop cap, decision-tree check) and equals
+:func:`repro_torch.kernels.ref.fused_hop` bit for bit.
+:func:`fused_hop_paged_cuda` replaces ``fused_hop_paged_pallas``: the same
+kernel in its paged mode, with ``seen`` in a page pool reached through a
+page table, equal to :func:`repro_torch.kernels.ref.fused_hop_paged` bit
+for bit, pool included.  See the source's header for the design and the
+bound.
 
-The wrapper checks devices, types, shapes and contiguity, allocates the
-new pool and counters with ``torch.empty``, launches on PyTorch's current
-stream and raises if the launch was refused.  ``hs.seen`` is updated in
-place.  ``fused_hop_cuda.launches`` counts launches.
+The wrappers check devices, types, shapes and contiguity, allocate the
+new pool and counters with ``torch.empty``, launch on PyTorch's current
+stream and raise if the launch was refused.  ``hs.seen`` (the dense rows
+or the page pool) is updated in place.  ``fused_hop_cuda.launches`` and
+``fused_hop_paged_cuda.launches`` count launches.
 """
 
 from __future__ import annotations
@@ -22,7 +28,7 @@ import torch
 from . import _build
 from .ref import HopState, next_pow2
 
-__all__ = ["fused_hop_cuda"]
+__all__ = ["fused_hop_cuda", "fused_hop_paged_cuda"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int32
@@ -36,10 +42,11 @@ class _HopArgs(ctypes.Structure):
         "dist_count_out", "update_count_out", "hops_out", "terminated_out",
         "evals_done_out", "stop_at_out", "seen", "adj", "table", "t1", "t2",
         "queries", "live", "t_feature", "t_threshold", "t_left", "t_right",
-        "t_value", "hot_first", "hot_ratio")]
+        "t_value", "hot_first", "hot_ratio", "pt")]
         + [(f, _I) for f in (
             "B", "L", "R", "n", "d", "hops", "max_hops", "k", "eval_gap",
-            "add_step", "tree_depth", "sort_len", "mode", "tw", "K")])
+            "add_step", "tree_depth", "sort_len", "mode", "tw", "K", "ppl",
+            "page_shift")])
 
 _MODES = {"f32": 0, "sq8": 1, "pq": 2}
 
@@ -67,16 +74,12 @@ def _check(name, t, dtype, shape, device):
     return t.data_ptr()
 
 
-def fused_hop_cuda(hs: HopState, adj_pad, queries, live_pad, mode: str, t0,
-                   t1=None, t2=None, tree=None, hot_first=None,
-                   hot_ratio=None, *, hops: int, max_hops: int, k: int = 1,
-                   eval_gap: int = 1, add_step: int = 0,
-                   tree_depth: int = 1) -> HopState:
-    """One launch: ``hops`` fused expansions of every lane (CUDA tensors).
-
-    ``mode``, ``t0``, ``t1`` and ``t2`` as in
-    :func:`repro_torch.kernels.ref.fused_hop`.
-    """
+def _launch(hs: HopState, seen_shape, pt, adj_pad, queries, live_pad,
+            mode: str, t0, t1, t2, tree, hot_first, hot_ratio, *, hops: int,
+            max_hops: int, k: int, eval_gap: int, add_step: int,
+            tree_depth: int, ppl: int = 0, page_shift: int = 0) -> HopState:
+    """Check every operand, fill ``HopArgs`` and launch once; ``seen``
+    must have ``seen_shape`` (dense rows, or the page pool with ``pt``)."""
     dev = hs.ids.device
     if dev.type != "cuda":
         raise ValueError("fused_hop_cuda takes CUDA tensors")
@@ -104,7 +107,10 @@ def fused_hop_cuda(hs: HopState, adj_pad, queries, live_pad, mode: str, t0,
         setattr(a, cname + "_in", _check(field, src, dtype, shape, dev))
         outs[field] = torch.empty(shape, dtype=dtype, device=dev)
         setattr(a, cname + "_out", outs[field].data_ptr())
-    a.seen = _check("seen", hs.seen, u8, (B, n1), dev)
+    a.seen = _check("seen", hs.seen, u8, seen_shape, dev)
+    if pt is not None:
+        a.pt = _check("pt", pt, i32, (B, ppl), dev)
+        a.ppl, a.page_shift = ppl, page_shift
     a.adj = _check("adj_pad", adj_pad, i32, (n1, R), dev)
     a.queries = _check("queries", queries, f32, (B, d), dev)
     a.mode, a.tw, a.K = _MODES[mode], tw, 0
@@ -141,7 +147,6 @@ def fused_hop_cuda(hs: HopState, adj_pad, queries, live_pad, mode: str, t0,
     if err != 0:
         raise RuntimeError("fused_hop launch failed: "
                            + lib.dqf_error_string(err).decode())
-    fused_hop_cuda.launches += 1
     return HopState(ids=outs["ids"], dists=outs["dists"],
                     expanded=outs["expanded"], seen=hs.seen,
                     active=outs["active"], dist_count=outs["dist_count"],
@@ -150,4 +155,52 @@ def fused_hop_cuda(hs: HopState, adj_pad, queries, live_pad, mode: str, t0,
                     evals_done=outs["evals_done"], stop_at=outs["stop_at"])
 
 
+
+def fused_hop_cuda(hs: HopState, adj_pad, queries, live_pad, mode: str, t0,
+                   t1=None, t2=None, tree=None, hot_first=None,
+                   hot_ratio=None, *, hops: int, max_hops: int, k: int = 1,
+                   eval_gap: int = 1, add_step: int = 0,
+                   tree_depth: int = 1) -> HopState:
+    """One launch: ``hops`` fused expansions of every lane (CUDA tensors).
+
+    ``mode``, ``t0``, ``t1`` and ``t2`` as in
+    :func:`repro_torch.kernels.ref.fused_hop`.
+    """
+    out = _launch(hs, (hs.ids.shape[0], adj_pad.shape[0]), None, adj_pad,
+                  queries, live_pad, mode, t0, t1, t2, tree, hot_first,
+                  hot_ratio, hops=hops, max_hops=max_hops, k=k,
+                  eval_gap=eval_gap, add_step=add_step,
+                  tree_depth=tree_depth)
+    fused_hop_cuda.launches += 1
+    return out
+
+
+def fused_hop_paged_cuda(hs: HopState, pt, adj_pad, queries, live_pad,
+                         mode: str, t0, t1=None, t2=None, tree=None,
+                         hot_first=None, hot_ratio=None, *, page_cols: int,
+                         hops: int, max_hops: int, k: int = 1,
+                         eval_gap: int = 1, add_step: int = 0,
+                         tree_depth: int = 1) -> HopState:
+    """One launch of the paged mode (CUDA tensors): ``hs.seen`` is the page
+    pool ``(n_pages, page_cols)`` bool, updated in place, and ``pt`` the
+    ``(B, ceil((n+1) / page_cols))`` int32 page table, as in
+    :func:`repro_torch.kernels.ref.fused_hop_paged`.  The pages of active
+    lanes must be distinct; lanes that share pages must be inactive with
+    identical state (the caller's contract, not checked)."""
+    if page_cols < 1 or page_cols & (page_cols - 1):
+        raise ValueError(f"page_cols must be a power of two, got {page_cols}")
+    if hs.seen.dim() != 2 or hs.seen.shape[1] != page_cols:
+        raise ValueError(f"the page pool must be (n_pages, {page_cols}), "
+                         f"got {tuple(hs.seen.shape)}")
+    ppl = -(-adj_pad.shape[0] // page_cols)
+    out = _launch(hs, (hs.seen.shape[0], page_cols), pt, adj_pad, queries,
+                  live_pad, mode, t0, t1, t2, tree, hot_first, hot_ratio,
+                  hops=hops, max_hops=max_hops, k=k, eval_gap=eval_gap,
+                  add_step=add_step, tree_depth=tree_depth, ppl=ppl,
+                  page_shift=page_cols.bit_length() - 1)
+    fused_hop_paged_cuda.launches += 1
+    return out
+
+
 fused_hop_cuda.launches = 0
+fused_hop_paged_cuda.launches = 0

@@ -11,10 +11,10 @@ from __future__ import annotations
 import torch
 
 from . import ref
-from .fused_hop import fused_hop_cuda
+from .fused_hop import fused_hop_cuda, fused_hop_paged_cuda
 from .fused_topk_l2 import fused_topk_l2_cuda
 
-__all__ = ["table_spec", "fused_hop", "fused_topk_l2"]
+__all__ = ["table_spec", "fused_hop", "fused_hop_paged", "fused_topk_l2"]
 
 
 def _device_type(t: torch.Tensor) -> str:
@@ -57,4 +57,21 @@ def fused_hop(hs: ref.HopState, adj_pad, queries, live_pad, table,
               add_step=add_step, tree_depth=tree_depth)
     fn = ref.fused_hop if _device_type(t0) == "cpu" else fused_hop_cuda
     return fn(hs, adj_pad, queries, live_pad, mode, t0, t1, t2, tree,
+              hot_first, hot_ratio, **kw)
+
+
+def fused_hop_paged(hs: ref.HopState, pt, adj_pad, queries, live_pad, table,
+                    tree=None, hot_first=None, hot_ratio=None, *,
+                    page_cols: int, hops: int, max_hops: int, k: int = 1,
+                    eval_gap: int = 1, add_step: int = 0,
+                    tree_depth: int = 1) -> ref.HopState:
+    """:func:`fused_hop` with ``hs.seen`` the page pool ``(n_pages,
+    page_cols)`` and ``pt`` the lanes' page table (one launch on the
+    card).  The pool is updated in place and returned in ``seen``."""
+    mode, t0, t1, t2 = table_spec(table)
+    kw = dict(page_cols=page_cols, hops=hops, max_hops=max_hops, k=k,
+              eval_gap=eval_gap, add_step=add_step, tree_depth=tree_depth)
+    fn = (ref.fused_hop_paged if _device_type(t0) == "cpu"
+          else fused_hop_paged_cuda)
+    return fn(hs, pt, adj_pad, queries, live_pad, mode, t0, t1, t2, tree,
               hot_first, hot_ratio, **kw)

@@ -28,7 +28,7 @@ import torch
 
 __all__ = ["HopState", "halving_sum", "sq_l2", "sq8_score", "pq_score",
            "pairwise_l2", "fused_topk_l2", "fused_hop_body", "fused_hop",
-           "tree_predict", "next_pow2"]
+           "fused_hop_paged", "tree_predict", "next_pow2"]
 
 # Mirrors of repro_torch.core.types constants (kernels sit below core).
 INF_DIST = float(torch.tensor(3.0e38, dtype=torch.float32))
@@ -294,3 +294,34 @@ def fused_hop(hs: HopState, adj_pad, queries, live_pad, mode: str, t0,
                             eval_gap=eval_gap, add_step=add_step,
                             tree_depth=tree_depth)
     return hs
+
+
+def fused_hop_paged(hs: HopState, pt, adj_pad, queries, live_pad, mode: str,
+                    t0, t1=None, t2=None, tree=None, hot_first=None,
+                    hot_ratio=None, *, page_cols: int, hops: int,
+                    max_hops: int, k: int = 1, eval_gap: int = 1,
+                    add_step: int = 0, tree_depth: int = 1) -> HopState:
+    """Paged-seen hop (plain version): gather pages dense, hop, scatter back.
+
+    ``hs.seen`` is the whole page pool ``(n_pages, page_cols)`` and ``pt``
+    the per-lane page table ``(B, pages_per_lane)``: bit ``v`` of lane
+    ``b`` lives at ``pool[pt[b, v // page_cols], v % page_cols]``.  Each
+    lane's pages are gathered into a dense ``(B, n+1)`` bitmap, the
+    :func:`fused_hop` loop runs, and the pages are written back into the
+    pool in place, columns past ``n`` of each lane's last page written as
+    zeros (inactive lanes included).  Rows of ``pt`` that repeat (padding
+    lanes aliasing one scratch lane) must carry identical state, so every
+    copy writes the same bytes.
+    """
+    n1 = adj_pad.shape[0]
+    B, ppl = pt.shape
+    pool = hs.seen
+    idx = pt.long()
+    dense = pool[idx].reshape(B, ppl * page_cols)[:, :n1].contiguous()
+    out = fused_hop(hs._replace(seen=dense), adj_pad, queries, live_pad,
+                    mode, t0, t1, t2, tree, hot_first, hot_ratio, hops=hops,
+                    max_hops=max_hops, k=k, eval_gap=eval_gap,
+                    add_step=add_step, tree_depth=tree_depth)
+    pages = torch.nn.functional.pad(out.seen, (0, ppl * page_cols - n1))
+    pool[idx] = pages.reshape(B, ppl, page_cols)
+    return out._replace(seen=pool)

@@ -1,0 +1,10 @@
+"""Row storage of the port: the single source of truth for rows.
+
+:class:`VectorStore` owns the float32 row table, the optional quantized
+code table, the liveness bitmap and the stable external id map, and
+pads them into device tables.  The resident part of ``repro.store``.
+"""
+
+from .store import CompactionResult, VectorStore  # noqa: F401
+
+__all__ = ["VectorStore", "CompactionResult"]

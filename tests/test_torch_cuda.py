@@ -1,15 +1,16 @@
 """The port's CUDA kernels against their plain versions, bit for bit.
 
-The fused wave-hop in its f32, sq8 and pq score modes, and the brute-force
-top-k scorer of the mxu hot phase.
+The fused wave-hop in its f32, sq8 and pq score modes, dense and paged,
+and the brute-force top-k scorer of the mxu hot phase.
 
 Imports nothing of JAX, so it runs where only the port is installed:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
 Without a CUDA device every test here skips (the kernels have no CPU
-mode).  The synthetic worlds are shared with ``tests/test_torch_fused_hop.py``
-and ``tests/test_torch_quant.py``; ``duplicated_rows`` with ``chip_smoke.py``.
+mode).  The synthetic worlds are shared with ``tests/test_torch_fused_hop.py``,
+``tests/test_torch_quant.py`` and ``tests/test_torch_paged_hop.py``;
+``duplicated_rows`` and ``paged_case`` with ``chip_smoke.py``.
 """
 
 import numpy as np
@@ -70,6 +71,55 @@ def duplicated_rows(N, d, seed):
     if N > 3:
         x[N // 2:N // 2 + N // 4] = x[:N // 4]
     return x
+
+
+def inert_lanes(hs, lanes, n):
+    """``hs`` with ``lanes`` set to one identical inactive state (empty
+    pool of sentinels ``n``, zero counters): the engines' padding lanes."""
+    ids, dists = hs.ids.clone(), hs.dists.clone()
+    ids[lanes] = n
+    dists[lanes] = tref.INF_DIST
+    out = {"ids": ids, "dists": dists}
+    for f in ("expanded", "active", "terminated"):
+        t = getattr(hs, f).clone()
+        t[lanes] = False
+        out[f] = t
+    for f in ("dist_count", "update_count", "hops", "evals_done"):
+        t = getattr(hs, f).clone()
+        t[lanes] = 0
+        out[f] = t
+    stop = hs.stop_at.clone()
+    stop[lanes] = tref.INT_MAX
+    out["stop_at"] = stop
+    return hs._replace(**out)
+
+
+def paged_case(hs, page_cols, n_pad, rng, spare_pages=7):
+    """A paged twin of a dense ``HopState`` whose last ``n_pad`` lanes are
+    padding: inert, and all aliasing one scratch row of pages.
+
+    The page table is a shuffled draw from a pool larger than needed;
+    unreferenced pages, the scratch pages and the columns past ``n`` of
+    every lane's last page hold random bytes.  Returns ``(hs_paged, pt)``
+    on ``hs``'s device.
+    """
+    B, n1 = hs.seen.shape
+    real = B - n_pad
+    hs = inert_lanes(hs, slice(real, B), n1 - 1)
+    ppl = -(-n1 // page_cols)
+    n_pages = (real + 1) * ppl + spare_pages
+    perm = rng.permutation(n_pages).astype(np.int32)
+    pt = np.empty((B, ppl), np.int32)
+    pt[:real] = perm[:real * ppl].reshape(real, ppl)
+    pt[real:] = perm[real * ppl:(real + 1) * ppl]        # scratch row
+    dev = hs.ids.device
+    pool = torch.as_tensor(rng.random((n_pages, page_cols)) < 0.5,
+                           device=dev)
+    pt_t = torch.as_tensor(pt, device=dev)
+    rows = pool[pt_t[:real].long()].reshape(real, ppl * page_cols)
+    rows[:, :n1] = hs.seen[:real]
+    pool[pt_t[:real].long()] = rows.reshape(real, ppl, page_cols)
+    return hs._replace(seen=pool), pt_t
 
 
 @pytest.fixture
@@ -208,3 +258,53 @@ def test_cuda_topk_bit_identical(cuda_device, B, N, k, d):
     assert torch.equal(got_d.view(torch.int32), want_d.view(torch.int32))
     if k > N:
         assert bool((got_i[:, N:] == N).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["f32", "sq8", "pq"])
+@pytest.mark.parametrize("page_cols", [64, 256])
+@pytest.mark.parametrize("use_tree", [False, True])
+@pytest.mark.parametrize("use_live", [False, True])
+def test_cuda_paged_hop_bit_identical(cuda_device, mode, page_cols, use_tree,
+                                      use_live):
+    """The paged mode ≡ ``ref.fused_hop_paged`` on every HopState field
+    and on the whole pool (unreferenced pages and tails included), with
+    padding lanes aliasing one scratch row."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fused_hop import fused_hop_paged_cuda
+
+    dev = cuda_device
+    B, n_pad = 67, 3
+    world = make_world(seed=page_cols)
+    x_pad, adj_pad, live = (torch.as_tensor(a, device=dev) for a in world)
+    live_pad = live if use_live else None
+    rng = np.random.default_rng(13)
+    q = torch.as_tensor(rng.standard_normal((B, 18)).astype(np.float32),
+                        device=dev)
+    table = x_pad if mode == "f32" else quant_table(world[0], mode, q)
+    spec = ops.table_spec(table)
+    entries = torch.arange(0, 220, 37, dtype=torch.int32, device=dev)
+    hs, pt = paged_case(tbs.to_hop_state(tbs.init_state(
+        x_pad, q, entries, 16, live_pad)), page_cols, n_pad, rng)
+    tree = hf = hr = None
+    if use_tree:
+        tree = tuple(torch.as_tensor(a, device=dev) for a in make_tree())
+        hf = torch.as_tensor(rng.uniform(1, 6, B).astype(np.float32),
+                             device=dev)
+        hr = torch.as_tensor(rng.uniform(0.5, 1.5, B).astype(np.float32),
+                             device=dev)
+    kw = dict(page_cols=page_cols, hops=15, max_hops=40, k=5, eval_gap=25,
+              add_step=6, tree_depth=4)
+    fresh = lambda: hs._replace(seen=hs.seen.clone())
+    want = tref.fused_hop_paged(fresh(), pt, adj_pad, q, live_pad, *spec,
+                                tree, hf, hr, **kw)
+    before = fused_hop_paged_cuda.launches
+    got = fused_hop_paged_cuda(fresh(), pt, adj_pad, q, live_pad, *spec,
+                               tree, hf, hr, **kw)
+    torch.cuda.synchronize()
+    assert fused_hop_paged_cuda.launches == before + 1
+    for f in tref.HopState._fields:
+        a, b = getattr(want, f).cpu(), getattr(got, f).cpu()
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), f

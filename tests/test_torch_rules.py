@@ -60,7 +60,10 @@ def test_bogus_quant_mode_raises():
 def test_port_imports_no_jax_and_nothing_of_repro():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.convert,"
             " repro_torch.kernels.ops, repro_torch.kernels.fused_hop,"
-            " repro_torch.kernels.fused_topk_l2, repro_torch.quant;"
+            " repro_torch.kernels.fused_topk_l2, repro_torch.quant,"
+            " repro_torch.obs, repro_torch.obs.bundle, repro_torch.store,"
+            " repro_torch.tenancy, repro_torch.serving.engine,"
+            " repro_torch.serving.paged_engine;"
             "bad = [m for m in sys.modules if m in ('jax', 'repro') or "
             "m.startswith(('jax.', 'repro.'))]; print(bad)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
