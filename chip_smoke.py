@@ -23,6 +23,13 @@ Phases, in order; any failure exits non-zero:
    needed, random bytes in unreferenced pages and in the tails, padding
    lanes aliasing one scratch row with identical inert state, and a wave
    that runs dry: every HopState field and the whole pool bit-identical;
+3e. the scan and merge kernels (``pairwise_l2``, ``sq8_pairwise_l2``,
+   ``pq_adc``, ``pool_merge``, ``gather_distances``) against their plain
+   versions over the grid of ``tests/test_torch_cuda.py::scan_cases``
+   (B in {1, 7, 130}, N in {1, 63, 129, 5000}, d in {18, 100, 128}; sq8
+   codes reaching -127 and 127; pq M in {4, 8}, K in {64, 256}; pool
+   merges at (L, C) in {(8, 8), (64, 32), (10, 7)} with ties and +inf
+   slots; neighbour rows with sentinel and duplicate ids): bit-identical;
 4. the graph main path at one million rows x 128: DQF build → warm →
    fit_tree → 4 searches of 1024 queries, fused kernel on, with build, warm
    and fit times, per-batch search time and QPS, recall@10, mean
@@ -52,7 +59,17 @@ Phases, in order; any failure exits non-zero:
    mean hops, recall@10, launches, peak memory and page-pool occupancy
    per engine and run; then one ``fused_hop_paged`` launch at the
    engine's shapes timed beside the dense hop, the plain version and the
-   bound.
+   bound;
+10. the scan and merge entry points on the main path's state: phase 4's
+   1M x 128 rows and batch 0, phase 8's sq8 and pq codes; ``ops.pairwise_l2``,
+   ``ops.sq8_pairwise_l2`` and ``ops.pq_adc`` over all rows, then one
+   composed beam step: ``ops.gather_distances`` of the adjacency rows of
+   each lane's frontier in phase 4's seeded full-phase pool and
+   ``ops.pool_merge`` of those scores into the pool (B=1024, L=64, C=32).
+   Each kernel against its plain version bit for bit (the scans in chunks
+   of 128 queries), its time beside the plain version's, the library
+   expression's and the bound; recall@10 of the exact top-10 of each scan
+   (the float32 scan must reach 0.999); peak device memory.
 
 Recall guards against breakage, not a target: 0.5 for the float32 paths,
 half of phase 4's recall for the quantized ones.  Phases 7 and 8 search
@@ -771,6 +788,7 @@ def phase_quant(ctx, mode, dev):
     t0 = time.perf_counter()
     state = build_quantizer(ctx["x"], qcfg)
     t_train = time.perf_counter() - t0
+    ctx.setdefault("quant", {})[mode] = state         # phase 10 scans it
     log(f"  {mode}: quantizer trained on the host in {t_train:.3f} s "
         f"({state.nbytes()} bytes of codes and codebook, "
         f"{ctx['x'].nbytes / state.nbytes():.1f}x smaller than the rows)")
@@ -1061,6 +1079,265 @@ def time_paged_hop(dqf, q, paged_launches, syn_err):
             "dense_ms": dense_ms, "bound_share": bound_ms / ms}
 
 
+# ----------------------------------------------------------------- phase 3e
+def finite_err(want, got) -> float:
+    """Largest |want - got| over the finite entries of ``want`` (the
+    dists of a (dists, ids) pair)."""
+    if isinstance(want, tuple):
+        want, got = want[0], got[0]
+    fin = torch.isfinite(want)
+    return float((want[fin] - got[fin]).abs().max()) if bool(
+        fin.any()) else 0.0
+
+
+def phase_scan_synthetic(dev):
+    from tests.test_torch_cuda import (SCAN_KERNELS, same_bits, scan_cases,
+                                       scan_kernel)
+
+    n_cases, errs = 0, {}
+    for name in SCAN_KERNELS:
+        cuda_fn, plain = scan_kernel(name)
+        saved = cuda_fn.launches
+        count, err = 0, 0.0
+        for tag, args in scan_cases(name, dev):
+            want = plain(*args)
+            got = cuda_fn(*args)
+            torch.cuda.synchronize()
+            if not same_bits(want, got):
+                raise SystemExit(f"{name} {tag}: differs from plain version")
+            err = max(err, finite_err(want, got))
+            count += 1
+        cuda_fn.launches = saved
+        log(f"  {name}: {count} cases bit-identical")
+        n_cases += count
+        errs[name] = err
+    return n_cases, errs
+
+
+# ------------------------------------------------------------------ phase 10
+def _median_ms(fn, reps):
+    """Median device ms of ``fn`` over ``reps`` calls (CUDA events around
+    each; one untimed call first)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = fn()
+        e.record()
+        torch.cuda.synchronize()
+        times.append(s.elapsed_time(e))
+        del out
+    return float(np.median(times))
+
+
+def _plain_in_chunks(plain, got, B, what, chunk=128):
+    """Run ``plain(start, stop)`` over query chunks, each held against the
+    same rows of ``got`` bit for bit.  Returns (plain ms summed over the
+    chunks, max abs err)."""
+    from tests.test_torch_cuda import same_bits
+
+    total, err = 0.0, 0.0
+    for s in range(0, B, chunk):
+        e = min(B, s + chunk)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = plain(s, e)
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+        if not same_bits(want, got[s:e]):
+            raise SystemExit(f"{what}: kernel differs from plain version in "
+                             f"queries {s}..{e}")
+        err = max(err, finite_err(want, got[s:e]))
+        del want
+    return total, err
+
+
+def scan_entry(name, source, replaces, launches, err, ms, plain_ms,
+               library_ms, library_note, flops, moved):
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / FP32_FLOPS * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    by = "bytes" if bytes_ms >= ops_ms else "operations"
+    log(f"  {name}: {ms:.4f} ms/launch, plain {plain_ms:.4f} ms, library "
+        f"{library_ms:.4f} ms ({library_note}), bound {bound_ms:.5f} ms by "
+        f"{by} ({flops} operations, {moved} bytes), {bound_ms / ms:.4f} of "
+        f"bound, {ms / library_ms:.3f}x the library's time")
+    return {"name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{source}",
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": by, "library_ms": library_ms,
+            "library_note": library_note, "bound_share": bound_ms / ms}
+
+
+def phase_scan(ctx, dev, syn_errs, reps=5):
+    """Phase 10: the scan and merge entry points on the main path's state."""
+    from repro_torch.core.dynamic_search import _seed_full_state, hot_phase
+    from repro_torch.core.recall import recall_at_k
+    from repro_torch.kernels import ops, ref
+    from tests.test_torch_cuda import SCAN_KERNELS, same_bits, scan_kernel
+
+    dqf = ctx["dqf"]
+    c = dqf.cfg
+    n = dqf.x.shape[0]
+    qt = dqf._queries(ctx["batches"][0])
+    B, d = qt.shape
+    gt0 = ctx["gt"][:B]
+    x_pad, adj_pad, live = (dqf._dev["x_pad"], dqf._dev["adj_pad"],
+                            dqf._dev["live_pad"])
+    x = x_pad[:n]
+    sq = ctx["quant"]["sq8"].device_table(device=dev)
+    pq = ctx["quant"]["pq"].device_table(device=dev)
+    codes8, codes_pq = sq.codes[:n], pq.codes[:n]
+    luts = pq.with_queries(qt).luts
+    M, K = luts.shape[1], luts.shape[2]
+    # one composed beam step on real state: phase 4's hot-phase pool seeded
+    # into the full phase, and the adjacency row of each lane's frontier
+    hd = dqf.hot_tables()
+    hot_pool, _ = hot_phase(hd["x_hot_pad"], hd["adj_hot_pad"],
+                            hd["hot_entries"], qt, pool_size=c.hot_pool,
+                            max_hops=c.max_hops, mode=c.hot_mode)
+    sentinel = x_pad.shape[0] - 1
+    pool = _seed_full_state(hot_pool, hd["hot_ids_pad"], sentinel,
+                            c.full_pool, live).pool
+    frontier = ref.first_true((~pool.expanded) & (pool.ids != sentinel))
+    p = pool.ids.gather(1, frontier[:, None].long())[:, 0]
+    nbrs = adj_pad[p.long()].contiguous()
+    L, R = pool.ids.shape[1], nbrs.shape[1]
+    log(f"  state: x {tuple(x.shape)}, queries {tuple(qt.shape)}, sq8 codes "
+        f"{tuple(codes8.shape)}, pq codes {tuple(codes_pq.shape)} with LUTs "
+        f"{tuple(luts.shape)}, pool (B={B}, L={L}), candidates (B={B}, "
+        f"C={R}) from the frontiers' adjacency rows")
+
+    wrappers = {name: scan_kernel(name)[0] for name in SCAN_KERNELS}
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    out = {"pairwise_l2": ops.pairwise_l2(qt, x),
+           "sq8_pairwise_l2": ops.sq8_pairwise_l2(qt, codes8, sq.scale,
+                                                  sq.zero),
+           "pq_adc": ops.pq_adc(luts, codes_pq)}
+    cand = ops.gather_distances(qt, x_pad, nbrs)
+    merged = ops.pool_merge(pool.dists, pool.ids, cand, nbrs)
+    torch.cuda.synchronize()
+    launches = {name: w.launches for name, w in wrappers.items()}
+    log(f"  launches in the drive: {launches}")
+    missing = [name for name, k in launches.items() if k <= 0]
+    if missing:
+        raise SystemExit(f"phase 10 never launched {missing}")
+    for name, o in out.items():
+        if o.shape != (B, n):
+            raise SystemExit(f"{name} output has shape {tuple(o.shape)}")
+    if merged[0].shape != (B, L) or not bool(
+            (merged[0][:, 1:] >= merged[0][:, :-1]).all()):
+        raise SystemExit("pool_merge output is malformed or unsorted")
+    entries = []
+
+    def recall_of(name):
+        ids = torch.topk(out[name], 10, dim=1, largest=False).indices
+        return recall_at_k(ids.cpu().numpy(), gt0)
+
+    # --- the three scans, one after the other, each output freed after ---
+    def expansion(rows):                  # the library's float32 scan
+        return ((qt * qt).sum(1)[:, None] + (rows * rows).sum(1)[None, :]
+                - 2.0 * torch.matmul(qt, rows.T))
+
+    def library_merge():
+        dd = torch.cat([pool.dists, cand], 1)
+        srt = torch.sort(dd, dim=1, stable=True)
+        return (srt.values[:, :L],
+                torch.cat([pool.ids, nbrs], 1).gather(1, srt.indices[:, :L]))
+
+    scans = (
+        ("pairwise_l2", "pairwise_l2.cu", "src/repro/kernels/distance.py:35",
+         lambda: ops.pairwise_l2(qt, x),
+         lambda s, e: ref.pairwise_l2(qt[s:e], x),
+         lambda: expansion(x),
+         "(q²+x²) − 2·torch.matmul, TF32 off",
+         2 * B * n * d + 3 * B * n + 2 * (B + n) * d,
+         (B + n) * d * 4 + B * n * 4),
+        ("sq8_pairwise_l2", "pairwise_l2.cu",
+         "src/repro/kernels/sq_distance.py:38",
+         lambda: ops.sq8_pairwise_l2(qt, codes8, sq.scale, sq.zero),
+         lambda s, e: ref.sq8_pairwise_l2(qt[s:e], codes8, sq.scale, sq.zero),
+         lambda: expansion(codes8.float() * sq.scale + sq.zero),
+         "decode, then (q²+x²) − 2·torch.matmul, TF32 off",
+         2 * B * n * d + 3 * B * n + 2 * (B + n) * d + 2 * n * d,
+         B * d * 4 + n * d + 2 * d * 4 + B * n * 4),
+        ("pq_adc", "pq_adc.cu", "src/repro/kernels/pq_adc.py:38",
+         lambda: ops.pq_adc(luts, codes_pq),
+         lambda s, e: ref.pq_adc(luts[s:e], codes_pq),
+         lambda: luts[:, torch.arange(M, device=dev), codes_pq.long()].sum(-1),
+         "advanced-index gather of (B, N, M), then sum",
+         B * n * (M - 1), B * M * K * 4 + n * M + B * n * 4))
+    recalls = {}
+    for (name, source, replaces, kernel, plain, library, note, flops,
+         moved) in scans:
+        recalls[name] = recall_of(name)
+        plain_ms, err = _plain_in_chunks(plain, out[name], B, name)
+        del out[name]
+        saved = wrappers[name].launches
+        ms = _median_ms(kernel, reps)
+        wrappers[name].launches = saved
+        library_ms = _median_ms(library, 3)
+        entries.append(scan_entry(
+            name, source, replaces, launches[name],
+            max(err, syn_errs[name]), ms, plain_ms, library_ms, note, flops,
+            moved))
+        torch.cuda.empty_cache()
+    log(f"  recall@10 of the exact top-10 of each scan: float32 "
+        f"{recalls['pairwise_l2']:.4f}, sq8 {recalls['sq8_pairwise_l2']:.4f}"
+        f", pq {recalls['pq_adc']:.4f}")
+    if recalls["pairwise_l2"] < 0.999:
+        raise SystemExit(f"the float32 scan's exact top-10 has recall@10 "
+                         f"{recalls['pairwise_l2']:.4f} < 0.999")
+
+    # --- the composed beam step: gather, then merge ---
+    want_c = ref.gather_distances(qt, x_pad, nbrs)
+    want_m = ref.pool_merge(pool.dists, pool.ids, want_c, nbrs)
+    if not (same_bits(want_c, cand) and same_bits(want_m, merged)):
+        raise SystemExit("gather_distances or pool_merge differs from its "
+                         "plain version on the main path's state")
+    md = merged[0]
+    ties = (md[:, 1:] == md[:, :-1]) & (md[:, 1:] < ref.INF_DIST)
+    log(f"  composed step: {int((nbrs == sentinel).sum())} sentinel "
+        f"neighbours, {int(ties.sum())} equal adjacent finite keys (a "
+        f"candidate already in the pool) in the merged pools")
+    step = (
+        ("gather_distances", "gather_distances.cu",
+         "src/repro/kernels/gather_distance.py:39",
+         lambda: ops.gather_distances(qt, x_pad, nbrs),
+         lambda: ref.gather_distances(qt, x_pad, nbrs),
+         lambda: ((x_pad[nbrs.long()] - qt[:, None, :]) ** 2).sum(-1),
+         "((x_pad[nbrs] − q)²).sum(-1)", want_c, cand, 3 * B * R * d,
+         B * R * d * 4 + B * d * 4 + B * R * 4 * 2),
+        ("pool_merge", "pool_merge.cu", "src/repro/kernels/topk_merge.py:40",
+         lambda: ops.pool_merge(pool.dists, pool.ids, cand, nbrs),
+         lambda: ref.pool_merge(pool.dists, pool.ids, cand, nbrs),
+         library_merge,
+         "torch.sort(stable=True) of the concatenation, then a slice",
+         want_m, merged,
+         B * (R * int(np.log2(R)) + L + R), B * (L + R) * 8 + B * L * 8))
+    for (name, source, replaces, kernel, plain, library, note, want, got,
+         flops, moved) in step:
+        saved = wrappers[name].launches
+        ms = _median_ms(kernel, 20)
+        wrappers[name].launches = saved
+        plain_ms = _median_ms(plain, 5)
+        library_ms = _median_ms(library, 20)
+        err = max(finite_err(want, got), syn_errs[name])
+        entries.append(scan_entry(name, source, replaces, launches[name],
+                                  err, ms, plain_ms, library_ms, note, flops,
+                                  moved))
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  peak device memory in phase 10: {peak / 2**30:.3f} GiB")
+    return entries, recalls
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1114,6 +1391,9 @@ def main() -> int:
     phase("phase 3d: fused_hop paged mode vs plain version")
     n_paged, paged_err = phase_paged_synthetic(dev)
     log(f"  {n_paged} cases bit-identical")
+    phase("phase 3e: scan and merge kernels vs plain versions")
+    n_scan, scan_errs = phase_scan_synthetic(dev)
+    log(f"  {n_scan} cases bit-identical")
 
     phase(f"phase 4: graph main path n={N} d=128")
     ctx = phase_main(dev, N, args.seed)
@@ -1144,6 +1424,11 @@ def main() -> int:
         "launches"]["fused_hop_paged"]
     entries.append(time_paged_hop(sdqf, q0, paged_launches, paged_err))
     del sdqf
+    torch.cuda.empty_cache()
+
+    phase("phase 10: scan and merge entry points on the main path's state")
+    scan_entries, _ = phase_scan(ctx, dev, scan_errs)
+    entries += scan_entries
 
     phase("done")
     log(f"  total {time.perf_counter() - t_all:.1f} s")

@@ -21,7 +21,8 @@ __all__ = ["NVCC_FLAGS", "SOURCES", "build_all", "load"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("fused_hop", "fused_topk_l2")
+SOURCES = ("fused_hop", "fused_topk_l2", "pairwise_l2", "pq_adc",
+           "pool_merge", "gather_distances")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")

@@ -40,9 +40,10 @@
 //   * one warp scores one neighbour: lane i holds components i + 32 j, the
 //     M = max(next_pow2(width), 32) / 32 registers are halved in place,
 //     then __shfl_down_sync 16..1 finishes the pairwise halving sum of
-//     ref.halving_sum in the same order, with __fsub_rn/__fmul_rn/__fadd_rn
-//     (and the file is built with --fmad=false).  sq8 keeps its lane's
-//     scale and zero in registers and decodes (float)(int8_t)c first; pq
+//     ref.halving_sum in the same order (warp_halving_sum, halving.cuh),
+//     with __fsub_rn/__fmul_rn/__fadd_rn (and the file is built with
+//     --fmad=false).  sq8 keeps its lane's scale and zero in registers
+//     and decodes (float)(int8_t)c first; pq
 //     stages the lane's (M, K) LUT in shared memory once per launch and
 //     sums the looked-up values in the same halving order (no square);
 //   * invalid neighbours (sentinel, seen, dead) are never scored: their
@@ -72,6 +73,7 @@
 #include <stdint.h>
 
 #include "bitonic.cuh"
+#include "halving.cuh"
 
 #define DQF_INF_DIST 3.0e38f
 #define DQF_EPS 1e-12f
@@ -267,16 +269,7 @@ fused_hop_kernel(const HopArgs a) {
             v[j] = c < tw ? lut[c * a.K + (int)row[c]] : 0.f;
           }
         }
-#pragma unroll
-        for (int w = M / 2; w >= 1; w >>= 1) {
-#pragma unroll
-          for (int j = 0; j < w; ++j) v[j] = __fadd_rn(v[j], v[j + w]);
-        }
-        float s = v[0];
-#pragma unroll
-        for (int off = 16; off >= 1; off >>= 1)
-          s = __fadd_rn(s, __shfl_down_sync(0xffffffffu, s, off));
-        acc = s;
+        acc = warp_halving_sum<M>(v);
       }
       if (wl == 0) d2[r] = acc;
     }
@@ -373,9 +366,7 @@ static int launch(const HopArgs& a, size_t smem, cudaStream_t st) {
 
 template <int MODE, bool PAGED>
 static int launch_width(const HopArgs& a, size_t smem, cudaStream_t st) {
-  int width = 1;
-  while (width < a.tw) width <<= 1;
-  switch (width < 32 ? 1 : width / 32) {
+  switch (halving_regs(a.tw)) {
     case 1: return launch<MODE, 1, PAGED>(a, smem, st);
     case 2: return launch<MODE, 2, PAGED>(a, smem, st);
     case 4: return launch<MODE, 4, PAGED>(a, smem, st);

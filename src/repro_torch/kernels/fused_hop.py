@@ -25,7 +25,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from ._launch import launch
 from .ref import HopState, next_pow2
 
 __all__ = ["fused_hop_cuda", "fused_hop_paged_cuda"]
@@ -49,16 +49,6 @@ class _HopArgs(ctypes.Structure):
             "page_shift")])
 
 _MODES = {"f32": 0, "sq8": 1, "pq": 2}
-
-
-def _lib():
-    lib = _build.load("fused_hop")
-    if lib.dqf_fused_hop.argtypes is None:
-        lib.dqf_fused_hop.argtypes = [ctypes.POINTER(_HopArgs), _P]
-        lib.dqf_fused_hop.restype = ctypes.c_int
-        lib.dqf_error_string.argtypes = [ctypes.c_int]
-        lib.dqf_error_string.restype = ctypes.c_char_p
-    return lib
 
 
 def _check(name, t, dtype, shape, device):
@@ -141,12 +131,7 @@ def _launch(hs: HopState, seen_shape, pt, adj_pad, queries, live_pad,
     a.B, a.L, a.R, a.n, a.d = B, L, R, n1 - 1, d
     a.hops, a.max_hops, a.k, a.eval_gap = hops, max_hops, k, eval_gap
     a.add_step, a.tree_depth, a.sort_len = add_step, tree_depth, sort_len
-    lib = _lib()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.dqf_fused_hop(ctypes.byref(a), stream)
-    if err != 0:
-        raise RuntimeError("fused_hop launch failed: "
-                           + lib.dqf_error_string(err).decode())
+    launch("fused_hop", "dqf_fused_hop", a, dev, "fused_hop")
     return HopState(ids=outs["ids"], dists=outs["dists"],
                     expanded=outs["expanded"], seen=hs.seen,
                     active=outs["active"], dist_count=outs["dist_count"],

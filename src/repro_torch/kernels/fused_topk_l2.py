@@ -18,41 +18,21 @@ import ctypes
 
 import torch
 
-from . import _build
+from ._launch import launch, require
 
 __all__ = ["fused_topk_l2_cuda"]
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int32
-
 
 class _TopkArgs(ctypes.Structure):
-    _fields_ = ([(f, _P) for f in ("q", "x", "dists", "ids")]
-                + [(f, _I) for f in ("B", "N", "d", "k")])
-
-
-def _lib():
-    lib = _build.load("fused_topk_l2")
-    if lib.dqf_fused_topk_l2.argtypes is None:
-        lib.dqf_fused_topk_l2.argtypes = [ctypes.POINTER(_TopkArgs), _P]
-        lib.dqf_fused_topk_l2.restype = ctypes.c_int
-        lib.dqf_error_string.argtypes = [ctypes.c_int]
-        lib.dqf_error_string.restype = ctypes.c_char_p
-    return lib
+    _fields_ = ([(f, ctypes.c_void_p) for f in ("q", "x", "dists", "ids")]
+                + [(f, ctypes.c_int32) for f in ("B", "N", "d", "k")])
 
 
 def fused_topk_l2_cuda(q: torch.Tensor, x: torch.Tensor, *, k: int):
     """(dists, ids), both (B, k), of the k nearest rows of ``x`` per query
     (CUDA tensors, float32)."""
-    dev = q.device
-    if dev.type != "cuda" or x.device != dev:
-        raise ValueError("fused_topk_l2_cuda takes CUDA tensors on one "
-                         "device")
-    for name, t in (("q", q), ("x", x)):
-        if t.dtype != torch.float32 or t.dim() != 2:
-            raise TypeError(f"{name} must be a 2-D float32 tensor")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    dev = require("fused_topk_l2_cuda", "q", q, torch.float32, 2)
+    require("fused_topk_l2_cuda", "x", x, torch.float32, 2, dev)
     B, d = q.shape
     N = x.shape[0]
     if x.shape[1] != d:
@@ -63,12 +43,7 @@ def fused_topk_l2_cuda(q: torch.Tensor, x: torch.Tensor, *, k: int):
     ids = torch.empty((B, k), dtype=torch.int32, device=dev)
     a = _TopkArgs(q.data_ptr(), x.data_ptr(), dists.data_ptr(),
                   ids.data_ptr(), B, N, d, k)
-    lib = _lib()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.dqf_fused_topk_l2(ctypes.byref(a), stream)
-    if err != 0:
-        raise RuntimeError("fused_topk_l2 launch failed: "
-                           + lib.dqf_error_string(err).decode())
+    launch("fused_topk_l2", "dqf_fused_topk_l2", a, dev, "fused_topk_l2")
     fused_topk_l2_cuda.launches += 1
     return dists, ids
 

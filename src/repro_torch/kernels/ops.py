@@ -11,10 +11,17 @@ from __future__ import annotations
 import torch
 
 from . import ref
+from .distance import pairwise_l2_cuda
 from .fused_hop import fused_hop_cuda, fused_hop_paged_cuda
 from .fused_topk_l2 import fused_topk_l2_cuda
+from .gather_distance import gather_distances_cuda
+from .pq_adc import pq_adc_cuda
+from .sq_distance import sq8_pairwise_l2_cuda
+from .topk_merge import pool_merge_cuda
 
-__all__ = ["table_spec", "fused_hop", "fused_hop_paged", "fused_topk_l2"]
+__all__ = ["table_spec", "fused_hop", "fused_hop_paged", "fused_topk_l2",
+           "pairwise_l2", "sq8_pairwise_l2", "pq_adc", "pool_merge",
+           "gather_distances"]
 
 
 def _device_type(t: torch.Tensor) -> str:
@@ -29,6 +36,48 @@ def fused_topk_l2(q: torch.Tensor, x: torch.Tensor, *, k: int):
     if _device_type(q) == "cpu":
         return ref.fused_topk_l2(q, x, k=k)
     return fused_topk_l2_cuda(q, x, k=k)
+
+
+def pairwise_l2(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """(B, N) squared L2 of every query against every row as
+    ``(|q|² + |x|²) − 2 q·x`` (it may be slightly negative)."""
+    if _device_type(q) == "cpu":
+        return ref.pairwise_l2(q, x)
+    return pairwise_l2_cuda(q, x)
+
+
+def sq8_pairwise_l2(q: torch.Tensor, codes: torch.Tensor,
+                    scale: torch.Tensor, zero: torch.Tensor) -> torch.Tensor:
+    """(B, N) squared L2 of every query against every int8 row decoded as
+    ``code * scale + zero``."""
+    if _device_type(q) == "cpu":
+        return ref.sq8_pairwise_l2(q, codes, scale, zero)
+    return sq8_pairwise_l2_cuda(q, codes, scale, zero)
+
+
+def pq_adc(luts: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """(B, N) PQ asymmetric distances ``Σ_m luts[b, m, codes[i, m]]`` from
+    (B, M, K) LUTs and (N, M) codes."""
+    if _device_type(luts) == "cpu":
+        return ref.pq_adc(luts, codes)
+    return pq_adc_cuda(luts, codes)
+
+
+def pool_merge(pool_dists, pool_ids, cand_dists, cand_ids):
+    """(dists, ids), both (B, L): the L smallest of a sorted (B, L) pool and
+    (B, C) candidates per row, sorted, equal keys in input order."""
+    if _device_type(pool_dists) == "cpu":
+        return ref.pool_merge(pool_dists, pool_ids, cand_dists, cand_ids)
+    return pool_merge_cuda(pool_dists, pool_ids, cand_dists, cand_ids)
+
+
+def gather_distances(queries: torch.Tensor, x_pad: torch.Tensor,
+                     nbrs: torch.Tensor) -> torch.Tensor:
+    """(B, R) squared L2 of query b against ``x_pad[nbrs[b, r]]``, ids in
+    [0, n] (sentinel n)."""
+    if _device_type(queries) == "cpu":
+        return ref.gather_distances(queries, x_pad, nbrs)
+    return gather_distances_cuda(queries, x_pad, nbrs)
 
 
 def table_spec(table):

@@ -13,7 +13,10 @@ deliberate choices:
   CUDA kernel can repeat it exactly;
 * the three sums of :func:`pairwise_l2` run over d in index order;
 * every ``jnp.argsort`` becomes ``torch.sort(..., stable=True)``, and
-  ``lax.top_k`` a stable sort whose ties go to the smaller id.
+  ``lax.top_k`` a stable sort whose ties go to the smaller id;
+* :func:`pq_adc` sums the looked-up values in :func:`halving_sum` order,
+  as the search's PQ scorer does, not in the order of the TPU kernel's
+  one-hot matmul.
 
 The ``seen`` bitmap of a :class:`HopState` is updated in place: at a
 million rows it is a megabyte per lane, and a functional copy per hop would
@@ -27,7 +30,8 @@ from typing import NamedTuple
 import torch
 
 __all__ = ["HopState", "halving_sum", "sq_l2", "sq8_score", "pq_score",
-           "pairwise_l2", "fused_topk_l2", "fused_hop_body", "fused_hop",
+           "pairwise_l2", "sq8_pairwise_l2", "pq_adc", "pool_merge",
+           "gather_distances", "fused_topk_l2", "fused_hop_body", "fused_hop",
            "fused_hop_paged", "tree_predict", "next_pow2"]
 
 # Mirrors of repro_torch.core.types constants (kernels sit below core).
@@ -102,7 +106,7 @@ def pq_score(codes, luts, cols) -> torch.Tensor:
 
 
 # ------------------------------------------------------ brute-force scorer
-_CHUNK_ELEMS = 1 << 25       # (B, rows) elements per chunk of the plain top-k
+_CHUNK_ELEMS = 1 << 25       # elements per chunk of the plain top-k and pq_adc
 
 
 def _seq_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -129,6 +133,53 @@ def pairwise_l2(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     for c in range(q.shape[1]):
         dot = dot + q[:, None, c] * x[None, :, c]
     return (q_sq[:, None] + x_sq[None, :]) - 2.0 * dot
+
+
+def sq8_pairwise_l2(q: torch.Tensor, codes: torch.Tensor,
+                    scale: torch.Tensor, zero: torch.Tensor) -> torch.Tensor:
+    """(B, N) squared L2 of float32 queries against int8 rows decoded as
+    ``code * scale + zero`` (two roundings, as :func:`sq8_score`), then
+    :func:`pairwise_l2`."""
+    return pairwise_l2(q, codes.to(torch.float32) * scale + zero)
+
+
+def pq_adc(luts: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """(B, N) PQ asymmetric distances ``Σ_m luts[b, m, codes[i, m]]``.
+
+    ``luts`` is (B, M, K) float32, ``codes`` (N, M) integer.  The M
+    looked-up values are summed in :func:`halving_sum` order, so row i of
+    the result equals :func:`pq_score` of row i.  Rows are taken in chunks:
+    one gather over all N rows would hold B·N·M values.
+    """
+    B, M = luts.shape[0], luts.shape[1]
+    N = codes.shape[0]
+    out = torch.empty((B, N), dtype=torch.float32, device=luts.device)
+    sub = torch.arange(M, device=luts.device)
+    step = max(1, _CHUNK_ELEMS // max(B * M, 1))
+    for s in range(0, N, step):
+        c = codes[s:s + step].long()                       # (n, M)
+        out[:, s:s + c.shape[0]] = halving_sum(luts[:, sub, c])
+    return out
+
+
+def pool_merge(pool_dists: torch.Tensor, pool_ids: torch.Tensor,
+               cand_dists: torch.Tensor, cand_ids: torch.Tensor):
+    """Merge (B, C) candidates into a (B, L) pool and keep the L smallest,
+    sorted: a stable sort of ``[pool | candidates]``, so equal keys keep
+    their input order (``repro/kernels/ref.py::pool_merge``)."""
+    L = pool_dists.shape[1]
+    d = torch.cat([pool_dists, cand_dists], dim=1)
+    i = torch.cat([pool_ids, cand_ids], dim=1)
+    order = torch.sort(d, dim=1, stable=True).indices[:, :L]
+    return d.gather(1, order), i.gather(1, order)
+
+
+def gather_distances(queries: torch.Tensor, x_pad: torch.Tensor,
+                     nbrs: torch.Tensor) -> torch.Tensor:
+    """(B, R) squared L2 of query b against ``x_pad[nbrs[b, r]]`` by
+    :func:`sq_l2`, the f32 score of the fused hop.  Ids lie in [0, n];
+    the sentinel row n holds ``PAD_VALUE`` and scores finite and huge."""
+    return sq_l2(x_pad[nbrs.long()], queries[:, None, :])
 
 
 def fused_topk_l2(q: torch.Tensor, x: torch.Tensor, *, k: int):

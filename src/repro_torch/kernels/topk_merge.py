@@ -1,0 +1,56 @@
+"""Launch wrapper of the sorted pool merge kernel (``csrc/pool_merge.cu``).
+
+Replaces ``repro/kernels/topk_merge.py::pool_merge_pallas``: keep the L
+smallest of a sorted (B, L) pool and (B, C) candidates per row, sorted,
+equal to :func:`repro_torch.kernels.ref.pool_merge` bit for bit, ties in
+the stable order of the JAX ref (not the Pallas kernel's unstable one).
+
+``pool_merge_cuda.launches`` counts launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ._launch import launch, require
+
+__all__ = ["pool_merge_cuda"]
+
+
+class _MergeArgs(ctypes.Structure):
+    _fields_ = ([(f, ctypes.c_void_p) for f in (
+        "pool_dists", "pool_ids", "cand_dists", "cand_ids", "out_dists",
+        "out_ids")]
+                + [(f, ctypes.c_int32) for f in ("B", "L", "C", "S", "G")])
+
+
+def pool_merge_cuda(pool_dists: torch.Tensor, pool_ids: torch.Tensor,
+                    cand_dists: torch.Tensor, cand_ids: torch.Tensor):
+    """(dists, ids), both (B, L): the L smallest of pool ∪ candidates per
+    row (float32 dists, int32 ids; CUDA tensors; no NaN keys)."""
+    what = "pool_merge_cuda"
+    dev = require(what, "pool_dists", pool_dists, torch.float32, 2)
+    require(what, "pool_ids", pool_ids, torch.int32, 2, dev)
+    require(what, "cand_dists", cand_dists, torch.float32, 2, dev)
+    require(what, "cand_ids", cand_ids, torch.int32, 2, dev)
+    B, L = pool_dists.shape
+    C = cand_dists.shape[1]
+    if (pool_ids.shape != (B, L) or cand_dists.shape[0] != B
+            or cand_ids.shape != (B, C)):
+        raise ValueError(f"{what}: pool (B, L) and candidates (B, C) "
+                         f"disagree in shape")
+    dists = torch.empty((B, L), dtype=torch.float32, device=dev)
+    ids = torch.empty((B, L), dtype=torch.int32, device=dev)
+    if dists.numel() == 0:
+        return dists, ids
+    args = _MergeArgs(pool_dists.data_ptr(), pool_ids.data_ptr(),
+                      cand_dists.data_ptr(), cand_ids.data_ptr(),
+                      dists.data_ptr(), ids.data_ptr(), B, L, C, 0, 0)
+    launch("pool_merge", "dqf_pool_merge", args, dev, "pool_merge")
+    pool_merge_cuda.launches += 1
+    return dists, ids
+
+
+pool_merge_cuda.launches = 0

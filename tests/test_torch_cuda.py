@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain versions, bit for bit.
 
 The fused wave-hop in its f32, sq8 and pq score modes, dense and paged,
-and the brute-force top-k scorer of the mxu hot phase.
+the brute-force top-k scorer of the mxu hot phase, and the scan and merge
+entry points (``pairwise_l2``, ``sq8_pairwise_l2``, ``pq_adc``,
+``pool_merge``, ``gather_distances``) over the grid of ``scan_cases``.
 
 Imports nothing of JAX, so it runs where only the port is installed:
 
@@ -10,8 +12,11 @@ Imports nothing of JAX, so it runs where only the port is installed:
 Without a CUDA device every test here skips (the kernels have no CPU
 mode).  The synthetic worlds are shared with ``tests/test_torch_fused_hop.py``,
 ``tests/test_torch_quant.py`` and ``tests/test_torch_paged_hop.py``;
-``duplicated_rows`` and ``paged_case`` with ``chip_smoke.py``.
+``duplicated_rows``, ``paged_case`` and the scan grid (``scan_cases``,
+``scan_kernel``, ``same_bits``) with ``chip_smoke.py``.
 """
+
+import importlib
 
 import numpy as np
 import pytest
@@ -120,6 +125,101 @@ def paged_case(hs, page_cols, n_pad, rng, spare_pages=7):
     rows[:, :n1] = hs.seen[:real]
     pool[pt_t[:real].long()] = rows.reshape(real, ppl, page_cols)
     return hs._replace(seen=pool), pt_t
+
+
+# ------------------------------------------------- scan and merge kernels
+SCAN_KERNELS = ("pairwise_l2", "sq8_pairwise_l2", "pq_adc", "pool_merge",
+                "gather_distances")
+SCAN_B = (1, 7, 130)
+SCAN_N = (1, 63, 129, 5000)
+SCAN_D = (18, 100, 128)
+SCAN_PQ = ((4, 64), (4, 256), (8, 64), (8, 256))       # (M, K)
+SCAN_MERGE = ((8, 8), (64, 32), (10, 7))                # (L, C)
+_SCAN_MODULES = {"pairwise_l2": "distance", "sq8_pairwise_l2": "sq_distance",
+                 "pq_adc": "pq_adc", "pool_merge": "topk_merge",
+                 "gather_distances": "gather_distance"}
+
+
+def scan_kernel(name):
+    """(CUDA launch wrapper, plain version) of a scan or merge kernel."""
+    mod = importlib.import_module(f"repro_torch.kernels.{_SCAN_MODULES[name]}")
+    return getattr(mod, f"{name}_cuda"), getattr(tref, name)
+
+
+def scan_cases(name, dev, seed=0):
+    """The synthetic grid of one scan or merge kernel: ``(tag, args)``
+    pairs, the arguments on ``dev``.
+
+    Rows with exact duplicates and a query equal to row 0 (ties, a zero
+    distance, cancellation); sq8 codes that reach -127 and 127; pq codes
+    that reach 0 and K - 1; pools and candidates with equal keys, +inf
+    and ``INF_DIST`` slots; neighbour rows with the sentinel id and a
+    duplicated id.
+    """
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(a, device=dev)
+    f32 = lambda a: np.asarray(a, np.float32)
+    if name in ("pairwise_l2", "sq8_pairwise_l2"):
+        for d in SCAN_D:
+            scale = f32(rng.uniform(0.005, 0.05, d))
+            zero = f32(rng.standard_normal(d) * 0.3)
+            for N in SCAN_N:
+                x = duplicated_rows(N, d, N + d)
+                codes = rng.integers(-127, 128, (N, d)).astype(np.int8)
+                codes[0, 0], codes[-1, -1] = -127, 127
+                rows = (t(x),) if name == "pairwise_l2" else (
+                    t(codes), t(scale), t(zero))
+                for B in SCAN_B:
+                    q = f32(rng.standard_normal((B, d)))
+                    if name == "pairwise_l2":
+                        q[0] = x[0]
+                    yield f"B={B} N={N} d={d}", (t(q), *rows)
+    elif name == "pq_adc":
+        for M, K in SCAN_PQ:
+            for N in SCAN_N:
+                codes = rng.integers(0, K, (N, M)).astype(np.uint8)
+                codes[0, 0], codes[-1, -1] = K - 1, 0
+                for B in SCAN_B:
+                    luts = f32(rng.uniform(0, 8, (B, M, K)))
+                    yield f"B={B} N={N} M={M} K={K}", (t(luts), t(codes))
+    elif name == "pool_merge":
+        for L, C in SCAN_MERGE:
+            for B in SCAN_B:
+                pd = np.sort(f32(rng.integers(0, 6, (B, L))), axis=1)
+                pd[:, -2:] = np.inf                      # empty slots
+                pd[-1, L // 2:] = tref.INF_DIST          # the search's empty
+                cd = f32(rng.integers(0, 6, (B, C)))
+                cd[:, 0] = np.inf
+                cd[:, -1] = pd[:, 0]                     # ties the pool head
+                pi = rng.integers(0, 1000, (B, L)).astype(np.int32)
+                ci = rng.integers(0, 1000, (B, C)).astype(np.int32)
+                yield f"B={B} L={L} C={C}", (t(pd), t(pi), t(cd), t(ci))
+    elif name == "gather_distances":
+        n = 300
+        for d in SCAN_D:
+            x = rng.standard_normal((n, d)).astype(np.float32)
+            x_pad = np.concatenate([x, np.full((1, d), 1e9, np.float32)])
+            R = 32 if d == 128 else 10
+            for B in SCAN_B:
+                q = f32(rng.standard_normal((B, d)))
+                nbrs = rng.integers(0, n + 1, (B, R)).astype(np.int32)
+                nbrs[:, 0] = n                           # the sentinel row
+                nbrs[:, 2] = nbrs[:, 1]                  # an id twice
+                yield f"B={B} R={R} d={d}", (t(q), t(x_pad), t(nbrs))
+    else:
+        raise ValueError(f"no scan kernel {name!r}")
+
+
+def same_bits(a, b) -> bool:
+    """Equal shapes, dtypes and bits (float32 compared as int32; tuples
+    element by element), compared on the tensors' own device."""
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(map(same_bits, a, b))
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return bool(torch.equal(a, b))
 
 
 @pytest.fixture
@@ -308,3 +408,23 @@ def test_cuda_paged_hop_bit_identical(cuda_device, mode, page_cols, use_tree,
         if a.dtype == torch.float32:
             a, b = a.view(torch.int32), b.view(torch.int32)
         assert torch.equal(a, b), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", SCAN_KERNELS)
+def test_cuda_scan_kernel_bit_identical(cuda_device, name):
+    """``ops.<name>`` on CUDA tensors launches the kernel once per call and
+    equals the plain version bit for bit over the whole synthetic grid."""
+    from repro_torch.kernels import ops
+
+    cuda_fn, plain = scan_kernel(name)
+    n_cases = 0
+    for tag, args in scan_cases(name, cuda_device):
+        want = plain(*args)
+        before = cuda_fn.launches
+        got = getattr(ops, name)(*args)
+        torch.cuda.synchronize()
+        assert cuda_fn.launches == before + 1, tag
+        assert same_bits(want, got), f"{name} {tag}"
+        n_cases += 1
+    assert n_cases >= 9

@@ -10,6 +10,8 @@ import pytest
 import torch
 
 from repro_torch.core import DQF, DQFConfig
+from tests.test_torch_cuda import (SCAN_KERNELS, same_bits, scan_cases,
+                                   scan_kernel)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -60,7 +62,10 @@ def test_bogus_quant_mode_raises():
 def test_port_imports_no_jax_and_nothing_of_repro():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.convert,"
             " repro_torch.kernels.ops, repro_torch.kernels.fused_hop,"
-            " repro_torch.kernels.fused_topk_l2, repro_torch.quant,"
+            " repro_torch.kernels.fused_topk_l2, repro_torch.kernels.distance,"
+            " repro_torch.kernels.sq_distance, repro_torch.kernels.pq_adc,"
+            " repro_torch.kernels.topk_merge,"
+            " repro_torch.kernels.gather_distance, repro_torch.quant,"
             " repro_torch.obs, repro_torch.obs.bundle, repro_torch.store,"
             " repro_torch.tenancy, repro_torch.serving.engine,"
             " repro_torch.serving.paged_engine;"
@@ -70,6 +75,41 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, check=True, cwd=ROOT)
     assert out.stdout.strip() == "[]"
+
+
+@pytest.mark.parametrize("wrong", ["cpu tensors", "wrong dtype"])
+@pytest.mark.parametrize("name", SCAN_KERNELS)
+def test_scan_wrappers_refuse_before_loading(monkeypatch, name, wrong):
+    """A ``*_cuda`` wrapper given CPU tensors, or a wrong dtype, raises
+    before it loads a library (no nvcc, no card needed to see it)."""
+    from repro_torch.kernels import _build
+
+    def no_load(source):
+        raise AssertionError(f"{name} loaded {source} before its checks")
+
+    monkeypatch.setattr(_build, "load", no_load)
+    cuda_fn, _ = scan_kernel(name)
+    _, args = next(scan_cases(name, "cpu"))
+    if wrong == "wrong dtype":
+        args = (args[0].double(), *args[1:])
+    with pytest.raises(TypeError if wrong == "wrong dtype" else ValueError):
+        cuda_fn(*args)
+    assert cuda_fn.launches == 0
+
+
+@pytest.mark.parametrize("name", SCAN_KERNELS)
+def test_scan_ops_on_cpu_reach_the_plain_version(monkeypatch, name):
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref
+
+    plain = getattr(ref, name)
+    calls = []
+    monkeypatch.setattr(ref, name,
+                        lambda *a: calls.append(1) or plain(*a))
+    _, args = next(scan_cases(name, "cpu"))
+    got = getattr(ops, name)(*args)
+    assert calls == [1]
+    assert same_bits(got, plain(*args))
 
 
 @pytest.mark.parametrize("path", sorted(

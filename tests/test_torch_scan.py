@@ -1,0 +1,291 @@
+"""The port's scan and merge entry points against the JAX package.
+
+Five plain versions in ``repro_torch.kernels.ref`` — the contracts of the
+CUDA kernels ``pairwise_l2.cu`` (F32 and SQ8 modes), ``pq_adc.cu``,
+``pool_merge.cu`` and ``gather_distances.cu`` — held against
+``repro.kernels.ref``'s function of the same name and against the Pallas
+kernel in ``interpret=True``, on inputs made from a seed with numpy:
+
+* ``pairwise_l2`` and ``sq8_pairwise_l2``: |Δ| ≤ 1e-5 · (|q|² + |x|²).
+  Both sides compute the expansion (|q|² + |x|²) − 2 q·x, whose rounding
+  error scales with the two norms and not with the distance; the port sums
+  over d in index order, XLA in its own.
+* ``pq_adc`` and ``gather_distances``: rtol 1e-5 (the port sums in
+  ``ref.halving_sum`` order, JAX with ``jnp.sum``; the Pallas ``pq_adc``
+  is a one-hot matmul).
+* ``pool_merge``: ids and dists exactly equal to ``ref.pool_merge``,
+  equal keys, +inf and ``INF_DIST`` slots included; against
+  ``pool_merge_pallas`` only on tie-free data, since its network is
+  unstable.
+
+Then the slice as a whole: the reference ``built_dqf`` carried over with
+``convert.dqf_from_arrays``, ``ops.pairwise_l2`` / ``sq8_pairwise_l2`` /
+``pq_adc`` over the port's store and codes against the JAX ref over the
+JAX rows and codes, and the exact top-10 of the port's scan at recall@10
+1.0 against ``core/recall.py::ground_truth``, up to ties at the 10th place.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from repro import quant as jquant
+from repro.core import QuantConfig as JQuant
+from repro.kernels import ref as jref
+from repro.kernels.distance import pairwise_l2_pallas
+from repro.kernels.gather_distance import gather_distances_pallas
+from repro.kernels.pq_adc import pq_adc_pallas
+from repro.kernels.sq_distance import sq8_pairwise_l2_pallas
+from repro.kernels.topk_merge import pool_merge_pallas
+from repro_torch import quant as tquant
+from repro_torch.convert import dqf_from_arrays
+from repro_torch.core import QuantConfig as TQuant
+from repro_torch.core.recall import ground_truth, recall_at_k
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+from tests.test_torch_cuda import duplicated_rows, scan_cases
+from tests.test_torch_search import port_cfg, queries, saved  # noqa: F401
+
+T = torch.as_tensor
+
+
+def expansion_tol(q, x):
+    """(B, N) bound 1e-5 · (|q|² + |x|²) on the expansion's rounding."""
+    q64, x64 = np.asarray(q, np.float64), np.asarray(x, np.float64)
+    return 1e-5 * ((q64 * q64).sum(1)[:, None] + (x64 * x64).sum(1)[None, :])
+
+
+def assert_expansion_close(got, want, q, x):
+    diff = np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64))
+    assert (diff <= expansion_tol(q, x)).all(), float(diff.max())
+
+
+def sq8_world(B, N, d, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((N, d)).astype(np.float32) * 2.0
+    cb = jquant.train_sq(x)
+    codes = jquant.sq_encode(x, cb)
+    codes[0, 0], codes[-1, -1] = -127, 127
+    q = rng.standard_normal((B, d)).astype(np.float32)
+    return q, codes, cb.scale, cb.zero
+
+
+# ------------------------------------------------------------ pairwise_l2
+@pytest.mark.parametrize("B,N,d", [(1, 1, 8), (17, 33, 24), (64, 128, 128),
+                                   (30, 70, 100), (7, 5000, 18)])
+def test_pairwise_l2_matches_jax_ref(B, N, d):
+    rng = np.random.default_rng(B * N + d)
+    x = duplicated_rows(N, d, N)
+    q = rng.standard_normal((B, d)).astype(np.float32)
+    q[0] = x[0]                                   # cancellation to ~0
+    got = tops.pairwise_l2(T(q), T(x))
+    assert got.shape == (B, N) and got.dtype == torch.float32
+    assert_expansion_close(got.numpy(), jref.pairwise_l2(q, x), q, x)
+
+
+@pytest.mark.parametrize("B,N,d,bq,bn", [(1, 1, 8, 8, 8), (17, 33, 24, 8, 16),
+                                         (64, 128, 128, 32, 64)])
+def test_pairwise_l2_matches_pallas_interpret(B, N, d, bq, bn):
+    rng = np.random.default_rng(B + N)
+    q = rng.standard_normal((B, d)).astype(np.float32)
+    x = rng.standard_normal((N, d)).astype(np.float32)
+    want = pairwise_l2_pallas(q, x, bq=bq, bn=bn, interpret=True)
+    assert_expansion_close(tref.pairwise_l2(T(q), T(x)).numpy(), want, q, x)
+
+
+# -------------------------------------------------------- sq8_pairwise_l2
+@pytest.mark.parametrize("B,N,d", [(1, 1, 8), (17, 33, 24), (64, 129, 128),
+                                   (5, 300, 100)])
+def test_sq8_pairwise_l2_matches_jax_ref(B, N, d):
+    q, codes, scale, zero = sq8_world(B, N, d, N + d)
+    got = tops.sq8_pairwise_l2(T(q), T(codes), T(scale), T(zero))
+    want = jref.sq8_pairwise_l2(jnp.asarray(q), jnp.asarray(codes),
+                                jnp.asarray(scale), jnp.asarray(zero))
+    x = codes.astype(np.float32) * scale + zero
+    assert_expansion_close(got.numpy(), want, q, x)
+    # the decode is the plain version's two roundings, then the float32 scan
+    assert torch.equal(got, tref.pairwise_l2(T(q), T(x)))
+
+
+@pytest.mark.parametrize("B,N,d,bq,bn", [(1, 1, 8, 8, 8), (17, 33, 24, 8, 16),
+                                         (64, 128, 128, 32, 64)])
+def test_sq8_pairwise_l2_matches_pallas_interpret(B, N, d, bq, bn):
+    q, codes, scale, zero = sq8_world(B, N, d, B + N)
+    want = sq8_pairwise_l2_pallas(jnp.asarray(q), jnp.asarray(codes),
+                                  jnp.asarray(scale), jnp.asarray(zero),
+                                  bq=bq, bn=bn, interpret=True)
+    got = tref.sq8_pairwise_l2(T(q), T(codes), T(scale), T(zero))
+    assert_expansion_close(got.numpy(), want, q,
+                           codes.astype(np.float32) * scale + zero)
+
+
+# ----------------------------------------------------------------- pq_adc
+def pq_world(B, N, M, K, seed):
+    rng = np.random.default_rng(seed)
+    luts = rng.uniform(0, 8, (B, M, K)).astype(np.float32)
+    codes = rng.integers(0, K, (N, M)).astype(np.uint8)
+    codes[0, 0], codes[-1, -1] = K - 1, 0
+    return luts, codes
+
+
+@pytest.mark.parametrize("B,N,M,K", [(5, 40, 4, 16), (17, 70, 6, 32),
+                                     (32, 128, 8, 256), (3, 5000, 8, 64),
+                                     (1, 1, 4, 64)])
+def test_pq_adc_matches_jax_ref(B, N, M, K):
+    luts, codes = pq_world(B, N, M, K, N * M)
+    got = tops.pq_adc(T(luts), T(codes))
+    assert got.shape == (B, N) and got.dtype == torch.float32
+    want = jref.pq_adc(jnp.asarray(luts), jnp.asarray(codes))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5)
+
+
+@pytest.mark.parametrize("B,N,M,K,bq,bn", [(5, 40, 4, 16, 8, 8),
+                                           (17, 70, 6, 32, 8, 32),
+                                           (32, 128, 8, 256, 16, 64)])
+def test_pq_adc_matches_pallas_interpret(B, N, M, K, bq, bn):
+    luts, codes = pq_world(B, N, M, K, B + K)
+    want = pq_adc_pallas(jnp.asarray(luts), jnp.asarray(codes), bq=bq, bn=bn,
+                         interpret=True)
+    np.testing.assert_allclose(tref.pq_adc(T(luts), T(codes)).numpy(),
+                               np.asarray(want), rtol=1e-5)
+
+
+def test_pq_adc_is_the_search_scorer_in_chunks(monkeypatch):
+    """Row i of the scan equals ``ref.pq_score`` of row i bit for bit, in
+    any chunking of the rows."""
+    luts, codes = (T(a) for a in pq_world(6, 257, 6, 32, 3))
+    whole = tref.pq_adc(luts, codes)
+    cols = torch.arange(257, dtype=torch.int32).expand(6, -1)
+    assert torch.equal(whole, tref.pq_score(codes, luts, cols))
+    monkeypatch.setattr(tref, "_CHUNK_ELEMS", 6 * 6 * 5)   # 5-row chunks
+    assert torch.equal(tref.pq_adc(luts, codes), whole)
+
+
+# ------------------------------------------------------------- pool_merge
+@pytest.mark.parametrize("case", range(9))
+def test_pool_merge_matches_jax_ref_with_ties(case):
+    """Exact ids and dists, equal keys kept in input order, input +inf and
+    ``INF_DIST`` slots ahead of nothing but each other."""
+    tag, args = list(scan_cases("pool_merge", "cpu", seed=case))[case]
+    pd, pi, cd, ci = (a.numpy() for a in args)
+    assert any((row[:, None] == row[None, :]).sum() > row.size
+               for row in np.concatenate([pd, cd], 1)), "no ties"
+    gd, gi = tops.pool_merge(*args)
+    wd, wi = jref.pool_merge(pd, pi, cd, ci)
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(wi), err_msg=tag)
+    np.testing.assert_array_equal(gd.numpy(), np.asarray(wd), err_msg=tag)
+    assert gd.dtype == torch.float32 and gi.dtype == torch.int32
+
+
+@pytest.mark.parametrize("B,L,C,bb", [(3, 8, 8, 2), (9, 16, 24, 4),
+                                      (1, 32, 16, 1), (16, 64, 32, 8),
+                                      (5, 10, 7, 1)])
+def test_pool_merge_matches_pallas_interpret_without_ties(B, L, C, bb):
+    rng = np.random.default_rng(B * L + C)
+    pd = np.sort(rng.standard_normal((B, L)).astype(np.float32), 1)
+    pi = rng.integers(0, 9999, (B, L)).astype(np.int32)
+    cd = rng.standard_normal((B, C)).astype(np.float32)
+    ci = rng.integers(0, 9999, (B, C)).astype(np.int32)
+    wd, wi = pool_merge_pallas(pd, pi, cd, ci, bb=bb, interpret=True)
+    gd, gi = tref.pool_merge(T(pd), T(pi), T(cd), T(ci))
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+    np.testing.assert_array_equal(gd.numpy(), np.asarray(wd))
+
+
+# ------------------------------------------------------- gather_distances
+def gather_world(B, R, n, d, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    x_pad = np.concatenate([x, np.full((1, d), 1e9, np.float32)])
+    q = rng.standard_normal((B, d)).astype(np.float32)
+    nbrs = rng.integers(0, n, (B, R)).astype(np.int32)
+    nbrs[:, 0] = n                                 # the sentinel row
+    nbrs[:, 2] = nbrs[:, 1]                        # an id twice
+    return q, x_pad, nbrs
+
+
+@pytest.mark.parametrize("B,R,n,d", [(4, 8, 40, 8), (9, 16, 100, 24),
+                                     (2, 32, 64, 128), (7, 10, 300, 100)])
+def test_gather_distances_matches_jax_ref_and_pallas(B, R, n, d):
+    q, x_pad, nbrs = gather_world(B, R, n, d, B * R + d)
+    got = tops.gather_distances(T(q), T(x_pad), T(nbrs)).numpy()
+    want = jref.gather_distances(jnp.asarray(q), jnp.asarray(x_pad),
+                                 jnp.asarray(nbrs))
+    np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5)
+    kernel = gather_distances_pallas(jnp.asarray(q), jnp.asarray(x_pad),
+                                     jnp.asarray(nbrs), interpret=True)
+    np.testing.assert_allclose(got, np.asarray(kernel), rtol=1e-5)
+    assert np.isfinite(got).all() and (got[:, 0] > 1e18).all()
+    np.testing.assert_array_equal(got[:, 1], got[:, 2])
+
+
+def test_gather_distances_is_the_hop_f32_score():
+    q, x_pad, nbrs = (T(a) for a in gather_world(5, 12, 50, 18, 4))
+    assert torch.equal(tref.gather_distances(q, x_pad, nbrs),
+                       tref._gather_score("f32", x_pad, None, None, q, nbrs))
+
+
+# --------------------------------------------- the slice on a carried DQF
+def assert_top10_exact(scan, x, q, gt):
+    """The exact top-10 of ``scan`` has recall@10 1.0 against ``gt``, up
+    to ties at the 10th place: a miss must lie, in float64, within the
+    expansion's rounding of the 10th-place distance."""
+    pred = torch.sort(scan, dim=1, stable=True).indices[:, :10].numpy()
+    recall = recall_at_k(pred, gt)
+    if recall < 1.0:
+        d64 = ((np.asarray(q, np.float64)[:, None, :]
+                - np.asarray(x, np.float64)[None]) ** 2).sum(-1)
+        tol = expansion_tol(q, x)
+        for b in range(len(q)):
+            tenth = np.sort(d64[b])[9]
+            for i in np.setxor1d(pred[b], gt[b]):
+                assert abs(d64[b, i] - tenth) <= tol[b, i], (b, i)
+    return recall
+
+
+@pytest.mark.parametrize("mode", ["f32", "sq8", "pq"])
+def test_scan_over_carried_dqf_matches_reference(built_dqf, saved, queries,
+                                                  mode):
+    dqf, _ = built_dqf
+    x = np.asarray(dqf.x, np.float32)
+    n = x.shape[0]
+    arrays = dict(saved)
+    over = {}
+    if mode != "f32":
+        over["quant"] = TQuant(mode=mode)
+        arrays.update(tquant.build_quantizer(x, over["quant"]).to_arrays())
+    port = dqf_from_arrays(arrays, port_cfg(dqf.cfg, **over), device="cpu")
+    qt = T(queries)
+    if mode == "f32":
+        rows = port._dev["x_pad"][:n]
+        got = tops.pairwise_l2(qt, rows)
+        assert_expansion_close(got.numpy(),
+                               jref.pairwise_l2(queries, dqf._dev["x_pad"][:n]),
+                               queries, x)
+        recall = assert_top10_exact(got, x, queries,
+                                    ground_truth(rows.numpy(), queries, 10))
+        assert recall >= 0.999
+        return
+    state = jquant.build_quantizer(x, JQuant(mode=mode))
+    table = port._quant_table()
+    if mode == "sq8":
+        codes = table.codes[:n]
+        got = tops.sq8_pairwise_l2(qt, codes, table.scale, table.zero)
+        want = jref.sq8_pairwise_l2(jnp.asarray(queries),
+                                    jnp.asarray(state.codes),
+                                    jnp.asarray(state.sq.scale),
+                                    jnp.asarray(state.sq.zero))
+        np.testing.assert_array_equal(codes.numpy(), state.codes)
+        assert_expansion_close(got.numpy(), want, queries, state.decode())
+    else:
+        view = table.with_queries(qt)
+        codes = view.codes[:n]
+        got = tops.pq_adc(view.luts, codes)
+        luts = jquant.pq_luts(jnp.asarray(queries),
+                              jnp.asarray(state.pq.centroids))
+        want = jref.pq_adc(luts, jnp.asarray(state.codes))
+        np.testing.assert_array_equal(codes.numpy(), state.codes)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5)
+    assert got.shape == (len(queries), n) and bool(torch.isfinite(got).all())
