@@ -3,10 +3,15 @@
 
 Replaces ``repro/kernels/distance.py::pairwise_l2_pallas``, the float32
 scan entry point: (B, N) ``(|q|² + |x|²) − 2 q·x`` of every query against
-every row, equal to :func:`repro_torch.kernels.ref.pairwise_l2` bit for
-bit.  The SQ8 mode of the same kernel is launched by
-:mod:`repro_torch.kernels.sq_distance`.  See the source's header for the
-design and the bound.
+every row.  The product runs on the tensor cores as 3xTF32: each operand
+is split into a TF32 high part and a TF32 remainder, and three TF32
+products (lo·hi + hi·lo + hi·hi) are summed in float32.  The norms and the
+epilogue are :func:`repro_torch.kernels.ref.pairwise_l2`'s, so the result
+is held to ``|kernel − ref.pairwise_l2| ≤ 1e-5 · (|q|² + |x|²)`` elementwise
+(the tolerance the port meets against the JAX package), not bit for bit;
+it may be slightly negative.  The SQ8 mode of the same source, launched by
+:mod:`repro_torch.kernels.sq_distance`, is another kernel and stays bit
+for bit.  See the source's header for the design and the bound.
 
 ``pairwise_l2_cuda.launches`` counts launches.
 """

@@ -5,8 +5,9 @@ Replaces ``repro/kernels/sq_distance.py::sq8_pairwise_l2_pallas``, the
 scan of the sq8 Full Index: (B, N) squared L2 of float32 queries against
 int8 rows decoded as ``code * scale + zero``, equal to
 :func:`repro_torch.kernels.ref.sq8_pairwise_l2` bit for bit.  The kernel
-decodes each code tile in shared memory and then runs the float32
-expansion of :mod:`repro_torch.kernels.distance`.
+decodes each code tile in shared memory and sums every product on the
+CUDA cores in index order over d; it shares the source and the launch of
+:mod:`repro_torch.kernels.distance`, not its tensor-core loop.
 
 ``sq8_pairwise_l2_cuda.launches`` counts launches.
 """

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain versions, bit for bit.
+"""The port's CUDA kernels against their plain versions: bit for bit, and
+the float32 scan (3xTF32 on the tensor cores) within ``expansion_tol``.
 
 The fused wave-hop in its f32, sq8 and pq score modes, dense and paged,
 the brute-force top-k scorer of the mxu hot phase, and the scan and merge
@@ -12,8 +13,11 @@ Imports nothing of JAX, so it runs where only the port is installed:
 Without a CUDA device every test here skips (the kernels have no CPU
 mode).  The synthetic worlds are shared with ``tests/test_torch_fused_hop.py``,
 ``tests/test_torch_quant.py`` and ``tests/test_torch_paged_hop.py``;
-``duplicated_rows``, ``paged_case`` and the scan grid (``scan_cases``,
-``scan_kernel``, ``same_bits``) with ``chip_smoke.py``.
+``duplicated_rows``, ``topk_rows``, ``paged_case``, the scan grid
+(``scan_cases``, ``scan_kernel``, ``same_bits``) and the scan's tolerance
+(``expansion_tol``, ``expansion_ratio``, ``offset_case``) and its
+arithmetic emulated in plain torch (``tf32_rna``, ``tf32_pairwise_l2``)
+with ``chip_smoke.py`` and ``tests/test_torch_scan.py``.
 """
 
 import importlib
@@ -210,6 +214,65 @@ def scan_cases(name, dev, seed=0):
         raise ValueError(f"no scan kernel {name!r}")
 
 
+def expansion_tol(q, x):
+    """(B, N) bound 1e-5 · (|q|² + |x|²) on the rounding of the expansion
+    (|q|² + |x|²) − 2 q·x, in float64: the contract of the float32 scan
+    against its plain version and of the port against the JAX package.
+    Numpy arrays, or tensors (computed on their own device)."""
+    if isinstance(q, torch.Tensor):
+        q64, x64 = q.double(), x.double()
+    else:
+        q64, x64 = np.asarray(q, np.float64), np.asarray(x, np.float64)
+    return 1e-5 * ((q64 * q64).sum(1)[:, None] + (x64 * x64).sum(1)[None, :])
+
+
+def expansion_ratio(got, want, q, x) -> float:
+    """Largest |got − want| / (|q|² + |x|²): within the contract at
+    ≤ 1e-5.  Tensors on one device."""
+    diff = (got.double() - want.double()).abs()
+    if diff.numel() == 0:
+        return 0.0
+    ratio = torch.where(diff == 0, 0.0, diff / expansion_tol(q, x))
+    return float(ratio.max()) * 1e-5
+
+
+def offset_case(B, N, d, seed, offset=100.0):
+    """Rows and queries sharing a large common offset ``offset · u`` along
+    a fixed unit vector u, with a query equal to row 0: |q|² and |x|² are
+    about offset², the distances O(d), so the expansion cancels hard."""
+    rng = np.random.default_rng(seed)
+    u = rng.standard_normal(d)
+    u = (offset * u / np.linalg.norm(u)).astype(np.float32)
+    x = rng.standard_normal((N, d)).astype(np.float32) + u
+    q = rng.standard_normal((B, d)).astype(np.float32) + u
+    q[0] = x[0]
+    return q, x
+
+
+def tf32_rna(a: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 (10 fraction bits) to nearest, ties away
+    from zero: ``cvt.rna.tf32.f32`` by bit masking."""
+    return ((a.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_pairwise_l2(q: torch.Tensor, x: torch.Tensor,
+                     split: bool = True) -> torch.Tensor:
+    """The arithmetic of ``pairwise_l2.cu``'s F32 mode in plain torch: each
+    operand split a = hi + lo (hi = tf32(a), lo = tf32(a − hi)), the dot
+    product as lo·hi + hi·lo + hi·hi in float32 with a_lo·b_lo dropped,
+    and the norms and the epilogue of ``ref.pairwise_l2``.  A product of
+    two TF32 values is exact in float32, so only the sums round.
+    ``split=False`` keeps hi·hi alone, one TF32 product: the lower
+    precision the scan's tolerance must reject."""
+    qh, xh = tf32_rna(q), tf32_rna(x)
+    dot = qh @ xh.T
+    if split:
+        ql, xl = tf32_rna(q - qh), tf32_rna(x - xh)
+        dot = (ql @ xh.T + qh @ xl.T) + dot
+    q_sq, x_sq = tref._seq_dot(q, q), tref._seq_dot(x, x)
+    return (q_sq[:, None] + x_sq[None, :]) - 2.0 * dot
+
+
 def same_bits(a, b) -> bool:
     """Equal shapes, dtypes and bits (float32 compared as int32; tuples
     element by element), compared on the tensors' own device."""
@@ -335,17 +398,33 @@ def test_cuda_quant_hop_bit_identical(cuda_device, mode, B, use_tree,
         assert torch.equal(a, b), f
 
 
+def topk_rows(N, d, seed, equal=False):
+    """Rows for the top-k: duplicated rows (ties), or N equal rows (every
+    key ties, so the ids must come out 0..k-1)."""
+    if equal:
+        row = np.random.default_rng(seed).standard_normal(d)
+        return np.repeat(row[None].astype(np.float32), N, axis=0)
+    return duplicated_rows(N, d, seed)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,N,k,d", [
-    (1, 1, 1, 18), (5, 31, 10, 18), (64, 5003, 32, 128), (70, 7, 12, 24),
-    (1000, 5000, 64, 128)])
-def test_cuda_topk_bit_identical(cuda_device, B, N, k, d):
+@pytest.mark.parametrize("B,N,k,d,equal", [
+    (1, 1, 1, 18, False), (5, 31, 10, 18, False), (64, 5003, 32, 128, False),
+    (70, 7, 12, 24, False), (1000, 5000, 64, 128, False),
+    (1024, 5000, 32, 128, False),     # the mxu hot phase's shape
+    (1024, 100, 64, 128, False),      # a row range holds fewer than k rows
+    (64, 5000, 32, 128, True),        # all rows equal
+    (33, 700, 16, 17, False),         # odd d: 4-byte copies
+    (1024, 5000, 100, 24, False),     # k > 64: merges of up to 256 entries
+    (1024, 5000, 300, 18, False),     # k > 192: merges of up to 512
+    (256, 5000, 448, 24, False)])     # k = MAX_K, the largest it takes
+def test_cuda_topk_bit_identical(cuda_device, B, N, k, d, equal):
     from repro_torch.kernels import ops
     from repro_torch.kernels.fused_topk_l2 import fused_topk_l2_cuda
 
     dev = cuda_device
     rng = np.random.default_rng(B + N)
-    x = torch.as_tensor(duplicated_rows(N, d, N), device=dev)
+    x = torch.as_tensor(topk_rows(N, d, N, equal), device=dev)
     q = torch.as_tensor(rng.standard_normal((B, d)).astype(np.float32),
                         device=dev)
     q[0] = x[0]                                  # a zero-distance tie
@@ -358,6 +437,27 @@ def test_cuda_topk_bit_identical(cuda_device, B, N, k, d):
     assert torch.equal(got_d.view(torch.int32), want_d.view(torch.int32))
     if k > N:
         assert bool((got_i[:, N:] == N).all())
+    if equal:
+        first = torch.arange(k, dtype=torch.int32, device=dev)
+        assert torch.equal(got_i, first.expand(B, -1))
+
+
+@pytest.mark.cuda
+def test_cuda_topk_refuses_k_past_limit(cuda_device):
+    """k = MAX_K + 1 raises ValueError before anything launches; the plain
+    version still answers."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fused_topk_l2 import MAX_K, fused_topk_l2_cuda
+
+    rng = np.random.default_rng(5)
+    x, q = (torch.as_tensor(rng.standard_normal(s).astype(np.float32),
+                            device=cuda_device) for s in ((5000, 24), (8, 24)))
+    assert MAX_K == 448
+    before = fused_topk_l2_cuda.launches
+    with pytest.raises(ValueError, match="k <= 448"):
+        ops.fused_topk_l2(q, x, k=MAX_K + 1)
+    assert fused_topk_l2_cuda.launches == before
+    assert tref.fused_topk_l2(q, x, k=MAX_K + 1)[1].shape == (8, MAX_K + 1)
 
 
 @pytest.mark.cuda
@@ -414,7 +514,9 @@ def test_cuda_paged_hop_bit_identical(cuda_device, mode, page_cols, use_tree,
 @pytest.mark.parametrize("name", SCAN_KERNELS)
 def test_cuda_scan_kernel_bit_identical(cuda_device, name):
     """``ops.<name>`` on CUDA tensors launches the kernel once per call and
-    equals the plain version bit for bit over the whole synthetic grid."""
+    meets its contract over the whole synthetic grid: ``pairwise_l2``
+    (3xTF32 on the tensor cores) within :func:`expansion_tol` of the plain
+    version, the other four bit for bit."""
     from repro_torch.kernels import ops
 
     cuda_fn, plain = scan_kernel(name)
@@ -425,6 +527,26 @@ def test_cuda_scan_kernel_bit_identical(cuda_device, name):
         got = getattr(ops, name)(*args)
         torch.cuda.synchronize()
         assert cuda_fn.launches == before + 1, tag
-        assert same_bits(want, got), f"{name} {tag}"
+        if name == "pairwise_l2":
+            assert got.shape == want.shape, tag
+            assert expansion_ratio(got, want, *args) <= 1e-5, tag
+        else:
+            assert same_bits(want, got), f"{name} {tag}"
         n_cases += 1
     assert n_cases >= 9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,d", [(130, 5000, 128), (7, 129, 18),
+                                   (64, 1000, 100)])
+def test_cuda_pairwise_l2_offset_within_tolerance(cuda_device, B, N, d):
+    """Severe cancellation: rows and queries share a common offset of
+    length 100, and the 3xTF32 scan stays within :func:`expansion_tol`."""
+    from repro_torch.kernels import ops
+
+    q, x = (torch.as_tensor(a, device=cuda_device)
+            for a in offset_case(B, N, d, B + N))
+    got = ops.pairwise_l2(q, x)
+    want = tref.pairwise_l2(q, x)
+    torch.cuda.synchronize()
+    assert expansion_ratio(got, want, q, x) <= 1e-5

@@ -18,6 +18,13 @@ kernel in ``interpret=True``, on inputs made from a seed with numpy:
   ``pool_merge_pallas`` only on tie-free data, since its network is
   unstable.
 
+The arithmetic of ``pairwise_l2.cu``'s F32 mode (3xTF32 on the tensor
+cores: TF32 high parts and remainders, three products in float32), emulated
+in plain torch, stays within ``expansion_tol`` of ``ref.pairwise_l2`` on
+the card's synthetic grid and with a common offset of length 100 (severe
+cancellation); a single TF32 product, the control, leaves it on the same
+grid.
+
 Then the slice as a whole: the reference ``built_dqf`` carried over with
 ``convert.dqf_from_arrays``, ``ops.pairwise_l2`` / ``sq8_pairwise_l2`` /
 ``pq_adc`` over the port's store and codes against the JAX ref over the
@@ -45,16 +52,12 @@ from repro_torch.core import QuantConfig as TQuant
 from repro_torch.core.recall import ground_truth, recall_at_k
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
-from tests.test_torch_cuda import duplicated_rows, scan_cases
+from tests.test_torch_cuda import (SCAN_D, duplicated_rows, expansion_tol,
+                                   offset_case, scan_cases, tf32_pairwise_l2,
+                                   tf32_rna)
 from tests.test_torch_search import port_cfg, queries, saved  # noqa: F401
 
 T = torch.as_tensor
-
-
-def expansion_tol(q, x):
-    """(B, N) bound 1e-5 · (|q|² + |x|²) on the expansion's rounding."""
-    q64, x64 = np.asarray(q, np.float64), np.asarray(x, np.float64)
-    return 1e-5 * ((q64 * q64).sum(1)[:, None] + (x64 * x64).sum(1)[None, :])
 
 
 def assert_expansion_close(got, want, q, x):
@@ -93,6 +96,60 @@ def test_pairwise_l2_matches_pallas_interpret(B, N, d, bq, bn):
     x = rng.standard_normal((N, d)).astype(np.float32)
     want = pairwise_l2_pallas(q, x, bq=bq, bn=bn, interpret=True)
     assert_expansion_close(tref.pairwise_l2(T(q), T(x)).numpy(), want, q, x)
+
+
+def test_tf32_rna_rounds_to_ten_fraction_bits():
+    a = torch.tensor([1.0, 1.0 + 2.0 ** -11, 1.0 + 3 * 2.0 ** -12,
+                      -(1.0 + 2.0 ** -11), 1.0 + 2.0 ** -12])
+    want = torch.tensor([1.0, 1.0 + 2.0 ** -10, 1.0 + 2.0 ** -10,
+                         -(1.0 + 2.0 ** -10), 1.0])
+    assert torch.equal(tf32_rna(a), want)
+    r = torch.as_tensor(np.random.default_rng(3).standard_normal(1000)
+                        .astype(np.float32))
+    hi = tf32_rna(r)
+    assert bool(((hi.view(torch.int32) & 0x1FFF) == 0).all())
+    assert bool(((r - hi).abs() <= hi.abs() * 2.0 ** -11).all())
+
+
+@pytest.mark.parametrize("d", SCAN_D)
+def test_tf32x3_arithmetic_meets_scan_contract(d):
+    """The 3xTF32 arithmetic stays within ``expansion_tol`` of
+    ``ref.pairwise_l2`` on the card's synthetic grid at width d."""
+    n = 0
+    for tag, (q, x) in scan_cases("pairwise_l2", "cpu"):
+        if q.shape[1] != d:
+            continue
+        got = tf32_pairwise_l2(q, x)
+        assert_expansion_close(got.numpy(), tref.pairwise_l2(q, x).numpy(),
+                               q.numpy(), x.numpy())
+        n += 1
+    assert n == 12
+
+
+@pytest.mark.parametrize("B,N,d", [(130, 5000, 128), (7, 129, 18),
+                                   (64, 1000, 100)])
+def test_tf32x3_arithmetic_meets_scan_contract_with_offset(B, N, d):
+    """The same with rows and queries 100 · u off the origin, the card
+    test's severe-cancellation case."""
+    q, x = offset_case(B, N, d, B + N)
+    got = tf32_pairwise_l2(T(q), T(x))
+    assert_expansion_close(got.numpy(), tref.pairwise_l2(T(q), T(x)).numpy(),
+                           q, x)
+
+
+@pytest.mark.parametrize("d", SCAN_D)
+def test_one_tf32_product_breaks_scan_contract(d):
+    """The control: a single TF32 product (hi·hi, no split) leaves
+    ``expansion_tol`` on the same grid, so the tolerance tells the 3xTF32
+    arithmetic from the lower precision."""
+    worst = 0.0
+    for tag, (q, x) in scan_cases("pairwise_l2", "cpu"):
+        if q.shape[1] != d:
+            continue
+        diff = (tf32_pairwise_l2(q, x, split=False).double()
+                - tref.pairwise_l2(q, x).double()).abs()
+        worst = max(worst, float((diff / expansion_tol(q, x)).max()))
+    assert worst > 1.0, worst
 
 
 # -------------------------------------------------------- sq8_pairwise_l2

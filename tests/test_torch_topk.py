@@ -4,6 +4,9 @@ JAX package.
 * ``repro_torch.kernels.ref.fused_topk_l2`` ≡ ``repro.kernels.ref
   .fused_topk_l2`` on integer-valued data, where every sum is exact, so
   ids and dists are equal, ties (duplicated rows) and k > N included.
+* The row split of ``csrc/fused_topk_l2.cu``: per-range top-k lists
+  merged in (key, id) order equal ``ref.fused_topk_l2`` over all rows, bit
+  for bit (ranges shorter than k, all rows equal, k > N).
 * On continuous data against ``fused_topk_l2_pallas(interpret=True)``, as
   ``tests/test_kernels.py`` runs it: ids equal, dists within rtol 1e-5
   (the port sums over d in index order, XLA in its own).
@@ -38,7 +41,7 @@ from repro_torch.core.dynamic_search import hot_phase as t_hot
 from repro_torch.core.recall import ground_truth, recall_at_k
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
-from tests.test_torch_cuda import duplicated_rows
+from tests.test_torch_cuda import duplicated_rows, topk_rows
 from tests.test_torch_search import (assert_lanes_match, port_cfg,  # noqa: F401
                                      queries, saved)
 
@@ -91,6 +94,56 @@ def test_topk_chunks_give_one_sort_order(monkeypatch):
     assert torch.equal(gi, order.to(torch.int32))
     assert torch.equal(gd, d2.gather(1, order))
     assert gi[0, 0] == 0 and gi[0, 1] == 150          # the tie, smaller id
+
+
+def merge_row_ranges(q, x, k, P):
+    """``csrc/fused_topk_l2.cu``'s split, in plain torch: the per-range
+    ``ref.fused_topk_l2`` lists of P contiguous row ranges (ids offset, a
+    short range's (+inf, n) padding dropped) merged by a stable sort in
+    (key, id), then padded (+inf, N) past min(N, k)."""
+    B, N = q.shape[0], x.shape[0]
+    span = -(-N // P)
+    keys, ids = [], []
+    for lo in range(0, N, span):
+        d, i = tref.fused_topk_l2(q, x[lo:lo + span], k=k)
+        real = i < x[lo:lo + span].shape[0]
+        keys.append(torch.where(real, d, torch.inf))
+        ids.append(torch.where(real, i + lo, torch.iinfo(torch.int32).max))
+    keys, ids = torch.cat(keys, 1), torch.cat(ids, 1)
+    by_id = torch.sort(ids, dim=1, stable=True).indices
+    keys, ids = keys.gather(1, by_id), ids.gather(1, by_id)
+    by_key = torch.sort(keys, dim=1, stable=True).indices[:, :k]
+    keys, ids = keys.gather(1, by_key), ids.gather(1, by_key)
+    if keys.shape[1] < k:
+        pad = k - keys.shape[1]
+        keys = torch.cat([keys, torch.full((B, pad), torch.inf)], 1)
+        ids = torch.cat([ids, torch.full((B, pad), N, dtype=torch.int32)], 1)
+    ids = torch.where(ids == torch.iinfo(torch.int32).max, N, ids)
+    return keys, ids
+
+
+@pytest.mark.parametrize("B,N,k,d,P,equal", [
+    (5, 300, 20, 18, 4, False),      # ranges longer than k
+    (6, 100, 64, 24, 2, False),      # each range shorter than k
+    (4, 50, 10, 8, 3, True),         # all rows equal: every key ties
+    (3, 30, 40, 8, 3, False),        # k > N
+    (7, 5003, 32, 128, 12, False)])  # the mxu shape's split, a ragged tail
+def test_topk_row_ranges_merge_to_one_sort(B, N, k, d, P, equal):
+    """The union of per-range top-k lists holds the global top-k, so
+    merging them in (key, id) order is ``ref.fused_topk_l2`` bit for bit:
+    the argument the kernel's row split rests on."""
+    rng = np.random.default_rng(B + N + P)
+    x = torch.as_tensor(topk_rows(N, d, N, equal))
+    q = torch.as_tensor(rng.standard_normal((B, d)).astype(np.float32))
+    q[0] = x[0]
+    want_d, want_i = tref.fused_topk_l2(q, x, k=k)
+    got_d, got_i = merge_row_ranges(q, x, k, P)
+    assert torch.equal(got_i, want_i)
+    assert torch.equal(got_d.view(torch.int32), want_d.view(torch.int32))
+    if equal:
+        assert torch.equal(got_i[:, :min(N, k)],
+                           torch.arange(min(N, k), dtype=torch.int32)
+                           .expand(B, -1))
 
 
 def test_pairwise_l2_is_the_sequential_expansion():
