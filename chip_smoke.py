@@ -10,31 +10,40 @@ Phases, in order; any failure exits non-zero:
 3. the fused wave-hop kernel (f32 mode) against its plain version on
    synthetic worlds (sentinel rows, scattered sentinel slots, dead rows,
    duplicate ids in a row; B in {1, 64, 1000}; tree and liveness on and
-   off; a wave that runs dry): every HopState field must be bit-identical;
+   off; a wave that runs dry), then the f32 dense cases of
+   ``tests/test_torch_cuda.py::hop_cases`` (unsorted input pools, R in
+   {37, 70, 600}, L + R not a power of two, L in (32, 64], d = 1536, rows
+   over 64 KB at d = 65600, the per-lane table base): every HopState field
+   must be bit-identical;
 3b. the same in sq8 and pq mode, codes trained by the port's quantizers on
    each world's rows (d=18 with M in {2, 6}, d=128 with M=8; K in
-   {64, 256});
+   {64, 256}), then the sq8 and pq dense cases of ``hop_cases`` (pq M=128
+   at d=1536; pq M=128, K=256 at d=128, its 128 KB LUT read from device
+   memory; sq8 rows over 64 KB read in place at d=65600);
 3c. the brute-force top-k kernel against its plain version (B in
    {1, 64, 1000}, N in {1, 31, 5000, 5003}, k in {1, 10, 32, 64}, d in
    {18, 128}, duplicated rows so ties occur; then the mxu shape (1024, 5000,
    k=32, d=128), N=100 with k=64 so a row range holds fewer than k rows,
    all rows equal so every key ties and the ids must come out 0..k-1, an
-   odd d, k = 100 and 300, whose merges sort 256 and 512 entries, and
-   k = 448, the largest the kernel takes): dists and ids bit-identical;
-   k = 449 must raise ValueError;
+   odd d, k = 100 and 300, whose merges sort 256 and 512 entries, k = 448,
+   the largest threshold merge, then the whole-range path past it: k =
+   449, 1024, 4096, k = N = 5000, k > N and all rows equal at k = 449):
+   dists and ids bit-identical;
 3d. the paged mode of the fused hop against its plain version: f32, sq8
    and pq; tree and liveness on and off; page_cols in {64, 256}; B in
    {1, 8, 256, 1000}; page tables drawn shuffled from a pool larger than
    needed, random bytes in unreferenced pages and in the tails, padding
    lanes aliasing one scratch row with identical inert state, and a wave
-   that runs dry: every HopState field and the whole pool bit-identical;
+   that runs dry, then the paged cases of ``hop_cases`` in every mode:
+   every HopState field and the whole pool bit-identical;
 3e. the scan and merge kernels (``pairwise_l2``, ``sq8_pairwise_l2``,
    ``pq_adc``, ``pool_merge``, ``gather_distances``) against their plain
    versions over the grid of ``tests/test_torch_cuda.py::scan_cases``
    (B in {1, 7, 130}, N in {1, 63, 129, 5000}, d in {18, 100, 128}; sq8
-   codes reaching -127 and 127; pq M in {4, 8}, K in {64, 256}; pool
+   codes reaching -127 and 127; pq M in {4, 8, 128}, K in {64, 256}; pool
    merges at (L, C) in {(8, 8), (64, 32), (10, 7)} with ties and +inf
-   slots; neighbour rows with sentinel and duplicate ids): ``pairwise_l2``
+   slots; neighbour rows with sentinel and duplicate ids, d up to 1536):
+   ``pairwise_l2``
    (3xTF32 on the tensor cores) within 1e-5 (|q|^2 + |x|^2) of its plain
    version, the largest |diff| / (|q|^2 + |x|^2) printed, then again with
    rows and queries 100 u off the origin; the control, one TF32 product
@@ -45,9 +54,12 @@ Phases, in order; any failure exits non-zero:
    and fit times, per-batch search time and QPS, recall@10, mean
    dist_count, early-termination share, peak memory, and the kernel's
    launches in the 4 searches (counted from 0 just before them; > 0);
-5. the same 1024 queries through the composed path (fused=False): ids,
-   dists and counters must be bit-identical to the fused run;
+5. the same 1024 queries through the composed path (fused=False, both
+   phases expanded hop by hop on the host's loop): ids, dists and counters
+   must be bit-identical to the fused run, whose hot phase and full phase
+   are one fused_hop launch each;
 6. one batch's phase split and kernel timing at the main path's shapes
+   (one 8-hop launch, and the one-launch full phase of the search path)
    beside the plain versions, the bounds and, for the top-k, the library
    pair ``torch.topk`` of the ``torch.matmul`` expansion (each call timed
    alone, the host's launch work included, and beside that 50 calls back
@@ -66,7 +78,9 @@ Phases, in order; any failure exits non-zero:
    open-loop bursts of 512 with ``step()`` calls between them, then a
    two-tenant mix (tenant "b" warmed on a Zipf stream of another seed,
    2048 queries of each tenant interleaved).  Per query the paged
-   engine's ids, dists and hops equal the fixed engine's bit for bit,
+   engine's ids, dists and hops equal the fixed engine's bit for bit
+   (both refills run the stacked hot phase through fused_hop's per-lane
+   table base),
    with equal tick counts; QPS, per-query p99 and queue-wait p99, ticks,
    mean hops, recall@10, launches, peak memory and page-pool occupancy
    per engine and run; then one ``fused_hop_paged`` launch at the
@@ -146,6 +160,44 @@ def clone_state(hs):
 
 
 # ------------------------------------------------------------------ phase 3
+def hop_grid(dev, modes, paged):
+    """``tests/test_torch_cuda.py::hop_cases`` restricted to ``modes`` and
+    to the paged (or dense) hop: each case one launch against the plain
+    version, every HopState field (the whole pool when paged)
+    bit-identical.  Returns (cases, max |dist diff| over finite dists)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fused_hop import (fused_hop_cuda,
+                                               fused_hop_paged_cuda)
+    from tests.test_torch_cuda import hop_cases
+
+    plain, cuda_fn = ((ref.fused_hop_paged, fused_hop_paged_cuda) if paged
+                      else (ref.fused_hop, fused_hop_cuda))
+    saved = cuda_fn.launches
+    n_cases, max_err = 0, 0.0
+    for tag, mode, is_paged, args, kw in hop_cases(dev):
+        if is_paged != paged or mode not in modes:
+            continue
+        fresh = lambda: (clone_state(args[0]),) + args[1:]
+        want = plain(*fresh(), **kw)
+        got = cuda_fn(*fresh(), **kw)
+        torch.cuda.synchronize()
+        bad = [f for f in ref.HopState._fields
+               if not bits_equal(getattr(want, f), getattr(got, f))]
+        if bad:
+            raise SystemExit(f"hop world {tag}: fields differ: {bad}")
+        fin = want.dists < 1e30
+        if bool(fin.any()):
+            max_err = max(max_err, float(
+                (want.dists[fin] - got.dists[fin]).abs().max()))
+        n_cases += 1
+    cuda_fn.launches = saved
+    log(f"  hop grid ({', '.join(modes)}, {'paged' if paged else 'dense'}):"
+        f" {n_cases} cases bit-identical (unsorted pools, R in (37, 70, "
+        f"600), L+R not a power of two, L=40, d=1536, d=65600, pq LUT of "
+        f"128 KB, the per-lane base)")
+    return n_cases, max_err
+
+
 def synthetic_world(n, d, R, seed, dead_every, sentinel_rows, dev):
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((n, d)).astype(np.float32)
@@ -233,7 +285,8 @@ def phase_synthetic(dev):
             f"terminated {int(got.terminated.sum())})")
         if w is dry and bool(got.active.any()):
             raise SystemExit("dry wave: lanes still active after 64 hops")
-    return len(cases), max_err
+    grid, grid_err = hop_grid(dev, ("f32",), paged=False)
+    return len(cases) + grid, max(max_err, grid_err)
 
 
 # ----------------------------------------------------------------- phase 3b
@@ -307,13 +360,13 @@ def phase_quant_synthetic(dev):
         log(f"  {mode} n={w['n']} d={w['d']} M={m or w['d']} K={k or '-'}: "
             f"12 cases bit-identical")
     fused_hop_cuda.launches = saved
-    return n_cases
+    return n_cases + hop_grid(dev, ("sq8", "pq"), paged=False)[0]
 
 
 # ----------------------------------------------------------------- phase 3c
 def phase_topk_synthetic(dev):
     from repro_torch.kernels import ref
-    from repro_torch.kernels.fused_topk_l2 import MAX_K, fused_topk_l2_cuda
+    from repro_torch.kernels.fused_topk_l2 import fused_topk_l2_cuda
     from tests.test_torch_cuda import topk_rows
 
     rng = np.random.default_rng(9)
@@ -353,7 +406,13 @@ def phase_topk_synthetic(dev):
             ("odd d", 33, 700, 16, 17, False),
             ("k > 64", 1024, 5000, 100, 24, False),
             ("k > 192", 1024, 5000, 300, 18, False),
-            ("k = MAX_K, the largest", 256, 5000, MAX_K, 24, False)):
+            ("the largest threshold merge", 256, 5000, 448, 24, False),
+            ("past it, whole ranges sorted", 1024, 5000, 449, 24, False),
+            ("k = 1024", 256, 5000, 1024, 24, False),
+            ("k = 4096", 64, 5000, 4096, 24, False),
+            ("k = N", 64, 5000, 5000, 18, False),
+            ("k > N", 64, 3000, 3500, 18, False),
+            ("all rows equal, k = 449", 64, 5000, 449, 32, True)):
         x = torch.as_tensor(topk_rows(N, d, N, equal), device=dev)
         q = torch.as_tensor(rng.standard_normal((B, d)).astype(np.float32),
                             device=dev)
@@ -364,12 +423,6 @@ def phase_topk_synthetic(dev):
             raise SystemExit("fused_topk_l2 with all rows equal: ids are "
                              "not 0..k-1")
         log(f"  {what} (B={B}, N={N}, k={k}, d={d}) bit-identical")
-    try:
-        fused_topk_l2_cuda(q, x, k=MAX_K + 1)
-    except ValueError as e:
-        log(f"  k = {MAX_K + 1} refused: {e}")
-    else:
-        raise SystemExit(f"fused_topk_l2 took k = {MAX_K + 1} > {MAX_K}")
     fused_topk_l2_cuda.launches = saved
     return n_cases, max_err
 
@@ -467,7 +520,8 @@ def phase_paged_synthetic(dev):
             log(f"  {mode} n={w['n']} d={w['d']}: B in {w['Bs']} x "
                 f"page_cols in (64, 256) bit-identical, pools included")
     fused_hop_paged_cuda.launches = saved
-    return n_cases, max_err
+    grid, grid_err = hop_grid(dev, ("f32", "sq8", "pq"), paged=True)
+    return n_cases + grid, max(max_err, grid_err)
 
 
 # ------------------------------------------------------------ phases 4 + 5
@@ -572,7 +626,7 @@ def phase_main(dev, n, seed):
         raise SystemExit("the 4 searches never launched the fused_hop kernel")
 
     # --- phase 5: composed path on the same queries, bit for bit ---
-    log("phase 5: fused vs composed search on batch 0")
+    log("phase 5: fused vs composed search on batch 0, hot phase included")
     fused_res = dqf.search(batches[0], record=False)
     composed = copy.copy(dqf)
     composed.cfg = dataclasses.replace(cfg, fused=False)
@@ -592,12 +646,14 @@ def phase_main(dev, n, seed):
 
 
 # ------------------------------------------------------------------ phase 6
-def _event_ms(fn, reps, before=None, back_to_back=False):
+def _event_ms(fn, reps, before=None, back_to_back=False, busy=False):
     """Mean ms of ``fn`` over ``reps`` calls, CUDA events around each call
     (the host's launch work included); ``before`` runs untimed ahead of
     each.  ``back_to_back``: events around all ``reps`` calls, after one
     untimed call, so the host's work overlaps the device's and the time is
-    the device's."""
+    the device's.  ``busy``: the card sleeps (``torch.cuda._sleep``, about
+    2 ms) while the host enqueues each call, so the events time the device
+    alone."""
     if back_to_back:
         fn()
         s = torch.cuda.Event(enable_timing=True)
@@ -613,6 +669,8 @@ def _event_ms(fn, reps, before=None, back_to_back=False):
     for _ in range(reps):
         if before is not None:
             before()
+        if busy:
+            torch.cuda._sleep(4_000_000)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -643,7 +701,9 @@ def batch_split(dqf, q, label):
     saved = fused_hop_cuda.launches, fused_topk_l2_cuda.launches
     hot_ms, (hot_pool, _) = _event_ms(lambda: hot_phase(
         hd["x_hot_pad"], hd["adj_hot_pad"], hd["hot_entries"], qt,
-        pool_size=c.hot_pool, max_hops=c.max_hops, mode=c.hot_mode), 1)
+        pool_size=c.hot_pool, max_hops=c.max_hops, mode=c.hot_mode,
+        fused=c.fused), 1)
+    hot_launches = fused_hop_cuda.launches - saved[0]
     hot = hot_features(hot_pool, c.k)
     seed = lambda: _seed_full_state(hot_pool, hd["hot_ids_pad"],
                                     x_pad.shape[0] - 1, c.full_pool, live)
@@ -656,17 +716,17 @@ def batch_split(dqf, q, label):
         fused_hops=c.fused_hops, tree=dqf.tree.arrays, hot=hot, k=c.k,
         eval_gap=c.eval_gap, add_step=c.add_step,
         tree_depth=c.tree_depth), 1)
-    hops = fused_hop_cuda.launches - saved[0]
+    hops = fused_hop_cuda.launches - saved[0] - hot_launches
     rr_ms = 0.0
     if qtable is not None and dqf._rerank_k > 0:
         rr_ms, _ = _event_ms(lambda: _exact_rerank(
             x_pad, qt, state.pool, k=c.k, rerank_k=dqf._rerank_k,
             live_pad=live), 1)
     fused_hop_cuda.launches, fused_topk_l2_cuda.launches = saved
-    log(f"  {label}, one batch of {qt.shape[0]}: hot phase ({c.hot_mode}) "
-        f"{hot_ms:.3f} ms, seed {seed_ms:.3f} ms, table view "
-        f"{view_ms:.3f} ms, fused full phase {full_ms:.3f} ms ({hops} "
-        f"launches), rerank {rr_ms:.3f} ms")
+    log(f"  {label}, one batch of {qt.shape[0]}: hot phase ({c.hot_mode}, "
+        f"{hot_launches} fused_hop launches) {hot_ms:.3f} ms, seed "
+        f"{seed_ms:.3f} ms, table view {view_ms:.3f} ms, fused full phase "
+        f"{full_ms:.3f} ms ({hops} launches), rerank {rr_ms:.3f} ms")
     return qt, table, seed, hot
 
 
@@ -697,6 +757,10 @@ def time_hop(dqf, q, launches, label):
         reset()
         launch()
     ms, got = _event_ms(launch, 20, reset)
+    device_ms, _ = _event_ms(launch, 20, reset, busy=True)
+    fused_hop_cuda.launches = saved
+    reset()
+    launch()
     fused_hop_cuda.launches = saved
     seen_kernel = hs0.seen.clone()
     reset()
@@ -715,32 +779,55 @@ def time_hop(dqf, q, launches, label):
 
     B, L = hs0.ids.shape
     R, d = adj_pad.shape[1], qt.shape[1]
-    rows = int((got.dist_count - hs0.dist_count).sum())
-    hops = int((got.hops - hs0.hops).sum())
-    state = B * L * (4 + 4 + 1) * 2 + B * 7 * 4 * 2 + B * 8
     row_bytes = {"f32": d * 4, "sq8": d, "pq": spec[1].shape[1]}[mode]
-    if mode == "pq":                  # the LUTs; pq mode reads no queries
-        extra = spec[2].numel() * 4
-    else:                             # the queries, and sq8's scale and zero
-        extra = B * d * 4 + (2 * d * 4 if mode == "sq8" else 0)
-    moved = rows * row_bytes + hops * R * (4 + 1 + 1 + 1) + state + extra
-    flops = rows * {"f32": 3 * d, "sq8": 5 * d, "pq": row_bytes}[mode]
-    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / FP32_FLOPS * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
+
+    def bound(out):
+        """(bound ms, by, bytes, rows) of a launch from ``hs0`` to ``out``."""
+        rows = int((out.dist_count - hs0.dist_count).sum())
+        hops = int((out.hops - hs0.hops).sum())
+        state = B * L * (4 + 4 + 1) * 2 + B * 7 * 4 * 2 + B * 8
+        if mode == "pq":              # the LUTs; pq mode reads no queries
+            extra = spec[2].numel() * 4
+        else:                         # the queries, and sq8's scale and zero
+            extra = B * d * 4 + (2 * d * 4 if mode == "sq8" else 0)
+        moved = rows * row_bytes + hops * R * (4 + 1 + 1 + 1) + state + extra
+        flops = rows * {"f32": 3 * d, "sq8": 5 * d, "pq": row_bytes}[mode]
+        bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / FP32_FLOPS * 1e3
+        return (max(bytes_ms, ops_ms),
+                "bytes" if bytes_ms >= ops_ms else "operations", moved, rows)
+
+    bound_ms, bound_by, moved, rows = bound(got)
     log(f"  fused_hop {mode} at B={B} L={L} R={R} d={d} hops={c.fused_hops}: "
-        f"{ms:.4f} ms/launch, plain {plain_ms:.4f} ms, bound "
-        f"{bound_ms:.5f} ms ({moved} bytes, {rows} rows scored), "
-        f"{bound_ms / ms:.4f} of bound")
+        f"{ms:.4f} ms/launch (device alone {device_ms:.4f}), plain "
+        f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({moved} bytes, {rows} "
+        f"rows scored), {bound_ms / device_ms:.4f} of bound on the device")
+    # the one-launch full phase of the search path: hops = max_hops
+    full = lambda: fused_hop_cuda(hs0, adj_pad, qt, live, *spec, tree, hf,
+                                  hr, **dict(kw, hops=c.max_hops))
+    reset()
+    full()
+    full_ms, out = _event_ms(full, 10, reset)
+    full_dev, _ = _event_ms(full, 10, reset, busy=True)
+    fused_hop_cuda.launches = saved
+    if bool(out.active.any()):
+        raise SystemExit("the one-launch full phase left lanes active")
+    full_bound, _, full_moved, full_rows = bound(out)
+    log(f"  the one-launch full phase ({mode}): {full_ms:.4f} ms (device "
+        f"alone {full_dev:.4f}), {int(out.hops.max())} hops in its longest "
+        f"lane, bound {full_bound:.5f} ms ({full_moved} bytes, {full_rows} "
+        f"rows scored), {full_bound / full_dev:.4f} of bound on the device")
     return {"name": f"fused_hop ({mode})", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/fused_hop.cu",
             "replaces": "src/repro/kernels/fused_hop.py:313",
             "launches": launches, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None,
             "library_note": "no single PyTorch call computes a graph hop",
-            "bound_share": bound_ms / ms, "contract": "bits"}
+            "bound_share": bound_ms / ms, "contract": "bits",
+            "device_ms": device_ms, "full_phase_ms": full_ms,
+            "full_phase_device_ms": full_dev,
+            "full_phase_bound_ms": full_bound}
 
 
 def time_topk(dqf, q, launches):
@@ -1035,8 +1122,9 @@ def phase_serving(ctx, dev, seed):
             if summ["recall"] < 0.5:
                 raise SystemExit(f"{title}, {name}: recall@10 "
                                  f"{summ['recall']:.4f} is below 0.5")
-            if (launches[0] > 0) != (name == "fixed") \
-                    or (launches[1] > 0) != (name == "paged"):
+            # both engines' refills run the hot phase through fused_hop;
+            # only the paged engine's ticks launch fused_hop_paged
+            if launches[0] <= 0 or (launches[1] > 0) != (name == "paged"):
                 raise SystemExit(f"{title}, {name}: launches (fused_hop, "
                                  f"fused_hop_paged) = {launches}")
             got[name] = (res, summ)
@@ -1104,7 +1192,10 @@ def time_paged_hop(dqf, q, paged_launches, syn_err):
         reset_d()
         dense()
     ms, got = _event_ms(paged, 20, reset_p)
+    device_ms, _ = _event_ms(paged, 20, reset_p, busy=True)
     dense_ms, _ = _event_ms(dense, 20, reset_d)
+    reset_p()
+    got = paged()
     fused_hop_cuda.launches, fused_hop_paged_cuda.launches = saved
     pool_kernel = hp.seen.clone()
     reset_p()
@@ -1130,10 +1221,11 @@ def time_paged_hop(dqf, q, paged_launches, syn_err):
     ops_ms = rows * 3 * d / FP32_FLOPS * 1e3
     bound_ms = max(bytes_ms, ops_ms)
     log(f"  fused_hop_paged f32 at B={B} L={L} R={R} d={d} page_cols={pc} "
-        f"hops={c.fused_hops}: {ms:.4f} ms/launch, dense fused_hop "
-        f"{dense_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.5f} "
-        f"ms ({moved} bytes, {rows} rows scored, {hops} lane-hops), "
-        f"{bound_ms / ms:.4f} of bound")
+        f"hops={c.fused_hops}: {ms:.4f} ms/launch (device alone "
+        f"{device_ms:.4f}), dense fused_hop {dense_ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({moved} bytes, {rows} "
+        f"rows scored, {hops} lane-hops), {bound_ms / device_ms:.4f} of "
+        f"bound on the device")
     return {"name": "fused_hop_paged", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/fused_hop.cu",
             "replaces": "src/repro/kernels/fused_hop.py:431",
@@ -1143,7 +1235,7 @@ def time_paged_hop(dqf, q, paged_launches, syn_err):
             "library_ms": None,
             "library_note": "no single PyTorch call computes a graph hop",
             "dense_ms": dense_ms, "bound_share": bound_ms / ms,
-            "contract": "bits"}
+            "contract": "bits", "device_ms": device_ms}
 
 
 # ----------------------------------------------------------------- phase 3e

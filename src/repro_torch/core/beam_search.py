@@ -283,20 +283,36 @@ def fused_beam_loop(x_pad, adj_pad, queries, state: BeamState,
                     tree_depth: int = 1) -> BeamState:
     """:func:`beam_loop` through the fused wave-hop kernel.
 
-    Each :func:`repro_torch.kernels.ops.fused_hop` launch advances every
-    lane ``fused_hops`` expansions; inactive lanes are exact no-ops, so the
-    result equals the composed per-hop loop bit for bit.  With ``tree`` and
-    ``hot`` (the frozen hot-phase features) the kernel also runs the
-    decision-tree check of the dynamic full phase.
+    On the card one :func:`repro_torch.kernels.ops.fused_hop` launch of
+    ``max(max_hops, 1)`` hops carries every lane to retirement (a lane hops
+    at most that often: an active lane expands once before the cap
+    applies, as in :func:`beam_loop`; an inactive lane leaves the kernel's
+    loop), so the host never waits between hops.  On the CPU the plain version runs
+    ``fused_hops`` hops at a time until no lane is active.  Inactive lanes
+    are exact no-ops, so both equal the composed per-hop loop bit for bit.
+    With ``tree`` and ``hot`` (the frozen hot-phase features) the kernel
+    also runs the decision-tree check of the dynamic full phase.  A
+    :class:`LaneTable` pair (``x_pad``, ``adj_pad``) runs through the
+    kernel's per-lane table base.
     """
     hf, hr = (hot.first.contiguous(), hot.first_div_kth.contiguous()) \
         if hot is not None else (None, None)
+    lane_base = None
+    if isinstance(x_pad, LaneTable):
+        if not isinstance(adj_pad, LaneTable):
+            raise TypeError("a LaneTable search needs a LaneTable adjacency")
+        lane_base = (x_pad.lane_idx * (x_pad.n + 1)).to(torch.int32)
+        x_pad, adj_pad = x_pad.table, adj_pad.table
     hs = to_hop_state(state)
-    while bool(hs.active.any()):
+    kw = dict(max_hops=max_hops, k=k, eval_gap=eval_gap, add_step=add_step,
+              tree_depth=tree_depth, lane_base=lane_base)
+    if kops._device_type(hs.ids) == "cuda":
         hs = kops.fused_hop(hs, adj_pad, queries, live_pad, x_pad, tree, hf,
-                            hr, hops=fused_hops, max_hops=max_hops, k=k,
-                            eval_gap=eval_gap, add_step=add_step,
-                            tree_depth=tree_depth)
+                            hr, hops=max(max_hops, 1), **kw)
+    else:
+        while bool(hs.active.any()):
+            hs = kops.fused_hop(hs, adj_pad, queries, live_pad, x_pad, tree,
+                                hf, hr, hops=fused_hops, **kw)
     return from_hop_state(hs)
 
 

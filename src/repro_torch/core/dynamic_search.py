@@ -38,11 +38,22 @@ class DynamicState(NamedTuple):
     stop_at: torch.Tensor      # (B,) int32 — dist_count deadline (add_step)
 
 
+def _hot_loop(x, adj, queries, state: bs.BeamState, max_hops: int,
+              fused: bool) -> bs.BeamState:
+    """The hot phase's expansions: through the fused hop (f32, no tree, no
+    liveness; one launch on the card) or the composed per-hop loop, the
+    reference's mirror.  Both give the same bits."""
+    if fused:
+        return bs.fused_beam_loop(x, adj, queries, state, max_hops)
+    return bs.beam_loop(x, adj, queries, state, max_hops)
+
+
 def hot_phase_graph(x_hot_pad, adj_hot_pad, hot_entries, queries, *,
-                    pool_size: int, max_hops: int):
+                    pool_size: int, max_hops: int, fused: bool = False):
     """Phase 1, paper-faithful: beam search over the hot NSSG."""
     state = bs.init_state(x_hot_pad, queries, hot_entries, pool_size)
-    state = bs.beam_loop(x_hot_pad, adj_hot_pad, queries, state, max_hops)
+    state = _hot_loop(x_hot_pad, adj_hot_pad, queries, state, max_hops,
+                      fused)
     return state.pool, state.stats
 
 
@@ -72,7 +83,7 @@ _STACKED_CHUNK = 1 << 25    # (lanes, H, d) elements per mxu scoring chunk
 
 def hot_phase_stacked(xs_hot, adjs_hot, entries_hot, mask_hot, tenant_idx,
                       queries, *, pool_size: int, max_hops: int,
-                      mode: str = "graph"):
+                      mode: str = "graph", fused: bool = False):
     """Phase 1 over the *stacked* per-tenant hot tables (``repro_torch.
     tenancy``).
 
@@ -82,8 +93,10 @@ def hot_phase_stacked(xs_hot, adjs_hot, entries_hot, mask_hot, tenant_idx,
     mixed-tenant batch runs as one search.  Lane b reads its rows and
     adjacency by ``(tenant_idx[b], local id)`` where it uses them
     (:class:`~repro_torch.core.beam_search.LaneTable`); the per-lane
-    ``(B, H+1, ·)`` copies of the reference are never made.  Returns the
-    local-id pool and stats, as :func:`hot_phase` (local sentinel = H).
+    ``(B, H+1, ·)`` copies of the reference are never made; with
+    ``fused`` the graph mode runs through the fused hop's per-lane table
+    base.  Returns the local-id pool and stats, as :func:`hot_phase`
+    (local sentinel = H).
 
     ``mode="mxu"`` brute-forces each lane against its tenant's hot rows as
     a plain batched sum of squares (the reference's ``jnp.sum``, here in
@@ -95,8 +108,8 @@ def hot_phase_stacked(xs_hot, adjs_hot, entries_hot, mask_hot, tenant_idx,
     if mode == "graph":
         x = bs.LaneTable(xs_hot, tidx)
         state = bs.init_state(x, queries, ent, pool_size)
-        state = bs.beam_loop(x, bs.LaneTable(adjs_hot, tidx), queries,
-                             state, max_hops)
+        state = _hot_loop(x, bs.LaneTable(adjs_hot, tidx), queries, state,
+                          max_hops, fused)
         return state.pool, state.stats
     B = queries.shape[0]
     H = xs_hot.shape[1] - 1
@@ -151,11 +164,13 @@ def _exact_rerank(x_pad, queries, pool: PoolState, *, k: int,
 
 
 def hot_phase(x_hot_pad, adj_hot_pad, hot_entries, queries, *, pool_size,
-              max_hops, mode: str = "graph"):
-    """Phase 1 by ``mode`` ("graph" or "mxu")."""
+              max_hops, mode: str = "graph", fused: bool = False):
+    """Phase 1 by ``mode`` ("graph" or "mxu"); ``fused`` runs the graph
+    mode through the fused hop."""
     if mode == "graph":
         return hot_phase_graph(x_hot_pad, adj_hot_pad, hot_entries, queries,
-                               pool_size=pool_size, max_hops=max_hops)
+                               pool_size=pool_size, max_hops=max_hops,
+                               fused=fused)
     return hot_phase_mxu(x_hot_pad[:-1], queries, pool_size=pool_size)
 
 
@@ -270,14 +285,15 @@ def dynamic_search(
     When ``qtable`` is given, phase 2 scores against the compressed codes
     (the hot phase stays float32) and, with ``rerank_k > 0``, the pool's
     head is re-scored exactly from ``x_pad`` before the final top-k.
-    ``fused=True`` runs the full phase through the fused wave-hop kernel,
-    with bit-identical results.  The tensors' device picks kernel or plain
-    version.
+    ``fused=True`` runs both phases' expansions through the fused wave-hop
+    kernel (on the card one launch a phase), with bit-identical results.
+    The tensors' device picks kernel or plain version.
     """
     n = bs.table_n(x_pad)
     hot_pool, hot_stats = hot_phase(
         x_hot_pad, adj_hot_pad, hot_entries, queries,
-        pool_size=hot_pool_size, max_hops=max_hops, mode=hot_mode)
+        pool_size=hot_pool_size, max_hops=max_hops, mode=hot_mode,
+        fused=fused)
     hfeats = hot_features(hot_pool, k)
     state = _seed_full_state(hot_pool, hot_ids_pad, n, full_pool_size,
                              live_pad)

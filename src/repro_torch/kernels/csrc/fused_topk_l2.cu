@@ -35,8 +35,17 @@
 //        (entry lane * E + r in slot r, shuffles for distances of E and
 //        up; E the least power of two that holds the query's entries) and
 //        keeps the first k.  Then its threshold moves up.  S <= 512,
-//        so k <= 448 (the wrapper raises ValueError past it);
+//        so this launch takes k <= 448 (TOPK_MAX_K); past it, launch 1';
 //      * each block writes its queries' range top-k to (B, P, k) scratch.
+//   1'. fused_topk_l2_range, in place of launch 1 when k > 448: the rows
+//      split into P ranges of C rows, C the least power of two >= k and
+//      1024 up to 8192, but no more than N needs; one block of 1024
+//      threads takes one (query,
+//      range), computes the range's keys in the same order (one
+//      sequential __fmul_rn/__fadd_rn sum over d per dot product), sorts
+//      them with the block-wide stable (key, id) network of bitonic.cuh in
+//      shared memory and writes the first min(k, C), then (+inf, INT_MAX)
+//      to length k.  No limit on k but the (B, P, k) scratch.
 //   2. fused_topk_l2_merge: one block per query merges its P sorted lists
 //      in pairs, ceil(log2 P) rounds in shared memory: an entry's place is
 //      its index plus its rank in the partner list (binary search; (key,
@@ -59,6 +68,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bitonic.cuh"
+
 #define TOPK_THREADS 128
 #define TOPK_QT 32       // queries of a block
 #define TOPK_BN 64       // rows of a tile
@@ -67,8 +78,10 @@
 #define TOPK_MIN_CAP 64  // buffer entries per query, at least BN
 #define TOPK_BLOCKS_PER_SM 3  // what registers and shared memory allow at S = 128
 #define TOPK_STAGES 3
-// a merge sorts <= 512 entries; fused_topk_l2.py::MAX_K refuses larger k
+// a merge sorts <= 512 entries; a larger k takes the range launch
 #define TOPK_MAX_K (16 * 32 - TOPK_MIN_CAP)
+#define TOPK_RANGE_THREADS 1024
+#define TOPK_RANGE_ROWS 8192  // rows of a range, at most: 64 KB of keys and ids
 // after a merge a query's buffer is empty and must take a whole tile
 static_assert(TOPK_MIN_CAP >= TOPK_BN, "a buffer holds at least a tile");
 #define TOPK_MERGE_THREADS 256
@@ -95,10 +108,6 @@ static int topk_sort_len(int k) {
   return s;
 }
 
-__device__ __forceinline__ bool topk_less(float ka, int ia, float kb, int ib) {
-  return ka < kb || (ka == kb && ia < ib);
-}
-
 // BYTES (4 or 8) from global src to shared dst, zeros when !valid.
 template <int BYTES>
 __device__ __forceinline__ void cp_async(float* dst, const float* src,
@@ -123,7 +132,7 @@ __device__ __forceinline__ int topk_rank_in(const float* lk, const int32_t* li,
   int lo = 0, hi = n;
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
-    if (topk_less(lk[mid], li[mid], key, id)) lo = mid + 1;
+    if (kv_less(lk[mid], li[mid], key, id)) lo = mid + 1;
     else hi = mid;
   }
   return lo;
@@ -138,41 +147,6 @@ struct TopkShared {
   int* need;
   int* filled;   // QT: real entries of the running list, up to k
 };
-
-// The stable (key, id) bitonic network of bitonic.cuh, over one warp's
-// registers: entry i = lane * E + r sits in slot r of that lane, so a
-// compare-exchange at distance j < E stays in the lane and one at j >= E
-// is a shuffle with lane ^ (j / E).  Ascending in (key, id).
-template <int E>
-__device__ __forceinline__ void topk_warp_sort(float (&key)[E], int (&id)[E],
-                                               int lane) {
-#pragma unroll
-  for (int kk = 2; kk <= 32 * E; kk <<= 1) {
-#pragma unroll
-    for (int j = kk >> 1; j > 0; j >>= 1) {
-#pragma unroll
-      for (int r = 0; r < E; ++r) {
-        const bool asc = ((lane * E + r) & kk) == 0;
-        if (j < E) {
-          const int p = r ^ j;
-          if (p > r && topk_less(key[p], id[p], key[r], id[r]) == asc) {
-            const float tk = key[r]; key[r] = key[p]; key[p] = tk;
-            const int ti = id[r]; id[r] = id[p]; id[p] = ti;
-          }
-        } else {
-          const float ok = __shfl_xor_sync(0xffffffffu, key[r], j / E);
-          const int oi = __shfl_xor_sync(0xffffffffu, id[r], j / E);
-          const bool lower = (lane & (j / E)) == 0;
-          if (lower == asc ? topk_less(ok, oi, key[r], id[r])
-                           : topk_less(key[r], id[r], ok, oi)) {
-            key[r] = ok;
-            id[r] = oi;
-          }
-        }
-      }
-    }
-  }
-}
 
 // Query qi's `filled` running entries and `cnt` buffered ones, padded with
 // (+inf, INT_MAX) to 32 E >= filled + cnt, sorted; the first k go back as
@@ -193,7 +167,7 @@ __device__ __forceinline__ void topk_merge_one(const TopkShared& sh, int qi,
     key[r] = i < n ? rk[at] : __int_as_float(0x7f800000);
     id[r] = i < n ? ri[at] : TOPK_INT_MAX;
   }
-  topk_warp_sort<E>(key, id, lane);
+  warp_sort_kv<E>(key, id, lane);
 #pragma unroll
   for (int r = 0; r < E; ++r) {
     if (lane * E + r < k) {
@@ -376,7 +350,7 @@ fused_topk_l2_part(const TopkArgs a, const int S) {
         key[i][j] = __fsub_rn(__fadd_rn(qsq[qi], xsq[r]),
                               __fmul_rn(2.f, acc[i][j]));
         pass[i][j] = qi < nq && r < nr &&
-                     topk_less(key[i][j], r0 + r, tk, ti);
+                     kv_less(key[i][j], r0 + r, tk, ti);
         n += __popc(__ballot_sync(0xffffffffu, pass[i][j]) & half_mask);
       }
       if (tx == 0 && n) atomicAdd(&sh.need[qi], n);
@@ -391,7 +365,7 @@ fused_topk_l2_part(const TopkArgs a, const int S) {
 #pragma unroll
         for (int j = 0; j < 4; ++j)
           pass[i][j] = pass[i][j] &&
-                       topk_less(key[i][j], r0 + tx + 16 * j,
+                       kv_less(key[i][j], r0 + tx + 16 * j,
                                  sh.thr_key[qi], sh.thr_id[qi]);
       }
     }
@@ -486,6 +460,64 @@ fused_topk_l2_merge(const TopkArgs a) {
   }
 }
 
+// Rows of a range of the k > TOPK_MAX_K launch: a power of two that holds
+// k when k <= TOPK_RANGE_ROWS, no more than the next power of two of N.
+static int topk_range_rows(int N, int k) {
+  int c = 1024;
+  while (c < k && c < TOPK_RANGE_ROWS) c <<= 1;
+  while (c > 32 && c / 2 >= N) c >>= 1;
+  return c;
+}
+
+// One (query, range) of C rows: keys in the plain version's order, the
+// stable (key, id) network over them, the first min(k, C) out and
+// (+inf, INT_MAX) past them.
+__global__ void __launch_bounds__(TOPK_RANGE_THREADS)
+fused_topk_l2_range(const TopkArgs a, const int C) {
+  extern __shared__ float smem[];
+  float* keys = smem;                               // C
+  int* ids = reinterpret_cast<int*>(keys + C);      // C
+  float* qs = reinterpret_cast<float*>(ids + C);    // d
+  __shared__ float s_qsq;
+  const int b = blockIdx.x, part = blockIdx.y, d = a.d, tid = threadIdx.x;
+  const int lo = part * C, hi = min(a.N, lo + C);
+  const float inf = __int_as_float(0x7f800000);
+  for (int c = tid; c < d; c += blockDim.x) qs[c] = a.q[(size_t)b * d + c];
+  __syncthreads();
+  if (tid == 0) {
+    float s = 0.f;
+    for (int c = 0; c < d; ++c) s = __fadd_rn(s, __fmul_rn(qs[c], qs[c]));
+    s_qsq = s;
+  }
+  __syncthreads();
+  const float qsq = s_qsq;
+  for (int i = tid; i < C; i += blockDim.x) {
+    const int row = lo + i;
+    float key = inf;
+    int id = TOPK_INT_MAX;
+    if (row < hi) {
+      const float* x = a.x + (size_t)row * d;
+      float xs = 0.f, dot = 0.f;
+      for (int c = 0; c < d; ++c) {
+        const float v = x[c];
+        xs = __fadd_rn(xs, __fmul_rn(v, v));
+        dot = __fadd_rn(dot, __fmul_rn(qs[c], v));
+      }
+      key = __fsub_rn(__fadd_rn(qsq, xs), __fmul_rn(2.f, dot));
+      id = row;
+    }
+    keys[i] = key;
+    ids[i] = id;
+  }
+  bitonic_sort_stable_segments(keys, ids, C, 1);
+  const int kk = min(a.k, C);
+  for (int i = tid; i < a.k; i += blockDim.x) {
+    const size_t o = ((size_t)b * a.P + part) * a.k + i;
+    a.part_keys[o] = i < kk ? keys[i] : inf;
+    a.part_ids[o] = i < kk ? ids[i] : TOPK_INT_MAX;
+  }
+}
+
 static size_t topk_smem(int k) {
   const size_t seg = (size_t)topk_sort_len(k);
   return sizeof(float) * (TOPK_STAGES * (TOPK_QT + TOPK_BN) * TOPK_XS +
@@ -493,11 +525,16 @@ static size_t topk_smem(int k) {
                           2 * TOPK_QT * seg + 4 * TOPK_QT);
 }
 
-// Row ranges of one call: as many as fill the block slots of every SM
-// once (TOPK_BLOCKS_PER_SM on each of `sms`), at most one per tile of rows,
-// none empty.  The wrapper sizes the (B, P, k) scratch with it.
-extern "C" int dqf_fused_topk_l2_parts(int B, int N, int sms) {
+// Row ranges of one call: for k <= TOPK_MAX_K as many as fill the block
+// slots of every SM once (TOPK_BLOCKS_PER_SM on each of `sms`), at most
+// one per tile of rows, none empty; past it ceil(N / topk_range_rows).
+// The wrapper sizes the (B, P, k) scratch with it.
+extern "C" int dqf_fused_topk_l2_parts(int B, int N, int k, int sms) {
   if (B < 1 || N < 1) return 1;
+  if (k > TOPK_MAX_K) {
+    const int C = topk_range_rows(N, k);
+    return (N + C - 1) / C;
+  }
   const int qtiles = (B + TOPK_QT - 1) / TOPK_QT;
   int P = TOPK_BLOCKS_PER_SM * (sms > 0 ? sms : 1) / qtiles;
   P = min(P, (N + TOPK_BN - 1) / TOPK_BN);
@@ -512,11 +549,40 @@ static cudaError_t topk_set_smem(const void* fn, size_t bytes) {
                               (int)bytes);
 }
 
+static int topk_merge_launch(const TopkArgs& a, cudaStream_t st) {
+  const size_t lists = (size_t)a.P * a.k * 16;
+  if (lists <= TOPK_MERGE_STAGED) {
+    fused_topk_l2_merge<true><<<a.B, TOPK_MERGE_THREADS, lists, st>>>(a);
+  } else {
+    fused_topk_l2_merge<false><<<a.B, TOPK_MERGE_THREADS, 0, st>>>(a);
+  }
+  return (int)cudaGetLastError();
+}
+
+// k > TOPK_MAX_K: the range launch, then the merge.
+static int topk_large(const TopkArgs& a, cudaStream_t st) {
+  const int C = topk_range_rows(a.N, a.k);
+  if (a.P != (a.N + C - 1) / C || a.P > 65535)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)C * 8 + (size_t)a.d * 4;
+  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+  cudaError_t e = topk_set_smem((const void*)fused_topk_l2_range, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(a.B, a.P);
+  fused_topk_l2_range<<<grid, TOPK_RANGE_THREADS, smem, st>>>(a, C);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  return topk_merge_launch(a, st);
+}
+
 extern "C" int dqf_fused_topk_l2(const TopkArgs* a, void* stream) {
   if (a->B == 0) return 0;
+  if (a->N < 1 || a->k < 1 || a->d < 1 || a->P < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (a->k > TOPK_MAX_K) return topk_large(*a, st);
   // every row range must hold a row: (P - 1) * ceil(N / P) < N
-  if (a->N < 1 || a->k < 1 || a->k > TOPK_MAX_K || a->d < 1 || a->P < 1 ||
-      a->P > 65535 ||
+  if (a->P > 65535 ||
       (long long)(a->P - 1) * ((a->N + a->P - 1) / a->P) >= a->N)
     return (int)cudaErrorInvalidValue;
   const int S = topk_sort_len(a->k);
@@ -529,19 +595,12 @@ extern "C" int dqf_fused_topk_l2(const TopkArgs* a, void* stream) {
                            : (const void*)fused_topk_l2_part<false>;
   cudaError_t e = topk_set_smem(part, smem);
   if (e != cudaSuccess) return (int)e;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid((a->B + TOPK_QT - 1) / TOPK_QT, a->P);
   if (pairs) fused_topk_l2_part<true><<<grid, TOPK_THREADS, smem, st>>>(*a, S);
   else fused_topk_l2_part<false><<<grid, TOPK_THREADS, smem, st>>>(*a, S);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const size_t lists = (size_t)a->P * a->k * 16;
-  if (lists <= TOPK_MERGE_STAGED) {
-    fused_topk_l2_merge<true><<<a->B, TOPK_MERGE_THREADS, lists, st>>>(*a);
-  } else {
-    fused_topk_l2_merge<false><<<a->B, TOPK_MERGE_THREADS, 0, st>>>(*a);
-  }
-  return (int)cudaGetLastError();
+  return topk_merge_launch(*a, st);
 }
 
 extern "C" const char* dqf_error_string(int err) {

@@ -15,7 +15,8 @@
 // a block of 256 threads; lane l loads components l + 32 j of the row and
 // of the query (coalesced 128-byte reads of the row), squares the
 // differences into M = halving_regs(d) registers and calls
-// warp_halving_sum; lane 0 writes the result.
+// warp_halving_sum; lane 0 writes the result.  Past d = 1024 each of the
+// 32 registers folds the components c + 1024 t in halving_fold's pairs.
 //
 // Bound on the H100 (SXM data sheet, 700 W): device-memory bytes, the
 // B R rows of d x 4 bytes the gather must read (16.8 MB at B = 1024,
@@ -50,12 +51,19 @@ gather_distances_kernel(const GatherArgs a) {
   const size_t b = pair / a.R;
   const float* row = a.x_pad + (size_t)a.nbrs[pair] * d;
   const float* q = a.q + b * d;
+  const int fold = halving_fold_of(d);
+  auto term = [&](int c) {
+    const float diff = c < d ? __fsub_rn(row[c], q[c]) : 0.f;
+    return __fmul_rn(diff, diff);
+  };
   float v[M];
 #pragma unroll
   for (int j = 0; j < M; ++j) {
     const int c = wl + 32 * j;
-    const float diff = c < d ? __fsub_rn(row[c], q[c]) : 0.f;
-    v[j] = __fmul_rn(diff, diff);
+    v[j] = M < 32 || fold == 1
+               ? term(c)
+               : halving_fold([&](int t) { return term(c + 1024 * t); },
+                              fold);
   }
   const float s = warp_halving_sum<M>(v);
   if (wl == 0) a.out[pair] = s;
@@ -80,8 +88,7 @@ extern "C" int dqf_gather_distances(const GatherArgs* a, void* stream) {
     case 4: return launch<4>(*a, st);
     case 8: return launch<8>(*a, st);
     case 16: return launch<16>(*a, st);
-    case 32: return launch<32>(*a, st);
-    default: return (int)cudaErrorInvalidValue;
+    default: return launch<32>(*a, st);
   }
 }
 

@@ -19,6 +19,10 @@
 //     block's queries, gathers M values from shared memory, halves them
 //     in registers and writes one output; neighbouring threads write
 //     neighbouring rows, so the stores coalesce;
+//   * past 64 subspaces (MP = 0) a thread folds the values in the same
+//     pairs with halving_fold (halving.cuh), reading its codes as it goes;
+//     a query's LUT larger than the block's shared memory is read from
+//     device memory (STAGED = false, one query a block);
 //   * every flat offset is a size_t (the output at B = 1024, N = 1M has
 //     1.024e9 elements).
 //
@@ -33,6 +37,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "halving.cuh"
+
 #define PQ_THREADS 256
 #define PQ_QB 8          // queries a block, at most
 #define PQ_ROWS 16384    // rows a block
@@ -45,75 +51,91 @@ struct PqArgs {
   int32_t B, N, M, K, qb;
 };
 
-template <int MP>
+// MP: next_pow2(M) up to 64, or 0 for a folded sum of any M.
+template <int MP, bool STAGED>
 __global__ void __launch_bounds__(PQ_THREADS)
 pq_adc_kernel(const PqArgs a) {
-  extern __shared__ float lut[];  // qb * M * K
+  extern __shared__ float lut[];  // qb * M * K when STAGED
   const int M = a.M, K = a.K, MK = M * K;
   const int b0 = blockIdx.y * a.qb;
   const int nq = min(a.qb, a.B - b0);
   const float* src = a.luts + (size_t)b0 * MK;
-  for (int i = threadIdx.x; i < nq * MK; i += blockDim.x) lut[i] = src[i];
-  __syncthreads();
+  if (STAGED) {
+    for (int i = threadIdx.x; i < nq * MK; i += blockDim.x) lut[i] = src[i];
+    __syncthreads();
+  }
+  const int mp = MP ? MP : 1 << (32 - __clz(M - 1));
 
   const size_t r0 = (size_t)blockIdx.x * PQ_ROWS;
   const size_t r1 = min(r0 + PQ_ROWS, (size_t)a.N);
   for (size_t i = r0 + threadIdx.x; i < r1; i += blockDim.x) {
-    int code[MP];
+    const uint8_t* row = a.codes + i * M;
+    int code[MP ? MP : 1];
 #pragma unroll
-    for (int m = 0; m < MP; ++m)
-      code[m] = m < M ? (int)a.codes[i * M + m] : 0;
+    for (int m = 0; m < MP; ++m) code[m] = m < M ? (int)row[m] : 0;
     for (int qi = 0; qi < nq; ++qi) {
-      const float* t = lut + qi * MK;
-      float v[MP];
+      const float* t = (STAGED ? lut : src) + (size_t)qi * MK;
+      float s;
+      if (MP) {
+        float v[MP ? MP : 1];
 #pragma unroll
-      for (int m = 0; m < MP; ++m) v[m] = m < M ? t[m * K + code[m]] : 0.f;
+        for (int m = 0; m < MP; ++m) v[m] = m < M ? t[m * K + code[m]] : 0.f;
 #pragma unroll
-      for (int w = MP / 2; w >= 1; w >>= 1) {
+        for (int w = MP / 2; w >= 1; w >>= 1) {
 #pragma unroll
-        for (int j = 0; j < w; ++j) v[j] = __fadd_rn(v[j], v[j + w]);
+          for (int j = 0; j < w; ++j) v[j] = __fadd_rn(v[j], v[j + w]);
+        }
+        s = v[0];
+      } else {
+        s = halving_fold([&](int m) {
+          return m < M ? t[m * K + (int)row[m]] : 0.f;
+        }, mp);
       }
-      a.out[(size_t)(b0 + qi) * a.N + i] = v[0];
+      a.out[(size_t)(b0 + qi) * a.N + i] = s;
     }
   }
 }
 
 template <int MP>
-static int launch(const PqArgs& a, cudaStream_t st) {
+static int launch(const PqArgs& a, bool staged, cudaStream_t st) {
+  const dim3 grid((a.N + PQ_ROWS - 1) / PQ_ROWS, (a.B + a.qb - 1) / a.qb);
+  if (!staged) {
+    pq_adc_kernel<MP, false><<<grid, PQ_THREADS, 0, st>>>(a);
+    return (int)cudaGetLastError();
+  }
   const size_t smem = (size_t)a.qb * a.M * a.K * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        pq_adc_kernel<MP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        pq_adc_kernel<MP, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const dim3 grid((a.N + PQ_ROWS - 1) / PQ_ROWS, (a.B + a.qb - 1) / a.qb);
-  pq_adc_kernel<MP><<<grid, PQ_THREADS, smem, st>>>(a);
+  pq_adc_kernel<MP, true><<<grid, PQ_THREADS, smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
 extern "C" int dqf_pq_adc(const PqArgs* in, void* stream) {
   if (in->B == 0 || in->N == 0) return 0;
-  if (in->M < 1 || in->M > 64 || in->K < 1 || in->K > 256)
+  if (in->M < 1 || in->K < 1 || in->K > 256)
     return (int)cudaErrorInvalidValue;
   PqArgs a = *in;
   const size_t per_query = (size_t)a.M * a.K * sizeof(float);
-  a.qb = (int)(PQ_SMEM_MAX / per_query);
+  const bool staged = per_query <= PQ_SMEM_MAX;
+  a.qb = staged ? (int)(PQ_SMEM_MAX / per_query) : 1;
   if (a.qb > PQ_QB) a.qb = PQ_QB;
-  if (a.qb < 1) return (int)cudaErrorInvalidValue;
   if ((a.B + a.qb - 1) / a.qb > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int mp = 1;
   while (mp < a.M) mp <<= 1;
   switch (mp) {
-    case 1: return launch<1>(a, st);
-    case 2: return launch<2>(a, st);
-    case 4: return launch<4>(a, st);
-    case 8: return launch<8>(a, st);
-    case 16: return launch<16>(a, st);
-    case 32: return launch<32>(a, st);
-    case 64: return launch<64>(a, st);
-    default: return (int)cudaErrorInvalidValue;
+    case 1: return launch<1>(a, staged, st);
+    case 2: return launch<2>(a, staged, st);
+    case 4: return launch<4>(a, staged, st);
+    case 8: return launch<8>(a, staged, st);
+    case 16: return launch<16>(a, staged, st);
+    case 32: return launch<32>(a, staged, st);
+    case 64: return launch<64>(a, staged, st);
+    default: return launch<0>(a, staged, st);
   }
 }
 

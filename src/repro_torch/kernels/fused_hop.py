@@ -5,7 +5,8 @@ fused_hop_pallas`` in its three score modes (``f32``, ``sq8``, ``pq``).
 The kernel advances every lane of a wave ``hops`` beam expansions
 (frontier, adjacency row, seen/live dedup, score, stable merge, counters,
 hop cap, decision-tree check) and equals
-:func:`repro_torch.kernels.ref.fused_hop` bit for bit.
+:func:`repro_torch.kernels.ref.fused_hop` bit for bit; a launch with
+``hops = max_hops`` carries every lane to retirement.
 :func:`fused_hop_paged_cuda` replaces ``fused_hop_paged_pallas``: the same
 kernel in its paged mode, with ``seen`` in a page pool reached through a
 page table, equal to :func:`repro_torch.kernels.ref.fused_hop_paged` bit
@@ -15,8 +16,13 @@ bound.
 The wrappers check devices, types, shapes and contiguity, allocate the
 new pool and counters with ``torch.empty``, launch on PyTorch's current
 stream and raise if the launch was refused.  ``hs.seen`` (the dense rows
-or the page pool) is updated in place.  ``fused_hop_cuda.launches`` and
-``fused_hop_paged_cuda.launches`` count launches.
+or the page pool) is updated in place.  With ``lane_base`` (B,) int32 the
+tables are stacked, ``adj_pad`` (T, n+1, R), ``t0`` (T, n+1, w) and
+``live_pad`` (T, n+1), and lane b reads rows ``lane_base[b] + id`` of
+their flattened ``(T (n+1), ·)`` views with local ids (sentinel n): every
+entry must lie in ``[0, (T - 1)(n+1)]``, which is not checked.
+``fused_hop_cuda.launches`` and ``fused_hop_paged_cuda.launches`` count
+launches.
 """
 
 from __future__ import annotations
@@ -42,11 +48,11 @@ class _HopArgs(ctypes.Structure):
         "dist_count_out", "update_count_out", "hops_out", "terminated_out",
         "evals_done_out", "stop_at_out", "seen", "adj", "table", "t1", "t2",
         "queries", "live", "t_feature", "t_threshold", "t_left", "t_right",
-        "t_value", "hot_first", "hot_ratio", "pt")]
+        "t_value", "hot_first", "hot_ratio", "pt", "lane_base")]
         + [(f, _I) for f in (
             "B", "L", "R", "n", "d", "hops", "max_hops", "k", "eval_gap",
             "add_step", "tree_depth", "sort_len", "mode", "tw", "K", "ppl",
-            "page_shift")])
+            "page_shift", "tree_nodes", "copy_vec")])
 
 _MODES = {"f32": 0, "sq8": 1, "pq": 2}
 
@@ -64,10 +70,20 @@ def _check(name, t, dtype, shape, device):
     return t.data_ptr()
 
 
+def _copy_vec(table: torch.Tensor, row_bytes: int) -> int:
+    """Bytes a row copy moves at once: the largest of 16, 8 and 4 that
+    divides the row and the table's address, else 1."""
+    for vec in (16, 8, 4):
+        if row_bytes % vec == 0 and table.data_ptr() % vec == 0:
+            return vec
+    return 1
+
+
 def _launch(hs: HopState, seen_shape, pt, adj_pad, queries, live_pad,
             mode: str, t0, t1, t2, tree, hot_first, hot_ratio, *, hops: int,
             max_hops: int, k: int, eval_gap: int, add_step: int,
-            tree_depth: int, ppl: int = 0, page_shift: int = 0) -> HopState:
+            tree_depth: int, ppl: int = 0, page_shift: int = 0,
+            lane_base=None) -> HopState:
     """Check every operand, fill ``HopArgs`` and launch once; ``seen``
     must have ``seen_shape`` (dense rows, or the page pool with ``pt``)."""
     dev = hs.ids.device
@@ -76,11 +92,15 @@ def _launch(hs: HopState, seen_shape, pt, adj_pad, queries, live_pad,
     if mode not in _MODES:
         raise ValueError(f"unknown score mode {mode!r}")
     B, L = hs.ids.shape
-    n1, R = adj_pad.shape
+    stack = () if lane_base is None else (adj_pad.shape[0],)
+    if adj_pad.dim() != 2 + len(stack):
+        raise ValueError("adj_pad must be (n+1, R), or (T, n+1, R) with "
+                         "lane_base")
+    n1, R = adj_pad.shape[-2:]
     d = queries.shape[1]
-    tw = t0.shape[1]
-    if eval_gap < 1 or hops < 0:
-        raise ValueError("eval_gap must be >= 1 and hops >= 0")
+    tw = t0.shape[-1]
+    if eval_gap < 1 or hops < 0 or L < 1 or R < 1:
+        raise ValueError("eval_gap, L and R must be >= 1 and hops >= 0")
     sort_len = next_pow2(L + R)
     f32, i32, u8 = torch.float32, torch.int32, torch.bool
     a = _HopArgs()
@@ -101,23 +121,26 @@ def _launch(hs: HopState, seen_shape, pt, adj_pad, queries, live_pad,
     if pt is not None:
         a.pt = _check("pt", pt, i32, (B, ppl), dev)
         a.ppl, a.page_shift = ppl, page_shift
-    a.adj = _check("adj_pad", adj_pad, i32, (n1, R), dev)
+    if lane_base is not None:
+        a.lane_base = _check("lane_base", lane_base, i32, (B,), dev)
+    a.adj = _check("adj_pad", adj_pad, i32, (*stack, n1, R), dev)
     a.queries = _check("queries", queries, f32, (B, d), dev)
     a.mode, a.tw, a.K = _MODES[mode], tw, 0
     if mode == "f32":
-        a.table = _check("table", t0, f32, (n1, d), dev)
+        a.table = _check("table", t0, f32, (*stack, n1, d), dev)
     elif mode == "sq8":
-        a.table = _check("codes", t0, torch.int8, (n1, d), dev)
+        a.table = _check("codes", t0, torch.int8, (*stack, n1, d), dev)
         a.t1 = _check("scale", t1, f32, (d,), dev)
         a.t2 = _check("zero", t2, f32, (d,), dev)
     else:
-        a.table = _check("codes", t0, torch.uint8, (n1, tw), dev)
+        a.table = _check("codes", t0, torch.uint8, (*stack, n1, tw), dev)
         if t1 is None or t1.dim() != 3:
             raise ValueError("pq mode needs (B, M, K) LUTs")
         a.K = t1.shape[2]
         a.t1 = _check("luts", t1, f32, (B, tw, a.K), dev)
     a.live = (None if live_pad is None
-              else _check("live_pad", live_pad, u8, (n1,), dev))
+              else _check("live_pad", live_pad, u8, (*stack, n1), dev))
+    a.copy_vec = _copy_vec(t0, tw * 4 if mode == "f32" else tw)
     if tree is not None:
         feature, threshold, left, right, value = tree
         T = feature.shape[0]
@@ -128,6 +151,7 @@ def _launch(hs: HopState, seen_shape, pt, adj_pad, queries, live_pad,
         a.t_value = _check("tree.value", value, f32, (T,), dev)
         a.hot_first = _check("hot_first", hot_first, f32, (B,), dev)
         a.hot_ratio = _check("hot_ratio", hot_ratio, f32, (B,), dev)
+        a.tree_nodes = T
     a.B, a.L, a.R, a.n, a.d = B, L, R, n1 - 1, d
     a.hops, a.max_hops, a.k, a.eval_gap = hops, max_hops, k, eval_gap
     a.add_step, a.tree_depth, a.sort_len = add_step, tree_depth, sort_len
@@ -145,17 +169,17 @@ def fused_hop_cuda(hs: HopState, adj_pad, queries, live_pad, mode: str, t0,
                    t1=None, t2=None, tree=None, hot_first=None,
                    hot_ratio=None, *, hops: int, max_hops: int, k: int = 1,
                    eval_gap: int = 1, add_step: int = 0,
-                   tree_depth: int = 1) -> HopState:
+                   tree_depth: int = 1, lane_base=None) -> HopState:
     """One launch: ``hops`` fused expansions of every lane (CUDA tensors).
 
-    ``mode``, ``t0``, ``t1`` and ``t2`` as in
+    ``mode``, ``t0``, ``t1``, ``t2`` and ``lane_base`` as in
     :func:`repro_torch.kernels.ref.fused_hop`.
     """
-    out = _launch(hs, (hs.ids.shape[0], adj_pad.shape[0]), None, adj_pad,
+    out = _launch(hs, (hs.ids.shape[0], adj_pad.shape[-2]), None, adj_pad,
                   queries, live_pad, mode, t0, t1, t2, tree, hot_first,
                   hot_ratio, hops=hops, max_hops=max_hops, k=k,
                   eval_gap=eval_gap, add_step=add_step,
-                  tree_depth=tree_depth)
+                  tree_depth=tree_depth, lane_base=lane_base)
     fused_hop_cuda.launches += 1
     return out
 
@@ -165,7 +189,7 @@ def fused_hop_paged_cuda(hs: HopState, pt, adj_pad, queries, live_pad,
                          hot_first=None, hot_ratio=None, *, page_cols: int,
                          hops: int, max_hops: int, k: int = 1,
                          eval_gap: int = 1, add_step: int = 0,
-                         tree_depth: int = 1) -> HopState:
+                         tree_depth: int = 1, lane_base=None) -> HopState:
     """One launch of the paged mode (CUDA tensors): ``hs.seen`` is the page
     pool ``(n_pages, page_cols)`` bool, updated in place, and ``pt`` the
     ``(B, ceil((n+1) / page_cols))`` int32 page table, as in
@@ -177,12 +201,12 @@ def fused_hop_paged_cuda(hs: HopState, pt, adj_pad, queries, live_pad,
     if hs.seen.dim() != 2 or hs.seen.shape[1] != page_cols:
         raise ValueError(f"the page pool must be (n_pages, {page_cols}), "
                          f"got {tuple(hs.seen.shape)}")
-    ppl = -(-adj_pad.shape[0] // page_cols)
+    ppl = -(-adj_pad.shape[-2] // page_cols)
     out = _launch(hs, (hs.seen.shape[0], page_cols), pt, adj_pad, queries,
                   live_pad, mode, t0, t1, t2, tree, hot_first, hot_ratio,
                   hops=hops, max_hops=max_hops, k=k, eval_gap=eval_gap,
                   add_step=add_step, tree_depth=tree_depth, ppl=ppl,
-                  page_shift=page_cols.bit_length() - 1)
+                  page_shift=page_cols.bit_length() - 1, lane_base=lane_base)
     fused_hop_paged_cuda.launches += 1
     return out
 

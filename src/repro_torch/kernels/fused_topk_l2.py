@@ -7,15 +7,16 @@ order; it equals :func:`repro_torch.kernels.ref.fused_topk_l2` bit for bit.
 Its rows are split into P contiguous ranges, as many as fill every SM's
 block slots once; each block keeps a threshold-filtered top-k of its range
 for 32 queries, and a second launch from the same entry point merges the P
-lists in (dist, id) order.  k is at most ``MAX_K`` = 448 (a merge sorts
-at most 512 entries in one warp's registers); a larger k raises
-ValueError before anything is built or allocated.  See the source's header
-for the design and its bound.
+lists in (dist, id) order.  For k > 448 (a threshold merge sorts at most
+512 entries in one warp's registers) the first launch sorts each (query,
+range of up to 8192 rows) whole instead; k has no limit but the device
+memory of the ``(B, P, k)`` scratch.  See the source's header for the
+design and its bound.
 
-The wrapper checks devices, types, shapes, contiguity and k, allocates the
-outputs and two ``(B, P, k)`` scratch lists with ``torch.empty``,
-launches on PyTorch's current stream and raises if the launch was
-refused.  ``fused_topk_l2_cuda.launches`` counts calls.
+The wrapper checks devices, types, shapes, contiguity and k >= 1,
+allocates the outputs and two ``(B, P, k)`` scratch lists with
+``torch.empty``, launches on PyTorch's current stream and raises if the
+launch was refused.  ``fused_topk_l2_cuda.launches`` counts calls.
 """
 
 from __future__ import annotations
@@ -28,9 +29,7 @@ import torch
 from . import _build
 from ._launch import launch, require
 
-__all__ = ["MAX_K", "fused_topk_l2_cuda"]
-
-MAX_K = 448  # TOPK_MAX_K of csrc/fused_topk_l2.cu
+__all__ = ["fused_topk_l2_cuda"]
 
 
 class _TopkArgs(ctypes.Structure):
@@ -41,16 +40,17 @@ class _TopkArgs(ctypes.Structure):
 
 
 @functools.lru_cache(maxsize=64)
-def _row_ranges(dev: torch.device, B: int, N: int) -> int:
+def _row_ranges(dev: torch.device, B: int, N: int, k: int) -> int:
     """P, the number of row ranges the kernel splits N rows into for B
-    queries on ``dev`` (the source decides, from the card's SM count);
-    kept per shape, so a call of a shape seen before costs no lookup."""
+    queries and k on ``dev`` (the source decides, from the card's SM
+    count); kept per shape, so a call of a shape seen before costs no
+    lookup."""
     fn = _build.load("fused_topk_l2").dqf_fused_topk_l2_parts
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_int] * 3
+        fn.argtypes = [ctypes.c_int] * 4
         fn.restype = ctypes.c_int
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    return fn(B, N, sms)
+    return fn(B, N, k, sms)
 
 
 def fused_topk_l2_cuda(q: torch.Tensor, x: torch.Tensor, *, k: int):
@@ -64,9 +64,7 @@ def fused_topk_l2_cuda(q: torch.Tensor, x: torch.Tensor, *, k: int):
         raise ValueError(f"x has width {x.shape[1]}, queries {d}")
     if k < 1 or N < 1:
         raise ValueError("fused_topk_l2 needs k >= 1 and at least one row")
-    if k > MAX_K:
-        raise ValueError(f"fused_topk_l2_cuda takes k <= {MAX_K}, not {k}")
-    P = _row_ranges(dev, B, N)
+    P = _row_ranges(dev, B, N, k)
     keys = torch.empty((2, B, P, k), dtype=torch.float32, device=dev)
     tie = torch.empty((2, B, P, k), dtype=torch.int32, device=dev)
     dists = torch.empty((B, k), dtype=torch.float32, device=dev)

@@ -40,8 +40,6 @@ def gather_distances_cuda(queries: torch.Tensor, x_pad: torch.Tensor,
     if x_pad.shape[1] != d or nbrs.shape[0] != B:
         raise ValueError(f"{what}: queries (B, d), x_pad (n+1, d) and nbrs "
                          f"(B, R) disagree in shape")
-    if d > 1024:
-        raise ValueError(f"{what} takes rows of at most 1024 components")
     out = torch.empty((B, R), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out

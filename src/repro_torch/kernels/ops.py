@@ -85,8 +85,9 @@ def table_spec(table):
     ``(mode, t0, t1, t2)``: a float32 ``x_pad``, or a device table that
     gives its own (``SQTable``, ``PQView``: ``spec()``)."""
     if isinstance(table, torch.Tensor):
-        if table.dtype != torch.float32 or table.dim() != 2:
-            raise TypeError("fused hop needs a (n+1, d) float32 row table")
+        if table.dtype != torch.float32 or table.dim() not in (2, 3):
+            raise TypeError("fused hop needs a (n+1, d) float32 row table, "
+                            "or a (T, n+1, d) stack of them")
         return "f32", table, None, None
     if not callable(getattr(table, "spec", None)):
         raise TypeError(
@@ -98,12 +99,15 @@ def table_spec(table):
 def fused_hop(hs: ref.HopState, adj_pad, queries, live_pad, table,
               tree=None, hot_first=None, hot_ratio=None, *, hops: int,
               max_hops: int, k: int = 1, eval_gap: int = 1,
-              add_step: int = 0, tree_depth: int = 1) -> ref.HopState:
+              add_step: int = 0, tree_depth: int = 1,
+              lane_base=None) -> ref.HopState:
     """Advance a wave ``hops`` fused beam expansions (one kernel launch on
-    the card).  ``hs.seen`` is updated in place."""
+    the card).  ``hs.seen`` is updated in place.  ``lane_base`` (B,)
+    int32 reads lane b's rows at that offset of stacked tables (see
+    :func:`repro_torch.kernels.ref.fused_hop`)."""
     mode, t0, t1, t2 = table_spec(table)
     kw = dict(hops=hops, max_hops=max_hops, k=k, eval_gap=eval_gap,
-              add_step=add_step, tree_depth=tree_depth)
+              add_step=add_step, tree_depth=tree_depth, lane_base=lane_base)
     fn = ref.fused_hop if _device_type(t0) == "cpu" else fused_hop_cuda
     return fn(hs, adj_pad, queries, live_pad, mode, t0, t1, t2, tree,
               hot_first, hot_ratio, **kw)

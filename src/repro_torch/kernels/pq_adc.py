@@ -3,7 +3,8 @@
 Replaces ``repro/kernels/pq_adc.py::pq_adc_pallas``, the scan of the pq
 Full Index: (B, N) ``Σ_m luts[b, m, codes[i, m]]`` summed in
 ``ref.halving_sum`` order, equal to :func:`repro_torch.kernels.ref.pq_adc`
-bit for bit.  See the source's header for the design and the bound.
+bit for bit, for any number of subspaces M and K <= 256 centroids.  See
+the source's header for the design and the bound.
 
 ``pq_adc_cuda.launches`` counts launches.
 """
@@ -17,8 +18,6 @@ import torch
 from ._launch import launch, require
 
 __all__ = ["pq_adc_cuda"]
-
-MAX_M = 64      # subspaces a row may have (the kernel's register tile)
 
 
 class _PqArgs(ctypes.Structure):
@@ -37,9 +36,9 @@ def pq_adc_cuda(luts: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     if codes.shape[1] != M:
         raise ValueError(f"{what}: codes have {codes.shape[1]} subspaces, "
                          f"LUTs {M}")
-    if not 1 <= M <= MAX_M or not 1 <= K <= 256:
-        raise ValueError(f"{what} takes 1..{MAX_M} subspaces of 1..256 "
-                         f"centroids, got M={M}, K={K}")
+    if M < 1 or not 1 <= K <= 256:
+        raise ValueError(f"{what} takes subspaces of 1..256 centroids, got "
+                         f"M={M}, K={K}")
     out = torch.empty((B, N), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out

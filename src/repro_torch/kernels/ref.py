@@ -248,17 +248,25 @@ def _gather_score(mode: str, t0, t1, t2, queries, cols):
 def fused_hop_body(hs: HopState, adj_pad, queries, live_pad, mode: str,
                    t0, t1, t2, tree, hot_first, hot_ratio, *, max_hops: int,
                    k: int, eval_gap: int, add_step: int,
-                   tree_depth: int) -> HopState:
+                   tree_depth: int, lane_base=None) -> HopState:
     """One fused hop: expand → gather → score → merge → terminate.
 
     A verbatim mirror of ``repro/kernels/ref.py::fused_hop_body``:
     :func:`repro_torch.core.beam_search.expand_step` followed by the loop
     body bookkeeping (hop cap, then the decision-tree check).  Inactive
-    lanes are exact no-ops.
+    lanes are exact no-ops.  With ``lane_base`` the tables are stacked
+    (see :func:`fused_hop`) and lane b reads rows ``lane_base[b] + id``.
     """
-    n = adj_pad.shape[0] - 1
+    n = adj_pad.shape[-2] - 1
     B, L = hs.ids.shape
     rows = torch.arange(B, device=hs.ids.device)
+    off = torch.zeros((B,), dtype=torch.long, device=hs.ids.device)
+    if lane_base is not None:            # stacked tables, flattened
+        off = lane_base.long()
+        adj_pad = adj_pad.reshape(-1, adj_pad.shape[-1])
+        t0 = t0.reshape(-1, t0.shape[-1])
+        if live_pad is not None:
+            live_pad = live_pad.reshape(-1)
 
     # --- expansion target ---
     unexp = (~hs.expanded) & (hs.ids != n)
@@ -269,17 +277,17 @@ def fused_hop_body(hs: HopState, adj_pad, queries, live_pad, mode: str,
     expanded[rows, slot] = hs.expanded[rows, slot] | lane
 
     # --- adjacency gather + dedup (read every seen byte before writing) ---
-    nbrs = adj_pad[p.long()]                               # (B, R)
+    nbrs = adj_pad[p.long() + off]                         # (B, R)
     already = hs.seen.gather(1, nbrs.long())
     valid = (nbrs != n) & (~already) & lane[:, None]
     if live_pad is not None:
-        valid &= live_pad[nbrs.long()]
+        valid &= live_pad[nbrs.long() + off[:, None]]
     cols = torch.where(valid, nbrs, n)
     seen = hs.seen
     seen[rows[:, None], cols.long()] = True
 
     # --- score ---
-    d2 = _gather_score(mode, t0, t1, t2, queries, cols)
+    d2 = _gather_score(mode, t0, t1, t2, queries, cols.long() + off[:, None])
     d2 = torch.where(valid, d2, INF_DIST)
 
     # --- merge (stable, == beam_search._merge_pool) ---
@@ -328,7 +336,8 @@ def fused_hop_body(hs: HopState, adj_pad, queries, live_pad, mode: str,
 def fused_hop(hs: HopState, adj_pad, queries, live_pad, mode: str, t0,
               t1=None, t2=None, tree=None, hot_first=None, hot_ratio=None,
               *, hops: int, max_hops: int, k: int = 1, eval_gap: int = 1,
-              add_step: int = 0, tree_depth: int = 1) -> HopState:
+              add_step: int = 0, tree_depth: int = 1,
+              lane_base=None) -> HopState:
     """Advance a wave ``hops`` fused expansions (plain version).
 
     ``mode`` selects the scorer: ``"f32"`` (``t0`` = padded float32 rows),
@@ -337,13 +346,19 @@ def fused_hop(hs: HopState, adj_pad, queries, live_pad, mode: str, t0,
     unpacked decision-tree arrays ``(feature, threshold, left, right,
     value)`` or None, with ``hot_first``/``hot_ratio`` the frozen hot-phase
     features.  ``hs.seen`` is updated in place.
+
+    ``lane_base`` (B,) int32, or None: the per-lane table base of the
+    stacked multi-tenant hot phase.  ``adj_pad`` is then (T, n+1, R),
+    ``t0`` (T, n+1, w) and ``live_pad`` (T, n+1), and lane b reads row
+    ``lane_base[b] + id`` of their flattened ``(T (n+1), ·)`` views; ids
+    stay local (sentinel n) and ``hs.seen`` is (B, n+1).
     """
     for _ in range(hops):
         hs = fused_hop_body(hs, adj_pad, queries, live_pad, mode, t0, t1,
                             t2, tree, hot_first, hot_ratio,
                             max_hops=max_hops, k=k,
                             eval_gap=eval_gap, add_step=add_step,
-                            tree_depth=tree_depth)
+                            tree_depth=tree_depth, lane_base=lane_base)
     return hs
 
 
@@ -351,7 +366,8 @@ def fused_hop_paged(hs: HopState, pt, adj_pad, queries, live_pad, mode: str,
                     t0, t1=None, t2=None, tree=None, hot_first=None,
                     hot_ratio=None, *, page_cols: int, hops: int,
                     max_hops: int, k: int = 1, eval_gap: int = 1,
-                    add_step: int = 0, tree_depth: int = 1) -> HopState:
+                    add_step: int = 0, tree_depth: int = 1,
+                    lane_base=None) -> HopState:
     """Paged-seen hop (plain version): gather pages dense, hop, scatter back.
 
     ``hs.seen`` is the whole page pool ``(n_pages, page_cols)`` and ``pt``
@@ -364,7 +380,7 @@ def fused_hop_paged(hs: HopState, pt, adj_pad, queries, live_pad, mode: str,
     lanes aliasing one scratch lane) must carry identical state, so every
     copy writes the same bytes.
     """
-    n1 = adj_pad.shape[0]
+    n1 = adj_pad.shape[-2]
     B, ppl = pt.shape
     pool = hs.seen
     idx = pt.long()
@@ -372,7 +388,8 @@ def fused_hop_paged(hs: HopState, pt, adj_pad, queries, live_pad, mode: str,
     out = fused_hop(hs._replace(seen=dense), adj_pad, queries, live_pad,
                     mode, t0, t1, t2, tree, hot_first, hot_ratio, hops=hops,
                     max_hops=max_hops, k=k, eval_gap=eval_gap,
-                    add_step=add_step, tree_depth=tree_depth)
+                    add_step=add_step, tree_depth=tree_depth,
+                    lane_base=lane_base)
     pages = torch.nn.functional.pad(out.seen, (0, ppl * page_cols - n1))
     pool[idx] = pages.reshape(B, ppl, page_cols)
     return out._replace(seen=pool)

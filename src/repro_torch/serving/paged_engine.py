@@ -462,7 +462,7 @@ class PagedWaveEngine:
             hot_pool, hot_stats = self._hot_phase(
                 stk.x, stk.adj, stk.entries, stk.mask, tidx_d, q_d,
                 pool_size=self.cfg.hot_pool, max_hops=self.cfg.max_hops,
-                mode=self.cfg.hot_mode)
+                mode=self.cfg.hot_mode, fused=self._fused)
             hf = hot_features(hot_pool, self.cfg.k)
             seeded = _seed_full_state(hot_pool, stk.ids[tidx_d.long()],
                                       self.dqf.store.capacity,

@@ -13,7 +13,8 @@ Imports nothing of JAX, so it runs where only the port is installed:
 Without a CUDA device every test here skips (the kernels have no CPU
 mode).  The synthetic worlds are shared with ``tests/test_torch_fused_hop.py``,
 ``tests/test_torch_quant.py`` and ``tests/test_torch_paged_hop.py``;
-``duplicated_rows``, ``topk_rows``, ``paged_case``, the scan grid
+``duplicated_rows``, ``topk_rows``, ``paged_case``, the hop grid
+(``hop_cases``), the scan grid
 (``scan_cases``, ``scan_kernel``, ``same_bits``) and the scan's tolerance
 (``expansion_tol``, ``expansion_ratio``, ``offset_case``) and its
 arithmetic emulated in plain torch (``tf32_rna``, ``tf32_pairwise_l2``)
@@ -131,13 +132,113 @@ def paged_case(hs, page_cols, n_pad, rng, spare_pages=7):
     return hs._replace(seen=pool), pt_t
 
 
+# ------------------------------------------------------------- hop worlds
+# (tag, n, d, R, L, B, tenants, shuffled pools, pq M, pq bits): what the
+# redesigned hop's paths turn on: the full network for an unsorted pool
+# and for R > 32 (R not a multiple of 32, L + R not a power of two), the
+# rank merge at L <= 32 and 32 < L <= 64, folded registers and a chunked
+# stage at d = 1536, the per-lane table base, a pq LUT of 128 KB read from
+# device memory (M = 128, K = 256), and rows over 64 KB read in place
+# (f32 and sq8 at d = 65600).
+HOP_WORLDS = (
+    ("unsorted pools, R=37, L+R=61", 300, 18, 37, 24, 64, 1, True, 6, 6),
+    ("R=70, L+R=80", 300, 24, 70, 10, 9, 1, False, 6, 6),
+    ("d=1536", 400, 1536, 12, 16, 33, 1, True, 128, 6),
+    ("per-lane base, 3 tenants, L=40", 300, 18, 10, 40, 40, 3, True, 6, 6),
+    ("R=600", 120, 8, 600, 8, 5, 1, False, 4, 6),
+    ("pq M=128 K=256, LUT in device memory", 300, 128, 16, 24, 20, 1, True,
+     128, 8),
+    ("d=65600, rows read in place", 64, 65600, 8, 8, 4, 1, False, 8, 6))
+
+
+def _stacked_world(n, d, R, T, seed):
+    """``make_world``'s recipe for T tenants, stacked (T, n+1, ·)."""
+    worlds = [make_world(n=n, d=d, R=R, seed=seed + t) for t in range(T)]
+    return tuple(np.stack([w[i] for w in worlds]) for i in range(3))
+
+
+def _shuffle_pools(hs, lanes, rng):
+    """``hs`` with the pools of ``lanes`` permuted: not sorted any more."""
+    out = {f: getattr(hs, f).clone() for f in ("ids", "dists", "expanded")}
+    for b in lanes:
+        perm = torch.as_tensor(rng.permutation(hs.ids.shape[1]),
+                               device=hs.ids.device)
+        for t in out.values():
+            t[b] = t[b][perm]
+    return hs._replace(**out)
+
+
+def hop_cases(dev, seed=0, worlds=None):
+    """The redesigned hop's synthetic grid: ``(tag, mode, paged, args,
+    kw)``, ``args`` the state, then ``pt`` when paged, then the rest,
+    every tensor on ``dev``; ``ref.fused_hop(_paged)`` and the CUDA
+    wrapper take the same call.  Each of ``HOP_WORLDS`` in f32, sq8 and
+    pq, dense and paged (page_cols 64), with tree and liveness both off,
+    then both on; dead rows, sentinel rows and duplicate ids in a row.
+    ``worlds`` picks indices of ``HOP_WORLDS`` (all by default)."""
+    from repro_torch.core import QuantConfig
+    from repro_torch.kernels import ops
+    from repro_torch.quant import PQTable, build_quantizer
+
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(a, device=dev)
+    for wi, (tag, n, d, R, L, B, T, shuffled, m, bits) in \
+            enumerate(HOP_WORLDS):
+        if worlds is not None and wi not in worlds:
+            continue
+        x_st, adj_st, live_st = _stacked_world(n, d, R, T, 50 + wi)
+        q = t(rng.standard_normal((B, d)).astype(np.float32))
+        entries = t(np.arange(0, n, n // 6)[:6].astype(np.int32))
+        tid = t(rng.integers(0, T, B))
+        lane_base = (tid * (n + 1)).to(torch.int32) if T > 1 else None
+        x_dev = t(x_st) if T > 1 else t(x_st[0])
+        adj = t(adj_st) if T > 1 else t(adj_st[0])
+        live = t(live_st) if T > 1 else t(live_st[0])
+        x_view = tbs.LaneTable(x_dev, tid) if T > 1 else x_dev
+        hs0 = tbs.to_hop_state(tbs.init_state(x_view, q, entries, L))
+        if shuffled:
+            hs0 = _shuffle_pools(hs0, range(0, B, 2), rng)
+        real = x_st[:, :n].reshape(T * n, d)
+        specs = {"f32": ("f32", x_dev, None, None)}
+        for mode in ("sq8", "pq"):
+            qcfg = QuantConfig(mode=mode, pq_m=m, pq_bits=bits, pq_iters=2)
+            table = build_quantizer(real, qcfg).device_table(device=dev)
+            if isinstance(table, PQTable):
+                table = table.with_queries(q)
+            mode_, codes, t1, t2 = ops.table_spec(table)
+            # each tenant's n code rows, then the sentinel's
+            codes = torch.cat([torch.cat([codes[i * n:(i + 1) * n],
+                                          codes[-1:]])[None]
+                               for i in range(T)])
+            specs[mode] = (mode_, codes if T > 1 else codes[0], t1, t2)
+        tree = tuple(t(a) for a in make_tree())
+        hf = t(rng.uniform(1, 6, B).astype(np.float32))
+        hr = t(rng.uniform(0.5, 1.5, B).astype(np.float32))
+        kw = dict(hops=12, max_hops=40, k=5, eval_gap=25, add_step=6,
+                  tree_depth=4, lane_base=lane_base)
+        for mode, spec in specs.items():
+            for use_tree in (False, True):
+                for paged in (False, True):
+                    hs = hs0._replace(seen=hs0.seen.clone())
+                    lead = (hs,)
+                    kwp = kw
+                    if paged:
+                        lead = paged_case(hs, 64, max(1, B // 8), rng)
+                        kwp = dict(kw, page_cols=64)
+                    args = (adj, q, live if use_tree else None, *spec,
+                            *((tree, hf, hr) if use_tree else
+                              (None, None, None)))
+                    yield (f"{tag} {mode} {'paged' if paged else 'dense'} "
+                           f"tree={use_tree}", mode, paged, lead + args, kwp)
+
+
 # ------------------------------------------------- scan and merge kernels
 SCAN_KERNELS = ("pairwise_l2", "sq8_pairwise_l2", "pq_adc", "pool_merge",
                 "gather_distances")
 SCAN_B = (1, 7, 130)
 SCAN_N = (1, 63, 129, 5000)
 SCAN_D = (18, 100, 128)
-SCAN_PQ = ((4, 64), (4, 256), (8, 64), (8, 256))       # (M, K)
+SCAN_PQ = ((4, 64), (4, 256), (8, 64), (8, 256), (128, 256))   # (M, K)
 SCAN_MERGE = ((8, 8), (64, 32), (10, 7))                # (L, C)
 _SCAN_MODULES = {"pairwise_l2": "distance", "sq8_pairwise_l2": "sq_distance",
                  "pq_adc": "pq_adc", "pool_merge": "topk_merge",
@@ -156,9 +257,10 @@ def scan_cases(name, dev, seed=0):
 
     Rows with exact duplicates and a query equal to row 0 (ties, a zero
     distance, cancellation); sq8 codes that reach -127 and 127; pq codes
-    that reach 0 and K - 1; pools and candidates with equal keys, +inf
-    and ``INF_DIST`` slots; neighbour rows with the sentinel id and a
-    duplicated id.
+    that reach 0 and K - 1, and M = 128 past the register tile; pools and
+    candidates with equal keys, +inf and ``INF_DIST`` slots; neighbour
+    rows with the sentinel id and a duplicated id, and d = 1536 past
+    1024.
     """
     rng = np.random.default_rng(seed)
     t = lambda a: torch.as_tensor(a, device=dev)
@@ -200,7 +302,7 @@ def scan_cases(name, dev, seed=0):
                 yield f"B={B} L={L} C={C}", (t(pd), t(pi), t(cd), t(ci))
     elif name == "gather_distances":
         n = 300
-        for d in SCAN_D:
+        for d in SCAN_D + (1536,):
             x = rng.standard_normal((n, d)).astype(np.float32)
             x_pad = np.concatenate([x, np.full((1, d), 1e9, np.float32)])
             R = 32 if d == 128 else 10
@@ -417,7 +519,13 @@ def topk_rows(N, d, seed, equal=False):
     (33, 700, 16, 17, False),         # odd d: 4-byte copies
     (1024, 5000, 100, 24, False),     # k > 64: merges of up to 256 entries
     (1024, 5000, 300, 18, False),     # k > 192: merges of up to 512
-    (256, 5000, 448, 24, False)])     # k = MAX_K, the largest it takes
+    (256, 5000, 448, 24, False),      # the largest threshold merge
+    (256, 5000, 449, 24, False),      # past it: whole ranges sorted
+    (256, 5000, 1024, 24, False),
+    (64, 5000, 4096, 24, False),
+    (64, 5000, 5000, 18, False),      # k = N
+    (64, 3000, 3500, 18, False),      # k > N
+    (64, 5000, 449, 32, True)])       # all rows equal past 448
 def test_cuda_topk_bit_identical(cuda_device, B, N, k, d, equal):
     from repro_torch.kernels import ops
     from repro_torch.kernels.fused_topk_l2 import fused_topk_l2_cuda
@@ -443,21 +551,52 @@ def test_cuda_topk_bit_identical(cuda_device, B, N, k, d, equal):
 
 
 @pytest.mark.cuda
-def test_cuda_topk_refuses_k_past_limit(cuda_device):
-    """k = MAX_K + 1 raises ValueError before anything launches; the plain
-    version still answers."""
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.fused_topk_l2 import MAX_K, fused_topk_l2_cuda
+@pytest.mark.parametrize("max_hops", [0, 5, 512])
+def test_cuda_fused_beam_loop_equals_composed_loop(cuda_device, max_hops):
+    """``fused_beam_loop`` on the card (one launch) ≡ ``beam_loop``, every
+    field bit-identical, ``max_hops`` = 0 included."""
+    from repro_torch.kernels.fused_hop import fused_hop_cuda
 
-    rng = np.random.default_rng(5)
-    x, q = (torch.as_tensor(rng.standard_normal(s).astype(np.float32),
-                            device=cuda_device) for s in ((5000, 24), (8, 24)))
-    assert MAX_K == 448
-    before = fused_topk_l2_cuda.launches
-    with pytest.raises(ValueError, match="k <= 448"):
-        ops.fused_topk_l2(q, x, k=MAX_K + 1)
-    assert fused_topk_l2_cuda.launches == before
-    assert tref.fused_topk_l2(q, x, k=MAX_K + 1)[1].shape == (8, MAX_K + 1)
+    t = lambda a: torch.as_tensor(a, device=cuda_device)
+    x_pad, adj_pad, live = map(t, make_world())
+    q = t(np.random.default_rng(4).standard_normal((64, 18))
+          .astype(np.float32))
+    state = tbs.init_state(x_pad, q, t(np.arange(0, 220, 31)
+                                       .astype(np.int32)), 16, live)
+    fresh = lambda: state._replace(seen=state.seen.clone())
+    want = tbs.beam_loop(x_pad, adj_pad, q, fresh(), max_hops, live)
+    before = fused_hop_cuda.launches
+    got = tbs.fused_beam_loop(x_pad, adj_pad, q, fresh(), max_hops, live)
+    assert fused_hop_cuda.launches == before + 1
+    assert same_bits(tuple(tbs.to_hop_state(want)),
+                     tuple(tbs.to_hop_state(got)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world", range(len(HOP_WORLDS)))
+def test_cuda_hop_worlds_bit_identical(cuda_device, world):
+    """The redesigned hop on ``hop_cases``: every mode, dense and paged,
+    every ``HopState`` field and the whole page pool bit-identical to the
+    plain version, one launch a case."""
+    from repro_torch.kernels.fused_hop import (fused_hop_cuda,
+                                               fused_hop_paged_cuda)
+
+    n_cases = 0
+    for tag, _, paged, args, kw in hop_cases(cuda_device, worlds=(world,)):
+        fresh = lambda: (args[0]._replace(seen=args[0].seen.clone()),) \
+            + args[1:]
+        plain, cuda_fn = ((tref.fused_hop_paged, fused_hop_paged_cuda)
+                          if paged else (tref.fused_hop, fused_hop_cuda))
+        want = plain(*fresh(), **kw)
+        before = cuda_fn.launches
+        got = cuda_fn(*fresh(), **kw)
+        torch.cuda.synchronize()
+        assert cuda_fn.launches == before + 1, tag
+        bad = [f for f in tref.HopState._fields
+               if not same_bits(getattr(want, f), getattr(got, f))]
+        assert not bad, f"{tag}: {bad}"
+        n_cases += 1
+    assert n_cases == 12
 
 
 @pytest.mark.cuda

@@ -6,9 +6,16 @@
   rtol 1e-5 (the port sums squares in a fixed halving order, XLA:CPU in
   its own order).
 * Within the port, the fused plain version ≡ the composed per-hop loop,
-  bit for bit.
+  bit for bit, and so is ``fused_beam_loop`` on its CPU route and on its
+  card route (one launch, run through the plain version).
 * The stable order: ``repro.kernels.bitonic.bitonic_sort_stable``'s
   permutation ≡ ``torch.sort(stable=True)``'s on tie-heavy keys.
+* The CUDA hop's merge emulated in plain torch (``rank_merge``: sort the
+  candidates, place every entry by rank; the full network for a pool that
+  is not sorted) ≡ the plain version's stable sort of [pool | candidates],
+  with ties, ``INF_DIST`` and +inf slots, duplicate ids and unsorted pools.
+* The per-lane table base: ``ref.fused_hop`` over stacked tables with
+  ``lane_base`` ≡ the same lanes hopped over their own tenant's tables.
 """
 
 import numpy as np
@@ -107,6 +114,45 @@ def test_fused_plain_equals_composed_loop(use_live):
         assert torch.equal(a, b), f
 
 
+def _beam_world():
+    x_pad, adj_pad, live = map(T, make_world())
+    q = T(np.random.default_rng(4).standard_normal((6, 18))
+          .astype(np.float32))
+    entries = T(np.arange(0, 220, 31).astype(np.int32))
+    return x_pad, adj_pad, live, q, tbs.init_state(x_pad, q, entries, 16,
+                                                    live)
+
+
+@pytest.mark.parametrize("max_hops", [-1, 0, 1, 5, 48])
+def test_fused_beam_loop_routes_equal_composed_loop(monkeypatch, max_hops):
+    """``fused_beam_loop`` ≡ ``beam_loop`` bit for bit on both routes: the
+    CPU's (``fused_hops`` at a time) and the card's (one launch of
+    ``max(max_hops, 1)`` hops, run here through the plain version), with
+    ``max_hops`` <= 0 included: an active lane expands once before the cap
+    applies."""
+    x_pad, adj_pad, live, q, state = _beam_world()
+    fresh = lambda: state._replace(seen=state.seen.clone())
+    want = tbs.beam_loop(x_pad, adj_pad, q, fresh(), max_hops, live)
+    cpu = tbs.fused_beam_loop(x_pad, adj_pad, q, fresh(), max_hops, live,
+                              fused_hops=3)
+    calls = []
+
+    def card_hop(*args, hops, **kw):
+        calls.append(hops)
+        return tref.fused_hop(*args, hops=hops, **kw)
+
+    monkeypatch.setattr(tops, "_device_type", lambda t: "cuda")
+    monkeypatch.setattr(tops, "fused_hop_cuda", card_hop)
+    card = tbs.fused_beam_loop(x_pad, adj_pad, q, fresh(), max_hops, live)
+    assert calls == [max(max_hops, 1)]
+    for got in (cpu, card):
+        assert not bool(got.active.any())
+        for a, b in zip(tbs.to_hop_state(want), tbs.to_hop_state(got)):
+            if a.dtype == torch.float32:
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_stable_order_matches_jax_bitonic(seed):
     rng = np.random.default_rng(seed)
@@ -116,6 +162,115 @@ def test_stable_order_matches_jax_bitonic(seed):
     _, perm = bitonic_sort_stable(jnp.asarray(keys), jnp.asarray(pos))
     want = torch.sort(torch.as_tensor(keys), dim=1, stable=True).indices
     np.testing.assert_array_equal(np.asarray(perm), want.numpy())
+
+
+def rank_merge(pool_d, pool_i, pool_e, cand_d, cand_i):
+    """``csrc/fused_hop.cu``'s merge in plain torch.  A sorted pool keeps
+    its order; pool entry i goes to i + #(candidates with key < its key),
+    the candidate of rank j among the candidates by (key, position) to
+    j + #(pool entries with key <= its key) (the kernel counts both over
+    the warp), and only ranks below L are kept.  A lane whose pool is not sorted takes the full stable sort of
+    [pool | candidates], as the kernel's network does."""
+    B, L = pool_d.shape
+    R = cand_d.shape[1]
+    order = torch.sort(cand_d, dim=1, stable=True).indices
+    sk, si = cand_d.gather(1, order), cand_i.gather(1, order)
+    pool_rank = (torch.arange(L)[None, :]
+                 + torch.searchsorted(sk, pool_d.contiguous(), right=False))
+    cand_rank = (torch.arange(R)[None, :]
+                 + torch.searchsorted(pool_d.contiguous(), sk, right=True))
+    out_d = torch.full((B, L + R), float("nan"))
+    out_i = torch.full((B, L + R), -1, dtype=torch.int32)
+    out_e = torch.zeros((B, L + R), dtype=torch.bool)
+    out_d.scatter_(1, pool_rank, pool_d)
+    out_i.scatter_(1, pool_rank, pool_i)
+    out_e.scatter_(1, pool_rank, pool_e)
+    out_d.scatter_(1, cand_rank, sk)
+    out_i.scatter_(1, cand_rank, si)
+    unsorted = (pool_d[:, 1:] < pool_d[:, :-1]).any(dim=1)
+    full = torch.sort(torch.cat([pool_d, cand_d], 1), dim=1,
+                      stable=True).indices
+    cat_i = torch.cat([pool_i, cand_i], 1)
+    cat_e = torch.cat([pool_e, torch.zeros_like(cand_i, dtype=torch.bool)],
+                      1)
+    u = unsorted[:, None]
+    out_d = torch.where(u, torch.cat([pool_d, cand_d], 1).gather(1, full),
+                        out_d)
+    out_i = torch.where(u, cat_i.gather(1, full), out_i)
+    out_e = torch.where(u, cat_e.gather(1, full), out_e)
+    return out_d[:, :L], out_i[:, :L], out_e[:, :L]
+
+
+@pytest.mark.parametrize("L,R,unsorted", [
+    (16, 10, False), (64, 32, False), (64, 32, True), (10, 70, False),
+    (24, 40, True), (1, 5, False), (100, 7, True)])
+def test_rank_merge_equals_stable_sort(L, R, unsorted):
+    """The CUDA hop's merge (emulated) ≡ the plain version's stable sort of
+    [pool | candidates | +inf pad], the first L kept: tie-heavy keys,
+    ``INF_DIST`` slots in both, +inf pool slots, duplicate ids, and pools
+    that are not sorted (the full network's branch)."""
+    rng = np.random.default_rng(L * R + unsorted)
+    B = 40
+    pool_d = np.sort(rng.integers(0, 6, (B, L)).astype(np.float32), 1)
+    pool_d[::3, L // 2:] = tref.INF_DIST               # empty slots
+    pool_d[1::5, max(L - 2, 0):] = np.inf
+    cand_d = rng.integers(0, 7, (B, R)).astype(np.float32)
+    cand_d[:, ::4] = tref.INF_DIST                     # invalid neighbours
+    pool_i = rng.integers(0, 50, (B, L)).astype(np.int32)
+    cand_i = rng.integers(0, 50, (B, R)).astype(np.int32)
+    cand_i[:, -1] = cand_i[:, 0]                       # an id twice
+    pool_e = rng.random((B, L)) < 0.4
+    if unsorted:
+        for b in range(0, B, 2):
+            perm = rng.permutation(L)
+            pool_d[b], pool_i[b], pool_e[b] = (pool_d[b][perm],
+                                               pool_i[b][perm],
+                                               pool_e[b][perm])
+    args = [torch.as_tensor(a) for a in (pool_d, pool_i, pool_e, cand_d,
+                                         cand_i)]
+    got = rank_merge(*args)
+    cat_d = torch.cat([args[0], args[3],
+                       torch.full((B, 3), float("inf"))], 1)
+    cat_i = torch.cat([args[1], args[4],
+                       torch.zeros((B, 3), dtype=torch.int32)], 1)
+    cat_e = torch.cat([args[2], torch.zeros((B, R + 3), dtype=torch.bool)],
+                      1)
+    order = torch.sort(cat_d, dim=1, stable=True).indices[:, :L]
+    want = (cat_d.gather(1, order), cat_i.gather(1, order),
+            cat_e.gather(1, order))
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[2], want[2])
+    assert bool((pool_d[:, 1:] < pool_d[:, :-1]).any()) == unsorted
+
+
+def test_lane_base_equals_per_lane_tables():
+    """``ref.fused_hop`` with ``lane_base`` over a (T, n+1, ·) stack ≡ each
+    tenant's lanes hopped over that tenant's own tables, every field."""
+    NT, B, L = 3, 12, 16
+    worlds = [make_world(seed=10 + t) for t in range(NT)]
+    x_st, adj_st, live_st = (T(np.stack([w[i] for w in worlds]))
+                             for i in range(3))
+    n1 = x_st.shape[1]
+    rng = np.random.default_rng(7)
+    tid = torch.as_tensor(rng.integers(0, NT, B))
+    q = T(rng.standard_normal((B, 18)).astype(np.float32))
+    entries = T(np.arange(0, 220, 37).astype(np.int32))
+    kw = dict(hops=9, max_hops=40)
+    lanes = [torch.nonzero(tid == t).flatten() for t in range(NT)]
+    st = tbs.init_state(tbs.LaneTable(x_st, tid), q, entries, L)
+    got = tref.fused_hop(tbs.to_hop_state(st), adj_st, q, live_st, "f32",
+                         x_st, lane_base=(tid * n1).to(torch.int32), **kw)
+    for t in range(NT):
+        sel = lanes[t]
+        sub = tbs.init_state(x_st[t], q[sel], entries, L)
+        want = tref.fused_hop(tbs.to_hop_state(sub), adj_st[t], q[sel],
+                              live_st[t], "f32", x_st[t], **kw)
+        for f in tref.HopState._fields:
+            a, b = getattr(want, f), getattr(got, f)[sel]
+            if a.dtype == torch.float32:
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            assert torch.equal(a, b), (t, f)
 
 
 def test_sq_l2_is_the_halving_sum():

@@ -189,7 +189,8 @@ def pq_world(B, N, M, K, seed):
 
 @pytest.mark.parametrize("B,N,M,K", [(5, 40, 4, 16), (17, 70, 6, 32),
                                      (32, 128, 8, 256), (3, 5000, 8, 64),
-                                     (1, 1, 4, 64)])
+                                     (1, 1, 4, 64),
+                                     (4, 60, 128, 256)])   # M past 64
 def test_pq_adc_matches_jax_ref(B, N, M, K):
     luts, codes = pq_world(B, N, M, K, N * M)
     got = tops.pq_adc(T(luts), T(codes))
@@ -264,7 +265,8 @@ def gather_world(B, R, n, d, seed):
 
 
 @pytest.mark.parametrize("B,R,n,d", [(4, 8, 40, 8), (9, 16, 100, 24),
-                                     (2, 32, 64, 128), (7, 10, 300, 100)])
+                                     (2, 32, 64, 128), (7, 10, 300, 100),
+                                     (3, 8, 40, 1536)])    # past 1024
 def test_gather_distances_matches_jax_ref_and_pallas(B, R, n, d):
     q, x_pad, nbrs = gather_world(B, R, n, d, B * R + d)
     got = tops.gather_distances(T(q), T(x_pad), T(nbrs)).numpy()

@@ -20,11 +20,13 @@ import jax.numpy as jnp
 from repro.core import ZipfWorkload
 from repro.core import beam_search as jbs
 from repro.core.dynamic_search import dynamic_search as j_dynamic
+from repro.core.dynamic_search import hot_phase as j_hot
 from repro.core.tree_training import collect_training_data as j_collect
 from repro_torch.convert import dqf_from_arrays
 from repro_torch.core import DQFConfig as TConfig
 from repro_torch.core import beam_search as tbs
 from repro_torch.core.dynamic_search import dynamic_search as t_dynamic
+from repro_torch.core.dynamic_search import hot_phase as t_hot
 from repro_torch.core.tree_training import collect_training_data as t_collect
 
 MAX_DIVERGENT = 0.01
@@ -125,6 +127,39 @@ def test_whole_slice_after_checkpoint(built_dqf, saved, queries, fused):
                        port.search_dual_beam(queries))
     assert_lanes_match(dqf.search_baseline(queries),
                        port.search_baseline(queries), ("dist_count", "hops"))
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_hot_phase_graph_matches_reference(built_dqf, saved, queries, fused):
+    """The graph hot phase, composed or through the fused hop (one launch
+    on the card), against the reference's ``hot_phase`` on its own hot
+    index: pool ids, dists and counters per lane; the two port routes
+    equal bit for bit."""
+    dqf, _ = built_dqf
+    port = dqf_from_arrays(saved, port_cfg(dqf.cfg), device="cpu")
+    c = dqf.cfg
+    hd = dqf.tenants.default.hot_tables(dqf.store)
+    th = port.hot_tables()
+    kw = dict(pool_size=c.hot_pool, max_hops=c.max_hops)
+    jpool, jstats = j_hot(hd["x_hot_pad"], hd["adj_hot_pad"],
+                          hd["hot_entries"], jnp.asarray(queries), **kw)
+    q = torch.as_tensor(queries)
+    args = (th["x_hot_pad"], th["adj_hot_pad"], th["hot_entries"], q)
+    pool, stats = t_hot(*args, fused=fused, **kw)
+    bad = ~(np.asarray(jpool.ids) == pool.ids.numpy()).all(1)
+    bad |= ~np.isclose(np.asarray(jpool.dists), pool.dists.numpy(),
+                       rtol=1e-5, atol=0).all(1)
+    for f in ("dist_count", "hops", "update_count"):
+        bad |= np.asarray(getattr(jstats, f)) != getattr(stats, f).numpy()
+    lanes = np.flatnonzero(bad).tolist()
+    assert len(lanes) <= MAX_DIVERGENT * len(queries), \
+        f"{len(lanes)} lanes diverge from the reference: {lanes}"
+    other, other_stats = t_hot(*args, fused=not fused, **kw)
+    for a, b in zip(tuple(pool) + tuple(stats),
+                    tuple(other) + tuple(other_stats)):
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b)
 
 
 def test_search_records_into_counter(built_dqf, saved, queries):

@@ -8,7 +8,8 @@
   ``convert.dqf_from_arrays``: every tenant's counter and hot index, the
   stacked ``(T_pad, H_pad+1, ·)`` tables byte-equal to the reference's
   ``TenantRegistry.stacked``, the incremental per-slot update equal to a
-  full restack, ``hot_phase_stacked`` (graph and mxu) and per-tenant
+  full restack, ``hot_phase_stacked`` (graph, composed and through the
+  fused hop's per-lane table base, and mxu) and per-tenant
   ``DQF.search`` against the reference's on the same queries (ids and
   counters per lane, dists within rtol 1e-5, at most 1% of lanes
   diverging through a float32 near-tie, listed), and the tenant lifecycle
@@ -186,8 +187,10 @@ def test_stacked_incremental_update_matches_full_rebuild(mt_pair):
                            incr.ids[reg.slot_of("t2")])
 
 
-@pytest.mark.parametrize("mode", ["graph", "mxu"])
-def test_hot_phase_stacked_matches_reference(mt_pair, mode):
+@pytest.mark.parametrize("mode,fused", [("graph", False), ("graph", True),
+                                        ("mxu", False)],
+                         ids=["graph", "graph-fused", "mxu"])
+def test_hot_phase_stacked_matches_reference(mt_pair, mode, fused):
     dqf, wls, arrays = mt_pair
     port = port_of(arrays)
     stk_j = dqf.tenants.stacked(dqf.store)
@@ -201,7 +204,7 @@ def test_hot_phase_stacked_matches_reference(mt_pair, mode):
                               jnp.asarray(q), **kw)
     tpool, tstats = t_stacked(stk_t.x, stk_t.adj, stk_t.entries,
                               stk_t.mask, torch.as_tensor(tidx),
-                              torch.as_tensor(q), **kw)
+                              torch.as_tensor(q), fused=fused, **kw)
     bad = ~(np.asarray(jpool.ids) == tpool.ids.numpy()).all(1)
     bad |= ~np.isclose(np.asarray(jpool.dists), tpool.dists.numpy(),
                        rtol=1e-5, atol=1e-5).all(1)
@@ -216,25 +219,28 @@ def test_hot_phase_stacked_matches_reference(mt_pair, mode):
 
 
 def test_lane_views_equal_per_lane_tables(mt_pair):
-    """The stacked hot phase's ``LaneTable`` views ≡ the reference's
-    materialized per-lane ``(B, H+1, ·)`` tables and ``(B, E)`` entries,
-    bit for bit, through the port's own beam search."""
+    """The stacked hot phase's ``LaneTable`` views, composed and through
+    the fused hop's per-lane table base, ≡ the reference's materialized
+    per-lane ``(B, H+1, ·)`` tables and ``(B, E)`` entries, bit for bit,
+    through the port's own composed beam search."""
     _, wls, arrays = mt_pair
     port = port_of(arrays)
     stk = port.tenants.stacked(port.store)
     rng = np.random.default_rng(3)
     tidx = torch.as_tensor(rng.integers(0, TENANTS + 1, 40))
     q = torch.as_tensor(wls[1].sample(40))
-    pool, stats = t_stacked(stk.x, stk.adj, stk.entries, stk.mask, tidx, q,
-                            pool_size=CFG.hot_pool, max_hops=CFG.max_hops)
     x, adj = stk.x[tidx], stk.adj[tidx]
     state = tbs.init_state(x, q, stk.entries[tidx], CFG.hot_pool)
     state = tbs.beam_loop(x, adj, q, state, CFG.max_hops)
-    for a, b in zip(tuple(pool) + tuple(stats),
-                    tuple(state.pool) + tuple(state.stats)):
-        if a.dtype == torch.float32:
-            a, b = a.view(torch.int32), b.view(torch.int32)
-        assert torch.equal(a, b)
+    for fused in (False, True):
+        pool, stats = t_stacked(stk.x, stk.adj, stk.entries, stk.mask, tidx,
+                                q, pool_size=CFG.hot_pool,
+                                max_hops=CFG.max_hops, fused=fused)
+        for a, b in zip(tuple(pool) + tuple(stats),
+                        tuple(state.pool) + tuple(state.stats)):
+            if a.dtype == torch.float32:
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            assert torch.equal(a, b), fused
 
 
 @pytest.mark.parametrize("tenant", ["t0", "t2"])

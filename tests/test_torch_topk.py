@@ -6,7 +6,9 @@ JAX package.
   ids and dists are equal, ties (duplicated rows) and k > N included.
 * The row split of ``csrc/fused_topk_l2.cu``: per-range top-k lists
   merged in (key, id) order equal ``ref.fused_topk_l2`` over all rows, bit
-  for bit (ranges shorter than k, all rows equal, k > N).
+  for bit (ranges shorter than k, all rows equal, k > N); and its path for
+  k > 448 (each range sorted whole, the lists merged in pairs by rank)
+  emulated in plain torch, at k = 449, 1024, N and past N, with ties.
 * On continuous data against ``fused_topk_l2_pallas(interpret=True)``, as
   ``tests/test_kernels.py`` runs it: ids equal, dists within rtol 1e-5
   (the port sums over d in index order, XLA in its own).
@@ -138,6 +140,99 @@ def test_topk_row_ranges_merge_to_one_sort(B, N, k, d, P, equal):
     q[0] = x[0]
     want_d, want_i = tref.fused_topk_l2(q, x, k=k)
     got_d, got_i = merge_row_ranges(q, x, k, P)
+    assert torch.equal(got_i, want_i)
+    assert torch.equal(got_d.view(torch.int32), want_d.view(torch.int32))
+    if equal:
+        assert torch.equal(got_i[:, :min(N, k)],
+                           torch.arange(min(N, k), dtype=torch.int32)
+                           .expand(B, -1))
+
+
+INT_MAX = torch.iinfo(torch.int32).max
+
+
+def range_rows(N, k):
+    """``csrc/fused_topk_l2.cu::topk_range_rows``: the least power of two
+    >= k and 1024, at most 8192, and no more than N needs."""
+    c = 1024
+    while c < k and c < 8192:
+        c <<= 1
+    while c > 32 and c // 2 >= N:
+        c >>= 1
+    return c
+
+
+def rank_pairs(lists, k):
+    """One round of the merge launch: list l's entry i goes to i + its rank
+    in list l ^ 1 by (key, id), kept below k; an odd last list passes."""
+    out = []
+    for a in range(0, len(lists), 2):
+        if a + 1 == len(lists):
+            out.append(lists[a])
+            continue
+        (ak, ai), (bk, bi) = lists[a], lists[a + 1]
+        keys = torch.full((ak.shape[0], k), float("nan"))
+        ids = torch.full((ak.shape[0], k), -1, dtype=torch.int32)
+        for (xk, xi), (yk, yi) in (((ak, ai), (bk, bi)),
+                                   ((bk, bi), (ak, ai))):
+            below = ((yk[:, None, :] < xk[:, :, None])
+                     | ((yk[:, None, :] == xk[:, :, None])
+                        & (yi[:, None, :] < xi[:, :, None])))
+            pos = torch.arange(k)[None, :] + below.sum(-1)
+            keep = pos < k
+            for b in range(xk.shape[0]):
+                keys[b, pos[b][keep[b]]] = xk[b][keep[b]]
+                ids[b, pos[b][keep[b]]] = xi[b][keep[b]]
+        out.append((keys, ids))
+    return out
+
+
+def range_sort_merge(q, x, k):
+    """``csrc/fused_topk_l2.cu``'s path for k > 448 in plain torch: the
+    plain version's keys, each range of ``range_rows`` rows sorted whole by
+    (key, id) and cut or padded (+inf, INT_MAX) to k, the lists merged in
+    pairs by rank, then (+inf, N) past min(N, k)."""
+    B, N = q.shape[0], x.shape[0]
+    C = range_rows(N, k)
+    keys = tref.pairwise_l2(q, x)
+    lists = []
+    for lo in range(0, N, C):
+        kr = torch.full((B, C), float("inf"))
+        ir = torch.full((B, C), INT_MAX, dtype=torch.int32)
+        m = min(C, N - lo)
+        kr[:, :m] = keys[:, lo:lo + m]
+        ir[:, :m] = torch.arange(lo, lo + m, dtype=torch.int32)
+        order = torch.sort(kr, dim=1, stable=True).indices   # ids ascend
+        kr, ir = kr.gather(1, order)[:, :k], ir.gather(1, order)[:, :k]
+        pad = k - kr.shape[1]
+        lists.append((torch.cat([kr, torch.full((B, pad), float("inf"))], 1),
+                      torch.cat([ir, torch.full((B, pad), INT_MAX,
+                                                dtype=torch.int32)], 1)))
+    while len(lists) > 1:
+        lists = rank_pairs(lists, k)
+    kd, ki = lists[0]
+    real = ki != INT_MAX
+    return (torch.where(real, kd, float("inf")),
+            torch.where(real, ki, N).to(torch.int32))
+
+
+@pytest.mark.parametrize("B,N,k,d,equal", [
+    (3, 2500, 449, 18, False),       # 3 ranges of 1024 rows
+    (2, 2500, 1024, 8, False),       # k = one range
+    (3, 700, 700, 18, False),        # k = N
+    (2, 1100, 1500, 8, False),       # k > N
+    (2, 300, 449, 6, True),          # all rows equal: every key ties
+    (1, 8400, 8300, 4, False)])      # k > C: two ranges, padded lists
+def test_topk_large_k_range_sort_merge(B, N, k, d, equal):
+    """The kernel's path past k = 448 equals ``ref.fused_topk_l2``, bit for
+    bit: whole-range sorts hold each range's top-k and the pairwise rank
+    merge of the launch after it keeps (key, id) order."""
+    rng = np.random.default_rng(B + N + k)
+    x = torch.as_tensor(topk_rows(N, d, N, equal))
+    q = torch.as_tensor(rng.standard_normal((B, d)).astype(np.float32))
+    q[0] = x[0]
+    want_d, want_i = tref.fused_topk_l2(q, x, k=k)
+    got_d, got_i = range_sort_merge(q, x, k)
     assert torch.equal(got_i, want_i)
     assert torch.equal(got_d.view(torch.int32), want_d.view(torch.int32))
     if equal:
