@@ -40,15 +40,18 @@ Phases, in order; any failure exits non-zero:
    ``pq_adc``, ``pool_merge``, ``gather_distances``) against their plain
    versions over the grid of ``tests/test_torch_cuda.py::scan_cases``
    (B in {1, 7, 130}, N in {1, 63, 129, 5000}, d in {18, 100, 128}; sq8
-   codes reaching -127 and 127; pq M in {4, 8, 128}, K in {64, 256}; pool
-   merges at (L, C) in {(8, 8), (64, 32), (10, 7)} with ties and +inf
-   slots; neighbour rows with sentinel and duplicate ids, d up to 1536):
-   ``pairwise_l2``
-   (3xTF32 on the tensor cores) within 1e-5 (|q|^2 + |x|^2) of its plain
-   version, the largest |diff| / (|q|^2 + |x|^2) printed, then again with
-   rows and queries 100 u off the origin; the control, one TF32 product
-   emulated in torch on the same grid, must leave that tolerance; the
-   other four bit-identical;
+   codes reaching -127 and 127; pq M in {4, 6, 8, 16, 32, 64, 128}, K in
+   {16, 64, 256}, B also 16 and 33, N also 5003, rows of codes all 0 and
+   all K - 1; pool merges at (L, C) in {(8, 8), (64, 32), (10, 7)} with
+   ties and +inf slots; neighbour rows with sentinel and duplicate ids, d
+   up to 1536):
+   ``pairwise_l2`` and ``sq8_pairwise_l2`` (TF32 on the tensor cores)
+   within 1e-5 (|q|^2 + |x|^2) of their plain versions (x the float32 or
+   the decoded rows), the largest |diff| / (|q|^2 + |x|^2) printed, then
+   again with rows and queries 100 u off the origin (int8-encoded for
+   sq8); the control, one TF32 product emulated in torch on the same
+   inputs, must leave that tolerance on the grid and in every offset case;
+   the other three bit-identical;
 4. the graph main path at one million rows x 128: DQF build → warm →
    fit_tree → 4 searches of 1024 queries, fused kernel on, with build, warm
    and fit times, per-batch search time and QPS, recall@10, mean
@@ -93,13 +96,16 @@ Phases, in order; any failure exits non-zero:
    each lane's frontier in phase 4's seeded full-phase pool and
    ``ops.pool_merge`` of those scores into the pool (B=1024, L=64, C=32).
    Each kernel against its plain version (the scans in chunks of 128
-   queries): ``pairwise_l2`` within 1e-5 (|q|^2 + |x|^2), its largest ratio
-   printed, the others bit for bit; its time beside the plain version's,
-   the library expression's and the bound (the float32 scan's: its bytes,
-   or its 2 B N d at the tensor cores' TF32 rate, with the floor of its
-   three TF32 products and the CUDA-core bound beside it); recall@10 of
-   the exact top-10 of each scan (the float32 scan must reach 0.999); peak
-   device memory.
+   queries): ``pairwise_l2`` and ``sq8_pairwise_l2`` within 1e-5 (|q|^2 +
+   |x|^2), their largest ratios printed, the others bit for bit; its time
+   beside the plain version's, the library expression's and the bound (the
+   two scans': their bytes, or their 2 B N d at the tensor cores' TF32
+   rate, with the floor of their TF32 products (three for float32 rows,
+   two for int8 codes) and the CUDA-core bound beside it; ``pq_adc``'s:
+   its bytes, with the floor of its B N M shared-memory loads at 32 a
+   wavefront, one a clock on every SM at the highest SM clock
+   ``nvidia-smi`` reports); recall@10 of the exact top-10 of each scan
+   (the float32 scan must reach 0.999); peak device memory.
 
 Recall guards against breakage, not a target: 0.5 for the float32 paths,
 half of phase 4's recall for the quantized ones.  Phases 7 and 8 search
@@ -681,11 +687,41 @@ def _event_ms(fn, reps, before=None, back_to_back=False, busy=False):
     return total / reps, out
 
 
+def hop_state_bytes(B, L):
+    """Bytes of a hop's pool (ids, dists, expanded) and per-lane counters,
+    each read and written once."""
+    return B * L * (4 + 4 + 1) * 2 + B * 7 * 4 * 2 + B * 8
+
+
+def hop_bound(mode, B, L, R, d, row_bytes, extra, rows, hops):
+    """(bound ms, by, bytes) of fused_hop work that scored ``rows`` rows in
+    ``hops`` lane-hops: the rows, R adjacency ids a lane-hop with their
+    seen, live and row-state bytes, the pool and counters read and written
+    once, and ``extra`` bytes (queries, sq8's scale and zero, pq's LUTs);
+    operations at the float32 rate."""
+    moved = (rows * row_bytes + hops * R * (4 + 1 + 1 + 1)
+             + hop_state_bytes(B, L) + extra)
+    flops = rows * {"f32": 3 * d, "sq8": 5 * d, "pq": row_bytes}[mode]
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / FP32_FLOPS * 1e3
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations", moved)
+
+
 def batch_split(dqf, q, label):
     """One search batch, phase by phase (CUDA events): hot phase, seed,
-    fused full phase and, for a quantized index, the exact rerank.
-    Returns what the hop timing needs: (queries, table view, seed fn,
-    hot features)."""
+    fused full phase and, for a quantized index, the exact rerank.  The
+    graph hot phase's bound is that of its one fused_hop launch over the
+    hot table (rows scored, entries included, and lane-hops from its
+    stats).  Returns what the hop timing needs: (queries, table view, seed
+    fn, hot features, the hot phase's ms and bound ms).
+
+    The hot table (2.6 MB at 5000 x 128) stays in L2, so the hot phase's
+    bound counts its unique device-memory bytes: the hot rows, their
+    adjacency lists, live and row-state bytes once, a seen byte for each
+    neighbour a lane-hop visits, the pool state and the queries.  The rows
+    it scores are L2 traffic, reported beside the bound in bytes (the data
+    sheet gives no L2 rate)."""
     from repro_torch.core import beam_search as bs
     from repro_torch.core.dynamic_search import (_exact_rerank,
                                                  _seed_full_state, hot_phase)
@@ -699,11 +735,28 @@ def batch_split(dqf, q, label):
     x_pad, adj_pad, live = (dqf._dev["x_pad"], dqf._dev["adj_pad"],
                             dqf._dev["live_pad"])
     saved = fused_hop_cuda.launches, fused_topk_l2_cuda.launches
-    hot_ms, (hot_pool, _) = _event_ms(lambda: hot_phase(
+    hot_ms, (hot_pool, hot_stats) = _event_ms(lambda: hot_phase(
         hd["x_hot_pad"], hd["adj_hot_pad"], hd["hot_entries"], qt,
         pool_size=c.hot_pool, max_hops=c.max_hops, mode=c.hot_mode,
         fused=c.fused), 1)
     hot_launches = fused_hop_cuda.launches - saved[0]
+    hot_bound = None
+    if c.hot_mode == "graph":
+        B, d = qt.shape
+        rows, lane_hops = (int(hot_stats.dist_count.sum()),
+                           int(hot_stats.hops.sum()))
+        n_hot, R = hd["adj_hot_pad"].shape
+        moved = (n_hot * (d * 4 + R * 4 + 2) + lane_hops * R
+                 + hop_state_bytes(B, c.hot_pool) + B * d * 4)
+        bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+        ops_ms = rows * 3 * d / FP32_FLOPS * 1e3
+        hot_bound = max(bytes_ms, ops_ms)
+        by = "bytes" if bytes_ms >= ops_ms else "operations"
+        log(f"  {label}: hot phase bound {hot_bound:.5f} ms by {by} "
+            f"({moved} unique bytes of device memory, {rows * 3 * d} "
+            f"operations; {rows} rows scored over the hot table, "
+            f"{rows * d * 4} bytes of L2 traffic; {lane_hops} lane-hops), "
+            f"{hot_bound / hot_ms:.4f} of bound")
     hot = hot_features(hot_pool, c.k)
     seed = lambda: _seed_full_state(hot_pool, hd["hot_ids_pad"],
                                     x_pad.shape[0] - 1, c.full_pool, live)
@@ -727,7 +780,7 @@ def batch_split(dqf, q, label):
         f"{hot_launches} fused_hop launches) {hot_ms:.3f} ms, seed "
         f"{seed_ms:.3f} ms, table view {view_ms:.3f} ms, fused full phase "
         f"{full_ms:.3f} ms ({hops} launches), rerank {rr_ms:.3f} ms")
-    return qt, table, seed, hot
+    return qt, table, seed, hot, (hot_ms, hot_bound)
 
 
 def time_hop(dqf, q, launches, label):
@@ -738,7 +791,7 @@ def time_hop(dqf, q, launches, label):
     from repro_torch.kernels.fused_hop import fused_hop_cuda
 
     c = dqf.cfg
-    qt, table, seed, hot = batch_split(dqf, q, label)
+    qt, table, seed, hot, (hot_ms, hot_bound) = batch_split(dqf, q, label)
     adj_pad, live = dqf._dev["adj_pad"], dqf._dev["live_pad"]
     tree = dqf.tree.arrays
     spec = ops.table_spec(table)
@@ -780,22 +833,17 @@ def time_hop(dqf, q, launches, label):
     B, L = hs0.ids.shape
     R, d = adj_pad.shape[1], qt.shape[1]
     row_bytes = {"f32": d * 4, "sq8": d, "pq": spec[1].shape[1]}[mode]
+    if mode == "pq":                  # the LUTs; pq mode reads no queries
+        extra = spec[2].numel() * 4
+    else:                             # the queries, and sq8's scale and zero
+        extra = B * d * 4 + (2 * d * 4 if mode == "sq8" else 0)
 
     def bound(out):
         """(bound ms, by, bytes, rows) of a launch from ``hs0`` to ``out``."""
         rows = int((out.dist_count - hs0.dist_count).sum())
         hops = int((out.hops - hs0.hops).sum())
-        state = B * L * (4 + 4 + 1) * 2 + B * 7 * 4 * 2 + B * 8
-        if mode == "pq":              # the LUTs; pq mode reads no queries
-            extra = spec[2].numel() * 4
-        else:                         # the queries, and sq8's scale and zero
-            extra = B * d * 4 + (2 * d * 4 if mode == "sq8" else 0)
-        moved = rows * row_bytes + hops * R * (4 + 1 + 1 + 1) + state + extra
-        flops = rows * {"f32": 3 * d, "sq8": 5 * d, "pq": row_bytes}[mode]
-        bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-        ops_ms = flops / FP32_FLOPS * 1e3
-        return (max(bytes_ms, ops_ms),
-                "bytes" if bytes_ms >= ops_ms else "operations", moved, rows)
+        return (*hop_bound(mode, B, L, R, d, row_bytes, extra, rows, hops),
+                rows)
 
     bound_ms, bound_by, moved, rows = bound(got)
     log(f"  fused_hop {mode} at B={B} L={L} R={R} d={d} hops={c.fused_hops}: "
@@ -827,7 +875,8 @@ def time_hop(dqf, q, launches, label):
             "bound_share": bound_ms / ms, "contract": "bits",
             "device_ms": device_ms, "full_phase_ms": full_ms,
             "full_phase_device_ms": full_dev,
-            "full_phase_bound_ms": full_bound}
+            "full_phase_bound_ms": full_bound, "hot_phase_ms": hot_ms,
+            "hot_phase_bound_ms": hot_bound}
 
 
 def time_topk(dqf, q, launches):
@@ -1249,13 +1298,15 @@ def finite_err(want, got) -> float:
         fin.any()) else 0.0
 
 
-SCAN_TOL = 1e-5      # pairwise_l2: |diff| <= SCAN_TOL * (|q|^2 + |x|^2)
+SCAN_TOL = 1e-5      # the two scans: |diff| <= SCAN_TOL * (|q|^2 + |x|^2)
 CONTRACT_TOL = "tol 1e-5*(|q|^2+|x|^2)"
+TOL_SCANS = ("pairwise_l2", "sq8_pairwise_l2")   # TF32, held to SCAN_TOL
+SCAN_OFFSETS = ((130, 5000, 128), (7, 129, 18), (64, 1000, 100))
 
 
 def check_scan_tol(want, got, q, x, what) -> float:
-    """The float32 scan's contract; returns its largest |diff| /
-    (|q|^2 + |x|^2)."""
+    """The TF32 scans' contract (``x`` the float32 or the decoded rows);
+    returns the largest |diff| / (|q|^2 + |x|^2)."""
     from tests.test_torch_cuda import expansion_ratio
 
     if got.shape != want.shape:
@@ -1268,55 +1319,77 @@ def check_scan_tol(want, got, q, x, what) -> float:
     return ratio
 
 
+def scan_control(name, args):
+    """The one-TF32-product emulation of a TF32 scan, on its inputs: over
+    the float32 rows, or the decoded int8 rows."""
+    from tests.test_torch_cuda import tf32_pairwise_l2, tol_rows
+
+    return tf32_pairwise_l2(*tol_rows(name, args), split=False)
+
+
+def offset_args(name, B, N, d, dev):
+    """A scan's severe-cancellation case: rows and queries 100 u off the
+    origin (int8-encoded for the int8 scan)."""
+    from tests.test_torch_cuda import offset_case, sq8_offset_case
+
+    case = offset_case if name == "pairwise_l2" else sq8_offset_case
+    return tuple(torch.as_tensor(a, device=dev)
+                 for a in case(B, N, d, B + N))
+
+
 def phase_scan_synthetic(dev):
     from tests.test_torch_cuda import (SCAN_KERNELS, expansion_ratio,
-                                       offset_case, same_bits, scan_cases,
-                                       scan_kernel, tf32_pairwise_l2)
+                                       same_bits, scan_cases, scan_kernel,
+                                       tol_rows)
 
-    n_cases, errs, ratio, control = 0, {}, 0.0, 0.0
+    n_cases, errs = 0, {}
     for name in SCAN_KERNELS:
         cuda_fn, plain = scan_kernel(name)
         saved = cuda_fn.launches
-        count, err = 0, 0.0
+        count, err, ratio, control = 0, 0.0, 0.0, 0.0
         for tag, args in scan_cases(name, dev):
             want = plain(*args)
             got = cuda_fn(*args)
             torch.cuda.synchronize()
-            if name == "pairwise_l2":
-                ratio = max(ratio, check_scan_tol(want, got, *args,
+            rows = tol_rows(name, args)
+            if rows is not None:
+                ratio = max(ratio, check_scan_tol(want, got, *rows,
                                                   f"{name} {tag}"))
                 control = max(control, expansion_ratio(
-                    tf32_pairwise_l2(*args, split=False), want, *args))
+                    scan_control(name, args), want, *rows))
             elif not same_bits(want, got):
                 raise SystemExit(f"{name} {tag}: differs from plain version")
             err = max(err, finite_err(want, got))
             count += 1
-        if name == "pairwise_l2":
+        if name in TOL_SCANS:
             log(f"  {name}: {count} cases within tolerance, largest "
                 f"|diff| / (|q|^2 + |x|^2) {ratio:.3e}; the control, one "
                 f"TF32 product emulated in torch, reads {control:.3e}")
-            if not control > SCAN_TOL:
-                raise SystemExit(f"{name}: the tolerance does not reject a "
-                                 f"single TF32 product ({control:.3e})")
-            errs["pairwise_l2 control"] = control
-            off = 0.0
-            for B, N, d in ((130, 5000, 128), (7, 129, 18), (64, 1000, 100)):
-                q, x = (torch.as_tensor(a, device=dev)
-                        for a in offset_case(B, N, d, B + N))
-                want, got = plain(q, x), cuda_fn(q, x)
+            off, off_control = 0.0, float("inf")
+            for B, N, d in SCAN_OFFSETS:
+                args = offset_args(name, B, N, d, dev)
+                want, got = plain(*args), cuda_fn(*args)
                 torch.cuda.synchronize()
-                off = max(off, check_scan_tol(want, got, q, x,
+                rows = tol_rows(name, args)
+                off = max(off, check_scan_tol(want, got, *rows,
                                               f"{name} offset B={B} N={N}"))
+                off_control = min(off_control, expansion_ratio(
+                    scan_control(name, args), want, *rows))
                 count += 1
             log(f"  {name}: 3 cases 100 u off the origin within tolerance, "
-                f"largest ratio {off:.3e}")
-            ratio = max(ratio, off)
+                f"largest ratio {off:.3e}; the control's smallest "
+                f"{off_control:.3e}")
+            if not min(control, off_control) > SCAN_TOL:
+                raise SystemExit(f"{name}: the tolerance does not reject a "
+                                 f"single TF32 product ({control:.3e} on "
+                                 f"the grid, {off_control:.3e} offset)")
+            errs[f"{name} control"] = min(control, off_control)
+            errs[f"{name} ratio"] = max(ratio, off)
         else:
             log(f"  {name}: {count} cases bit-identical")
         cuda_fn.launches = saved
         n_cases += count
         errs[name] = err
-    errs["pairwise_l2 ratio"] = ratio
     return n_cases, errs
 
 
@@ -1387,12 +1460,21 @@ def scan_entry(name, source, replaces, launches, err, ms, plain_ms,
             "contract": contract, **extra}
 
 
+def max_sm_clock_mhz() -> float:
+    """The card's highest SM clock, as ``nvidia-smi`` reports it."""
+    text = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout
+    return float(text.splitlines()[0].split()[0])
+
+
 def phase_scan(ctx, dev, syn_errs, reps=5):
     """Phase 10: the scan and merge entry points on the main path's state."""
     from repro_torch.core.dynamic_search import _seed_full_state, hot_phase
     from repro_torch.core.recall import recall_at_k
     from repro_torch.kernels import ops, ref
-    from tests.test_torch_cuda import SCAN_KERNELS, same_bits, scan_kernel
+    from tests.test_torch_cuda import (SCAN_KERNELS, same_bits, scan_kernel,
+                                       sq8_decode)
 
     dqf = ctx["dqf"]
     c = dqf.cfg
@@ -1465,55 +1547,69 @@ def phase_scan(ctx, dev, syn_errs, reps=5):
         return (srt.values[:, :L],
                 torch.cat([pool.ids, nbrs], 1).gather(1, srt.indices[:, :L]))
 
-    # the float32 scan: 3xTF32 on the tensor cores, held to a tolerance
-    # the bound counts the 2 B N d the function needs; the 3xTF32 product
-    # issues three times that, its own floor; the exact product on the
-    # CUDA cores is the bound of the bit-exact kernel it replaced
+    # the two scans: TF32 on the tensor cores, held to a tolerance.  The
+    # bound counts the 2 B N d the function needs at the TF32 rate; the
+    # float32 scan issues three times that, the int8 scan twice (codes are
+    # exact in TF32), each its own floor; the exact product on the CUDA
+    # cores is the bound of the bit-exact kernels they replaced
+    def tf32x(products, moved, cuda_core_flops):
+        return {"contract": CONTRACT_TOL, "rate": TF32_FLOPS,
+                f"bound_{products}xtf32_ms": max(
+                    products * 2 * B * n * d / TF32_FLOPS,
+                    moved / HBM_BYTES_PER_S) * 1e3,
+                "bound_cuda_core_ms": max(cuda_core_flops / FP32_FLOPS,
+                                          moved / HBM_BYTES_PER_S) * 1e3}
+
     pw_bytes = (B + n) * d * 4 + B * n * 4
-    tf32x3 = dict(
-        contract=CONTRACT_TOL, rate=TF32_FLOPS,
-        bound_3xtf32_ms=max(3 * 2 * B * n * d / TF32_FLOPS,
-                            pw_bytes / HBM_BYTES_PER_S) * 1e3,
-        bound_cuda_core_ms=max(
-            (2 * B * n * d + 3 * B * n + 2 * (B + n) * d) / FP32_FLOPS,
-            pw_bytes / HBM_BYTES_PER_S) * 1e3)
+    sq_bytes = B * d * 4 + n * d + 2 * d * 4 + B * n * 4
+    pw_flops = 2 * B * n * d + 3 * B * n + 2 * (B + n) * d
+    # pq_adc's own floor: B N M shared-memory loads, 32 a wavefront, one
+    # wavefront a clock on each SM at the card's highest SM clock
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock_hz = max_sm_clock_mhz() * 1e6
+    pq_floor = dict(bound_smem_ms=B * n * M / 32 / (sms * clock_hz) * 1e3,
+                    smem_floor_sms=sms, smem_floor_clock_mhz=clock_hz / 1e6)
     scans = (
         ("pairwise_l2", "pairwise_l2.cu", "src/repro/kernels/distance.py:35",
          lambda: ops.pairwise_l2(qt, x),
          lambda s, e: ref.pairwise_l2(qt[s:e], x),
          lambda: expansion(x),
          "(q²+x²) − 2·torch.matmul, TF32 off",
-         2 * B * n * d, pw_bytes, tf32x3),
+         2 * B * n * d, pw_bytes, tf32x(3, pw_bytes, pw_flops)),
         ("sq8_pairwise_l2", "pairwise_l2.cu",
          "src/repro/kernels/sq_distance.py:38",
          lambda: ops.sq8_pairwise_l2(qt, codes8, sq.scale, sq.zero),
          lambda s, e: ref.sq8_pairwise_l2(qt[s:e], codes8, sq.scale, sq.zero),
          lambda: expansion(codes8.float() * sq.scale + sq.zero),
          "decode, then (q²+x²) − 2·torch.matmul, TF32 off",
-         2 * B * n * d + 3 * B * n + 2 * (B + n) * d + 2 * n * d,
-         B * d * 4 + n * d + 2 * d * 4 + B * n * 4, {}),
+         2 * B * n * d, sq_bytes, tf32x(2, sq_bytes, pw_flops + 2 * n * d)),
         ("pq_adc", "pq_adc.cu", "src/repro/kernels/pq_adc.py:38",
          lambda: ops.pq_adc(luts, codes_pq),
          lambda s, e: ref.pq_adc(luts[s:e], codes_pq),
          lambda: luts[:, torch.arange(M, device=dev), codes_pq.long()].sum(-1),
          "advanced-index gather of (B, N, M), then sum",
-         B * n * (M - 1), B * M * K * 4 + n * M + B * n * 4, {}))
+         B * n * (M - 1), B * M * K * 4 + n * M + B * n * 4, pq_floor))
     recalls = {}
-    tol = lambda want, got, s, e: check_scan_tol(
-        want, got, qt[s:e], x, f"pairwise_l2 over {n} rows, queries {s}..{e}")
+    tol_x = {"pairwise_l2": x,                 # rows the tolerance counts
+             "sq8_pairwise_l2": sq8_decode(codes8, sq.scale, sq.zero)}
     for (name, source, replaces, kernel, plain, library, note, flops,
          moved, extra) in scans:
         recalls[name] = recall_of(name)
-        plain_ms, err, ratio = _plain_in_chunks(
-            plain, out[name], B, name,
-            tol if name == "pairwise_l2" else None)
-        if name == "pairwise_l2":
-            ratio = max(ratio, syn_errs["pairwise_l2 ratio"])
-            log(f"  pairwise_l2: within 1e-5 (|q|^2 + |x|^2) of its plain "
+        tol = None
+        if name in TOL_SCANS:
+            tol = lambda want, got, s, e: check_scan_tol(
+                want, got, qt[s:e], tol_x[name],
+                f"{name} over {n} rows, queries {s}..{e}")
+        plain_ms, err, ratio = _plain_in_chunks(plain, out[name], B, name,
+                                                tol)
+        if name in TOL_SCANS:
+            del tol_x[name]
+            ratio = max(ratio, syn_errs[f"{name} ratio"])
+            log(f"  {name}: within 1e-5 (|q|^2 + |x|^2) of its plain "
                 f"version over all {n} rows (and phase 3e), largest |diff| "
                 f"/ (|q|^2 + |x|^2) {ratio:.3e}")
             extra = dict(extra, max_tol_ratio=ratio,
-                         tf32_control_ratio=syn_errs["pairwise_l2 control"])
+                         tf32_control_ratio=syn_errs[f"{name} control"])
         del out[name]
         saved = wrappers[name].launches
         ms = _median_ms(kernel, reps)

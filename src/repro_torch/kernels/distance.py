@@ -10,8 +10,10 @@ epilogue are :func:`repro_torch.kernels.ref.pairwise_l2`'s, so the result
 is held to ``|kernel − ref.pairwise_l2| ≤ 1e-5 · (|q|² + |x|²)`` elementwise
 (the tolerance the port meets against the JAX package), not bit for bit;
 it may be slightly negative.  The SQ8 mode of the same source, launched by
-:mod:`repro_torch.kernels.sq_distance`, is another kernel and stays bit
-for bit.  See the source's header for the design and the bound.
+:mod:`repro_torch.kernels.sq_distance`, runs the same loop over int8
+codes (two TF32 products of the scaled query and the exact codes), under
+the same tolerance over the decoded rows.  See the source's header for the
+design and the bound.
 
 ``pairwise_l2_cuda.launches`` counts launches.
 """

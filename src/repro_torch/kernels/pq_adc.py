@@ -3,8 +3,11 @@
 Replaces ``repro/kernels/pq_adc.py::pq_adc_pallas``, the scan of the pq
 Full Index: (B, N) ``Σ_m luts[b, m, codes[i, m]]`` summed in
 ``ref.halving_sum`` order, equal to :func:`repro_torch.kernels.ref.pq_adc`
-bit for bit, for any number of subspaces M and K <= 256 centroids.  See
-the source's header for the design and the bound.
+bit for bit, for any number of subspaces M and K <= 256 centroids.  Up
+to 8 subspaces (the search's codes) the LUTs of 16 queries are staged
+query innermost, one query a lane, two rows a warp without bank
+conflicts; past 8, a thread takes a row.  See the source's header for the
+design and the bound.
 
 ``pq_adc_cuda.launches`` counts launches.
 """

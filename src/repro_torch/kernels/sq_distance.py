@@ -3,11 +3,14 @@ mode).
 
 Replaces ``repro/kernels/sq_distance.py::sq8_pairwise_l2_pallas``, the
 scan of the sq8 Full Index: (B, N) squared L2 of float32 queries against
-int8 rows decoded as ``code * scale + zero``, equal to
-:func:`repro_torch.kernels.ref.sq8_pairwise_l2` bit for bit.  The kernel
-decodes each code tile in shared memory and sums every product on the
-CUDA cores in index order over d; it shares the source and the launch of
-:mod:`repro_torch.kernels.distance`, not its tensor-core loop.
+int8 rows decoded as ``code * scale + zero``.  It runs the float32 scan's
+tensor-core loop of :mod:`repro_torch.kernels.distance` with the codes
+staged as int8: a code is exact in TF32, so the product is ``(q∘scale)·code``
+in two TF32 products (the scaled query split in two parts) plus ``q·zero``.
+It is held to the float32 scan's contract over the decoded rows x:
+``|kernel − ref.sq8_pairwise_l2| ≤ 1e-5 · (|q|² + |x|²)`` elementwise, not
+bit for bit; the norms are :func:`repro_torch.kernels.ref.sq8_pairwise_l2`'s
+bit for bit (the rows decoded with its two roundings).
 
 ``sq8_pairwise_l2_cuda.launches`` counts launches.
 """

@@ -1,5 +1,7 @@
 """The port's CUDA kernels against their plain versions: bit for bit, and
-the float32 scan (3xTF32 on the tensor cores) within ``expansion_tol``.
+the two scans on the tensor cores' TF32 loop (``pairwise_l2`` over
+float32 rows, ``sq8_pairwise_l2`` over the decoded int8 rows) within
+``expansion_tol``.
 
 The fused wave-hop in its f32, sq8 and pq score modes, dense and paged,
 the brute-force top-k scorer of the mxu hot phase, and the scan and merge
@@ -16,9 +18,10 @@ mode).  The synthetic worlds are shared with ``tests/test_torch_fused_hop.py``,
 ``duplicated_rows``, ``topk_rows``, ``paged_case``, the hop grid
 (``hop_cases``), the scan grid
 (``scan_cases``, ``scan_kernel``, ``same_bits``) and the scan's tolerance
-(``expansion_tol``, ``expansion_ratio``, ``offset_case``) and its
-arithmetic emulated in plain torch (``tf32_rna``, ``tf32_pairwise_l2``)
-with ``chip_smoke.py`` and ``tests/test_torch_scan.py``.
+(``expansion_tol``, ``expansion_ratio``, ``tol_rows``, ``offset_case``,
+``sq8_offset_case``) and its arithmetic emulated in plain torch
+(``tf32_rna``, ``tf32_pairwise_l2``, ``tf32_sq8_fold_pairwise_l2``) with
+``chip_smoke.py`` and ``tests/test_torch_scan.py``.
 """
 
 import importlib
@@ -238,7 +241,12 @@ SCAN_KERNELS = ("pairwise_l2", "sq8_pairwise_l2", "pq_adc", "pool_merge",
 SCAN_B = (1, 7, 130)
 SCAN_N = (1, 63, 129, 5000)
 SCAN_D = (18, 100, 128)
-SCAN_PQ = ((4, 64), (4, 256), (8, 64), (8, 256), (128, 256))   # (M, K)
+# (M, K): pq_adc.cu's lanes layout (M = 4, 6, 8), its staged kernel past 8
+# subspaces (M = 16, 32, 64) and that kernel's folded sum past 64 (M = 128)
+SCAN_PQ = ((4, 64), (4, 256), (6, 64), (8, 64), (8, 256), (32, 64),
+           (64, 16), (16, 256), (128, 256))
+SCAN_PQ_B = SCAN_B + (16, 33)     # a whole and a ragged group of 16 queries
+SCAN_PQ_N = SCAN_N + (5003,)      # a ragged run of 8 rows a lane
 SCAN_MERGE = ((8, 8), (64, 32), (10, 7))                # (L, C)
 _SCAN_MODULES = {"pairwise_l2": "distance", "sq8_pairwise_l2": "sq_distance",
                  "pq_adc": "pq_adc", "pool_merge": "topk_merge",
@@ -257,7 +265,9 @@ def scan_cases(name, dev, seed=0):
 
     Rows with exact duplicates and a query equal to row 0 (ties, a zero
     distance, cancellation); sq8 codes that reach -127 and 127; pq codes
-    that reach 0 and K - 1, and M = 128 past the register tile; pools and
+    that reach 0 and K - 1 (a whole row of each), B past and below a
+    group of 16 queries, N not a multiple of 8, and M = 128 past the
+    register tile; pools and
     candidates with equal keys, +inf and ``INF_DIST`` slots; neighbour
     rows with the sentinel id and a duplicated id, and d = 1536 past
     1024.
@@ -282,10 +292,12 @@ def scan_cases(name, dev, seed=0):
                     yield f"B={B} N={N} d={d}", (t(q), *rows)
     elif name == "pq_adc":
         for M, K in SCAN_PQ:
-            for N in SCAN_N:
+            for N in SCAN_PQ_N:
                 codes = rng.integers(0, K, (N, M)).astype(np.uint8)
                 codes[0, 0], codes[-1, -1] = K - 1, 0
-                for B in SCAN_B:
+                if N > 3:
+                    codes[1], codes[2] = K - 1, 0
+                for B in SCAN_PQ_B:
                     luts = f32(rng.uniform(0, 8, (B, M, K)))
                     yield f"B={B} N={N} M={M} K={K}", (t(luts), t(codes))
     elif name == "pool_merge":
@@ -338,6 +350,23 @@ def expansion_ratio(got, want, q, x) -> float:
     return float(ratio.max()) * 1e-5
 
 
+def sq8_decode(codes, scale, zero):
+    """int8 rows decoded as ``code * scale + zero``, two roundings, as
+    ``ref.sq8_pairwise_l2`` decodes them."""
+    return codes.to(torch.float32) * scale + zero
+
+
+def tol_rows(name, args):
+    """(queries, rows) against which a scan kernel's tolerance is counted:
+    the float32 rows, or the decoded int8 rows; None for the kernels held
+    bit for bit."""
+    if name == "pairwise_l2":
+        return args
+    if name == "sq8_pairwise_l2":
+        return args[0], sq8_decode(*args[1:])
+    return None
+
+
 def offset_case(B, N, d, seed, offset=100.0):
     """Rows and queries sharing a large common offset ``offset · u`` along
     a fixed unit vector u, with a query equal to row 0: |q|² and |x|² are
@@ -349,6 +378,18 @@ def offset_case(B, N, d, seed, offset=100.0):
     q = rng.standard_normal((B, d)).astype(np.float32) + u
     q[0] = x[0]
     return q, x
+
+
+def sq8_offset_case(B, N, d, seed, offset=100.0):
+    """:func:`offset_case` with its rows int8-encoded per dimension (zero at
+    the midpoint of the column's range, scale its width / 254): queries,
+    codes, scale and zero as numpy arrays."""
+    q, x = offset_case(B, N, d, seed, offset)
+    lo, hi = x.min(0), x.max(0)
+    zero = ((hi + lo) / 2).astype(np.float32)
+    scale = np.maximum((hi - lo) / 254, 1e-6).astype(np.float32)
+    codes = np.clip(np.rint((x - zero) / scale), -127, 127).astype(np.int8)
+    return q, codes, scale, zero
 
 
 def tf32_rna(a: torch.Tensor) -> torch.Tensor:
@@ -371,6 +412,22 @@ def tf32_pairwise_l2(q: torch.Tensor, x: torch.Tensor,
     if split:
         ql, xl = tf32_rna(q - qh), tf32_rna(x - xh)
         dot = (ql @ xh.T + qh @ xl.T) + dot
+    q_sq, x_sq = tref._seq_dot(q, q), tref._seq_dot(x, x)
+    return (q_sq[:, None] + x_sq[None, :]) - 2.0 * dot
+
+
+def tf32_sq8_fold_pairwise_l2(q, codes, scale, zero) -> torch.Tensor:
+    """The kernel's own SQ8 arithmetic in plain torch: the query scaled by
+    ``scale`` (one rounding) and split a = hi + lo as in
+    :func:`tf32_pairwise_l2`, the codes exact in TF32, the dot product as
+    lo·code + hi·code in float32 plus the sequential ``q·zero``, and the
+    norms and the epilogue of ``ref.sq8_pairwise_l2``."""
+    a = q * scale
+    ah = tf32_rna(a)
+    al = tf32_rna(a - ah)
+    c = codes.to(torch.float32)
+    dot = (al @ c.T + ah @ c.T) + tref._seq_dot(q, zero.expand_as(q))[:, None]
+    x = sq8_decode(codes, scale, zero)
     q_sq, x_sq = tref._seq_dot(q, q), tref._seq_dot(x, x)
     return (q_sq[:, None] + x_sq[None, :]) - 2.0 * dot
 
@@ -653,9 +710,10 @@ def test_cuda_paged_hop_bit_identical(cuda_device, mode, page_cols, use_tree,
 @pytest.mark.parametrize("name", SCAN_KERNELS)
 def test_cuda_scan_kernel_bit_identical(cuda_device, name):
     """``ops.<name>`` on CUDA tensors launches the kernel once per call and
-    meets its contract over the whole synthetic grid: ``pairwise_l2``
-    (3xTF32 on the tensor cores) within :func:`expansion_tol` of the plain
-    version, the other four bit for bit."""
+    meets its contract over the whole synthetic grid: ``pairwise_l2`` and
+    ``sq8_pairwise_l2`` (TF32 on the tensor cores) within
+    :func:`expansion_tol` of the plain version, over the float32 or the
+    decoded rows, the other three bit for bit."""
     from repro_torch.kernels import ops
 
     cuda_fn, plain = scan_kernel(name)
@@ -666,9 +724,10 @@ def test_cuda_scan_kernel_bit_identical(cuda_device, name):
         got = getattr(ops, name)(*args)
         torch.cuda.synchronize()
         assert cuda_fn.launches == before + 1, tag
-        if name == "pairwise_l2":
+        rows = tol_rows(name, args)
+        if rows is not None:
             assert got.shape == want.shape, tag
-            assert expansion_ratio(got, want, *args) <= 1e-5, tag
+            assert expansion_ratio(got, want, *rows) <= 1e-5, tag
         else:
             assert same_bits(want, got), f"{name} {tag}"
         n_cases += 1
@@ -689,3 +748,41 @@ def test_cuda_pairwise_l2_offset_within_tolerance(cuda_device, B, N, d):
     want = tref.pairwise_l2(q, x)
     torch.cuda.synchronize()
     assert expansion_ratio(got, want, q, x) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,d", [(130, 5000, 128), (7, 129, 18),
+                                   (64, 1000, 100)])
+def test_cuda_sq8_pairwise_l2_offset_within_tolerance(cuda_device, B, N, d):
+    """The int8 scan with its rows 100 · u off the origin stays within
+    :func:`expansion_tol` over the decoded rows, and the control, one TF32
+    product over the same rows, leaves it."""
+    from repro_torch.kernels import ops
+
+    q, codes, scale, zero = (torch.as_tensor(a, device=cuda_device)
+                             for a in sq8_offset_case(B, N, d, B + N))
+    got = ops.sq8_pairwise_l2(q, codes, scale, zero)
+    want = tref.sq8_pairwise_l2(q, codes, scale, zero)
+    x = sq8_decode(codes, scale, zero)
+    control = tf32_pairwise_l2(q, x, split=False)
+    torch.cuda.synchronize()
+    assert expansion_ratio(got, want, q, x) <= 1e-5
+    assert expansion_ratio(control, want, q, x) > 1e-5
+
+
+@pytest.mark.cuda
+def test_cuda_sq8_one_tf32_product_leaves_tolerance(cuda_device):
+    """The control on the card over the synthetic grid: one TF32 product
+    over the decoded rows leaves :func:`expansion_tol`, which the kernel
+    meets on the same cases, so the tolerance tells the two apart."""
+    from repro_torch.kernels import ops
+
+    worst_kernel, worst_control = 0.0, 0.0
+    for tag, args in scan_cases("sq8_pairwise_l2", cuda_device):
+        want = tref.sq8_pairwise_l2(*args)
+        rows = tol_rows("sq8_pairwise_l2", args)
+        worst_kernel = max(worst_kernel, expansion_ratio(
+            ops.sq8_pairwise_l2(*args), want, *rows))
+        worst_control = max(worst_control, expansion_ratio(
+            tf32_pairwise_l2(*rows, split=False), want, *rows))
+    assert worst_kernel <= 1e-5 < worst_control, (worst_kernel, worst_control)

@@ -23,7 +23,14 @@ cores: TF32 high parts and remainders, three products in float32), emulated
 in plain torch, stays within ``expansion_tol`` of ``ref.pairwise_l2`` on
 the card's synthetic grid and with a common offset of length 100 (severe
 cancellation); a single TF32 product, the control, leaves it on the same
-grid.
+grid.  The same for the int8 scan over the decoded rows against
+``ref.sq8_pairwise_l2``, its rows int8-encoded in the offset case: the SQ8
+mode's own arithmetic (the scaled query split in two TF32 parts, the codes
+exact, two products plus q·zero) meets the tolerance, one TF32 product
+over the decoded rows leaves it.  ``pq_adc.cu``'s lanes layout for up to 8
+subspaces (the transposed LUT stage, the two half-warps' addresses and
+subspace orders) emulated in plain torch equals ``ref.pq_adc`` bit for
+bit, its two half-warps in opposite banks at every step.
 
 Then the slice as a whole: the reference ``built_dqf`` carried over with
 ``convert.dqf_from_arrays``, ``ops.pairwise_l2`` / ``sq8_pairwise_l2`` /
@@ -53,8 +60,9 @@ from repro_torch.core.recall import ground_truth, recall_at_k
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from tests.test_torch_cuda import (SCAN_D, duplicated_rows, expansion_tol,
-                                   offset_case, scan_cases, tf32_pairwise_l2,
-                                   tf32_rna)
+                                   offset_case, scan_cases, sq8_offset_case,
+                                   tf32_pairwise_l2, tf32_rna,
+                                   tf32_sq8_fold_pairwise_l2, tol_rows)
 from tests.test_torch_search import port_cfg, queries, saved  # noqa: F401
 
 T = torch.as_tensor
@@ -178,6 +186,52 @@ def test_sq8_pairwise_l2_matches_pallas_interpret(B, N, d, bq, bn):
                            codes.astype(np.float32) * scale + zero)
 
 
+def sq8_control_ratio(args) -> float:
+    """Largest |one-TF32-product emulation over the decoded rows −
+    ref.sq8_pairwise_l2| / ``expansion_tol``."""
+    q, x = tol_rows("sq8_pairwise_l2", args)
+    diff = (tf32_pairwise_l2(q, x, split=False).double()
+            - tref.sq8_pairwise_l2(*args).double()).abs()
+    return float((diff / expansion_tol(q, x)).max())
+
+
+@pytest.mark.parametrize("d", SCAN_D)
+def test_sq8_fold_arithmetic_meets_scan_contract(d):
+    """The kernel's own SQ8 arithmetic (the scaled query in two TF32 parts,
+    the codes exact, two products plus q·zero) stays within
+    ``expansion_tol`` of ``ref.sq8_pairwise_l2`` on the grid at width d
+    and in the offset cases of that width."""
+    cases = [args for tag, args in scan_cases("sq8_pairwise_l2", "cpu")
+             if args[0].shape[1] == d]
+    cases += [tuple(T(a) for a in sq8_offset_case(B, N, d, B + N))
+              for B, N, dd in ((130, 5000, 128), (7, 129, 18),
+                               (64, 1000, 100)) if dd == d]
+    for args in cases:
+        q, x = tol_rows("sq8_pairwise_l2", args)
+        assert_expansion_close(tf32_sq8_fold_pairwise_l2(*args).numpy(),
+                               tref.sq8_pairwise_l2(*args).numpy(),
+                               q.numpy(), x.numpy())
+    assert len(cases) == 13
+
+
+@pytest.mark.parametrize("d", SCAN_D)
+def test_one_tf32_product_breaks_sq8_scan_contract(d):
+    """The control: one TF32 product over the decoded rows leaves
+    ``expansion_tol`` on the same grid at width d."""
+    worst = max(sq8_control_ratio(args)
+                for tag, args in scan_cases("sq8_pairwise_l2", "cpu")
+                if args[0].shape[1] == d)
+    assert worst > 1.0, worst
+
+
+@pytest.mark.parametrize("B,N,d", [(130, 5000, 128), (7, 129, 18),
+                                   (64, 1000, 100)])
+def test_one_tf32_product_breaks_sq8_scan_contract_with_offset(B, N, d):
+    """The control leaves the tolerance in each offset case too."""
+    args = tuple(T(a) for a in sq8_offset_case(B, N, d, B + N))
+    assert sq8_control_ratio(args) > 1.0
+
+
 # ----------------------------------------------------------------- pq_adc
 def pq_world(B, N, M, K, seed):
     rng = np.random.default_rng(seed)
@@ -219,6 +273,68 @@ def test_pq_adc_is_the_search_scorer_in_chunks(monkeypatch):
     assert torch.equal(whole, tref.pq_score(codes, luts, cols))
     monkeypatch.setattr(tref, "_CHUNK_ELEMS", 6 * 6 * 5)   # 5-row chunks
     assert torch.equal(tref.pq_adc(luts, codes), whole)
+
+
+
+def pq_lanes(luts, codes):
+    """``pq_adc.cu``'s ``pq_adc_lanes`` (M <= 8) in plain torch: for each
+    group of 16 queries the LUTs staged as the kernel stages them (word i
+    holds query i & 15, centroid (i >> 5) % K of subspace
+    2 ((i >> 5) // K) + ((i >> 4) & 1), zeros past M), every row read by
+    its half-warp (rows 4..7 of every 8 by half-warp 1, which reads
+    subspace s ^ 1 at step s) at the kernel's word address, the values
+    then halved in pairs in the order read.  Returns the (B, N) sums and
+    the banks (word address mod 32) of each half-warp at each step."""
+    B, M, K = luts.shape
+    N = codes.shape[0]
+    MP = tref.next_pow2(M)
+    c = torch.zeros(N, MP, dtype=torch.long)
+    c[:, :M] = codes.long()
+    h = (torch.arange(N) >> 2) & 1 if MP >= 2 else torch.zeros(N, dtype=int)
+    lane = torch.arange(16)[None, :] + 16 * h[:, None]          # (N, 16)
+    i = torch.arange((MP + 1) // 2 * K * 32)
+    qq, pair, k = i & 15, (i >> 5) // K, (i >> 5) % K
+    m = 2 * pair + ((i >> 4) & 1)
+    out, banks = torch.empty(B, N), []
+    for b0 in range(0, B, 16):
+        ok = (qq < min(16, B - b0)) & (m < M)
+        lut = torch.zeros(i.shape)
+        lut[ok] = luts[b0 + qq[ok], m[ok], k[ok]]
+        v = []
+        for s in range(MP):
+            code = c.gather(1, (s ^ h)[:, None])                  # (N, 1)
+            word = lane ^ 16 if s & 1 else lane                   # at_odd
+            addr = (s >> 1) * K * 32 + code * 32 + word
+            v.append(lut[addr])
+            banks.append((addr % 32, h))
+        v = torch.stack(v, -1)                                   # (N, 16, MP)
+        w = MP // 2
+        while w >= 1:
+            v = v[..., :w] + v[..., w:2 * w]
+            w //= 2
+        out[b0:b0 + 16] = v[:, :B - b0, 0].T
+    return out, banks
+
+
+@pytest.mark.parametrize("B,N,M,K", [(20, 37, 1, 16), (16, 40, 2, 256),
+                                     (33, 64, 3, 64), (7, 29, 4, 256),
+                                     (17, 50, 5, 7), (1, 70, 6, 64),
+                                     (20, 45, 7, 32), (35, 80, 8, 256)])
+def test_pq_lanes_layout_is_ref_pq_adc(B, N, M, K):
+    """The lanes layout's staging, addresses and half-warp subspace orders
+    give ``ref.pq_adc``'s bits (LUT values over six decades, so the order
+    of the adds shows), and past one subspace its two half-warps read
+    disjoint banks at every step: one wavefront a warp load."""
+    luts, codes = pq_world(B, N, M, K, B * M + K)
+    luts *= 10.0 ** np.random.default_rng(M).uniform(-3, 3, luts.shape)
+    luts, codes = T(luts.astype(np.float32)), T(codes)
+    got, banks = pq_lanes(luts, codes)
+    want = tref.pq_adc(luts, codes)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    for bank, h in banks:
+        assert all(len(set(row)) == 16 for row in bank.tolist())
+        b0, b1 = (set(bank[h == j].flatten().tolist()) for j in (0, 1))
+        assert len(b0) == 16 and (M == 1 or (len(b1) == 16 and not b0 & b1))
 
 
 # ------------------------------------------------------------- pool_merge
