@@ -42,16 +42,20 @@ Phases, in order; any failure exits non-zero:
    (B in {1, 7, 130}, N in {1, 63, 129, 5000}, d in {18, 100, 128}; sq8
    codes reaching -127 and 127; pq M in {4, 6, 8, 16, 32, 64, 128}, K in
    {16, 64, 256}, B also 16 and 33, N also 5003, rows of codes all 0 and
-   all K - 1; pool merges at (L, C) in {(8, 8), (64, 32), (10, 7)} with
-   ties and +inf slots; neighbour rows with sentinel and duplicate ids, d
-   up to 1536):
+   all K - 1; pool merges at (L, C) in {(8, 8), (64, 32), (10, 7),
+   (33, 20)} (the rank merge), (64, 33), (200, 48) (the warp's network),
+   (300, 200) (the block's) and (20000, 5) (its global scratch), with ties,
+   +inf and ``INF_DIST`` slots, pools sorted, sorted with NaN and -0.0
+   beside +0.0 keys, and shuffled; neighbour rows with sentinel and
+   duplicate ids, R in {7, 10 or 32, 33}, d up to 1536):
    ``pairwise_l2`` and ``sq8_pairwise_l2`` (TF32 on the tensor cores)
    within 1e-5 (|q|^2 + |x|^2) of their plain versions (x the float32 or
    the decoded rows), the largest |diff| / (|q|^2 + |x|^2) printed, then
    again with rows and queries 100 u off the origin (int8-encoded for
    sq8); the control, one TF32 product emulated in torch on the same
    inputs, must leave that tolerance on the grid and in every offset case;
-   the other three bit-identical;
+   the other three bit-identical, and ``pool_merge``'s plain version on
+   the card bit-identical to itself on the CPU;
 4. the graph main path at one million rows x 128: DQF build → warm →
    fit_tree → 4 searches of 1024 queries, fused kernel on, with build, warm
    and fit times, per-batch search time and QPS, recall@10, mean
@@ -105,7 +109,13 @@ Phases, in order; any failure exits non-zero:
    its bytes, with the floor of its B N M shared-memory loads at 32 a
    wavefront, one a clock on every SM at the highest SM clock
    ``nvidia-smi`` reports); recall@10 of the exact top-10 of each scan
-   (the float32 scan must reach 0.999); peak device memory.
+   (the float32 scan must reach 0.999); ``gather_distances`` and
+   ``pool_merge`` (and the library expression of each) timed two ways,
+   median of 20: a call alone (events around the Python call, the host's
+   launch work inside) and the device alone (the card sleeps while the
+   host enqueues the call), the gather's rows cold (L2 flushed before each
+   call, the card idle again before the call is timed), beside an empty
+   launch timed the same two ways; peak device memory.
 
 Recall guards against breakage, not a target: 0.5 for the float32 paths,
 half of phase 4's recall for the quantized ones.  Phases 7 and 8 search
@@ -652,14 +662,16 @@ def phase_main(dev, n, seed):
 
 
 # ------------------------------------------------------------------ phase 6
-def _event_ms(fn, reps, before=None, back_to_back=False, busy=False):
+def _event_ms(fn, reps, before=None, back_to_back=False, busy=False,
+              median=False):
     """Mean ms of ``fn`` over ``reps`` calls, CUDA events around each call
     (the host's launch work included); ``before`` runs untimed ahead of
-    each.  ``back_to_back``: events around all ``reps`` calls, after one
-    untimed call, so the host's work overlaps the device's and the time is
-    the device's.  ``busy``: the card sleeps (``torch.cuda._sleep``, about
-    2 ms) while the host enqueues each call, so the events time the device
-    alone."""
+    each, and the card finishes it before the call.  ``back_to_back``:
+    events around all ``reps`` calls, after one untimed call, so the host's
+    work overlaps the device's and the time is the device's.  ``busy``: the
+    card sleeps (``torch.cuda._sleep``, about 2 ms) while the host enqueues
+    each call, so the events time the device alone.  ``median``: the
+    median of the calls in place of their mean."""
     if back_to_back:
         fn()
         s = torch.cuda.Event(enable_timing=True)
@@ -670,11 +682,12 @@ def _event_ms(fn, reps, before=None, back_to_back=False, busy=False):
         e.record()
         torch.cuda.synchronize()
         return s.elapsed_time(e) / reps, out
-    total = 0.0
-    out = None
+    times = []
     for _ in range(reps):
+        out = None                     # the last call's output freed first
         if before is not None:
             before()
+            torch.cuda.synchronize()
         if busy:
             torch.cuda._sleep(4_000_000)
         s = torch.cuda.Event(enable_timing=True)
@@ -683,8 +696,8 @@ def _event_ms(fn, reps, before=None, back_to_back=False, busy=False):
         out = fn()
         e.record()
         torch.cuda.synchronize()
-        total += s.elapsed_time(e)
-    return total / reps, out
+        times.append(s.elapsed_time(e))
+    return float(np.median(times) if median else np.mean(times)), out
 
 
 def hop_state_bytes(B, L):
@@ -1359,6 +1372,11 @@ def phase_scan_synthetic(dev):
                     scan_control(name, args), want, *rows))
             elif not same_bits(want, got):
                 raise SystemExit(f"{name} {tag}: differs from plain version")
+            if name == "pool_merge" and not same_bits(
+                    tuple(w.cpu() for w in want),
+                    plain(*(a.cpu() for a in args))):
+                raise SystemExit(f"{name} {tag}: the plain version differs "
+                                 f"on the card from itself on the CPU")
             err = max(err, finite_err(want, got))
             count += 1
         if name in TOL_SCANS:
@@ -1386,7 +1404,9 @@ def phase_scan_synthetic(dev):
             errs[f"{name} control"] = min(control, off_control)
             errs[f"{name} ratio"] = max(ratio, off)
         else:
-            log(f"  {name}: {count} cases bit-identical")
+            log(f"  {name}: {count} cases bit-identical"
+                + (", its plain version on the card bit-identical to itself "
+                   "on the CPU" if name == "pool_merge" else ""))
         cuda_fn.launches = saved
         n_cases += count
         errs[name] = err
@@ -1394,21 +1414,11 @@ def phase_scan_synthetic(dev):
 
 
 # ------------------------------------------------------------------ phase 10
-def _median_ms(fn, reps):
-    """Median device ms of ``fn`` over ``reps`` calls (CUDA events around
-    each; one untimed call first)."""
+def _median_ms(fn, reps, **kw):
+    """Median ms of ``fn`` over ``reps`` calls after one untimed call,
+    by :func:`_event_ms` (``kw``: its ``before`` and ``busy``)."""
     fn()
-    times = []
-    for _ in range(reps):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        out = fn()
-        e.record()
-        torch.cuda.synchronize()
-        times.append(s.elapsed_time(e))
-        del out
-    return float(np.median(times))
+    return _event_ms(fn, reps, median=True, **kw)[0]
 
 
 def _plain_in_chunks(plain, got, B, what, tol=None, chunk=128):
@@ -1653,17 +1663,37 @@ def phase_scan(ctx, dev, syn_errs, reps=5):
          "torch.sort(stable=True) of the concatenation, then a slice",
          want_m, merged,
          B * (R * int(np.log2(R)) + L + R), B * (L + R) * 8 + B * L * 8))
+    # each timed a call alone and the device alone, beside an empty launch.
+    # The gather's rows are cold in a beam step (32768 random rows of the
+    # 512 MB table), so its timings flush the 50 MB L2 first by writing
+    # 128 MB, and the card finishes the flush before the timed call; the
+    # merge's pool and scores are warm (just written)
+    l2 = torch.empty(32 * 2**20, dtype=torch.float32, device=dev)
+    flush = {"gather_distances": l2.zero_, "pool_merge": None}
+    empty = lambda: torch.cuda._sleep(0)
+    empty_ms = _median_ms(empty, 20), _median_ms(empty, 20, busy=True)
+    log(f"  an empty launch (torch.cuda._sleep(0)): {empty_ms[0]:.4f} ms a "
+        f"call alone, {empty_ms[1]:.4f} ms the device alone")
     for (name, source, replaces, kernel, plain, library, note, want, got,
          flops, moved) in step:
         saved = wrappers[name].launches
-        ms = _median_ms(kernel, 20)
+        ms = _median_ms(kernel, 20, before=flush[name])
+        device_ms = _median_ms(kernel, 20, busy=True, before=flush[name])
         wrappers[name].launches = saved
-        plain_ms = _median_ms(plain, 5)
-        library_ms = _median_ms(library, 20)
+        plain_ms = _median_ms(plain, 5, before=flush[name])
+        library_ms = _median_ms(library, 20, before=flush[name])
+        library_device_ms = _median_ms(library, 20, busy=True,
+                                       before=flush[name])
         err = max(finite_err(want, got), syn_errs[name])
+        log(f"  {name}: {ms:.4f} ms a call alone, {device_ms:.4f} ms the "
+            f"device alone (library {library_ms:.4f} and "
+            f"{library_device_ms:.4f} ms)")
         entries.append(scan_entry(name, source, replaces, launches[name],
                                   err, ms, plain_ms, library_ms, note, flops,
-                                  moved))
+                                  moved, device_ms=device_ms,
+                                  library_device_ms=library_device_ms,
+                                  empty_launch_ms=empty_ms[0],
+                                  empty_launch_device_ms=empty_ms[1]))
     peak = torch.cuda.max_memory_allocated()
     log(f"  peak device memory in phase 10: {peak / 2**30:.3f} GiB")
     return entries, recalls

@@ -57,9 +57,9 @@
 //   * scoring: lane l takes components l + 32 j (j < M, M = halving_regs;
 //     past width 1024 each register folds components c + 1024 t with
 //     halving_fold) and halves them in registers; eight rows then finish
-//     together in a transposed butterfly (shuffles over lane bits 16, 8, 4
-//     exchange row halves, then 2 and 1), 9 shuffles for 8 rows where a
-//     per-row warp sum takes 40.  Each add pairs the same components as
+//     together in a transposed butterfly (halving.cuh::butterfly8_sum:
+//     shuffles over lane bits 16, 8, 4 exchange row halves, then 2 and 1),
+//     9 shuffles for 8 rows where a per-row warp sum takes 40.  Each add pairs the same components as
 //     ref.halving_sum (__fsub_rn/__fmul_rn/__fadd_rn, --fmad=false);
 //   * merge: the pool is sorted after every hop, so for R <= 32 and
 //     L <= 64 (every configuration of the repo) every entry is placed by
@@ -289,33 +289,6 @@ __device__ __forceinline__ float hop_lane_partial(const unsigned char* row,
     for (int j = 0; j < w; ++j) v[j] = __fadd_rn(v[j], v[j + w]);
   }
   return v[0];
-}
-
-// Eight rows' sums at once.  x[g] is this lane's partial of row g (position
-// `lane` of row g's 32-wide vector).  Lanes exchange halves of their rows
-// over lane bits 4, 3 and 2, adding positions p and p + 16, then p + 8,
-// then p + 4: the pairs of the per-row shuffle sum 16 .. 1.  Lane l ends
-// with the sum of row l >> 2.
-__device__ __forceinline__ float hop_butterfly8(const float (&x)[8],
-                                                int lane) {
-  const bool b4 = lane & 16, b3 = lane & 8, b2 = lane & 4;
-  float y[4], z[2];
-#pragma unroll
-  for (int g = 0; g < 4; ++g) {
-    const float send = b4 ? x[g] : x[g + 4];
-    const float keep = b4 ? x[g + 4] : x[g];
-    y[g] = __fadd_rn(keep, __shfl_xor_sync(HOP_FULL, send, 16));
-  }
-#pragma unroll
-  for (int g = 0; g < 2; ++g) {
-    const float send = b3 ? y[g] : y[g + 2];
-    const float keep = b3 ? y[g + 2] : y[g];
-    z[g] = __fadd_rn(keep, __shfl_xor_sync(HOP_FULL, send, 8));
-  }
-  const float send = b2 ? z[0] : z[1];
-  float w = __fadd_rn(b2 ? z[1] : z[0], __shfl_xor_sync(HOP_FULL, send, 4));
-  w = __fadd_rn(w, __shfl_xor_sync(HOP_FULL, w, 2));
-  return __fadd_rn(w, __shfl_xor_sync(HOP_FULL, w, 1));
 }
 
 __device__ __forceinline__ unsigned hop_smem(const void* p) {
@@ -699,7 +672,7 @@ fused_hop_kernel(const HopArgs a) {
 #pragma unroll 1
           for (int g = 0; g < 8; ++g) partial(g);
         }
-        const float sum = hop_butterfly8(x, lane);
+        const float sum = butterfly8_sum(x, lane);
         const int s = g0 + (lane >> 2);
         if ((lane & 3) == 0 && s < cn) d2[vrow[c0 + s]] = sum;
       }

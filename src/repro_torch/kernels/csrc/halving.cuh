@@ -9,7 +9,7 @@
 // so only the pairs matter, not which operand comes first).
 //
 // Used by the fused hop's scorers (fused_hop.cu), gather_distances.cu and
-// pq_adc.cu.
+// pq_adc.cu; butterfly8_sum by the hop and gather_distances.cu.
 #pragma once
 
 // Lane l of the warp holds the components l + 32 j, j < M, of a vector
@@ -30,6 +30,36 @@ __device__ __forceinline__ float warp_halving_sum(float (&v)[M]) {
   for (int off = 16; off >= 1; off >>= 1)
     s = __fadd_rn(s, __shfl_down_sync(0xffffffffu, s, off));
   return s;
+}
+
+// Eight rows' sums at once.  x[g] is this lane's partial of row g (position
+// `lane` of row g's 32-wide vector, after warp_halving_sum's in-register
+// halvings).  Lanes exchange halves of their rows over lane bits 4, 3 and
+// 2, adding positions p and p + 16, then p + 8, then p + 4: the pairs of
+// the per-row shuffle sum 16 .. 1.  Lane l ends with the sum of row l >> 2.
+// 9 shuffles for 8 rows where warp_halving_sum takes 40.  Every lane of the
+// warp must call it.
+__device__ __forceinline__ float butterfly8_sum(const float (&x)[8],
+                                                int lane) {
+  const bool b4 = lane & 16, b3 = lane & 8, b2 = lane & 4;
+  float y[4], z[2];
+#pragma unroll
+  for (int g = 0; g < 4; ++g) {
+    const float send = b4 ? x[g] : x[g + 4];
+    const float keep = b4 ? x[g + 4] : x[g];
+    y[g] = __fadd_rn(keep, __shfl_xor_sync(0xffffffffu, send, 16));
+  }
+#pragma unroll
+  for (int g = 0; g < 2; ++g) {
+    const float send = b3 ? y[g] : y[g + 2];
+    const float keep = b3 ? y[g + 2] : y[g];
+    z[g] = __fadd_rn(keep, __shfl_xor_sync(0xffffffffu, send, 8));
+  }
+  const float send = b2 ? z[0] : z[1];
+  float w = __fadd_rn(b2 ? z[1] : z[0],
+                      __shfl_xor_sync(0xffffffffu, send, 4));
+  w = __fadd_rn(w, __shfl_xor_sync(0xffffffffu, w, 2));
+  return __fadd_rn(w, __shfl_xor_sync(0xffffffffu, w, 1));
 }
 
 // The halving sum of the T values f(0), ..., f(T - 1), T a power of two,

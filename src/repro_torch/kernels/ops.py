@@ -64,8 +64,11 @@ def pq_adc(luts: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
 
 
 def pool_merge(pool_dists, pool_ids, cand_dists, cand_ids):
-    """(dists, ids), both (B, L): the L smallest of a sorted (B, L) pool and
-    (B, C) candidates per row, sorted, equal keys in input order."""
+    """(dists, ids), both (B, L): the L smallest of a (B, L) pool and (B, C)
+    candidates per row, sorted, equal keys in input order: a stable sort of
+    ``[pool | candidates]``.  Any pool is taken; on the card a sorted one
+    with L <= 64 and C <= 32 is merged by rank, any other row sorted.  NaN
+    keys sort last and -0.0 ties +0.0, as in the plain version."""
     if _device_type(pool_dists) == "cpu":
         return ref.pool_merge(pool_dists, pool_ids, cand_dists, cand_ids)
     return pool_merge_cuda(pool_dists, pool_ids, cand_dists, cand_ids)

@@ -166,11 +166,17 @@ def pool_merge(pool_dists: torch.Tensor, pool_ids: torch.Tensor,
                cand_dists: torch.Tensor, cand_ids: torch.Tensor):
     """Merge (B, C) candidates into a (B, L) pool and keep the L smallest,
     sorted: a stable sort of ``[pool | candidates]``, so equal keys keep
-    their input order (``repro/kernels/ref.py::pool_merge``)."""
+    their input order (``repro/kernels/ref.py::pool_merge``).  -0.0 ties
+    +0.0 and every NaN ties every other above +inf, as JAX orders them:
+    the sort runs over keys with one zero and one NaN, since on a CUDA
+    tensor ``torch.sort`` orders NaNs by their bits (a negative NaN
+    first).  The output keeps each key's own bits."""
     L = pool_dists.shape[1]
     d = torch.cat([pool_dists, cand_dists], dim=1)
     i = torch.cat([pool_ids, cand_ids], dim=1)
-    order = torch.sort(d, dim=1, stable=True).indices[:, :L]
+    key = torch.where(d == 0, torch.zeros_like(d), d)
+    key = torch.where(torch.isnan(d), torch.full_like(d, float("nan")), key)
+    order = torch.sort(key, dim=1, stable=True).indices[:, :L]
     return d.gather(1, order), i.gather(1, order)
 
 

@@ -17,7 +17,8 @@ mode).  The synthetic worlds are shared with ``tests/test_torch_fused_hop.py``,
 ``tests/test_torch_quant.py`` and ``tests/test_torch_paged_hop.py``;
 ``duplicated_rows``, ``topk_rows``, ``paged_case``, the hop grid
 (``hop_cases``), the scan grid
-(``scan_cases``, ``scan_kernel``, ``same_bits``) and the scan's tolerance
+(``scan_cases``, ``merge_case``, ``scan_kernel``, ``same_bits``) and the
+scan's tolerance
 (``expansion_tol``, ``expansion_ratio``, ``tol_rows``, ``offset_case``,
 ``sq8_offset_case``) and its arithmetic emulated in plain torch
 (``tf32_rna``, ``tf32_pairwise_l2``, ``tf32_sq8_fold_pairwise_l2``) with
@@ -247,7 +248,15 @@ SCAN_PQ = ((4, 64), (4, 256), (6, 64), (8, 64), (8, 256), (32, 64),
            (64, 16), (16, 256), (128, 256))
 SCAN_PQ_B = SCAN_B + (16, 33)     # a whole and a ragged group of 16 queries
 SCAN_PQ_N = SCAN_N + (5003,)      # a ragged run of 8 rows a lane
-SCAN_MERGE = ((8, 8), (64, 32), (10, 7))                # (L, C)
+# (L, C): the rank merge (L <= 64, C <= 32: one and two pool entries a
+# lane), then the warp's register network (S = next_pow2(L + C) <= 256),
+# the block's network in shared memory, and in a global scratch past 227 KB
+SCAN_MERGE = ((8, 8), (64, 32), (10, 7), (33, 20), (64, 33), (200, 48),
+              (300, 200), (20000, 5))
+# pools sorted; sorted with NaN, -0.0 and +0.0 keys; then not sorted
+MERGE_KINDS = ("sorted", "nan", "unsorted")
+# R not a multiple of 8 on either side of one and of four groups of 8
+SCAN_GATHER_R = (7, 33)
 _SCAN_MODULES = {"pairwise_l2": "distance", "sq8_pairwise_l2": "sq_distance",
                  "pq_adc": "pq_adc", "pool_merge": "topk_merge",
                  "gather_distances": "gather_distance"}
@@ -267,10 +276,10 @@ def scan_cases(name, dev, seed=0):
     distance, cancellation); sq8 codes that reach -127 and 127; pq codes
     that reach 0 and K - 1 (a whole row of each), B past and below a
     group of 16 queries, N not a multiple of 8, and M = 128 past the
-    register tile; pools and
-    candidates with equal keys, +inf and ``INF_DIST`` slots; neighbour
-    rows with the sentinel id and a duplicated id, and d = 1536 past
-    1024.
+    register tile; pools and candidates of :func:`merge_case`, each
+    (L, C) of ``SCAN_MERGE`` in every kind of ``MERGE_KINDS``; neighbour
+    rows with the sentinel id and a duplicated id, R not a multiple of 8,
+    and d = 1536 past 1024.
     """
     rng = np.random.default_rng(seed)
     t = lambda a: torch.as_tensor(a, device=dev)
@@ -301,31 +310,64 @@ def scan_cases(name, dev, seed=0):
                     luts = f32(rng.uniform(0, 8, (B, M, K)))
                     yield f"B={B} N={N} M={M} K={K}", (t(luts), t(codes))
     elif name == "pool_merge":
-        for L, C in SCAN_MERGE:
-            for B in SCAN_B:
-                pd = np.sort(f32(rng.integers(0, 6, (B, L))), axis=1)
-                pd[:, -2:] = np.inf                      # empty slots
-                pd[-1, L // 2:] = tref.INF_DIST          # the search's empty
-                cd = f32(rng.integers(0, 6, (B, C)))
-                cd[:, 0] = np.inf
-                cd[:, -1] = pd[:, 0]                     # ties the pool head
-                pi = rng.integers(0, 1000, (B, L)).astype(np.int32)
-                ci = rng.integers(0, 1000, (B, C)).astype(np.int32)
-                yield f"B={B} L={L} C={C}", (t(pd), t(pi), t(cd), t(ci))
+        for kind in MERGE_KINDS:
+            for L, C in SCAN_MERGE:
+                for B in SCAN_B:
+                    yield (f"{kind} B={B} L={L} C={C}",
+                           tuple(map(t, merge_case(kind, B, L, C, rng))))
     elif name == "gather_distances":
         n = 300
         for d in SCAN_D + (1536,):
             x = rng.standard_normal((n, d)).astype(np.float32)
             x_pad = np.concatenate([x, np.full((1, d), 1e9, np.float32)])
-            R = 32 if d == 128 else 10
-            for B in SCAN_B:
-                q = f32(rng.standard_normal((B, d)))
-                nbrs = rng.integers(0, n + 1, (B, R)).astype(np.int32)
-                nbrs[:, 0] = n                           # the sentinel row
-                nbrs[:, 2] = nbrs[:, 1]                  # an id twice
-                yield f"B={B} R={R} d={d}", (t(q), t(x_pad), t(nbrs))
+            for R in (32 if d == 128 else 10,) + SCAN_GATHER_R:
+                for B in SCAN_B:
+                    q = f32(rng.standard_normal((B, d)))
+                    nbrs = rng.integers(0, n + 1, (B, R)).astype(np.int32)
+                    nbrs[:, 0] = n                       # the sentinel row
+                    nbrs[:, 2] = nbrs[:, 1]              # an id twice
+                    yield f"B={B} R={R} d={d}", (t(q), t(x_pad), t(nbrs))
     else:
         raise ValueError(f"no scan kernel {name!r}")
+
+
+def _float_bits(bits):
+    return np.array(bits, np.uint32).view(np.float32)
+
+
+def merge_case(kind, B, L, C, rng):
+    """(pool dists, pool ids, cand dists, cand ids) as numpy arrays: keys
+    0..5, so equal keys abound; the pool sorted with +inf in its last two
+    slots and ``INF_DIST`` in the last row's second half, a candidate
+    +inf, and one equal to its row's pool head.  ``"nan"`` adds -0.0
+    beside +0.0 in both, and NaN keys (positive, negative and with a
+    payload) in the pool's second half and in every third candidate, the
+    pool still sorted in the plain version's order (NaN last), so that
+    where NaNs outnumber the candidates some are kept; ``"unsorted"`` is
+    ``"nan"`` with each pool row shuffled."""
+    f32 = lambda a: np.asarray(a, np.float32)
+    pd = np.sort(f32(rng.integers(0, 6, (B, L))), axis=1)
+    pd[:, -2:] = np.inf                                  # empty slots
+    pd[-1, L // 2:] = tref.INF_DIST                      # the search's empty
+    cd = f32(rng.integers(0, 6, (B, C)))
+    cd[:, 0] = np.inf
+    cd[:, -1] = pd[:, 0]                                 # ties the pool head
+    pi = rng.integers(0, 1000, (B, L)).astype(np.int32)
+    ci = rng.integers(0, 1000, (B, C)).astype(np.int32)
+    if kind in ("nan", "unsorted"):
+        nans = _float_bits([0x7FC00000, 0xFFC00000, 0x7F800123])
+        pd[pd == 0] *= np.where(rng.random((pd == 0).sum()) < 0.5, -1, 1)
+        pd[:, L // 2:] = nans[(np.arange(B)[:, None] + np.arange(L - L // 2))
+                              % 3]
+        cd[cd == 0] = -0.0
+        cd[::2, C // 3] = 0.0
+        cd[:, 1:C - 1:3] = nans[np.arange(B) % 3][:, None]
+    if kind == "unsorted":
+        pd = np.take_along_axis(pd, rng.permuted(
+            np.tile(np.arange(L), (B, 1)), axis=1), 1)
+    elif kind not in ("sorted", "nan"):
+        raise ValueError(f"no merge case kind {kind!r}")
+    return pd, pi, cd, ci
 
 
 def expansion_tol(q, x):
@@ -732,6 +774,25 @@ def test_cuda_scan_kernel_bit_identical(cuda_device, name):
             assert same_bits(want, got), f"{name} {tag}"
         n_cases += 1
     assert n_cases >= 9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", MERGE_KINDS)
+def test_cuda_plain_pool_merge_equals_cpu(cuda_device, kind):
+    """The plain ``pool_merge`` on CUDA tensors gives the bits it gives on
+    the CPU for every :func:`merge_case` of ``kind`` (NaN of either sign,
+    ±0.0, shuffled pools), where the CPU's equal the JAX reference's
+    (``tests/test_torch_scan.py``): so the kernel, held to the plain
+    version on the card, is held to JAX."""
+    rng = np.random.default_rng(1)
+    for L, C in SCAN_MERGE:
+        for B in SCAN_B:
+            args = merge_case(kind, B, L, C, rng)
+            cpu = tref.pool_merge(*map(torch.as_tensor, args))
+            card = tref.pool_merge(*(torch.as_tensor(a, device=cuda_device)
+                                     for a in args))
+            assert same_bits(cpu, tuple(t.cpu() for t in card)), (
+                f"{kind} B={B} L={L} C={C}")
 
 
 @pytest.mark.cuda

@@ -14,9 +14,10 @@ kernel in ``interpret=True``, on inputs made from a seed with numpy:
   ``ref.halving_sum`` order, JAX with ``jnp.sum``; the Pallas ``pq_adc``
   is a one-hot matmul).
 * ``pool_merge``: ids and dists exactly equal to ``ref.pool_merge``,
-  equal keys, +inf and ``INF_DIST`` slots included; against
-  ``pool_merge_pallas`` only on tie-free data, since its network is
-  unstable.
+  equal keys, +inf and ``INF_DIST`` slots included, and bit for bit on
+  the pools of ``merge_case`` (NaN of either sign and with a payload,
+  -0.0 beside +0.0, sorted and shuffled); against ``pool_merge_pallas``
+  only on tie-free data, since its network is unstable.
 
 The arithmetic of ``pairwise_l2.cu``'s F32 mode (3xTF32 on the tensor
 cores: TF32 high parts and remainders, three products in float32), emulated
@@ -30,7 +31,13 @@ exact, two products plus q·zero) meets the tolerance, one TF32 product
 over the decoded rows leaves it.  ``pq_adc.cu``'s lanes layout for up to 8
 subspaces (the transposed LUT stage, the two half-warps' addresses and
 subspace orders) emulated in plain torch equals ``ref.pq_adc`` bit for
-bit, its two half-warps in opposite banks at every step.
+bit, its two half-warps in opposite banks at every step.  The designs of
+``pool_merge.cu`` (ordered integer keys, the sortedness test, the rank
+placement and the (key, position) network) and of
+``gather_distances.cu`` (lanes, registers and folds, then the 8-row
+butterfly) emulated in plain torch equal ``ref.pool_merge`` and
+``ref.gather_distances`` bit for bit; a mutated rank count (candidates
+<= a pool key in place of <) is the control that must fail.
 
 Then the slice as a whole: the reference ``built_dqf`` carried over with
 ``convert.dqf_from_arrays``, ``ops.pairwise_l2`` / ``sq8_pairwise_l2`` /
@@ -59,8 +66,10 @@ from repro_torch.core import QuantConfig as TQuant
 from repro_torch.core.recall import ground_truth, recall_at_k
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
-from tests.test_torch_cuda import (SCAN_D, duplicated_rows, expansion_tol,
-                                   offset_case, scan_cases, sq8_offset_case,
+from tests.test_torch_cuda import (MERGE_KINDS, SCAN_D, SCAN_MERGE,
+                                   duplicated_rows, expansion_tol,
+                                   merge_case, offset_case, same_bits,
+                                   scan_cases, sq8_offset_case,
                                    tf32_pairwise_l2, tf32_rna,
                                    tf32_sq8_fold_pairwise_l2, tol_rows)
 from tests.test_torch_search import port_cfg, queries, saved  # noqa: F401
@@ -368,6 +377,144 @@ def test_pool_merge_matches_pallas_interpret_without_ties(B, L, C, bb):
     np.testing.assert_array_equal(gd.numpy(), np.asarray(wd))
 
 
+INT_MAX = 0x7FFFFFFF
+RANK_MERGE = tuple((L, C) for L, C in SCAN_MERGE if L <= 64 and C <= 32)
+
+
+def merge_world(kind, L, C, B=7):
+    """:func:`merge_case` as tensors, seeded by the case."""
+    rng = np.random.default_rng(1000 * MERGE_KINDS.index(kind) + L + C)
+    return tuple(T(a) for a in merge_case(kind, B, L, C, rng))
+
+
+@pytest.mark.parametrize("kind", MERGE_KINDS)
+@pytest.mark.parametrize("L,C", SCAN_MERGE)
+def test_pool_merge_matches_jax_ref_nan_and_zeros(kind, L, C):
+    """``ref.pool_merge`` is the JAX ref's stable sort for every key:
+    -0.0 ties +0.0 and NaN of any sign or payload sorts last, each in input
+    order, with its own bits, in sorted and in shuffled pools."""
+    args = merge_world(kind, L, C)
+    wd, wi = jref.pool_merge(*(jnp.asarray(a.numpy()) for a in args))
+    gd, gi = tref.pool_merge(*args)
+    assert same_bits((gd, gi), (T(np.array(wd)), T(np.array(wi))))
+    if kind != "sorted":
+        pd, _, cd, _ = args
+        assert int(torch.isnan(pd).sum(1)[0] + torch.isnan(cd).sum(1)[0]) \
+            <= C or bool(torch.isnan(gd[0]).any()), "no NaN kept"
+        assert bool((gd.view(torch.int32) == -2**31).any()), "no -0.0"
+
+
+def ordered_key(d: torch.Tensor) -> torch.Tensor:
+    """``bitonic.cuh::ordered_key`` in plain torch: float32 to an int32 of
+    the same order, the magnitude bits signed by the sign bit (so -0.0 and
+    +0.0 are 0), every NaN INT_MAX (above +inf)."""
+    u = d.view(torch.int32)
+    mag = u & INT_MAX
+    k = torch.where(u < 0, -mag, mag)
+    return torch.where(mag > 0x7F800000, torch.full_like(k, INT_MAX), k)
+
+
+def bitonic_kv(key, pos):
+    """The (key, position) network of ``bitonic.cuh`` (``warp_sort_kv``,
+    ``bitonic_sort_stable_segments``: the same stages) over rows of a
+    power-of-two width: each stage keeps, at index i, the smaller or the
+    larger of (i, i ^ j) by (key, position)."""
+    S = key.shape[1]
+    i = torch.arange(S)
+    kk = 2
+    while kk <= S:
+        j = kk >> 1
+        while j:
+            p = i ^ j
+            ok, op = key[:, p], pos[:, p]
+            other_less = (ok < key) | ((ok == key) & (op < pos))
+            take_min = ((i & kk) == 0) == (i < p)
+            take = torch.where(take_min, other_less, ~other_less)
+            key, pos = torch.where(take, ok, key), torch.where(take, op, pos)
+            j >>= 1
+        kk <<= 1
+    return key, pos
+
+
+def pool_merge_design(pd, pi, cd, ci, *, pool_count_at_most=False):
+    """``pool_merge.cu`` in plain torch, row by row: the sortedness test
+    over ordered keys, then for a sorted pool with L <= 64, C <= 32 the
+    rank placement (pool entry i to i + #(candidate keys < its key), a
+    candidate to its rank among the candidates by (key, position) plus the
+    pool keys <= its key, found by the kernel's 7-step binary search),
+    else the network over S = next_pow2(L + C) >= 32 entries padded with
+    (INT_MAX, position).  Slots nothing writes stay NaN / -1.
+    ``pool_count_at_most`` counts candidates <= a pool key: a mutation the
+    test must catch."""
+    B, L = pd.shape
+    C = cd.shape[1]
+    od = torch.full((B, L), float("nan"))
+    oi = torch.full((B, L), -1, dtype=torch.int32)
+    d = torch.cat([pd, cd], 1)
+    ids = torch.cat([pi, ci], 1)
+    for b in range(B):
+        pk, ck = ordered_key(pd[b]), ordered_key(cd[b])
+        if L <= 64 and C <= 32 and bool((pk[:-1] <= pk[1:]).all()):
+            less = ck[None, :] <= pk[:, None] if pool_count_at_most else (
+                ck[None, :] < pk[:, None])
+            slot_p = torch.arange(L) + less.sum(1)
+            j = torch.arange(C)
+            before = ((ck[None, :] < ck[:, None])
+                      | ((ck[None, :] == ck[:, None])
+                         & (j[None, :] < j[:, None]))).sum(1)
+            at_most = torch.zeros(C, dtype=torch.long)
+            step = 64
+            while step:
+                at = at_most + step - 1
+                key_at = pk[at.clamp(max=L - 1)]
+                at_most += step * ((at < L) & (key_at <= ck))
+                step >>= 1
+            src = torch.cat([torch.arange(L), L + j])
+            slot = torch.cat([slot_p, before + at_most])
+            keep = slot < L
+            od[b, slot[keep]] = d[b, src[keep]]
+            oi[b, slot[keep]] = ids[b, src[keep]]
+        else:
+            S = max(32, tref.next_pow2(L + C))
+            key = torch.full((1, S), INT_MAX, dtype=torch.int32)
+            key[0, :L + C] = torch.cat([pk, ck])
+            _, pos = bitonic_kv(key, torch.arange(S)[None, :])
+            od[b], oi[b] = d[b, pos[0, :L]], ids[b, pos[0, :L]]
+    return od, oi
+
+
+def test_ordered_key_is_the_sort_order():
+    """Sorting by ``ordered_key`` (stable) is ``torch.sort``'s stable order
+    over floats across the whole line: NaNs, infinities, signed zeros,
+    subnormals."""
+    v = torch.tensor([1.0, float("nan"), -0.0, 0.0, float("inf"), -1e-45,
+                      1e-45, -float("inf"), -3.0e38, 3.0e38, -2.5, 2.5])
+    v = torch.cat([v, (-torch.tensor([float("nan")])), v.flip(0)])
+    want = torch.sort(v, stable=True).indices
+    got = torch.sort(ordered_key(v), stable=True).indices
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kind", MERGE_KINDS)
+@pytest.mark.parametrize("L,C", SCAN_MERGE)
+def test_pool_merge_design_is_ref_pool_merge(kind, L, C):
+    """The kernel's design (ordered keys, sortedness ballot, rank merge,
+    register and block networks) gives ``ref.pool_merge``'s bits: ids,
+    dists, NaN payloads and signed zeros."""
+    args = merge_world(kind, L, C)
+    assert same_bits(pool_merge_design(*args), tref.pool_merge(*args))
+
+
+@pytest.mark.parametrize("L,C", RANK_MERGE)
+def test_pool_merge_design_mutation_is_caught(L, C):
+    """The control: counting candidates <= a pool key (in place of <)
+    breaks the equality on the same grid, where candidates tie pool
+    keys."""
+    args = merge_world("sorted", L, C)
+    assert not same_bits(pool_merge_design(*args, pool_count_at_most=True),
+                         tref.pool_merge(*args))
+
+
 # ------------------------------------------------------- gather_distances
 def gather_world(B, R, n, d, seed):
     rng = np.random.default_rng(seed)
@@ -400,6 +547,57 @@ def test_gather_distances_is_the_hop_f32_score():
     q, x_pad, nbrs = (T(a) for a in gather_world(5, 12, 50, 18, 4))
     assert torch.equal(tref.gather_distances(q, x_pad, nbrs),
                        tref._gather_score("f32", x_pad, None, None, q, nbrs))
+
+
+def gather_design(q, x_pad, nbrs):
+    """``gather_distances.cu`` in plain torch: component c = l + 32 j +
+    1024 t of a row sits in lane l, register j, fold t; the folds halve
+    first (``halving_fold``), then the registers, then each group of 8
+    rows (the last padded with rows it discards) goes through
+    ``butterfly8_sum``'s exchanges, lane by lane; lane 4 g holds row g."""
+    B, d = q.shape
+    R = nbrs.shape[1]
+    W = max(32, tref.next_pow2(d))
+    fold, M = max(1, W // 1024), min(32, W // 32)
+    G = -(-R // 8) * 8
+    rows = torch.zeros(B, G, W)
+    rows[:, :R, :d] = x_pad[nbrs.long()]
+    qq = torch.zeros(B, 1, W)
+    qq[:, 0, :d] = q
+    diff = rows - qq
+    v = (diff * diff).reshape(B, G, fold, M, 32)
+    for axis in (2, 3):                     # folds, then registers
+        while v.shape[axis] > 1:
+            h = v.shape[axis] // 2
+            v = v.narrow(axis, 0, h) + v.narrow(axis, h, h)
+    x = v.reshape(B, G // 8, 8, 32)         # x[g] of every lane
+    lane = torch.arange(32)
+    shfl = lambda a, m: a[..., lane ^ m]
+    b4, b3, b2 = (lane & 16) != 0, (lane & 8) != 0, (lane & 4) != 0
+    y = [torch.where(b4, x[:, :, g + 4], x[:, :, g])
+         + shfl(torch.where(b4, x[:, :, g], x[:, :, g + 4]), 16)
+         for g in range(4)]
+    z = [torch.where(b3, y[g + 2], y[g])
+         + shfl(torch.where(b3, y[g], y[g + 2]), 8) for g in range(2)]
+    w = torch.where(b2, z[1], z[0]) + shfl(torch.where(b2, z[0], z[1]), 4)
+    w = w + shfl(w, 2)
+    w = w + shfl(w, 1)                       # (B, G / 8, 32)
+    return w[..., ::4].reshape(B, G)[:, :R]
+
+
+@pytest.mark.parametrize("d", SCAN_D + (1536,))
+@pytest.mark.parametrize("R", [7, 32, 33])
+def test_gather_design_is_ref_gather_distances(d, R):
+    """The kernel's layout and butterfly pair the components as
+    ``ref.halving_sum`` does: its bits, with values over six decades so
+    the order of the adds shows, the sentinel row and R not a multiple of
+    8 included."""
+    q, x_pad, nbrs = gather_world(5, R, 90, d, R * d)
+    scale = 10.0 ** np.random.default_rng(d).uniform(-3, 3, d)
+    q, x_pad = (T((a * scale).astype(np.float32)) for a in (q, x_pad))
+    x_pad[-1] = 1e9
+    want = tref.gather_distances(q, x_pad, T(nbrs))
+    assert same_bits(gather_design(q, x_pad, T(nbrs)), want)
 
 
 # --------------------------------------------- the slice on a carried DQF
