@@ -75,9 +75,10 @@ Phases, in order; any failure exits non-zero:
    top-k launches counted around them, the plain top-k against the
    kernel's on batch 0 bit for bit, the phase split;
 8. the quantized main path, sq8 then pq: quantizer trained on the host,
-   phase 4's graph, hot index and counter carried over under the reference
-   checkpoint keys, fit_tree on the codes, 4 searches, fused against
-   composed on batch 0 bit for bit, the phase split and the hop's timing;
+   phase 4's state carried over by ``DQF.to_arrays`` (what ``DQF.save``
+   writes, under the reference checkpoint's keys) and ``dqf_from_arrays``,
+   fit_tree on the codes, 4 searches, fused against composed on batch 0 bit
+   for bit, the phase split and the hop's timing;
 9. serving on phase 4's index, tree and hot index (the Alg-2 trigger out
    of reach): ``WaveEngine(wave_size=256)`` and
    ``PagedWaveEngine(capacity=256, page_cols=256)``, ``tick_hops=8``,
@@ -115,7 +116,38 @@ Phases, in order; any failure exits non-zero:
    launch work inside) and the device alone (the card sleeps while the
    host enqueues the call), the gather's rows cold (L2 flushed before each
    call, the card idle again before the call is timed), beside an empty
-   launch timed the same two ways; peak device memory.
+   launch timed the same two ways; peak device memory;
+11. the mutable main path on phase 4's index (the Alg-2 trigger out of
+   reach): ``DQF.save`` to a temp dir and ``DQF.load`` onto the card (both
+   timed, the file's bytes), the clone bit for bit with the original on
+   batch 0; the fixed engine (``wave_size=256``) on the original and the
+   paged engine (``capacity=256, page_cols=256``) on the clone, both
+   ``tick_hops=8``, serve phase 4's 4 batches as 4 rounds, paged ≡ fixed
+   per query in every round, with the same churn applied to both twins at
+   the drain boundaries: after round 1, insert 512 rows (``x`` at seeded
+   random rows + 0.02 N(0, 1); capacity 1,000,000 -> 1,048,576), after
+   round 2 delete 5,000 live rows (the same external ids; the hot rows hit
+   are rebuilt), after round 3 compact.  Checks: no tombstoned id in any
+   result (``search`` over the 4 batches, ``search_dual_beam``,
+   ``search_baseline``, both engines); the inserted rows, searched as
+   queries, find their own id in their top-10 at least as often as the
+   rows they were drawn from found theirs before the insert, less 0.1
+   (``search``; ``search_baseline``'s rates printed beside it); after the
+   insert and after the delete,
+   fused ≡ composed on batch 0 and one 8-hop launch timed at the grown
+   shapes (a call alone, the device alone, plain version, bound); after the
+   compact every live row keeps its vector under its external id and every
+   node is reachable from the entry set; recall@10 over the live rows
+   (exact top-10 of the live rows, phase 4's 4 batches) at least phase
+   4's − 0.02 after the insert and at least the pre-compaction recall −
+   0.02 after the compact (the delete's hot rebuild reselects the hot set
+   from the counter, Alg 2, which moves recall by itself: reported, and
+   measured alone on phase 4's checkpoint reloaded, its hot index
+   reselected); the compacted original saved, loaded and bit for bit on
+   batch 0.  Prints the seconds of each step (insert and
+   delete with ms a row, compact split into store, ``compact_adjacency``
+   and repair), each round's QPS per engine, the two hops' launches and
+   the peak device memory.
 
 Recall guards against breakage, not a target: 0.5 for the float32 paths,
 half of phase 4's recall for the quantized ones.  Phases 7 and 8 search
@@ -134,8 +166,10 @@ import copy
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -981,18 +1015,6 @@ def phase_mxu(ctx):
 
 
 # ------------------------------------------------------------------ phase 8
-def reference_arrays(dqf) -> dict:
-    """The port DQF's state under the reference checkpoint keys."""
-    return {"x": dqf.x, "store_alive": dqf.alive,
-            "store_capacity": np.array(dqf.capacity),
-            "full_adj": dqf.full.adj, "full_entries": dqf.full.entries,
-            "counts": dqf.counter.counts,
-            "counter_since": np.array(dqf.counter.since_rebuild),
-            "hot_adj": np.asarray(dqf.hot.graph.adj),
-            "hot_entries": np.asarray(dqf.hot.graph.entries),
-            "hot_ids": dqf.hot.ids, "hot_version": np.array(dqf.hot.version)}
-
-
 def phase_quant(ctx, mode, dev):
     from repro_torch.convert import dqf_from_arrays
     from repro_torch.core import QuantConfig
@@ -1007,7 +1029,7 @@ def phase_quant(ctx, mode, dev):
     log(f"  {mode}: quantizer trained on the host in {t_train:.3f} s "
         f"({state.nbytes()} bytes of codes and codebook, "
         f"{ctx['x'].nbytes / state.nbytes():.1f}x smaller than the rows)")
-    arrays = reference_arrays(ctx["dqf"])
+    arrays = ctx["dqf"].to_arrays()            # what DQF.save writes
     arrays.update(state.to_arrays())
     cfg = dataclasses.replace(ctx["cfg"], quant=qcfg)
     torch.cuda.reset_peak_memory_stats()
@@ -1109,7 +1131,7 @@ def phase_serving(ctx, dev, seed):
     from repro_torch.serving.paged_engine import PagedWaveEngine
 
     cfg = dataclasses.replace(ctx["cfg"], n_query_trigger=10 ** 9)
-    dqf = dqf_from_arrays(reference_arrays(ctx["dqf"]), cfg, device=dev)
+    dqf = dqf_from_arrays(ctx["dqf"].to_arrays(), cfg, device=dev)
     dqf.tree = ctx["dqf"].tree
     t0 = time.perf_counter()
     qb = ZipfWorkload(ctx["x"], seed=seed + 1)
@@ -1298,6 +1320,309 @@ def time_paged_hop(dqf, q, paged_launches, syn_err):
             "library_note": "no single PyTorch call computes a graph hop",
             "dense_ms": dense_ms, "bound_share": bound_ms / ms,
             "contract": "bits", "device_ms": device_ms}
+
+
+# ------------------------------------------------------------------ phase 11
+def _hop_counts():
+    from repro_torch.kernels.fused_hop import (fused_hop_cuda,
+                                               fused_hop_paged_cuda)
+    return fused_hop_cuda.launches, fused_hop_paged_cuda.launches
+
+
+def _no_dead(ids, dqf, what):
+    """No tombstoned (or out-of-range) id in ``ids``."""
+    ids = np.asarray(ids)
+    if ids.min() < 0 or ids.max() >= dqf.store.n:
+        raise SystemExit(f"{what}: ids outside the index")
+    dead = int((~dqf.store.alive[ids]).sum())
+    if dead:
+        raise SystemExit(f"{what}: {dead} tombstoned ids returned")
+
+
+def _self_hits(res, want) -> float:
+    """Share of lanes whose top-k holds their own id ``want[lane]``."""
+    return float((res.ids.cpu().numpy()
+                  == np.asarray(want)[:, None]).any(axis=1).mean())
+
+
+def _live_recall(dqf, batches, k, dev):
+    """recall@10 of ``search`` and of ``search_dual_beam`` (no tree) over
+    ``batches``, against the exact top-k of the live rows."""
+    from repro_torch.core.recall import ground_truth, recall_at_k
+
+    live = dqf.store.live_ids()
+    gt = live[ground_truth(dqf.store.x[live], np.concatenate(batches), k,
+                           device=dev)]
+    run = lambda fn: np.concatenate([fn(q).ids.cpu().numpy()
+                                     for q in batches])
+    return (recall_at_k(run(lambda q: dqf.search(q, record=False)), gt),
+            recall_at_k(run(dqf.search_dual_beam), gt))
+
+
+def phase_mutation(ctx, dev, seed, n_insert=512, n_delete=5000):
+    """Phase 11: the mutable main path on phase 4's index.  Save and load
+    a clone, then serve four rounds through the fixed engine (original)
+    and the paged engine (clone) with the same churn applied to both at
+    the drain boundaries: insert ``n_insert`` rows, delete ``n_delete``,
+    compact.  The checkpoints live in a temp dir removed at the end."""
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-")
+    try:
+        return _mutation(ctx, dev, seed, n_insert, n_delete, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _mutation(ctx, dev, seed, n_insert, n_delete, tmp):
+    from repro_torch.core import DQF
+    from repro_torch.core.ssg import _bfs
+    from repro_torch.kernels.fused_hop import (fused_hop_cuda,
+                                               fused_hop_paged_cuda)
+    from repro_torch.serving.engine import WaveEngine
+    from repro_torch.serving.paged_engine import PagedWaveEngine
+
+    orig = ctx["dqf"]
+    cfg = dataclasses.replace(ctx["cfg"], n_query_trigger=10 ** 9)
+    orig.cfg = cfg                      # phase 9's trigger out of reach
+    batches, k = ctx["batches"], cfg.k
+    out = {"timings": {}}
+    tm = out["timings"]
+    path = os.path.join(tmp, "phase4.npz")
+    t0 = time.perf_counter()
+    orig.save(path)
+    tm["save_s"] = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    clone = DQF.load(path, cfg)
+    torch.cuda.synchronize()
+    tm["load_s"] = time.perf_counter() - t0
+    size = os.path.getsize(path)
+    log(f"  save {tm['save_s']:.3f} s ({size} bytes), DQF.load onto the "
+        f"card {tm['load_s']:.3f} s")
+    if clone.device.type != dev.type:     # DQF.load's default: the card
+        raise SystemExit(f"DQF.load put the clone on {clone.device}")
+    compare_results(orig.search(batches[0], record=False),
+                    clone.search(batches[0], record=False),
+                    "batch 0, original and loaded clone")
+
+    fixed = WaveEngine(orig, wave_size=256, tick_hops=8)
+    paged = PagedWaveEngine(clone, capacity=256, tick_hops=8,
+                            page_cols=256)
+    rng = np.random.default_rng(seed)
+    fused_hop_cuda.launches = fused_hop_paged_cuda.launches = 0
+    hop_entries = {}
+    peak = 0                   # serve() resets the peak: kept across calls
+
+    def fused_vs_composed(label):
+        composed = copy.copy(orig)
+        composed.cfg = dataclasses.replace(cfg, fused=False)
+        compare_results(orig.search(batches[0], record=False),
+                        composed.search(batches[0], record=False),
+                        f"{label}: fused and composed searches")
+        saved = _hop_counts()
+        hop_entries[label] = time_hop(orig, batches[0], None, label)
+        fused_hop_cuda.launches, fused_hop_paged_cuda.launches = saved
+
+    for rnd, q in enumerate(batches):
+        got = {}
+        for name, eng in (("fixed", fixed), ("paged", paged)):
+            # the engines' stats run on across rounds: take differences
+            before, ticks, hops = (_hop_counts(), eng.stats.ticks,
+                                   eng.stats.total_hops)
+            peak = max(peak, torch.cuda.max_memory_allocated())
+            _, res, _, summ = serve(eng, [("default", q, 0)], [], k)
+            launches = [a - b for a, b in zip(_hop_counts(), before)]
+            summ["ticks"] -= ticks
+            qps = len(q) / summ["wall_s"]
+            _no_dead(np.stack([r["ids"] for r in res]), eng.dqf,
+                     f"round {rnd + 1}, {name}")
+            got[name] = (res, summ)
+            log(f"  round {rnd + 1}, {name}: QPS {qps:.1f} ({len(q)} "
+                f"queries in {summ['wall_s'] * 1e3:.1f} ms), ticks "
+                f"{summ['ticks']}, mean hops "
+                f"{(eng.stats.total_hops - hops) / len(q):.3f}, launches "
+                f"fused_hop {launches[0]} fused_hop_paged {launches[1]}, "
+                f"store n {eng.dqf.store.n} capacity "
+                f"{eng.dqf.store.capacity}")
+            out[f"round{rnd + 1}_{name}_qps"] = qps
+        compare_serving(got["fixed"][0], got["paged"][0],
+                        f"round {rnd + 1}: paged vs fixed",
+                        (got["fixed"][1]["ticks"], got["paged"][1]["ticks"]))
+        if rnd == 0:                                        # insert 512
+            src = rng.choice(ctx["x"].shape[0], n_insert)
+            rows = ctx["x"][src] + 0.02 * rng.standard_normal(
+                (n_insert, ctx["x"].shape[1])).astype(np.float32)
+            # the rows drawn from, searched as queries before the insert:
+            # how often a built row finds itself (the index's own bar)
+            built = {name: _self_hits(fn(np.ascontiguousarray(
+                ctx["x"][src])), src) for name, fn in
+                (("search", lambda q: orig.search(q, record=False)),
+                 ("search_baseline", orig.search_baseline))}
+            cap0, n0 = orig.store.capacity, orig.store.n
+            ext = []
+            for name, d in (("original", orig), ("clone", clone)):
+                t0 = time.perf_counter()
+                ext.append(d.insert(rows))
+                dt = time.perf_counter() - t0
+                tm[f"insert_{name}_s"] = dt
+                log(f"  insert {n_insert} rows into the {name}: {dt:.3f} s "
+                    f"({dt / n_insert * 1e3:.3f} ms a row), capacity {cap0} -> "
+                    f"{d.store.capacity}")
+            if not np.array_equal(ext[0], ext[1]) \
+                    or orig.store.capacity == cap0:
+                raise SystemExit("insert: external ids differ between the "
+                                 "twins, or the capacity did not grow")
+            new = np.arange(n0, n0 + n_insert)
+            found = {"search": _self_hits(orig.search(rows, record=False),
+                                          new),
+                     "search_baseline": _self_hits(
+                         orig.search_baseline(rows), new)}
+            out["inserted_found"], out["built_found"] = found, built
+            for name in found:
+                log(f"  {name}: {found[name]:.4f} of the {n_insert} inserted "
+                    f"rows find their own id in their top-10; the rows they "
+                    f"were drawn from, before the insert: "
+                    f"{built[name]:.4f}")
+            # an inserted row must be found about as often as a built one
+            # (at 1,200 rows both are near 1, the reference test's 0.8 bar);
+            # 0.1 is over 3 standard deviations of the difference of two
+            # rates near 0.3 over 512 rows, and an unlinked row reads 0
+            if found["search"] < built["search"] - 0.1:
+                raise SystemExit("the inserted rows are found less often "
+                                 "than the built rows less 0.1")
+            rec = out["recall_after_insert"] = _live_recall(orig, batches,
+                                                            k, dev)
+            base = ctx["summary"]["recall"]
+            log(f"  recall@10 over the live rows after the insert "
+                f"{rec[0]:.4f} (phase 4: {base:.4f}); without the tree "
+                f"{rec[1]:.4f}")
+            if rec[0] < base - 0.02:           # a breakage guard
+                raise SystemExit("recall after the insert fell more than "
+                                 "0.02 below phase 4's")
+            fused_vs_composed("after insert, float32")
+        elif rnd == 1:                                      # delete 5,000
+            live = orig.store.live_ids()
+            dead_int = rng.choice(live, n_delete, replace=False)
+            dead_ext = orig.store.to_external(dead_int)
+            hot_hit = int(np.isin(orig.hot.ids, dead_int).sum())
+            version = orig.hot.version
+            for name, d in (("original", orig), ("clone", clone)):
+                t0 = time.perf_counter()
+                n_dead = d.delete(dead_ext)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                tm[f"delete_{name}_s"] = dt
+                log(f"  delete {n_delete} rows from the {name}: {dt:.3f} s "
+                    f"({dt / n_delete * 1e3:.3f} ms a row; {hot_hit} hot rows "
+                    f"hit, hot index {version} -> {d.hot.version})")
+                if n_dead != n_delete:
+                    raise SystemExit(f"delete removed {n_dead} rows")
+            if not (np.array_equal(orig.hot.ids, clone.hot.ids)
+                    and np.array_equal(orig.hot.graph.adj,
+                                       clone.hot.graph.adj)
+                    and np.array_equal(orig.full.adj, clone.full.adj)):
+                raise SystemExit("delete: the twins' graphs differ")
+            for b, qb in enumerate(batches):
+                _no_dead(orig.search(qb, record=False).ids.cpu(), orig,
+                         f"search, batch {b}, after the delete")
+            _no_dead(orig.search_dual_beam(batches[0]).ids.cpu(), orig,
+                     "search_dual_beam after the delete")
+            _no_dead(orig.search_baseline(batches[0]).ids.cpu(), orig,
+                     "search_baseline after the delete")
+            log("  no tombstoned id in search (4 batches), "
+                "search_dual_beam or search_baseline")
+            # the delete rebuilt the hot index from the counter (Alg 2's
+            # reselection, as the reference's delete does): reported here,
+            # and the probe at the end measures that reselection alone
+            rec = out["recall_after_delete"] = _live_recall(orig, batches,
+                                                            k, dev)
+            log(f"  recall@10 over the live rows after the delete "
+                f"{rec[0]:.4f}; without the tree {rec[1]:.4f}")
+            fused_vs_composed("after delete, float32")
+        elif rnd == 2:                                      # compact
+            live = orig.store.live_ids()
+            keep_ext = orig.store.to_external(live)
+            keep_vec = orig.store.x[live].copy()
+            for name, d in (("original", orig), ("clone", clone)):
+                t0 = time.perf_counter()
+                res = d.compact()
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                t = d.timings
+                tm[f"compact_{name}_s"] = dt
+                tm[f"compact_{name}_split_s"] = (
+                    t.compact_store, t.compact_graph, t.compact_repair)
+                log(f"  compact the {name}: {dt:.3f} s (store "
+                    f"{t.compact_store:.3f}, compact_adjacency "
+                    f"{t.compact_graph:.3f}, repair {t.compact_repair:.3f}); "
+                    f"dropped {res['dropped']}, n {d.store.n}")
+            if not np.array_equal(orig.full.adj, clone.full.adj):
+                raise SystemExit("compact: the twins' graphs differ")
+            back = orig.store.to_internal(keep_ext)
+            if not np.array_equal(orig.store.x[back].view(np.int32),
+                                  keep_vec.view(np.int32)):
+                raise SystemExit("compact: a live row lost its vector")
+            del keep_vec
+            n = orig.store.n
+            adj = torch.as_tensor(np.where(orig.full.adj < 0, n,
+                                           orig.full.adj).astype(np.int64),
+                                  device=dev)
+            seen = torch.zeros(n, dtype=torch.bool, device=dev)
+            _bfs(adj, seen, torch.as_tensor(orig.full.entries.astype(
+                np.int64), device=dev))
+            if not bool(seen.all()):
+                raise SystemExit(f"compact: {int((~seen).sum())} live nodes "
+                                 f"unreachable from the entry set")
+            del adj, seen
+            log(f"  every live row keeps its vector under its external id "
+                f"({len(keep_ext)} rows, bit for bit); all {n} nodes "
+                f"reachable from the {orig.full.entries.size} entries")
+            rec = out["recall_after_compact"] = _live_recall(orig, batches,
+                                                             k, dev)
+            before = out["recall_after_delete"][0]
+            log(f"  recall@10 over the live rows after the compact "
+                f"{rec[0]:.4f} (before it: {before:.4f}); without the tree "
+                f"{rec[1]:.4f}")
+            if rec[0] < before - 0.02:         # a breakage guard
+                raise SystemExit("recall after the compact fell more than "
+                                 "0.02 below the recall before it")
+    launches = _hop_counts()
+    out["launches"] = launches
+    log(f"  launches in phase 11: fused_hop {launches[0]}, fused_hop_paged "
+        f"{launches[1]}")
+    if min(launches) <= 0:
+        raise SystemExit("phase 11 never launched fused_hop or "
+                         "fused_hop_paged")
+
+    churned = os.path.join(tmp, "churned.npz")
+    t0 = time.perf_counter()
+    orig.save(churned)
+    tm["save_churned_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again = DQF.load(churned, cfg)
+    torch.cuda.synchronize()
+    tm["load_churned_s"] = time.perf_counter() - t0
+    log(f"  the churned original: save {tm['save_churned_s']:.3f} s, load "
+        f"{tm['load_churned_s']:.3f} s")
+    compare_results(orig.search(batches[0], record=False),
+                    again.search(batches[0], record=False),
+                    "batch 0, churned original and its reload")
+    del again, clone, paged, fixed
+    torch.cuda.empty_cache()
+    # Alg 2's reselection without any churn: phase 4's checkpoint reloaded,
+    # its hot index rebuilt from its own counter (what the delete did)
+    probe = DQF.load(path, cfg)
+    kept = _live_recall(probe, batches, k, dev)
+    probe.rebuild_hot()
+    out["recall_reselected"] = _live_recall(probe, batches, k, dev)
+    log(f"  phase 4's checkpoint, no churn: recall@10 {kept[0]:.4f} (without "
+        f"the tree {kept[1]:.4f}); its hot index reselected from its "
+        f"counter (Alg 2): {out['recall_reselected'][0]:.4f} (without the "
+        f"tree {out['recall_reselected'][1]:.4f})")
+    del probe
+    out["peak_gib"] = max(peak, torch.cuda.max_memory_allocated()) / 2 ** 30
+    log(f"  peak device memory in phase 11: {out['peak_gib']:.3f} GiB")
+    out["hops"] = hop_entries
+    return out
 
 
 # ----------------------------------------------------------------- phase 3e
@@ -1790,6 +2115,23 @@ def main() -> int:
     phase("phase 10: scan and merge entry points on the main path's state")
     scan_entries, _ = phase_scan(ctx, dev, scan_errs)
     entries += scan_entries
+
+    phase("phase 11: the mutable main path on phase 4's index (save, load, "
+          "insert, delete, compact; both engines across the churn)")
+    mut = phase_mutation(ctx, dev, args.seed)
+    by_name = {e["name"]: e for e in entries}
+    keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "max_abs_err", "full_phase_ms", "full_phase_device_ms",
+            "full_phase_bound_ms")
+    by_name["fused_hop (f32)"]["mutation"] = dict(
+        launches=mut["launches"][0],
+        **{label: {key: e[key] for key in keys}
+           for label, e in mut["hops"].items()})
+    by_name["fused_hop_paged"]["mutation"] = {"launches":
+                                              mut["launches"][1]}
+    hop = by_name["fused_hop (f32)"]
+    hop["max_abs_err"] = max([hop["max_abs_err"]] + [
+        e["max_abs_err"] for e in mut["hops"].values()])
 
     phase("done")
     log(f"  total {time.perf_counter() - t_all:.1f} s")

@@ -2,9 +2,8 @@
 
 Host-side orchestrator of the vector store, the full NSSG, the tenant
 registry (per-tenant query counters and hot indexes), the decision tree,
-the optional quantized Full Index and the search.  This port covers a
-resident index; mutation (insert, delete, compact) and tiering come with
-their own slices.
+the optional quantized Full Index, the search, and the mutable lifecycle
+and checkpoints of a resident index.  Tiering comes with its own slice.
 
 Typical flow::
 
@@ -13,6 +12,18 @@ Typical flow::
     dqf.warm(workload.sample(50_000))     # seed counters, build hot index
     dqf.fit_tree(history_queries)         # train the termination tree
     res = dqf.search(queries)             # Algorithm 4
+
+Mutable lifecycle and checkpoints::
+
+    ext = dqf.insert(new_rows)            # append + local graph re-link
+    dqf.delete(ext[:10])                  # tombstone + neighbor patch-through
+    dqf.compact()                         # drop tombstones, remap, repair
+    dqf.save(path)                        # the reference's .npz keys
+    dqf = DQF.load(path, cfg)             # on the card unless device="cpu"
+
+Graph maintenance under insert and delete is host numpy, as in the
+reference; compaction's connectivity repair and every hot rebuild run on
+the DQF's device.
 
 Multi-tenant preference (:mod:`repro_torch.tenancy`): the counter, the hot
 index and the Alg-2 rebuild clock live per tenant while the Full Index
@@ -34,6 +45,9 @@ and the pool's head is re-scored exactly from ``x_pad``
 from __future__ import annotations
 
 import dataclasses
+import os
+import shutil
+import tempfile
 import time
 from typing import Optional
 
@@ -46,10 +60,12 @@ from repro_torch.store import VectorStore
 from repro_torch.tenancy import DEFAULT_TENANT, TenantRegistry, TenantState
 
 from . import beam_search as bs
-from .decision_tree import DecisionTree, train_tree
+from .decision_tree import DecisionTree, train_tree, tree_arrays
 from .dynamic_search import dynamic_search
 from .hot_index import HotIndex, QueryCounter, build_hot_index
-from .ssg import SSGIndex, SSGParams, build_ssg
+from .ssg import (SSGIndex, SSGParams, build_ssg, compact_adjacency,
+                  link_new_rows, medoid, patch_dead_edges,
+                  repair_free_adjacency)
 from .tree_training import collect_training_data
 from .types import DQFConfig, SearchResult
 
@@ -62,6 +78,11 @@ class _Timings:
     hot_build: float = 0.0
     tree_fit: float = 0.0
     quant_train: float = 0.0
+    # the last compact(), step by step: the store's left-pack, the
+    # adjacency rewrite, the connectivity repair
+    compact_store: float = 0.0
+    compact_graph: float = 0.0
+    compact_repair: float = 0.0
 
 
 def resolve_device(device=None) -> torch.device:
@@ -80,8 +101,19 @@ def _to_free_slots(adj: np.ndarray, n: int) -> np.ndarray:
     return np.where((adj < 0) | (adj >= n), -1, adj).astype(np.int32)
 
 
+def _hot_index(arrays, prefix: str) -> HotIndex:
+    """A saved hot index (``{prefix}hot_*`` keys)."""
+    ids = np.asarray(arrays[f"{prefix}hot_ids"], np.int32)
+    graph = SSGIndex(adj=np.asarray(arrays[f"{prefix}hot_adj"], np.int32),
+                     entries=np.asarray(arrays[f"{prefix}hot_entries"],
+                                        np.int32),
+                     n=int(ids.shape[0]))
+    return HotIndex(graph=graph, ids=ids, build_seconds=0.0,
+                    version=int(arrays[f"{prefix}hot_version"]))
+
+
 class DQF:
-    """Dual-Index Query Framework over a resident vector store."""
+    """Dual-Index Query Framework over a mutable vector store."""
 
     def __init__(self, cfg: DQFConfig | None = None, *, device=None,
                  registry: Optional[MetricsRegistry] = None):
@@ -105,6 +137,7 @@ class DQF:
         self._dev: dict = {}
         self._dev_epoch = -1
         self._dev_rows_epoch = -1
+        self._adj_buf: Optional[np.ndarray] = None
 
     def _collect_metrics(self) -> dict:
         """Registry scrape-time collector (keyed ``"dqf"``)."""
@@ -118,6 +151,19 @@ class DQF:
     def scrape(self) -> dict:
         """One flat metrics dict across store, tenants and engines."""
         return self.registry.scrape()
+
+    def exposition(self) -> str:
+        """Prometheus text exposition of :meth:`scrape`."""
+        return self.registry.exposition()
+
+    def debug_bundle(self, out_dir: str, *, reason: str = "") -> str:
+        """Write a diagnostic bundle for this DQF (the engines' bundle
+        without an engine: scrape, exposition, config and memory report).
+        Returns the bundle directory path."""
+        from repro_torch.obs.bundle import debug_bundle as _bundle
+        extra = ({"memory_report": self.memory_report()}
+                 if self.store is not None else None)
+        return _bundle(self, out_dir, reason=reason, extra=extra)
 
     # -------------------------------------------------------------- storage
     @property
@@ -202,14 +248,22 @@ class DQF:
         """Install a store and its free-slot full graph; start a fresh
         tenant registry and upload the padded device tables."""
         self.store = store
-        self.full = SSGIndex(adj=adj, entries=np.asarray(entries, np.int32),
-                             n=store.n)
+        self._set_full_adj(adj, np.asarray(entries, np.int32))
         self.tenants = TenantRegistry(store.n,
                                       trigger=self.cfg.n_query_trigger,
                                       device=self.device,
                                       registry=self.registry)
         self._dev = {}
         self._sync_device(force=True)
+
+    def _set_full_adj(self, adj: np.ndarray, entries: np.ndarray) -> None:
+        """Install a full-graph adjacency into the capacity-sized host
+        buffer (so inserts extend it by slice instead of copying it)."""
+        n = adj.shape[0]
+        self._adj_buf = np.full((self.store.capacity, adj.shape[1]), -1,
+                                np.int32)
+        self._adj_buf[:n] = adj
+        self.full = SSGIndex(adj=self._adj_buf[:n], entries=entries, n=n)
 
     # --------------------------------------------------------- device tables
     def _sync_device(self, force: bool = False) -> None:
@@ -407,6 +461,119 @@ class DQF:
             live_pad=self._dev["live_pad"], fused=c.fused,
             fused_hops=c.fused_hops)
 
+    # ------------------------------------------------------ mutable lifecycle
+    def insert(self, rows: np.ndarray,
+               ext_ids: Optional[np.ndarray] = None) -> np.ndarray:
+        """Append rows; returns their stable external ids.
+
+        Storage: rows (and quant codes, encoded with the existing codebooks)
+        are appended to the store, whose capacity grows geometrically.
+        Graph: each new node gets search-based neighbor candidates and an
+        SSG-pruned out-edge set, and its chosen neighbors gain reverse edges
+        (:func:`repro_torch.core.ssg.link_new_rows`, host numpy).  Device
+        tables refresh at the next search.
+        """
+        self._require()
+        rows = np.atleast_2d(np.ascontiguousarray(rows, np.float32))
+        start = self.store.n
+        new_ext = self.store.add(rows, ext_ids)
+        n_new = self.store.n
+        if self._adj_buf.shape[0] < self.store.capacity:   # buffers grew
+            buf = np.full((self.store.capacity, self._adj_buf.shape[1]),
+                          -1, np.int32)
+            buf[:start] = self._adj_buf[:start]
+            self._adj_buf = buf
+        self._adj_buf[start:n_new] = -1
+        adj = self._adj_buf[:n_new]
+        link_new_rows(self.store.x, adj, np.arange(start, n_new),
+                      self._ssg_params, self.full.entries,
+                      alive=self.store.alive)
+        self.full = SSGIndex(adj=adj, entries=self.full.entries, n=n_new)
+        self.tenants.grow(n_new)        # every tenant's new rows start cold
+        return new_ext
+
+    def delete(self, ext_ids: np.ndarray) -> int:
+        """Tombstone rows by external id; returns the number deleted.
+
+        The rows stay gatherable (search masks them everywhere) and their
+        in-neighbors inherit their live out-edges, so reachability through
+        the tombstones survives.  Every tenant whose hot index held a
+        deleted row gets its hot index rebuilt at once.  A delete that
+        would leave fewer than two live rows is refused before any
+        mutation (an index that empty needs a rebuild, not a delete).
+        """
+        self._require()
+        requested = np.unique(np.asarray(ext_ids).reshape(-1))
+        if self.store.live_count - requested.size < 2:
+            raise ValueError(
+                f"deleting {requested.size} of {self.store.live_count} live "
+                "rows would leave an unsearchable index — rebuild instead")
+        dead = self.store.mark_dead(ext_ids)
+        patch_dead_edges(self.store.x, self.full.adj, dead, self.store.alive)
+        self._refresh_entries()
+        for name in self.tenants.hot_tenants_containing(dead):
+            self.rebuild_hot(tenant=name)
+        return int(dead.size)
+
+    def _refresh_entries(self) -> None:
+        """Keep the entry set on live nodes (re-draw tombstoned entries,
+        seeded by the store epoch)."""
+        ent = self.full.entries
+        keep = ent[self.store.alive[ent]]
+        if keep.size == ent.size:
+            return
+        live = self.store.live_ids()
+        pool = np.setdiff1d(live, keep)
+        rng = np.random.default_rng(int(self.store.epoch))
+        need = min(ent.size - keep.size, pool.size)
+        extra = rng.choice(pool, size=need, replace=False) if need else []
+        self.full = SSGIndex(
+            adj=self.full.adj,
+            entries=np.unique(np.concatenate([keep, extra])).astype(np.int32),
+            n=self.full.n)
+
+    def compact(self) -> dict:
+        """Rewrite storage without tombstones; external ids are kept.
+
+        Internal ids shift (the store returns the remap); the graph, every
+        tenant's hot ids and every tenant's counter are remapped and the
+        graph's connectivity is re-verified.  In-flight search state (live
+        serving lanes) is invalidated: drain the engines first.
+        """
+        self._require()
+        t0 = time.perf_counter()
+        res = self.store.compact()
+        remap = res.remap
+        t1 = time.perf_counter()
+        adj = compact_adjacency(self.full.adj, remap)
+        ent = remap[self.full.entries]
+        ent = np.unique(ent[ent >= 0]).astype(np.int32)
+        if ent.size == 0:
+            ent = np.asarray([medoid(self.store.x)], np.int32)
+        t2 = time.perf_counter()
+        adj = repair_free_adjacency(self.store.x, adj, int(ent[0]),
+                                    device=self.device)
+        t3 = time.perf_counter()
+        self.timings.compact_store = t1 - t0
+        self.timings.compact_graph = t2 - t1
+        self.timings.compact_repair = t3 - t2
+        self._set_full_adj(adj, ent)
+        for name in self.tenants.remap(remap):
+            # unreachable when delete() rebuilt eagerly; explicit hot_ids
+            # overrides can still hold a dropped row
+            self.rebuild_hot(tenant=name)
+        self._sync_device()
+        return {"dropped": res.dropped, "n": self.store.n, "remap": remap}
+
+    def to_external(self, internal_ids: np.ndarray) -> np.ndarray:
+        """Map search-result internal ids to stable external ids; sentinel
+        and padding ids (≥ store.n) map to -1."""
+        ids = np.asarray(internal_ids)
+        valid = (ids >= 0) & (ids < self.store.n)
+        out = np.full(ids.shape, -1, np.int64)
+        out[valid] = self.store.to_external(ids[valid])
+        return out
+
     # ------------------------------------------------------------------ misc
     def memory_report(self) -> dict:
         """Byte accounting split by residency, as the reference reports it:
@@ -447,6 +614,155 @@ class DQF:
         out.update(device=dev, host=host,
                    disk={"tier_files": 0, "total": 0})
         return out
+
+    def index_nbytes(self) -> dict:
+        """Alias of :meth:`memory_report` (same dict)."""
+        return self.memory_report()
+
+    # ----------------------------------------------------------- checkpoints
+    def to_arrays(self) -> dict:
+        """Store, graph, tree and every tenant's preference state as numpy
+        arrays under the reference checkpoint's keys (what :meth:`save`
+        writes).  The default tenant keeps the keys ``counts``,
+        ``counter_since`` and ``hot_*``; every other tenant is saved under
+        ``tenant{i}_*``, listed by ``tenant_names``."""
+        self._require()
+        arrs = self.store.to_arrays()
+        arrs.update(full_adj=self.full.adj,
+                    full_entries=self.full.entries,
+                    counts=self.counter.counts,
+                    counter_since=np.int64(self.counter.since_rebuild),
+                    metric=np.array(self.cfg.metric))
+        if self.hot is not None:
+            arrs.update(hot_adj=self.hot.graph.adj,
+                        hot_entries=self.hot.graph.entries,
+                        hot_ids=self.hot.ids,
+                        hot_version=np.int64(self.hot.version))
+        extra = [t for t in self.tenants if t.name != DEFAULT_TENANT]
+        if extra:
+            arrs["tenant_names"] = np.array([t.name for t in extra])
+            for i, t in enumerate(extra):
+                arrs[f"tenant{i}_counts"] = t.counter.counts
+                arrs[f"tenant{i}_since"] = np.int64(t.counter.since_rebuild)
+                if t.hot is not None:
+                    arrs[f"tenant{i}_hot_adj"] = t.hot.graph.adj
+                    arrs[f"tenant{i}_hot_entries"] = t.hot.graph.entries
+                    arrs[f"tenant{i}_hot_ids"] = t.hot.ids
+                    arrs[f"tenant{i}_hot_version"] = np.int64(t.hot.version)
+        if self.tree is not None:
+            t = self.tree.arrays
+            arrs.update(tree_feature=t.feature.cpu().numpy(),
+                        tree_threshold=t.threshold.cpu().numpy(),
+                        tree_left=t.left.cpu().numpy(),
+                        tree_right=t.right.cpu().numpy(),
+                        tree_value=t.value.cpu().numpy(),
+                        tree_depth=np.int64(self.tree.depth),
+                        tree_importance=self.tree.feature_importance)
+        return arrs
+
+    def save(self, path: str) -> None:
+        """Persist :meth:`to_arrays` to ``path`` (``.npz`` appended when
+        missing), crash-safe: staged in a temp dir in the destination
+        directory, fsynced, and published by one ``os.replace``, so a
+        crash at any step leaves the old checkpoint or the new one whole.
+        Written uncompressed (float32 rows barely compress, and zlib would
+        take most of a million-row save); ``np.load`` reads either form,
+        so the reference's ``DQF.load`` reads it too."""
+        arrs = self.to_arrays()
+        final = str(path)
+        if not final.endswith(".npz"):
+            final += ".npz"
+        dest_dir = os.path.dirname(os.path.abspath(final))
+        tmp_dir = tempfile.mkdtemp(prefix=".dqf-save-", dir=dest_dir)
+        try:
+            tmp_npz = os.path.join(tmp_dir, "checkpoint.npz")
+            with open(tmp_npz, "wb") as f:
+                np.savez(f, **arrs)
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(tmp_npz, final)      # atomic commit
+        finally:
+            shutil.rmtree(tmp_dir, ignore_errors=True)
+
+    @classmethod
+    def load(cls, path: str, cfg: DQFConfig | None = None, *,
+             device=None) -> "DQF":
+        """A DQF from a checkpoint of either package (:meth:`save` or the
+        reference's ``DQF.save``), on the card unless ``device`` says
+        otherwise; see :meth:`from_arrays` for what is refused."""
+        with np.load(path) as z:
+            return cls.from_arrays(z, cfg, device=device, source=str(path))
+
+    @classmethod
+    def from_arrays(cls, arrays, cfg: DQFConfig | None = None, *,
+                    device=None, source: str = "the arrays") -> "DQF":
+        """A DQF over the state saved under the reference checkpoint keys
+        (any mapping: ``np.load`` of a ``.npz``, or :meth:`to_arrays`).
+
+        Refused, as the reference refuses them: a ``cfg.dim`` other than
+        the rows' width, a ``metric`` other than ``cfg.metric``, and, when
+        ``cfg.quant`` asks for a quantized index, saved codes that are
+        absent, of another mode, or (pq) of another shape than
+        ``(pq_m, min(2**pq_bits, n))``.  A float32 ``cfg`` drops saved
+        codes.  Missing store keys default as the reference's do.
+        """
+        self = cls(cfg, device=device)
+        c = self.cfg
+        d_saved = int(arrays["x"].shape[1])
+        if c.dim is not None and d_saved != c.dim:
+            raise ValueError(
+                f"checkpoint {source} holds d={d_saved} vectors but the "
+                f"config expects dim={c.dim} — fix DQFConfig.dim (or drop "
+                "it) or rebuild the index")
+        metric_saved = str(arrays["metric"]) if "metric" in arrays else "l2"
+        if metric_saved != c.metric:
+            raise ValueError(
+                f"checkpoint {source} was built for metric "
+                f"{metric_saved!r} but the config expects {c.metric!r} — "
+                "distances would be meaningless")
+        store = VectorStore.from_arrays(arrays, registry=self.registry)
+        n = store.n
+        if not c.quant.enabled:
+            # cfg decides the search; the checkpoint provides the artifacts
+            store.drop_quant()
+        elif store.quant is None:
+            raise ValueError(
+                f"cfg requests quant mode {c.quant.mode!r} but {source} "
+                "holds no quantizer — rebuild with build()")
+        elif store.quant.mode != c.quant.mode:
+            raise ValueError(f"cfg quant mode {c.quant.mode!r} != saved "
+                             f"{store.quant.mode!r}")
+        elif store.quant.mode == "pq":
+            m, kk = store.quant.pq.m, store.quant.pq.k
+            want_k = min(2 ** c.quant.pq_bits, n)
+            if (m, kk) != (c.quant.pq_m, want_k):
+                raise ValueError(f"cfg PQ shape (m={c.quant.pq_m}, "
+                                 f"k={want_k}) != saved (m={m}, k={kk})")
+        self._install(store, _to_free_slots(np.asarray(arrays["full_adj"]),
+                                            n),
+                      np.asarray(arrays["full_entries"], np.int32))
+        self.counter.counts = np.asarray(arrays["counts"], np.float64).copy()
+        if "counter_since" in arrays:
+            self.counter.since_rebuild = int(arrays["counter_since"])
+        if "tenant_names" in arrays:
+            for i, name in enumerate(str(s) for s in arrays["tenant_names"]):
+                t = self.tenants.create(name)
+                t.counter.counts = np.asarray(arrays[f"tenant{i}_counts"],
+                                              np.float64).copy()
+                t.counter.since_rebuild = int(arrays[f"tenant{i}_since"])
+                if f"tenant{i}_hot_ids" in arrays:
+                    t.set_hot(_hot_index(arrays, f"tenant{i}_"))
+        if "tree_feature" in arrays:
+            self.tree = DecisionTree(
+                arrays=tree_arrays(arrays["tree_feature"],
+                                   arrays["tree_threshold"],
+                                   arrays["tree_left"], arrays["tree_right"],
+                                   arrays["tree_value"], device=self.device),
+                depth=int(arrays["tree_depth"]),
+                feature_importance=np.asarray(arrays["tree_importance"]))
+        if "hot_ids" in arrays:
+            self.set_hot(_hot_index(arrays, ""))
+        return self
 
     def _require(self, tenant: Optional[TenantState] = None) -> None:
         if self.full is None:

@@ -60,6 +60,28 @@ class QueryCounter:
         if self.decay != 1.0:
             self.counts *= self.decay
 
+    # ------------------------------------------------- mutable-store support
+    def grow(self, n_new: int) -> None:
+        """Extend the id space after inserts (new rows start cold)."""
+        if n_new < self.n:
+            raise ValueError(f"grow to {n_new} < current {self.n}")
+        self.counts = np.concatenate(
+            [self.counts, np.zeros(n_new - self.n, np.float64)])
+        self.n = n_new
+
+    def remap(self, remap: np.ndarray) -> None:
+        """Apply a compaction remap (old→new id, -1 dropped) to the counts.
+
+        Preference mass on surviving rows is kept exactly, so the next
+        rebuild sees the hot set it would have seen before compaction; the
+        trigger clock keeps running (compaction is not a rebuild).
+        """
+        keep = remap >= 0
+        new_counts = np.zeros(int(keep.sum()), np.float64)
+        new_counts[remap[keep]] = self.counts[keep]
+        self.counts = new_counts
+        self.n = int(new_counts.shape[0])
+
 
 @dataclasses.dataclass
 class HotIndex:

@@ -13,11 +13,19 @@ a million-row build runs on the card:
 
 Host-side draws (:func:`medoid`, the entry points) are the reference's
 numpy calls, so the same seed gives the same entries.
+
+The incremental maintenance of a mutable graph (:func:`link_new_rows`,
+:func:`patch_dead_edges`, :func:`compact_adjacency`,
+:func:`repair_free_adjacency` and their helpers) is the reference's host
+numpy, copied expression for expression (its own :func:`_angle_keep`, not
+the batched :func:`_angle_filter`, whose sums differ), so the same inputs
+give the same adjacency bit for bit.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -27,7 +35,9 @@ from repro_torch.kernels.ref import sq_l2
 from .knng import build_knng
 
 __all__ = ["SSGParams", "SSGIndex", "ssg_prune", "build_ssg",
-           "ensure_connected", "medoid"]
+           "ensure_connected", "medoid", "greedy_search_host",
+           "link_new_rows", "patch_dead_edges", "compact_adjacency",
+           "repair_free_adjacency"]
 
 _BLOCK_ELEMS = 1 << 27      # largest (rows, candidates, d) block gathered
 _GREEDY_ROWS = 8192         # rows per greedy-filter block
@@ -60,6 +70,28 @@ def medoid(x: np.ndarray, sample: int = 4096, seed: int = 0) -> int:
     mean = x.mean(axis=0)
     d = np.sum((x[idx] - mean) ** 2, axis=1)
     return int(idx[np.argmin(d)])
+
+
+def _angle_keep(vec: np.ndarray, dist: np.ndarray, R: int,
+                cos_a: float) -> list[int]:
+    """SSG greedy angle filter (Alg 1 lines 10-20) over distance-sorted
+    candidate offset vectors ``vec``; returns kept candidate indices.
+    One row at a time in numpy, as the reference computes it."""
+    d = vec.shape[1]
+    norm = np.sqrt(np.maximum(dist, 1e-12))
+    kept: list[int] = []
+    kept_dir = np.empty((R, d), np.float32)
+    for i in range(vec.shape[0]):
+        if len(kept) >= R:
+            break
+        u = vec[i] / norm[i]
+        if kept:
+            cos = kept_dir[: len(kept)] @ u
+            if np.any(cos > cos_a):                   # angle < alpha → drop
+                continue
+        kept_dir[len(kept)] = u
+        kept.append(i)
+    return kept
 
 
 def _cos_above(cos: torch.Tensor, cos_a: float) -> torch.Tensor:
@@ -252,3 +284,192 @@ def build_ssg(x, params: SSGParams | None = None, n_entry: int = 8,
     extra = rng.choice(x.shape[0], size=max(0, n_entry - 1), replace=False)
     entries = np.unique(np.concatenate([[med], extra])).astype(np.int32)
     return SSGIndex(adj=adj, entries=entries, n=x.shape[0])
+
+
+# --------------------------------------------------------------------------
+# Incremental maintenance over a *free-slot* adjacency (host numpy).
+#
+# A build-once graph pads unused slots with the sentinel ``n``; once rows can
+# be appended that value collides with ids minted later, so every mutable-
+# graph op below uses ``-1`` for empty slots instead (a value no insert can
+# ever mint).  ``VectorStore.pad_adjacency`` maps ``-1`` back to the device
+# sentinel at upload time.
+# --------------------------------------------------------------------------
+
+def greedy_search_host(x: np.ndarray, adj: np.ndarray, entries: np.ndarray,
+                       q: np.ndarray, *, pool_size: int = 48,
+                       max_hops: int = 256,
+                       alive: Optional[np.ndarray] = None) -> np.ndarray:
+    """Host-side best-first search; returns visited-pool ids, nearest first.
+
+    The insert path's candidate generator: the existing graph is searched
+    from ``entries`` and the candidate pool doubles as the new node's
+    neighborhood sample.  Invalid (< 0 / >= n) and tombstoned neighbors are
+    skipped.
+    """
+    n = x.shape[0]
+    ent = np.unique(np.asarray(entries, np.int64))
+    ent = ent[(ent >= 0) & (ent < n)]
+    if alive is not None:
+        ent = ent[alive[ent]]
+    if ent.size == 0:
+        return np.empty(0, np.int64)
+    d0 = np.sum((x[ent] - q) ** 2, axis=1)
+    order = np.argsort(d0, kind="stable")
+    pool_ids = ent[order][:pool_size]
+    pool_d = d0[order][:pool_size]
+    expanded = np.zeros(pool_ids.shape[0], bool)
+    seen = set(pool_ids.tolist())
+    for _ in range(max_hops):
+        todo = np.flatnonzero(~expanded)
+        if todo.size == 0:
+            break
+        i = int(todo[np.argmin(pool_d[todo])])
+        expanded[i] = True
+        nbrs = adj[pool_ids[i]]
+        nbrs = nbrs[(nbrs >= 0) & (nbrs < n)]
+        if alive is not None:
+            nbrs = nbrs[alive[nbrs]]
+        nbrs = np.array([v for v in nbrs.tolist() if v not in seen],
+                        np.int64)
+        if nbrs.size == 0:
+            continue
+        seen.update(nbrs.tolist())
+        nd = np.sum((x[nbrs] - q) ** 2, axis=1)
+        ids = np.concatenate([pool_ids, nbrs])
+        ds = np.concatenate([pool_d, nd])
+        ex = np.concatenate([expanded, np.zeros(nbrs.shape[0], bool)])
+        keep = np.argsort(ds, kind="stable")[:pool_size]
+        pool_ids, pool_d, expanded = ids[keep], ds[keep], ex[keep]
+    return pool_ids
+
+
+def _reprune_row(x: np.ndarray, adj: np.ndarray, p: int,
+                 cand: np.ndarray, params: SSGParams) -> None:
+    """Rewrite row ``p`` as the SSG angle-prune of candidate set ``cand``."""
+    R = adj.shape[1]
+    cos_a = np.cos(np.deg2rad(params.alpha_deg))
+    cand = np.unique(cand[(cand >= 0) & (cand != p)])
+    vec = x[cand] - x[p]
+    dist = np.einsum("cd,cd->c", vec, vec)
+    order = np.argsort(dist, kind="stable")[: params.candidate_cap]
+    cand, vec, dist = cand[order], vec[order], dist[order]
+    ids = cand[_angle_keep(vec, dist, R, cos_a)]
+    adj[p] = -1
+    adj[p, : ids.size] = ids
+
+
+def link_new_rows(x: np.ndarray, adj: np.ndarray, new_ids: np.ndarray,
+                  params: SSGParams, entries: np.ndarray,
+                  alive: Optional[np.ndarray] = None) -> None:
+    """Local re-link for inserted rows (in place on a free-slot adjacency).
+
+    For each new node ``p``: search-based candidates (the greedy pool plus
+    its members' out-neighbors), SSG angle-prune for ``p``'s out-edges, then
+    reverse-link — each chosen neighbor gains an edge back to ``p``, via a
+    free slot or an SSG re-prune of its neighborhood when full.  The nearest
+    kept neighbor is *forced* to keep its back-edge (evicting its farthest
+    edge if the angle prune dropped ``p``) so every inserted node has at
+    least one in-edge and stays reachable.  Only the touched vertices are
+    rewritten.
+    """
+    n = x.shape[0]
+    pool_size = min(params.candidate_cap,
+                    max(32, 2 * params.knn_k, params.out_degree))
+    for p in np.asarray(new_ids, np.int64):
+        pool = greedy_search_host(x, adj, entries, x[p],
+                                  pool_size=pool_size, alive=alive)
+        cand = [pool]
+        for c in pool:
+            nb = adj[c]
+            cand.append(nb[(nb >= 0) & (nb < n)])
+        cand = np.concatenate(cand)
+        if alive is not None and cand.size:
+            cand = cand[alive[cand]]
+        if cand.size == 0:
+            # empty graph (first insert): fall back to the entry set
+            cand = np.asarray(entries, np.int64)
+        _reprune_row(x, adj, int(p), cand.astype(np.int64), params)
+        for j, q in enumerate(adj[p]):
+            if q < 0:
+                break
+            row = adj[q]
+            free = np.flatnonzero(row < 0)
+            if p in row[: row.shape[0] - free.shape[0]]:
+                continue
+            if free.size:
+                adj[q, free[0]] = p
+            else:
+                _reprune_row(x, adj, int(q),
+                             np.concatenate([row, [p]]), params)
+                if j == 0 and p not in adj[q]:
+                    # guarantee one in-edge: evict q's farthest kept edge
+                    row = adj[q]
+                    valid = np.flatnonzero(row >= 0)
+                    d2 = np.sum((x[row[valid]] - x[q]) ** 2, axis=1)
+                    adj[q, valid[np.argmax(d2)]] = p
+
+
+def patch_dead_edges(x: np.ndarray, adj: np.ndarray, dead_ids: np.ndarray,
+                     alive: np.ndarray) -> None:
+    """Tombstone patch-through (in place): every in-neighbor of a dead node
+    drops the dead edge and inherits the *live frontier* behind it, so paths
+    that ran through the tombstone stay walkable even though search no
+    longer expands it.  The frontier walk follows chains of dead nodes and
+    is bounded to keep deletes cheap."""
+    n, R = adj.shape
+    dead = np.zeros(n, bool)
+    dead[np.asarray(dead_ids, np.int64)] = True
+    valid = adj >= 0
+    hit = np.zeros_like(valid)
+    hit[valid] = dead[adj[valid]]
+    for u in np.flatnonzero(hit.any(axis=1)):
+        if dead[u]:
+            continue                     # dead rows are dropped at compaction
+        row = adj[u]
+        keep = [v for v in row if v >= 0 and alive[v]]
+        inherited: list[int] = []
+        for v in row:
+            if not (v >= 0 and dead[v]):
+                continue
+            # BFS through not-alive nodes to the live frontier behind v.
+            stack, seen_dead = [int(v)], {int(v)}
+            while stack and len(inherited) < R and len(seen_dead) <= 4 * R:
+                nb = adj[stack.pop()]
+                for w in nb[(nb >= 0) & (nb < n)].tolist():
+                    if alive[w]:
+                        if w != u and w not in keep and w not in inherited:
+                            inherited.append(w)
+                    elif w not in seen_dead:
+                        seen_dead.add(w)
+                        stack.append(w)
+        if inherited:
+            d2 = np.sum((x[inherited] - x[u]) ** 2, axis=1)
+            inherited = [inherited[i] for i in np.argsort(d2, kind="stable")]
+        new_row = (keep + inherited)[:R]
+        adj[u] = -1
+        adj[u, : len(new_row)] = new_row
+
+
+def compact_adjacency(adj: np.ndarray, remap: np.ndarray) -> np.ndarray:
+    """Rewrite a free-slot adjacency under a compaction remap.
+
+    ``remap[old] = new`` internal id or ``-1`` for dropped rows.  Dropped
+    rows disappear; edges to dropped rows become free slots (left-aligned).
+    """
+    kept = remap >= 0
+    a = adj[kept]
+    valid = a >= 0
+    m = np.where(valid, remap[np.maximum(a, 0)], -1).astype(np.int32)
+    order = np.argsort(m < 0, axis=1, kind="stable")      # live edges first
+    return np.ascontiguousarray(np.take_along_axis(m, order, 1))
+
+
+def repair_free_adjacency(x: np.ndarray, adj: np.ndarray, entry: int,
+                          device="cpu") -> np.ndarray:
+    """:func:`ensure_connected` for a free-slot adjacency (after
+    compaction); the reachability search runs on ``device``."""
+    n = adj.shape[0]
+    padded = np.where(adj < 0, n, adj).astype(np.int32)
+    repaired = ensure_connected(x, padded, entry, device=device)
+    return np.where(repaired >= n, -1, repaired).astype(np.int32)

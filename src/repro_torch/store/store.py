@@ -169,6 +169,9 @@ class VectorStore:
     def live_count(self) -> int:
         return int(self.alive.sum())
 
+    def live_ids(self) -> np.ndarray:
+        return np.flatnonzero(self.alive)
+
     def to_external(self, internal_ids: np.ndarray) -> np.ndarray:
         """Map internal ids to stable external ids (shape-preserving)."""
         return self.ext_ids[np.asarray(internal_ids)]

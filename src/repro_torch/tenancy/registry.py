@@ -6,6 +6,9 @@ The registry owns every :class:`~repro_torch.tenancy.tenant.TenantState`:
   slots are reused lowest first, so the stacked tables stay dense and a
   tenant's index never changes while it lives) and a creation sequence
   ``gen`` that tells a re-created name from its evicted ancestor.
+* **Store fan-out** — ``grow`` and ``remap`` forward the vector store's
+  inserts and compactions to every tenant's counter (and hot id map), so
+  all preference state stays consistent under insert/delete/compact.
 * **Stacking** — :meth:`TenantRegistry.stacked` packs every tenant's hot
   tables into capacity-padded device tensors: ``(T_pad, H_pad+1, d)``
   rows, ``(T_pad, H_pad+1, R)`` local-id adjacency, ``(T_pad, H_pad+1)``
@@ -14,8 +17,7 @@ The registry owns every :class:`~repro_torch.tenancy.tenant.TenantState`:
   go; the engines route each lane to its tenant's slice by
   ``tenant_idx`` and serve a mixed-tenant wave in one search.
 
-Port of ``repro/tenancy/registry.py``; the store fan-out of inserts and
-compactions (``grow``/``remap``) comes with the port's mutation slice.
+Port of ``repro/tenancy/registry.py``.
 """
 
 from __future__ import annotations
@@ -137,6 +139,34 @@ class TenantRegistry:
 
     def __iter__(self) -> Iterator[TenantState]:
         return iter(self._tenants.values())
+
+    # ---------------------------------------------------------- store fan-out
+    def grow(self, n_new: int) -> None:
+        """Extend every tenant's counter id space after inserts."""
+        self._n = int(n_new)
+        for t in self._tenants.values():
+            t.counter.grow(n_new)
+
+    def remap(self, remap: np.ndarray) -> list[str]:
+        """Fan a compaction remap out to every counter and hot id map.
+
+        Returns the tenants whose hot index lost a row: the caller must
+        rebuild those (unreachable when deletes rebuild eagerly, but kept
+        for explicit ``hot_ids`` overrides).
+        """
+        need_rebuild = []
+        for t in self._tenants.values():
+            t.counter.remap(remap)
+            if not t.remap_hot(remap):
+                need_rebuild.append(t.name)
+        self._n = self.default.counter.n
+        return need_rebuild
+
+    def hot_tenants_containing(self, ids: np.ndarray) -> list[str]:
+        """Tenants whose hot index references any of ``ids`` (deletions)."""
+        ids = np.asarray(ids)
+        return [t.name for t in self._tenants.values()
+                if t.hot is not None and np.isin(t.hot.ids, ids).any()]
 
     def _collect_metrics(self) -> dict:
         """Registry scrape-time collector (keyed ``"tenants"``).

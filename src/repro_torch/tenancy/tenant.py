@@ -39,13 +39,29 @@ class TenantState:
     slot: int = 0              # stable registry slot = tenant_idx in stacks
     gen: int = 0               # registry creation sequence — tells a
                                # re-created name from its evicted ancestor
-    hot_token: int = 0         # bumps whenever ``hot`` is replaced
+    hot_token: int = 0         # bumps whenever ``hot`` is replaced/remapped
     _dev: dict = dataclasses.field(default_factory=dict, repr=False)
     _dev_key: Optional[tuple] = dataclasses.field(default=None, repr=False)
 
     def set_hot(self, hot: Optional["HotIndex"]) -> None:
         self.hot = hot
         self.hot_token += 1
+
+    def remap_hot(self, remap: np.ndarray) -> bool:
+        """Apply a compaction remap (old→new, -1 dropped) to the hot ids.
+
+        Returns False when a hot row was dropped: the caller must rebuild
+        this tenant's hot index (its graph references a vanished row).
+        """
+        if self.hot is None:
+            return True
+        new_ids = remap[self.hot.ids]
+        if (new_ids < 0).any():
+            return False
+        self.hot = dataclasses.replace(self.hot,
+                                       ids=new_ids.astype(np.int32))
+        self.hot_token += 1
+        return True
 
     def hot_tables(self, store: "VectorStore", device) -> dict:
         """This tenant's padded hot device tables (single-tenant form),
