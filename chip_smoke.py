@@ -149,6 +149,34 @@ Phases, in order; any failure exits non-zero:
    and repair), each round's QPS per engine, the two hops' launches and
    the peak device memory.
 
+12. the disk tier (``repro_torch.tiering``) at the main path's size:
+   phase 8's sq8 index (kept as arrays) loaded with ``TierConfig(mode=
+   "host", block_rows=64, cache_frac=f)`` for f in {1.0, 0.25, 0.10},
+   block files in a temp dir removed at the end: 2 warm batches,
+   ``relayout_tier()``, 2 more, then phase 4's 4 batches, each
+   bit-identical (ids, dists, counters) to a resident ``fused=False``
+   twin, and no fused_hop launch in any tiered batch (the tier gates the
+   hop off); per f the ms a batch split into hot phase, full phase with
+   its host fetches and rerank, ``host_fetch`` ms and rows, ``maintain``
+   ms and admissions, the window hit rate before and after the relayout,
+   recall@10 and ``memory_report`` totals beside the resident twin's.
+   Then f32 (phase 4's index, kept before phase 11) and pq at 25% against
+   their resident ``fused=False`` twins, and mxu at 25% on the f32 twin
+   (``fused_topk_l2`` launches counted); equality with the resident
+   ``fused=True`` searches is reported.  Both engines (phase 9's shapes,
+   4096 queries at once) on the sq8 twin at 25% with prefetch: paged ≡
+   fixed and both ≡ the resident ``fused=False`` engines per query, QPS,
+   p99, queue-wait p99, tick hit rate, prefetches, pinned blocks.  Chaos:
+   every block's first read failing (``FaultPlan(tier_fail_first_fetch=
+   True)``, ``fetch_backoff_s=0``) leaves 256 queries bit-identical with
+   retries and no failure; ``tier_io_rate=1.0`` with one retry on the
+   fixed engine raises nothing and marks the degraded queries; page-pool
+   denials at 0.3 on the paged engine delay and lose nothing.  Last, the
+   tiered twin and its resident twin through insert 512 (the files
+   resize, the caches re-key), delete 1,000 and compact, equal searches
+   and no stale block after each step, then a save with the
+   ``<path>.npz.tier/`` sidecar and a reload that searches the same.
+
 Recall guards against breakage, not a target: 0.5 for the float32 paths,
 half of phase 4's recall for the quantized ones.  Phases 7 and 8 search
 with ``record=False``, so every path searches the same hot index.
@@ -1061,11 +1089,12 @@ def phase_quant(ctx, mode, dev):
 
 
 # ------------------------------------------------------------------ phase 9
-def serve(eng, plan, counters, k):
+def serve(eng, plan, counters, k, on_step=None):
     """Drive ``eng`` through ``plan`` — a list of (tenant, queries,
-    steps after submitting) — then drain it, one ``step()`` at a time.
-    Every counter in ``counters`` is set to 0 just before and read just
-    after.  Returns (rids, results, launches, summary)."""
+    steps after submitting) — then drain it, one ``step()`` at a time,
+    calling ``on_step(eng)`` after each.  Every counter in ``counters`` is
+    set to 0 just before and read just after.  Returns (rids, results,
+    launches, summary)."""
     for c in counters:
         c.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -1075,6 +1104,8 @@ def serve(eng, plan, counters, k):
     def step():
         eng.step()
         occ.append(eng._collect_metrics()["engine_occupancy_ratio"])
+        if on_step is not None:
+            on_step(eng)
 
     for tenant, q, steps in plan:
         rids += eng.submit(q, tenant=tenant)
@@ -1625,6 +1656,532 @@ def _mutation(ctx, dev, seed, n_insert, n_delete, tmp):
     return out
 
 
+# ------------------------------------------------------------------ phase 12
+TIER_FRACS = (1.0, 0.25, 0.10)
+
+
+def copy_arrays(dqf) -> dict:
+    """``dqf.to_arrays()`` copied (its store views move under later
+    mutations): what ``DQF.save`` writes, kept in host memory."""
+    return {k: np.array(v, copy=True) for k, v in dqf.to_arrays().items()}
+
+
+def same_result(a, b) -> bool:
+    """``compare_results``'s fields bit for bit, as a verdict."""
+    pairs = [(a.ids, b.ids), (a.dists, b.dists)] + [
+        (getattr(a.stats, f), getattr(b.stats, f))
+        for f in ("dist_count", "hops", "terminated_early", "update_count")]
+    return all(bits_equal(u, v) for u, v in pairs)
+
+
+class TierClock:
+    """Host clocks (the card synchronised on both sides) around a tiered
+    search's pieces while active: the hot phase, the full phase with its
+    host fetches, the rerank (its rows fetched too), the caches'
+    ``host_fetch`` (the numpy read) and ``maintain`` (admissions and
+    their arena upload), summed in ms, and the blocks admitted."""
+
+    PHASES = ("hot_phase", "_full_phase", "_exact_rerank")
+
+    def __init__(self, dqf):
+        self.caches = dqf.store.tier_caches()
+        self.acc = dict.fromkeys(("hot_phase", "_full_phase",
+                                  "_exact_rerank", "host_fetch", "maintain",
+                                  "admitted"), 0.0)
+
+    def _timed(self, name, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            self.acc[name] += (time.perf_counter() - t0) * 1e3
+            if name == "maintain":
+                self.acc["admitted"] += out
+            return out
+        return run
+
+    def __enter__(self):
+        # the module (``repro_torch.core.dynamic_search`` the attribute is
+        # the function of that name)
+        ds = sys.modules["repro_torch.core.dynamic_search"]
+        self._ds = ds
+        self._saved = {name: getattr(ds, name) for name in self.PHASES}
+        for name, fn in self._saved.items():
+            setattr(ds, name, self._timed(name, fn))
+        for c in self.caches:          # instance attributes shadow methods
+            c.host_fetch = self._timed("host_fetch", c.host_fetch)
+            c.maintain = self._timed("maintain", c.maintain)
+        return self.acc
+
+    def __exit__(self, *exc):
+        for name, fn in self._saved.items():
+            setattr(self._ds, name, fn)
+        for c in self.caches:
+            del c.host_fetch, c.maintain
+        return False
+
+
+def tier_cfg(cfg, tmp, name, frac, **over):
+    from repro_torch.core import TierConfig
+    path = os.path.join(tmp, name)
+    return dataclasses.replace(cfg, tier=TierConfig(
+        mode="host", dir=path, block_rows=64, cache_frac=frac, **over))
+
+
+def tier_searches(dqf, batches):
+    """``search`` over ``batches`` (record=False), a host clock around each
+    (synchronised), the split summed over them, and each cache's counter
+    deltas.  No fused_hop launch may happen: the tier gates it off."""
+    from repro_torch.kernels.fused_hop import (fused_hop_cuda,
+                                               fused_hop_paged_cuda)
+
+    before = {c.name: dict(c.counters) for c in dqf.store.tier_caches()}
+    hops0 = fused_hop_cuda.launches + fused_hop_paged_cuda.launches
+    res, ms = [], []
+    with TierClock(dqf) as acc:
+        for q in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res.append(dqf.search(q, record=False))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+    if fused_hop_cuda.launches + fused_hop_paged_cuda.launches != hops0:
+        raise SystemExit("a tiered search launched the fused hop")
+    delta = {c.name: {k: c.counters[k] - before[c.name][k]
+                      for k in c.counters} for c in dqf.store.tier_caches()}
+    return res, ms, dict(acc), delta
+
+
+def _mem_totals(dqf):
+    m = dqf.memory_report()
+    return {k: m[k]["total"] for k in ("device", "host", "disk")}
+
+
+def check_fresh_blocks(dqf, what):
+    """Every resident block of every cache holds the file's current bytes
+    (through the layout): no block serves stale rows."""
+    n_blocks = 0
+    for c in dqf.store.tier_caches():
+        slots = np.flatnonzero(c._slot_bid >= 0)
+        got = c.arena_dev()[torch.as_tensor(slots, device=c.device)]
+        got = got.cpu().numpy()
+        want = np.stack([c._load_block(int(b)) for b in c._slot_bid[slots]])
+        if not np.array_equal(got.view(np.uint8), want.view(np.uint8)):
+            raise SystemExit(f"{what}: a {c.name} block serves stale bytes")
+        n_blocks += slots.size
+    log(f"  {what}: all {n_blocks} resident blocks hold the files' bytes")
+
+
+def tier_report(label, ms, acc, delta, snaps, recall, mem, mem_r):
+    rows = sum(d["misses"] for d in delta.values())
+    gathered = sum(d["hits"] + d["misses"] for d in delta.values())
+    nb = len(ms)
+    log(f"  {label}: ms a batch {', '.join(f'{t:.1f}' for t in ms)}; "
+        f"split a batch: hot phase {acc['hot_phase'] / nb:.1f}, full phase "
+        f"with its host fetches {acc['_full_phase'] / nb:.1f}, rerank "
+        f"{acc['_exact_rerank'] / nb:.1f}; host_fetch "
+        f"{acc['host_fetch'] / nb:.1f} ms and {rows / nb:.0f} rows read "
+        f"of {gathered / nb:.0f} gathered a batch; maintain "
+        f"{acc['maintain'] / nb:.1f} ms and {acc['admitted'] / nb:.0f} "
+        f"admissions a batch")
+    if snaps:
+        log(f"    window hit rate (full-phase cache): warm batches 1-2 "
+            f"{snaps[0]:.4f}, after relayout_tier batches 3-4 "
+            f"{snaps[1]:.4f}, the 4 batches {snaps[2]:.4f}")
+    log(f"    recall@10 {recall:.4f}; memory_report totals, tiered / "
+        f"resident: device {mem['device']} / {mem_r['device']}, host "
+        f"{mem['host']} / {mem_r['host']}, disk {mem['disk']} / "
+        f"{mem_r['disk']} bytes")
+
+
+def phase_tier(ctx, dev, seed, saved, n_insert=512, n_delete=1000,
+               chaos_q=256):
+    """Phase 12: the disk tier at the main path's size.  ``saved`` holds
+    phase 4's and phase 8's indexes as arrays (``copy_arrays``).  The
+    block files live in a temp dir removed at the end, also on a failed
+    check."""
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-tier-")
+    try:
+        return _tier(ctx, dev, seed, saved, n_insert, n_delete, chaos_q,
+                     tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _free(*dqfs):
+    for d in dqfs:
+        if d.store.tiered:
+            for c in d.store.tier_caches():
+                c.close()
+            shutil.rmtree(d.store.tier_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def _tier(ctx, dev, seed, saved, n_insert, n_delete, chaos_q, tmp):
+    from repro_torch.chaos import FaultPlan, install_chaos, uninstall_chaos
+    from repro_torch.convert import dqf_from_arrays
+    from repro_torch.core import QuantConfig, ZipfWorkload
+    from repro_torch.core.recall import recall_at_k
+    from repro_torch.kernels.fused_topk_l2 import fused_topk_l2_cuda
+    from repro_torch.obs import ObsConfig
+    from repro_torch.serving.engine import WaveEngine
+    from repro_torch.serving.paged_engine import PagedWaveEngine
+
+    batches, gt = ctx["batches"], ctx["gt"]
+    base = dataclasses.replace(ctx["cfg"], n_query_trigger=10 ** 9)
+    cfgs = {"f32": base,
+            "sq8": dataclasses.replace(base, quant=QuantConfig(
+                mode="sq8", rerank_k=64)),
+            "pq": dataclasses.replace(base, quant=QuantConfig(
+                mode="pq", rerank_k=64))}
+    wl = ZipfWorkload(ctx["x"], seed=seed + 2)
+    warm = [wl.sample(1024) for _ in range(4)]
+    out = {}
+    torch.cuda.reset_peak_memory_stats()
+    peak = 0
+
+    def resident(mode):
+        """(composed, fused) resident twins of one saved index: the
+        composed one is the bar, the fused one is reported."""
+        r = dqf_from_arrays(saved[mode], dataclasses.replace(
+            cfgs[mode], fused=False), device=dev)
+        f = copy.copy(r)
+        f.cfg = dataclasses.replace(r.cfg, fused=True)
+        return r, f
+
+    def run(dqf, bs_):
+        return [dqf.search(q, record=False) for q in bs_]
+
+    def recall(res):
+        return recall_at_k(torch.cat([r.ids for r in res]).cpu().numpy(),
+                           gt)
+
+    # --- sq8, the reference's tiered configuration, at three cache sizes
+    r_sq8, f_sq8 = resident("sq8")
+    want = run(r_sq8, batches)
+    fused_sq8 = run(f_sq8, batches)
+    mem_r = _mem_totals(r_sq8)
+    t25 = None
+    for frac in TIER_FRACS:
+        t0 = time.perf_counter()
+        t = dqf_from_arrays(saved["sq8"], tier_cfg(
+            cfgs["sq8"], tmp, f"sq8_{frac}", frac), device=dev)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        if t._fused:
+            raise SystemExit("a tiered DQF left the fused path on")
+        cache = t.store.full_phase_cache()
+        for q in warm[:2]:
+            t.search(q, record=False)
+        snaps = [cache.stats_snapshot()["hit_rate"]]
+        if not t.relayout_tier():
+            raise SystemExit("relayout_tier saw no traffic")
+        for q in warm[2:]:
+            t.search(q, record=False)
+        snaps.append(cache.stats_snapshot()["hit_rate"])
+        res, ms, acc, delta = tier_searches(t, batches)
+        snaps.append(cache.stats_snapshot()["hit_rate"])
+        for b, (g, w) in enumerate(zip(res, want)):
+            compare_results(g, w, f"sq8 at {frac:.0%} cache, batch {b}: "
+                            "tiered and resident fused=False")
+        fused_eq = all(same_result(g, w) for g, w in zip(res, fused_sq8))
+        mem = _mem_totals(t)
+        rec = recall(res)
+        log(f"  sq8 at {frac:.0%} cache ({cache.slots} of "
+            f"{cache.bf.n_blocks} code blocks, "
+            f"{t.store._row_cache.slots} row blocks; load "
+            f"{t_load:.3f} s): equal to the resident fused=True search: "
+            f"{fused_eq}")
+        tier_report(f"sq8 at {frac:.0%}", ms, acc, delta, snaps, rec, mem,
+                    mem_r)
+        out[f"sq8_{frac}"] = dict(ms=ms, split=acc, delta=delta,
+                                  snaps=snaps, recall=rec, mem=mem,
+                                  mem_resident=mem_r, fused_equal=fused_eq,
+                                  load_s=t_load)
+        peak = max(peak, torch.cuda.max_memory_allocated())
+        if frac == 0.25:
+            t25 = t
+        else:
+            _free(t)
+            del t
+    del f_sq8
+
+    # --- float32 and pq at 25%, mxu on the float32 twin
+    for mode in ("f32", "pq"):
+        r, f = resident(mode)
+        t = dqf_from_arrays(saved[mode], tier_cfg(cfgs[mode], tmp,
+                                                  f"{mode}_0.25", 0.25),
+                            device=dev)
+        res, ms, acc, delta = tier_searches(t, batches)
+        for b, (g, w) in enumerate(zip(res, run(r, batches))):
+            compare_results(g, w, f"{mode} at 25% cache, batch {b}: "
+                            "tiered and resident fused=False")
+        fused_eq = all(same_result(g, w) for g, w in zip(res, run(f,
+                                                                  batches)))
+        log(f"  {mode} at 25% cache: equal to the resident fused=True "
+            f"search: {fused_eq}")
+        tier_report(f"{mode} at 25%", ms, acc, delta, None, recall(res),
+                    _mem_totals(t), _mem_totals(r))
+        out[f"{mode}_0.25"] = dict(ms=ms, split=acc, delta=delta,
+                                   recall=recall(res),
+                                   fused_equal=fused_eq)
+        if mode == "f32":
+            mt, mr, mf = copy.copy(t), copy.copy(r), copy.copy(f)
+            for d in (mt, mr, mf):
+                d.cfg = dataclasses.replace(d.cfg, hot_mode="mxu")
+            fused_topk_l2_cuda.launches = 0
+            res, ms, acc, delta = tier_searches(mt, batches)
+            launches = fused_topk_l2_cuda.launches
+            for b, (g, w) in enumerate(zip(res, run(mr, batches))):
+                compare_results(g, w, f"mxu at 25% cache, batch {b}: "
+                                "tiered and resident fused=False")
+            fused_eq = all(same_result(g, w)
+                           for g, w in zip(res, run(mf, batches)))
+            log(f"  mxu at 25% cache: fused_topk_l2 launches in the 4 "
+                f"tiered searches: {launches}; equal to the resident "
+                f"fused=True search: {fused_eq}")
+            if launches <= 0:
+                raise SystemExit("the tiered mxu searches never launched "
+                                 "fused_topk_l2")
+            tier_report("mxu at 25%", ms, acc, delta, None, recall(res),
+                        _mem_totals(mt), _mem_totals(mr))
+            out["mxu_0.25"] = dict(ms=ms, split=acc, launches=launches,
+                                   recall=recall(res), fused_equal=fused_eq)
+            del mt, mr, mf
+        peak = max(peak, torch.cuda.max_memory_allocated())
+        _free(t, r)
+        del t, r, f
+
+    # --- engines on the sq8 twin at 25%, prefetch on
+    queries = np.concatenate(batches)
+    cache = t25.store.full_phase_cache()
+    obs = ObsConfig(timeline=True)
+    fixed_r = copy.copy(r_sq8)
+    fixed_f = copy.copy(r_sq8)
+    fixed_f.cfg = dataclasses.replace(r_sq8.cfg, fused=True)
+    got = {}
+    for twin, d in (("tiered", t25), ("resident fused=False", fixed_r),
+                    ("resident fused=True", fixed_f)):
+        for name in ("fixed", "paged"):
+            # the timeline's spans split the run (phase 9's way)
+            eng = (WaveEngine(d, wave_size=256, tick_hops=8, obs=obs)
+                   if name == "fixed" else
+                   PagedWaveEngine(d, capacity=256, tick_hops=8,
+                                   page_cols=256, obs=obs))
+            ticks = {"hit": [], "pinned": []}
+
+            def on_step(e):
+                if d.store.tiered:
+                    ticks["hit"].append(e._g_tick_hit.value())
+                    ticks["pinned"].append(e._last_pinned)
+
+            c0 = dict(cache.counters)
+            _, res, _, summ = serve(eng, [("default", queries, 0)], [],
+                                    d.cfg.k, on_step)
+            peak = max(peak, torch.cuda.max_memory_allocated())
+            line = (f"  engines, {twin}, {name}: QPS {summ['qps']:.1f}, "
+                    f"p99 {summ['p99_ms']:.3f} ms, queue-wait p99 "
+                    f"{summ['queue_wait_p99_ms']:.3f} ms, ticks "
+                    f"{summ['ticks']}, mean hops {summ['mean_hops']:.3f}")
+            if d.store.tiered:
+                dc = {k: cache.counters[k] - c0[k] for k in c0}
+                summ.update(tick_hit_mean=float(np.mean(ticks["hit"])),
+                            prefetch=(dc["prefetch_issued"],
+                                      dc["prefetch_applied"]),
+                            pinned_max=max(ticks["pinned"]),
+                            hit_rate=dc["hits"] / max(1, dc["hits"]
+                                                      + dc["misses"]))
+                line += (f", tick hit rate mean {summ['tick_hit_mean']:.4f}"
+                         f" (run {summ['hit_rate']:.4f}), prefetches "
+                         f"issued {dc['prefetch_issued']} applied "
+                         f"{dc['prefetch_applied']}, pinned blocks max "
+                         f"{summ['pinned_max']}")
+            sp = summ["split_ms"]
+            line += (f"; ms summed over the run: ticks "
+                     f"{sp.get('tick', 0):.1f} = tier housekeeping and "
+                     f"prefetch requests {sp.get('tick.tier', 0):.1f} + "
+                     f"launch {sp.get('tick.launch', 0):.1f} + retire "
+                     f"{sp.get('tick.retire', 0):.1f} + refill "
+                     f"{sp.get('tick.refill', 0):.1f} + housekeeping "
+                     f"{sp.get('tick.housekeeping', 0):.1f}")
+            log(line)
+            got[twin, name] = (res, summ)
+            del eng
+    compare_serving(got["tiered", "fixed"][0], got["tiered", "paged"][0],
+                    "engines, tiered: paged vs fixed")
+    for name in ("fixed", "paged"):
+        compare_serving(got["tiered", name][0],
+                        got["resident fused=False", name][0],
+                        f"engines, {name}: tiered vs resident fused=False")
+        f_eq = all(np.array_equal(a["ids"], b["ids"])
+                   and np.array_equal(a["dists"].view(np.int32),
+                                      b["dists"].view(np.int32))
+                   and a["hops"] == b["hops"]
+                   for a, b in zip(got["tiered", name][0],
+                                   got["resident fused=True", name][0]))
+        log(f"  engines, {name}: tiered equal to the resident fused=True "
+            f"engine per query: {f_eq}")
+    out["engines"] = {f"{t} {n}": s for (t, n), (_, s) in got.items()}
+    del got, fixed_r, fixed_f
+
+    # --- chaos: retried to success, degraded past the retries, pool denials
+    q0 = batches[0]
+    q = q0[:chaos_q]
+    c1 = dqf_from_arrays(saved["sq8"], tier_cfg(
+        cfgs["sq8"], tmp, "chaos", 0.25, fetch_retries=1,
+        fetch_backoff_s=0.0), device=dev)
+    plan = install_chaos(c1, FaultPlan(seed=seed,
+                                       tier_fail_first_fetch=True))
+    t0 = time.perf_counter()
+    got1 = c1.search(q, record=False)
+    chaos_s = time.perf_counter() - t0
+    compare_results(got1, r_sq8.search(q, record=False),
+                    f"{chaos_q} queries with every block's first read "
+                    "failing, and the fault-free resident search")
+    cs = [c.counters for c in c1.store.tier_caches()]
+    retries = sum(c["fetch_retries"] for c in cs)
+    failures = sum(c["fetch_failures"] for c in cs)
+    log(f"  tier_fail_first_fetch: {plan.injected['tier_io']} injected "
+        f"faults, {retries} retries, {failures} failures, {chaos_s:.3f} s")
+    if retries <= 0 or failures != 0:
+        raise SystemExit("tier_fail_first_fetch: retries or failures off")
+    uninstall_chaos(c1)
+    plan = FaultPlan(seed=seed, tier_io_rate=1.0)
+    eng = WaveEngine(c1, wave_size=256, tick_hops=8)
+    install_chaos(eng, plan)
+    t0 = time.perf_counter()
+    rids = eng.submit(q)
+    res = eng.run_until_drained(max_ticks=10_000)["results"]
+    io_s = time.perf_counter() - t0
+    if not set(rids) <= set(res):
+        raise SystemExit("tier_io_rate=1.0: a query never terminated")
+    degraded = [r for r in rids if res[r]["degraded"]]
+    if (not degraded or eng.stats.degraded != len(degraded)
+            or any(res[r]["status"] != "degraded" for r in degraded)):
+        raise SystemExit(f"tier_io_rate=1.0: {len(degraded)} degraded "
+                         f"results, stats.degraded {eng.stats.degraded}")
+    log(f"  tier_io_rate=1.0, fetch_retries=1, fixed engine: {len(rids)} "
+        f"queries terminated, {len(degraded)} degraded (stats "
+        f"{eng.stats.degraded}), {plan.injected['tier_io']} injected "
+        f"faults, {io_s:.3f} s")
+    uninstall_chaos(eng)
+    del eng
+    _free(c1)
+    del c1
+    plan = FaultPlan(seed=seed, pool_deny_rate=0.3)
+    eng = PagedWaveEngine(r_sq8, capacity=256, tick_hops=8, page_cols=256)
+    install_chaos(eng, plan)
+    rids = []
+    for i in range(0, len(q0), 64):         # an admission a step
+        rids += eng.submit(q0[i:i + 64])
+        eng.step()
+    res = eng.run_until_drained(max_ticks=10_000)["results"]
+    if (not set(rids) <= set(res) or eng.stats.completed != len(rids)
+            or plan.injected["pool_deny"] <= 0):
+        raise SystemExit(f"pool_deny_rate=0.3: {eng.stats.completed} of "
+                         f"{len(rids)} completed, "
+                         f"{plan.injected['pool_deny']} denials")
+    log(f"  pool_deny_rate=0.3, paged engine: {eng.stats.completed} of "
+        f"{len(rids)} queries completed, {plan.injected['pool_deny']} "
+        f"denials, statuses "
+        f"{sorted({res[r]['status'] for r in rids})}")
+    out["chaos"] = dict(retries=retries, io_degraded=len(degraded),
+                        pool_denials=plan.injected["pool_deny"])
+    del eng
+
+    # --- mutation on the tier: a fresh tiered twin and its resident twin
+    # (the engines above fed the other twins' counters unequally, and a
+    # delete that hits a hot row rebuilds the hot index from the counter)
+    _free(t25, r_sq8)
+    del t25, r_sq8
+    t25 = dqf_from_arrays(saved["sq8"], tier_cfg(cfgs["sq8"], tmp,
+                                                 "sq8_mut", 0.25),
+                          device=dev)
+    r_sq8 = dqf_from_arrays(saved["sq8"], dataclasses.replace(
+        cfgs["sq8"], fused=False), device=dev)
+    cache = t25.store.full_phase_cache()
+    rng = np.random.default_rng(seed + 3)
+    q1 = batches[1]
+    tm = out["mutation_s"] = {}
+
+    def both_search(what):
+        for b, q in ((0, q0), (1, q1)):
+            compare_results(t25.search(q, record=False),
+                            r_sq8.search(q, record=False),
+                            f"{what}, batch {b}: tiered and resident")
+        check_fresh_blocks(t25, what)
+
+    both_search("before the insert")        # blocks resident to go stale
+    cap0, blocks0 = t25.store.capacity, cache.bf.n_blocks
+    src = rng.choice(ctx["x"].shape[0], n_insert)
+    rows = ctx["x"][src] + 0.02 * rng.standard_normal(
+        (n_insert, ctx["x"].shape[1])).astype(np.float32)
+    ext = []
+    for name, d in (("tiered", t25), ("resident", r_sq8)):
+        t0 = time.perf_counter()
+        ext.append(d.insert(rows))
+        tm[f"insert_{name}"] = time.perf_counter() - t0
+    if not np.array_equal(ext[0], ext[1]) or t25.store.capacity == cap0:
+        raise SystemExit("tier insert: external ids differ, or the capacity "
+                         "did not grow")
+    log(f"  insert {n_insert}: tiered {tm['insert_tiered']:.3f} s, "
+        f"resident {tm['insert_resident']:.3f} s; capacity {cap0} -> "
+        f"{t25.store.capacity}, files "
+        f"{t25.store.tier_disk_nbytes()} bytes, caches re-keyed "
+        f"({blocks0} -> "
+        f"{t25.store.full_phase_cache().bf.n_blocks} code blocks)")
+    both_search("after the insert")
+    live = t25.store.live_ids()
+    dead = t25.store.to_external(rng.choice(live, n_delete, replace=False))
+    for name, d in (("tiered", t25), ("resident", r_sq8)):
+        t0 = time.perf_counter()
+        d.delete(dead)
+        tm[f"delete_{name}"] = time.perf_counter() - t0
+    log(f"  delete {n_delete}: tiered {tm['delete_tiered']:.3f} s, "
+        f"resident {tm['delete_resident']:.3f} s")
+    both_search("after the delete")
+    remaps = []
+    for name, d in (("tiered", t25), ("resident", r_sq8)):
+        t0 = time.perf_counter()
+        remaps.append(d.compact()["remap"])
+        tm[f"compact_{name}"] = time.perf_counter() - t0
+    if not np.array_equal(remaps[0], remaps[1]):
+        raise SystemExit("tier compact: the remaps differ")
+    log(f"  compact: tiered {tm['compact_tiered']:.3f} s, resident "
+        f"{tm['compact_resident']:.3f} s")
+    both_search("after the compact")
+    path = os.path.join(tmp, "tiered.npz")
+    t0 = time.perf_counter()
+    t25.save(path)
+    tm["save"] = time.perf_counter() - t0
+    from repro_torch.core import DQF
+    t0 = time.perf_counter()
+    back = DQF.load(path, dataclasses.replace(t25.cfg, tier=dataclasses.
+                                              replace(t25.cfg.tier,
+                                                      dir=None)))
+    torch.cuda.synchronize()
+    tm["load"] = time.perf_counter() - t0
+    if back.store.tier_dir != path + ".tier":
+        raise SystemExit(f"the reload's tier is in {back.store.tier_dir}")
+    compare_results(back.search(q0, record=False),
+                    t25.search(q0, record=False),
+                    "the saved tiered twin and its reload (sidecar)")
+    log(f"  save with the sidecar {tm['save']:.3f} s "
+        f"({os.path.getsize(path)} bytes and "
+        f"{back.store.tier_disk_nbytes()} in {path}.tier), load "
+        f"{tm['load']:.3f} s")
+    peak = max(peak, torch.cuda.max_memory_allocated())
+    _free(back, t25)
+    del back, t25
+
+    del r_sq8
+    torch.cuda.empty_cache()
+    out["peak_gib"] = max(peak, torch.cuda.max_memory_allocated()) / 2 ** 30
+    log(f"  peak device memory in phase 12: {out['peak_gib']:.3f} GiB")
+    return out
+
+
 # ----------------------------------------------------------------- phase 3e
 def finite_err(want, got) -> float:
     """Largest |want - got| over the finite entries of ``want`` (the
@@ -2096,10 +2653,12 @@ def main() -> int:
     topk["max_abs_err"] = max(topk["max_abs_err"], topk_err)
     del mxu
 
+    saved = {}                   # the indexes phase 12 loads, as arrays
     for mode in ("sq8", "pq"):
         phase(f"phase 8: quantized main path, {mode}, on phase 4's index")
         qdqf, launches, _ = phase_quant(ctx, mode, dev)
         entries.append(time_hop(qdqf, q0, launches, f"graph, {mode}"))
+        saved[mode] = copy_arrays(qdqf)
         del qdqf
         torch.cuda.empty_cache()
     entries.append(topk)
@@ -2118,6 +2677,7 @@ def main() -> int:
 
     phase("phase 11: the mutable main path on phase 4's index (save, load, "
           "insert, delete, compact; both engines across the churn)")
+    saved["f32"] = copy_arrays(ctx["dqf"])    # phase 11 mutates it
     mut = phase_mutation(ctx, dev, args.seed)
     by_name = {e["name"]: e for e in entries}
     keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
@@ -2132,6 +2692,21 @@ def main() -> int:
     hop = by_name["fused_hop (f32)"]
     hop["max_abs_err"] = max([hop["max_abs_err"]] + [
         e["max_abs_err"] for e in mut["hops"].values()])
+
+    phase("phase 12: the disk tier at the main path's size (sq8 at three "
+          "cache sizes, f32, pq and mxu at 25%, both engines, mutation, "
+          "chaos)")
+    t12 = time.perf_counter()
+    tier = phase_tier(ctx, dev, args.seed, saved)
+    del saved
+    by_name["fused_topk_l2"]["tier"] = {"launches":
+                                        tier["mxu_0.25"]["launches"]}
+    for name in ("fused_hop (f32)", "fused_hop (sq8)", "fused_hop (pq)",
+                 "fused_hop_paged"):
+        by_name[name]["tier"] = {"launches": 0, "note": "gated off on a "
+                                 "tiered store (checked around every "
+                                 "tiered batch)"}
+    log(f"  phase 12: {time.perf_counter() - t12:.1f} s")
 
     phase("done")
     log(f"  total {time.perf_counter() - t_all:.1f} s")

@@ -35,5 +35,7 @@ def dqf_from_arrays(arrays, cfg: DQFConfig | None = None,
     As :meth:`DQF.from_arrays` (and the reference's ``DQF.load``): saved
     codes are used only when ``cfg.quant`` asks for a quantized index, and
     a dim, metric or quantizer that does not match ``cfg`` is refused.
+    With ``cfg.tier`` enabled the rows and codes go to block files in
+    ``cfg.tier.dir`` (else a fresh temp dir) behind device block caches.
     """
     return DQF.from_arrays(arrays, cfg, device=device)

@@ -1,7 +1,7 @@
 """DQF — the paper's contribution (dual index + dynamic search) in PyTorch."""
 
 from .types import (DQFConfig, QuantConfig, SearchResult,  # noqa: F401
-                    SearchStats)
+                    SearchStats, TierConfig)
 from .dqf import DQF  # noqa: F401
 from .ssg import SSGParams, build_ssg  # noqa: F401
 from . import beam_search  # noqa: F401

@@ -2,8 +2,8 @@
 
 Host-side orchestrator of the vector store, the full NSSG, the tenant
 registry (per-tenant query counters and hot indexes), the decision tree,
-the optional quantized Full Index, the search, and the mutable lifecycle
-and checkpoints of a resident index.  Tiering comes with its own slice.
+the optional quantized Full Index, the search, the mutable lifecycle,
+checkpoints, and the disk tier.
 
 Typical flow::
 
@@ -40,6 +40,19 @@ it.  With quantization the code table is zero-padded the same way and
 kept beside ``x_pad``; the full phase scans it, ``fit_tree`` traces on it,
 and the pool's head is re-scored exactly from ``x_pad``
 (``quant.rerank_k``).
+
+Tiered storage (:mod:`repro_torch.tiering`): with
+``DQFConfig(tier=TierConfig(mode="host"))`` the quantized codes and the
+float32 rows spill to mmap-backed block files and the cold path scores
+through bounded device block caches instead of fully resident tables —
+the same results bit for bit (against the composed path), a fraction of
+the device memory.  A tiered search takes the composed path (the fused
+hop cannot read the host), snapshots the caches at entry, admits the
+hottest missed blocks at the next entry, and returns after its last host
+fetch (each fetch is a synchronous host read between launches, so the
+caller may mutate the store the moment it returns); ``relayout_tier``
+re-clusters blocks around the traffic seen, and ``save``/``load`` keep
+the block files in a ``<path>.npz.tier/`` sidecar.
 """
 
 from __future__ import annotations
@@ -233,8 +246,10 @@ class DQF:
             t0 = time.perf_counter()
             quant = build_quantizer(x, self.cfg.quant)
             self.timings.quant_train = time.perf_counter() - t0
-        store = VectorStore(x, ext_ids=ext_ids, quant=quant,
-                            registry=self.registry)
+        store = VectorStore(
+            x, ext_ids=ext_ids, quant=quant,
+            tier=self.cfg.tier if self.cfg.tier.enabled else None,
+            registry=self.registry, device=self.device)
         t0 = time.perf_counter()
         built = build_ssg(store.x, self._ssg_params,
                           n_entry=self.cfg.n_entry, device=self.device)
@@ -270,15 +285,21 @@ class DQF:
         """Refresh the padded device tables when the store epoch moved: the
         row and code tables follow ``store.rows_epoch``, the graph and
         liveness tables ``store.epoch``.  Hot tables are per tenant
-        (:meth:`TenantState.hot_tables`)."""
+        (:meth:`TenantState.hot_tables`).  A tiered store uploads no row
+        or code table: the per-call snapshots of :meth:`_row_table` and
+        :meth:`_quant_table` take their place."""
         st, dev = self.store, self.device
         if force or self._dev_epoch != st.epoch:
             if force or self._dev_rows_epoch != st.rows_epoch:
-                self._dev["x_pad"] = st.padded_rows(dev)
-                if st.quant is not None and self.cfg.quant.enabled:
-                    self._dev["qtable"] = st.padded_quant_table(dev)
-                else:
+                if st.tiered:
+                    self._dev.pop("x_pad", None)
                     self._dev.pop("qtable", None)
+                else:
+                    self._dev["x_pad"] = st.padded_rows(dev)
+                    if st.quant is not None and self.cfg.quant.enabled:
+                        self._dev["qtable"] = st.padded_quant_table(dev)
+                    else:
+                        self._dev.pop("qtable", None)
                 self._dev_rows_epoch = st.rows_epoch
             self._dev["adj_pad"] = st.pad_adjacency(self.full.adj, dev)
             self._dev["entries"] = torch.as_tensor(self.full.entries,
@@ -286,17 +307,31 @@ class DQF:
             self._dev["live_pad"] = st.padded_live(dev)
             self._dev_epoch = st.epoch
 
-    def _row_table(self) -> torch.Tensor:
-        """The exact float32 score table (resident ``x_pad``)."""
-        return self._dev["x_pad"]
+    def _row_table(self):
+        """The exact float32 score table: resident ``x_pad`` or a tier
+        snapshot."""
+        st = self.store
+        return st.tiered_rows_table() if st.tiered else self._dev["x_pad"]
 
     @property
     def _quant_active(self) -> bool:
         return self.quant is not None and self.cfg.quant.enabled
 
     def _quant_table(self):
-        """The padded code table the full phase scans, or None (float32)."""
-        return self._dev["qtable"] if self._quant_active else None
+        """The padded code table the full phase scans (or its tier
+        snapshot), or None (float32)."""
+        if not self._quant_active:
+            return None
+        st = self.store
+        return st.tiered_codes_table() if st.tiered else self._dev["qtable"]
+
+    @property
+    def _fused(self) -> bool:
+        """The fused hop, gated off for a tiered store: its host fetches
+        cannot run inside the kernel, so a tiered search keeps the
+        composed path and its select-after-score seam."""
+        return self.cfg.fused and not (self.store is not None
+                                       and self.store.tiered)
 
     @property
     def _rerank_k(self) -> int:
@@ -312,11 +347,15 @@ class DQF:
 
     def _search_begin(self, queries) -> torch.Tensor:
         """Per-search-entry checks (one seam for all search paths): the
-        query shape, the batch counters, fresh device tables."""
+        query shape, the batch counters, fresh device tables, and the
+        block caches' housekeeping (apply prefetches, admit the blocks
+        the previous searches missed hardest)."""
         q = self._queries(queries)
         self._m_batches.inc()
         self._m_queries.inc(q.shape[0])
         self._sync_device()
+        if self.store.tiered:
+            self.store.tier_begin()
         return q
 
     # ------------------------------------------------------------- hot index
@@ -424,7 +463,7 @@ class DQF:
             tree_depth=c.tree_depth, max_hops=c.max_hops,
             hot_mode=c.hot_mode, qtable=self._quant_table(),
             rerank_k=self._rerank_k, live_pad=self._dev["live_pad"],
-            fused=c.fused, fused_hops=c.fused_hops)
+            fused=self._fused, fused_hops=c.fused_hops)
         return res
 
     def search(self, queries: np.ndarray, *, record: bool = True,
@@ -458,7 +497,7 @@ class DQF:
         return bs.beam_search(
             self._row_table(), self._dev["adj_pad"], self._dev["entries"], q,
             pool_size=pool_size or c.full_pool, k=c.k, max_hops=c.max_hops,
-            live_pad=self._dev["live_pad"], fused=c.fused,
+            live_pad=self._dev["live_pad"], fused=self._fused,
             fused_hops=c.fused_hops)
 
     # ------------------------------------------------------ mutable lifecycle
@@ -574,12 +613,28 @@ class DQF:
         out[valid] = self.store.to_external(ids[valid])
         return out
 
+    def relayout_tier(self) -> bool:
+        """Re-cluster the disk tier's cache blocks around observed traffic.
+
+        Call after a warmup stretch (or periodically): the full-phase
+        cache re-groups rows into blocks by touch frequency, which turns
+        the workload's row-level skew into block-level skew the bounded
+        device cache can exploit.  False on a resident store or before
+        any traffic.
+        """
+        self._require()
+        return self.store.tier_relayout() if self.store.tiered else False
+
     # ------------------------------------------------------------------ misc
     def memory_report(self) -> dict:
         """Byte accounting split by residency, as the reference reports it:
         ``full``/``hot`` graph bytes, ``full_vec`` the float32 rows,
         ``quant`` codes + codebook, ``total`` the resident index, and the
-        ``device``/``host``/``disk`` sub-dicts, each with its ``total``."""
+        ``device``/``host``/``disk`` sub-dicts, each with its ``total``:
+        ``device`` holds the padded graph and liveness, hot indexes,
+        codebooks and either the resident row and code tables or the
+        tier's cache arenas; ``host`` the non-tiered row and code buffers
+        and the id and liveness metadata; ``disk`` the tier's files."""
         st = self.store
         hot_bytes = sum(t.hot.nbytes() for t in (self.tenants or [])
                         if t.hot is not None)
@@ -602,17 +657,24 @@ class DQF:
                         * st.quant.codes.dtype.itemsize)
                     if st.quant is not None else 0)
         dev = {"graph": cap1 * R * 4 + cap1,     # adj_pad int32 + live_pad
-               "hot": int(hot_bytes), "codebooks": int(codebook),
-               "rows": cap1 * st.d * 4,
-               "codes": cap1 * code_row if self._quant_active else 0}
+               "hot": int(hot_bytes), "codebooks": int(codebook)}
+        if st.tiered:
+            caches = {c.name: c for c in st.tier_caches()}
+            dev["rows"] = caches["rows"].arena_nbytes()
+            dev["codes"] = (caches["codes"].arena_nbytes()
+                            if "codes" in caches else 0)
+        else:
+            dev["rows"] = cap1 * st.d * 4                     # x_pad
+            dev["codes"] = cap1 * code_row if self._quant_active else 0
         dev["total"] = sum(dev.values())
-        host = {"rows": int(st.x.nbytes),
-                "codes": (0 if st.quant is None
+        host = {"rows": 0 if st.tiered else int(st.x.nbytes),
+                "codes": (0 if st.tiered or st.quant is None
                           else int(st.quant.codes.nbytes)),
                 "meta": int(st.alive.nbytes + st.ext_ids.nbytes)}
         host["total"] = sum(host.values())
-        out.update(device=dev, host=host,
-                   disk={"tier_files": 0, "total": 0})
+        disk = {"tier_files": st.tier_disk_nbytes() if st.tiered else 0}
+        disk["total"] = disk["tier_files"]
+        out.update(device=dev, host=host, disk=disk)
         return out
 
     def index_nbytes(self) -> dict:
@@ -667,7 +729,12 @@ class DQF:
         crash at any step leaves the old checkpoint or the new one whole.
         Written uncompressed (float32 rows barely compress, and zlib would
         take most of a million-row save); ``np.load`` reads either form,
-        so the reference's ``DQF.load`` reads it too."""
+        so the reference's ``DQF.load`` reads it too.
+
+        A tiered store also flushes and copies its block files to
+        ``<path>.npz.tier/``, moved into place before the npz commit (the
+        npz arrays stay the canonical copy; ``load`` rematerializes the
+        tier from them, so a stale sidecar is never load-bearing)."""
         arrs = self.to_arrays()
         final = str(path)
         if not final.endswith(".npz"):
@@ -680,22 +747,51 @@ class DQF:
                 np.savez(f, **arrs)
                 f.flush()
                 os.fsync(f.fileno())
+            if self.store.tiered:
+                side = self._tier_sidecar(final)
+                if (self.store.tier_dir is not None
+                        and os.path.abspath(self.store.tier_dir)
+                        == os.path.abspath(side)):
+                    # the live tier already IS the sidecar (after a load):
+                    # renaming it away would orphan the store's open block
+                    # files, so flush in place
+                    self.store.export_tier(side)
+                else:
+                    tmp_tier = os.path.join(tmp_dir, "tier")
+                    self.store.export_tier(tmp_tier)
+                    if os.path.isdir(side):     # park the old sidecar
+                        os.rename(side,         # for tmp-dir cleanup
+                                  os.path.join(tmp_dir, "tier.old"))
+                    os.rename(tmp_tier, side)
             os.replace(tmp_npz, final)      # atomic commit
         finally:
             shutil.rmtree(tmp_dir, ignore_errors=True)
+
+    @staticmethod
+    def _tier_sidecar(path) -> str:
+        """Directory for tier files next to a checkpoint (``.npz`` is
+        appended when missing, as ``save`` does)."""
+        p = str(path)
+        if not p.endswith(".npz"):
+            p += ".npz"
+        return p + ".tier"
 
     @classmethod
     def load(cls, path: str, cfg: DQFConfig | None = None, *,
              device=None) -> "DQF":
         """A DQF from a checkpoint of either package (:meth:`save` or the
         reference's ``DQF.save``), on the card unless ``device`` says
-        otherwise; see :meth:`from_arrays` for what is refused."""
+        otherwise; see :meth:`from_arrays` for what is refused.  A tiered
+        ``cfg`` without a ``tier.dir`` keeps its block files in the
+        checkpoint's sidecar, ``<path>.npz.tier/``."""
         with np.load(path) as z:
-            return cls.from_arrays(z, cfg, device=device, source=str(path))
+            return cls.from_arrays(z, cfg, device=device, source=str(path),
+                                   tier_dir=cls._tier_sidecar(path))
 
     @classmethod
     def from_arrays(cls, arrays, cfg: DQFConfig | None = None, *,
-                    device=None, source: str = "the arrays") -> "DQF":
+                    device=None, source: str = "the arrays",
+                    tier_dir: Optional[str] = None) -> "DQF":
         """A DQF over the state saved under the reference checkpoint keys
         (any mapping: ``np.load`` of a ``.npz``, or :meth:`to_arrays`).
 
@@ -705,6 +801,10 @@ class DQF:
         absent, of another mode, or (pq) of another shape than
         ``(pq_m, min(2**pq_bits, n))``.  A float32 ``cfg`` drops saved
         codes.  Missing store keys default as the reference's do.
+
+        With ``cfg.tier`` enabled the store spills to block files in
+        ``cfg.tier.dir``, else in ``tier_dir`` (``load`` passes the
+        checkpoint's sidecar), else in a fresh temp dir.
         """
         self = cls(cfg, device=device)
         c = self.cfg
@@ -720,7 +820,13 @@ class DQF:
                 f"checkpoint {source} was built for metric "
                 f"{metric_saved!r} but the config expects {c.metric!r} — "
                 "distances would be meaningless")
-        store = VectorStore.from_arrays(arrays, registry=self.registry)
+        tier = None
+        if c.tier.enabled:
+            tier = c.tier if c.tier.dir or tier_dir is None else \
+                dataclasses.replace(c.tier, dir=tier_dir)
+        store = VectorStore.from_arrays(arrays, tier=tier,
+                                        registry=self.registry,
+                                        device=self.device)
         n = store.n
         if not c.quant.enabled:
             # cfg decides the search; the checkpoint provides the artifacts

@@ -18,6 +18,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.tiering import TierConfig
+
 # Value used for the padded sentinel row of a vector table.
 PAD_VALUE = 1e9
 # Distance assigned to invalid candidates (float32 3.0e38).
@@ -87,6 +89,9 @@ class DQFConfig:
 
     # --- compressed Full Index ---
     quant: QuantConfig = QuantConfig()
+
+    # --- tiered storage (repro_torch.tiering) ---
+    tier: TierConfig = TierConfig()
 
     def __post_init__(self):
         if self.hot_mode not in ("graph", "mxu"):

@@ -86,7 +86,10 @@ def gather_distances(queries: torch.Tensor, x_pad: torch.Tensor,
 def table_spec(table):
     """Unpack a score table into the fused-hop kernel's
     ``(mode, t0, t1, t2)``: a float32 ``x_pad``, or a device table that
-    gives its own (``SQTable``, ``PQView``: ``spec()``)."""
+    gives its own (``SQTable``, ``PQView``: ``spec()``).  A
+    :class:`~repro_torch.tiering.TieredTable` raises, as in the reference:
+    its host fetches cannot run inside the kernel, so tiered lanes keep
+    the composed path (the select-after-score seam)."""
     if isinstance(table, torch.Tensor):
         if table.dtype != torch.float32 or table.dim() not in (2, 3):
             raise TypeError("fused hop needs a (n+1, d) float32 row table, "
@@ -95,7 +98,8 @@ def table_spec(table):
     if not callable(getattr(table, "spec", None)):
         raise TypeError(
             f"fused hop needs a device-resident score table, got "
-            f"{type(table).__name__}")
+            f"{type(table).__name__} — tiered lanes must use the composed "
+            "path")
     return table.spec()
 
 

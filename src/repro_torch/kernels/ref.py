@@ -30,6 +30,7 @@ from typing import NamedTuple
 import torch
 
 __all__ = ["HopState", "halving_sum", "sq_l2", "sq8_score", "pq_score",
+           "sq8_score_rows", "pq_score_rows",
            "pairwise_l2", "sq8_pairwise_l2", "pq_adc", "pool_merge",
            "gather_distances", "fused_topk_l2", "fused_hop_body", "fused_hop",
            "fused_hop_paged", "tree_predict", "next_pow2"]
@@ -91,14 +92,23 @@ def sq_l2(g: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
 def sq8_score(codes, scale, zero, queries, cols) -> torch.Tensor:
     """(B, C) squared L2 of query b vs the int8 row ``cols[b, c]`` decoded
     as ``code * scale + zero`` (two roundings, as the kernel decodes)."""
-    g = codes[cols.long()].to(torch.float32) * scale + zero
-    return sq_l2(g, queries[:, None, :])
+    return sq8_score_rows(codes[cols.long()], scale, zero, queries)
+
+
+def sq8_score_rows(g, scale, zero, queries) -> torch.Tensor:
+    """:func:`sq8_score` of already gathered (B, C, d) int8 rows."""
+    return sq_l2(g.to(torch.float32) * scale + zero, queries[:, None, :])
 
 
 def pq_score(codes, luts, cols) -> torch.Tensor:
     """(B, C) PQ asymmetric distance ``Σ_m luts[b, m, codes[cols[b, c], m]]``
     summed in :func:`halving_sum` order."""
-    c = codes[cols.long()].long()                          # (B, C, M)
+    return pq_score_rows(codes[cols.long()], luts)
+
+
+def pq_score_rows(g, luts) -> torch.Tensor:
+    """:func:`pq_score` of already gathered (B, C, M) code rows."""
+    c = g.long()
     B, M = luts.shape[0], luts.shape[1]
     rows = torch.arange(B, device=luts.device)[:, None, None]
     sub = torch.arange(M, device=luts.device)[None, None, :]

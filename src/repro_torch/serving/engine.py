@@ -29,8 +29,13 @@ The engine watches ``dqf.store.epoch`` and re-captures the padded device
 tables after a mutation; compaction is legal only on a drained engine,
 which runs it itself once the tombstone ratio crosses ``compact_ratio``.
 The branches for store mutation and tiered storage are those of
-``repro/serving/engine.py``; the port's store is resident and immutable
-until its mutation and tiering slices land, so they do not run yet.
+``repro/serving/engine.py``.  Over a tiered store the tick stays composed
+(its score table reads the host between launches); at each tick boundary
+the engine pins the blocks in-flight lanes still read, applies finished
+prefetches, admits the hottest missed blocks, publishes the tick's hit
+rate (``tier_tick_hit_rate``), and requests the blocks of the wave's next
+expansions from the cache's prefetch thread; a lane whose host read
+exhausted its retries retires with ``status="degraded"``.
 """
 
 from __future__ import annotations

@@ -53,7 +53,7 @@ from repro_torch.core.beam_search import _merge_pool
 from repro_torch.core.types import INF_DIST, PoolState, SearchStats
 from repro_torch.kernels.ref import first_true
 
-__all__ = ["PagedState", "PagePool", "expand_step_paged",
+__all__ = ["PagedState", "PagePool", "PageAllocDenied", "expand_step_paged",
            "gather_wave", "scatter_wave", "admit_wave", "dense_seen",
            "bucket_width", "zero_paged_state", "DEFAULT_PAGE_COLS"]
 
@@ -136,6 +136,15 @@ def zero_paged_state(capacity: int, pool_len: int, d: int, n_pages: int,
     )
 
 
+class PageAllocDenied(RuntimeError):
+    """A chaos plan denied this allocation (transient — retry next tick).
+
+    Distinct from the bare ``RuntimeError`` real exhaustion raises, so the
+    engines can requeue the admission batch instead of treating an
+    injected denial as a sizing bug.
+    """
+
+
 class PagePool:
     """Host-side allocator: lane slots + ``seen`` pages + page table.
 
@@ -175,6 +184,7 @@ class PagePool:
             self._g_in_use = registry.gauge(
                 "page_pool_pages_in_use", "allocated (non-free) seen pages")
         self._prev_n_ids: Optional[int] = None
+        self.chaos = None           # fault hook (repro_torch.chaos), None = off
         self.reset(n_ids)
 
     def _publish(self) -> None:
@@ -238,6 +248,9 @@ class PagePool:
             raise RuntimeError(
                 f"page pool exhausted: want {m} lanes, "
                 f"{len(self._free_lanes)} free")
+        if self.chaos is not None and self.chaos.deny_alloc():
+            raise PageAllocDenied(
+                f"chaos: page allocation denied (want {m} lanes)")
         lanes = np.asarray([self._free_lanes.pop() for _ in range(m)],
                            np.int32)
         cu = self.cu_lens(lanes)

@@ -24,8 +24,11 @@ Occupancy (``engine_occupancy_ratio`` = live lanes / lane capacity) is
 published through the same :mod:`repro_torch.obs` registry as the fixed
 engine, under the same collector key ``"engine"``.  The branches for
 store mutation and tiered storage are those of
-``repro/serving/paged_engine.py``; they do not run until the port's
-store gains its mutation and tiering slices.
+``repro/serving/paged_engine.py``: a tiered store keeps the composed tick
+(its score table reads the host), pins the blocks of the live lanes'
+pools, prefetches their next expansions, and marks lanes whose reads
+degraded; a chaos plan's page-allocation denial requeues the admission
+batch for the next tick.
 """
 
 from __future__ import annotations
@@ -446,8 +449,14 @@ class PagedWaveEngine:
             return
         m = len(reqs)
         mp = pg.bucket_width(m, self.capacity, self.min_bucket)
-        with self.timeline.span("refill.alloc", lanes=m):
-            lanes = self.pagepool.alloc(m)
+        try:
+            with self.timeline.span("refill.alloc", lanes=m):
+                lanes = self.pagepool.alloc(m)
+        except pg.PageAllocDenied:
+            # transient injected denial: requeue in arrival order and try
+            # again next tick — the requests stay live, never lost
+            self.queue.extendleft(reversed(reqs))
+            return
         lanes_pad = np.full(mp, self.capacity, np.int32)
         lanes_pad[:m] = lanes
         pt_pad = self.pagepool.page_table[lanes_pad]

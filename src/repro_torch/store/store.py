@@ -1,9 +1,9 @@
-"""VectorStore — row storage with tombstones and stable ids (resident part).
+"""VectorStore — row storage with tombstones and stable ids.
 
-Port of ``repro/store/store.py`` without its tier: the rows, the codes of
-a quantized index, liveness, external ids, the epochs and the capacity
-padding live in host numpy arrays, and the padded tables are uploaded to
-a device on request.
+Port of ``repro/store/store.py``: the rows, the codes of a quantized
+index, liveness, external ids, the epochs and the capacity padding live
+in host numpy arrays, and the padded tables are uploaded to a device on
+request.
 
 * **Internal ids** are row positions in the backing arrays.  They are what
   the graph, the counter and the search kernels speak; only
@@ -21,20 +21,30 @@ a device on request.
   tables when it moves), ``rows_epoch`` only when row or code contents
   change (append, compact), ``remap_epoch`` only on compaction (internal
   ids changed — in-flight search state is stale).
-
-Tiered storage (``tier=``) belongs to the port's tiering slice and raises
-``NotImplementedError`` here; ``tiered`` is always False.
+* **Tier** (optional, :mod:`repro_torch.tiering`): with ``tier=TierConfig(
+  mode="host")`` the row and code capacity buffers are mmap-backed block
+  files instead of RAM arrays — every slice write above is write-through —
+  and device residency shrinks to per-file block caches on ``device``
+  whose snapshots (:meth:`tiered_rows_table` / :meth:`tiered_codes_table`)
+  replace the fully resident padded tables.  The epoch machinery doubles
+  as the cache-invalidation seam: mutations ``note_write`` their blocks
+  before bumping ``epoch``, so consumers that re-snapshot on epoch moves
+  (all of them) can never score stale bytes.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import shutil
+import tempfile
 from typing import Optional
 
 import numpy as np
 import torch
 
 from repro_torch.quant import QuantState, pq_encode, sq_encode
+from repro_torch.tiering import BlockCache, BlockFile, TierConfig, TieredTable
 
 __all__ = ["VectorStore", "CompactionResult"]
 
@@ -76,10 +86,8 @@ class VectorStore:
                  quant: Optional[QuantState] = None,
                  next_ext: Optional[int] = None,
                  capacity: Optional[int] = None,
-                 tier=None, registry=None):
-        if tier is not None and getattr(tier, "enabled", True):
-            raise NotImplementedError(
-                "tiered storage comes with the tiering slice of the port")
+                 tier: Optional[TierConfig] = None, registry=None,
+                 device=None):
         x = np.ascontiguousarray(x, np.float32)
         n = self._n = x.shape[0]
         self._d = x.shape[1]
@@ -126,14 +134,157 @@ class VectorStore:
             self._m_drop = registry.counter(
                 "store_rows_dropped_total", "tombstones reclaimed")
             registry.register_callback("store", self._collect_metrics)
+        # tiered storage: rows/codes move to mmap-backed block files,
+        # device residency becomes a bounded block cache on ``device``
+        self.tier = tier if (tier is not None and tier.enabled) else None
+        self.tier_dir: Optional[str] = None
+        self.device = torch.device(device if device is not None else "cpu")
+        self._rows_bf: Optional[BlockFile] = None
+        self._codes_bf: Optional[BlockFile] = None
+        self._row_cache: Optional[BlockCache] = None
+        self._code_cache: Optional[BlockCache] = None
+        self._tier_params: dict = {}
+        if self.tier is not None:
+            self._init_tier()
+
+    # ------------------------------------------------------------------ tier
+    def _init_tier(self) -> None:
+        """Move the capacity buffers onto mmap-backed block files.
+
+        The host arrays become views of the files, so every existing slice
+        write (``add``, ``compact``) is write-through; the caches get told
+        which blocks changed via :meth:`_tier_note_write`.
+        """
+        t = self.tier
+        d = t.dir or tempfile.mkdtemp(prefix="repro-torch-tier-")
+        os.makedirs(d, exist_ok=True)
+        self.tier_dir = d
+        bf = BlockFile(os.path.join(d, "rows.f32"), self.capacity,
+                       self._d, np.float32, t.block_rows)
+        bf.rows[: self._n] = self._x[: self._n]
+        self._x = bf.rows
+        self._rows_bf = bf
+        self._row_cache = self._new_cache(bf, "rows", self.quant is None)
+        if self.quant is not None:
+            cbf = BlockFile(os.path.join(d, "codes.bin"), self.capacity,
+                            self._codes.shape[1], self._codes.dtype,
+                            t.block_rows)
+            cbf.rows[: self._n] = self._codes[: self._n]
+            self._codes = cbf.rows
+            self.quant.codes = self._codes[: self._n]
+            self._codes_bf = cbf
+            self._code_cache = self._new_cache(cbf, "codes", True)
+
+    def _new_cache(self, bf: BlockFile, name: str,
+                   track_rows: bool) -> BlockCache:
+        t = self.tier
+        return BlockCache(bf, self._cache_slots(bf), name=name,
+                          prefetch=t.prefetch, track_rows=track_rows,
+                          tally_decay_every=t.tally_decay_every,
+                          registry=self.registry,
+                          fetch_retries=t.fetch_retries,
+                          fetch_backoff_s=t.fetch_backoff_s,
+                          device=self.device)
+
+    def _cache_slots(self, bf: BlockFile) -> int:
+        t = self.tier
+        if t.cache_blocks:
+            return min(t.cache_blocks, bf.n_blocks)
+        return max(1, int(round(t.cache_frac * bf.n_blocks)))
 
     @property
     def tiered(self) -> bool:
-        return False
+        return self.tier is not None
+
+    def tier_caches(self) -> list:
+        """The live block caches (rows always, codes when quantized)."""
+        return [c for c in (self._row_cache, self._code_cache)
+                if c is not None]
+
+    def full_phase_cache(self) -> Optional[BlockCache]:
+        """The cache the full-graph scan reads (codes, else float32 rows)."""
+        if not self.tiered:
+            return None
+        return self._code_cache if self._code_cache is not None \
+            else self._row_cache
+
+    def _tier_note_write(self, lo: int, hi: int) -> None:
+        """Invalidate cached blocks covering written rows ``[lo, hi)``."""
+        if not self.tiered or hi <= lo:
+            return
+        for c in self.tier_caches():
+            c.note_write_rows(lo, hi)
+
+    def tier_relayout(self) -> bool:
+        """Re-cluster the full-phase cache's blocks around the workload
+        (clustering by the accumulated touch tallies puts the workload's
+        head into few blocks).  False when no touches were recorded."""
+        c = self.full_phase_cache()
+        return c.relayout(self._n) if c is not None else False
+
+    def _tier_p(self, key, make):
+        if key not in self._tier_params:
+            self._tier_params[key] = make()
+        return self._tier_params[key]
+
+    def tiered_rows_table(self) -> TieredTable:
+        """Snapshot float32 score table over the row tier (exact scores)."""
+        return TieredTable.from_cache(self._row_cache, mode="f32",
+                                      n=self.capacity)
+
+    def tiered_codes_table(self) -> Optional[TieredTable]:
+        """Snapshot quantized score table over the code tier."""
+        if self._code_cache is None:
+            return None
+        q, dev = self.quant, self.device
+        if q.mode == "sq8":
+            return TieredTable.from_cache(
+                self._code_cache, mode="sq8", n=self.capacity,
+                p0=self._tier_p("scale", lambda: torch.as_tensor(
+                    q.sq.scale, device=dev)),
+                p1=self._tier_p("zero", lambda: torch.as_tensor(
+                    q.sq.zero, device=dev)))
+        return TieredTable.from_cache(
+            self._code_cache, mode="pq", n=self.capacity,
+            p0=self._tier_p("centroids", lambda: torch.as_tensor(
+                q.pq.centroids, device=dev)))
+
+    def tier_begin(self) -> None:
+        """Cache housekeeping at a search boundary: apply completed
+        prefetches and admit the hottest blocks missed since last time."""
+        for c in self.tier_caches():
+            c.apply_prefetch()
+            c.maintain()
+
+    def flush_tier(self) -> None:
+        for bf in (self._rows_bf, self._codes_bf):
+            if bf is not None:
+                bf.flush()
+
+    def export_tier(self, dest_dir: str) -> None:
+        """Copy the tier files next to a checkpoint (no-op if same dir)."""
+        if not self.tiered:
+            return
+        self.flush_tier()
+        os.makedirs(dest_dir, exist_ok=True)
+        for bf in (self._rows_bf, self._codes_bf):
+            if bf is None:
+                continue
+            dst = os.path.join(dest_dir, os.path.basename(bf.path))
+            if os.path.abspath(dst) != os.path.abspath(bf.path):
+                shutil.copyfile(bf.path, dst)
+
+    def tier_disk_nbytes(self) -> int:
+        return sum(bf.disk_nbytes() for bf in (self._rows_bf, self._codes_bf)
+                   if bf is not None)
 
     def drop_quant(self) -> None:
-        """Forget the quantizer (float32 search)."""
+        """Forget the quantizer (float32 search); drops the code tier too."""
         self.quant = None
+        if self._code_cache is not None:
+            self._code_cache.close()
+        self._code_cache = None
+        self._codes_bf = None
 
     def should_compact(self, tombstone_ratio: float = 0.3) -> bool:
         """True when tombstones are worth reclaiming (background trigger)."""
@@ -216,6 +367,7 @@ class VectorStore:
         if self.quant is not None:
             self._codes[start:start + m] = self._encode(rows)
             self.quant.codes = self._codes[: self._n]
+        self._tier_note_write(start, start + m)
         self.epoch += 1
         self.rows_epoch += 1
         if self.registry is not None:
@@ -225,15 +377,29 @@ class VectorStore:
     def _grow(self, new_cap: int) -> None:
         """Reallocate the capacity buffers (geometric, so O(1) amortized)."""
         n = self._n
-        x = np.empty((new_cap, self._d), np.float32)
-        x[:n] = self._x[:n]
-        self._x = x
-        if self.quant is not None:
-            c = np.zeros((new_cap,) + self._codes.shape[1:],
-                         self._codes.dtype)
-            c[:n] = self._codes[:n]
-            self._codes = c
-            self.quant.codes = self._codes[:n]
+        if self.tiered:
+            # block files grow in place; the caches are re-keyed (block
+            # count changed) with their lifetime counters carried over
+            self._rows_bf.resize(new_cap)
+            self._x = self._rows_bf.rows
+            self._row_cache = self._rekey_cache(self._row_cache,
+                                                self._rows_bf)
+            if self._codes_bf is not None:
+                self._codes_bf.resize(new_cap)
+                self._codes = self._codes_bf.rows
+                self.quant.codes = self._codes[:n]
+                self._code_cache = self._rekey_cache(self._code_cache,
+                                                     self._codes_bf)
+        else:
+            x = np.empty((new_cap, self._d), np.float32)
+            x[:n] = self._x[:n]
+            self._x = x
+            if self.quant is not None:
+                c = np.zeros((new_cap,) + self._codes.shape[1:],
+                             self._codes.dtype)
+                c[:n] = self._codes[:n]
+                self._codes = c
+                self.quant.codes = self._codes[:n]
         a = np.zeros(new_cap, bool)
         a[:n] = self._alive[:n]
         self._alive = a
@@ -241,6 +407,18 @@ class VectorStore:
         e[:n] = self._ext[:n]
         self._ext = e
         self.capacity = new_cap
+
+    def _rekey_cache(self, old: BlockCache, bf: BlockFile) -> BlockCache:
+        """A cache over the resized file; the old one and its arena go."""
+        old.close()
+        old._arena = None           # free the old arena before the new one
+        new = self._new_cache(bf, old.name, old._track_rows)
+        new.fetch_retries = old.fetch_retries
+        new.fetch_backoff_s = old.fetch_backoff_s
+        new.counters = old.counters
+        new._snap_prev = dict(old._snap_prev)   # snapshot window survives
+        new.chaos = old.chaos       # an armed fault plan survives growth
+        return new
 
     def _encode(self, rows: np.ndarray) -> np.ndarray:
         """Encode rows with the already-trained codebooks (no retraining)."""
@@ -279,6 +457,8 @@ class VectorStore:
         if self.quant is not None:
             self._codes[:n_after] = self._codes[:n_before][keep]
             self.quant.codes = self._codes[:n_after]
+        self._tier_note_write(0, n_before)
+        # capacity is sticky: shapes stay stable across compaction too
         self.epoch += 1
         self.rows_epoch += 1
         self.remap_epoch += 1
@@ -342,9 +522,15 @@ class VectorStore:
 
     @classmethod
     def from_arrays(cls, arrays, prefix: str = "store_",
-                    registry=None) -> "VectorStore":
+                    tier: Optional[TierConfig] = None, registry=None,
+                    device=None) -> "VectorStore":
         """Rebuild from :meth:`to_arrays` output (or a checkpoint holding
-        only ``x``, for which everything defaults to live)."""
+        only ``x``, for which everything defaults to live).
+
+        With ``tier`` the rebuilt store spills to block files under
+        ``tier.dir`` (its caches on ``device``) — the checkpoint arrays
+        stay the canonical copy, the tier is (re)materialized from them.
+        """
         get = lambda key: arrays[key] if key in arrays else None
         nxt = get(prefix + "next_ext")
         cap = get(prefix + "capacity")
@@ -352,4 +538,5 @@ class VectorStore:
                    ext_ids=get(prefix + "ext_ids"),
                    next_ext=int(nxt) if nxt is not None else None,
                    capacity=int(cap) if cap is not None else None,
-                   quant=QuantState.from_arrays(arrays), registry=registry)
+                   quant=QuantState.from_arrays(arrays), tier=tier,
+                   registry=registry, device=device)

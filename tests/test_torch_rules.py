@@ -67,7 +67,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
             " repro_torch.kernels.topk_merge,"
             " repro_torch.kernels.gather_distance, repro_torch.quant,"
             " repro_torch.obs, repro_torch.obs.bundle, repro_torch.store,"
-            " repro_torch.tenancy, repro_torch.serving.engine,"
+            " repro_torch.tenancy, repro_torch.tiering, repro_torch.chaos,"
+            " repro_torch.serving.engine,"
             " repro_torch.serving.paged_engine,"
             " repro_torch.examples.streaming_updates;"
             "bad = [m for m in sys.modules if m in ('jax', 'repro') or "

@@ -24,6 +24,7 @@ from repro.core.dynamic_search import hot_phase as j_hot
 from repro.core.tree_training import collect_training_data as j_collect
 from repro_torch.convert import dqf_from_arrays
 from repro_torch.core import DQFConfig as TConfig
+from repro_torch.core import TierConfig as TTier
 from repro_torch.core import beam_search as tbs
 from repro_torch.core.dynamic_search import dynamic_search as t_dynamic
 from repro_torch.core.dynamic_search import hot_phase as t_hot
@@ -33,8 +34,11 @@ MAX_DIVERGENT = 0.01
 
 
 def port_cfg(cfg, **over):
+    """The port's ``DQFConfig`` of a reference one (its quantizer dropped,
+    its tier carried over as the port's ``TierConfig``)."""
     kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(TConfig)
-          if f.name != "quant"}
+          if f.name not in ("quant", "tier")}
+    kw["tier"] = TTier(**dataclasses.asdict(cfg.tier))
     kw.update(over)
     return TConfig(**kw)
 

@@ -1,9 +1,10 @@
-"""Port of tenancy and the resident store against the JAX package.
+"""Port of tenancy and the store against the JAX package.
 
 * ``repro_torch.store.VectorStore`` ≡ ``repro.store.VectorStore`` through
   one add / mark_dead / compact / grow sequence: rows, liveness, external
   ids, epochs, capacity, remaps, checkpoint arrays and padded device
-  tables equal, codes included for sq8.
+  tables equal, codes included for sq8; then the same sequence on tiered
+  stores of both packages, their block caches' maps and counters equal.
 * A multi-tenant reference DQF (``DQF.save``) carried across with
   ``convert.dqf_from_arrays``: every tenant's counter and hot index, the
   stacked ``(T_pad, H_pad+1, ·)`` tables byte-equal to the reference's
@@ -27,12 +28,14 @@ from repro.core import DQF as JDQF
 from repro.core import QuantConfig as JQuant
 from repro.core.dynamic_search import hot_phase_stacked as j_stacked
 from repro.store import VectorStore as JStore
+from repro.tiering import TierConfig as JTier
 from repro_torch import quant as tquant
 from repro_torch.convert import dqf_from_arrays
 from repro_torch.core import QuantConfig as TQuant
 from repro_torch.core import beam_search as tbs
 from repro_torch.core.dynamic_search import hot_phase_stacked as t_stacked
 from repro_torch.store import VectorStore as TStore
+from repro_torch.tiering import TierConfig as TTier
 from tests.conftest import make_clustered
 from tests.test_multitenant import CFG, disjoint_workloads
 from tests.test_torch_search import MAX_DIVERGENT, assert_lanes_match, \
@@ -93,7 +96,7 @@ def assert_stores_equal(js, ts, epochs=True):
 
 
 @pytest.mark.parametrize("mode", ["none", "sq8"])
-def test_store_matches_reference_through_mutations(mode):
+def test_store_matches_reference_through_mutations(mode, tmp_path):
     x = make_clustered(n=300, d=12, clusters=6, seed=4)
     more = make_clustered(n=90, d=12, clusters=6, seed=5)
     jq = tq = None
@@ -125,8 +128,24 @@ def test_store_matches_reference_through_mutations(mode):
         ts.mark_dead(np.array([2]))
     with pytest.raises(ValueError, match="already in use"):
         ts.add(more[:1], ext_ids=np.array([1000]))
-    with pytest.raises(NotImplementedError):
-        TStore(x, tier=object())
+    # the same sequence on tiered stores: rows and codes in block files,
+    # growth resizing them and re-keying the caches
+    if mode == "sq8":
+        jq = jquant.build_quantizer(x, JQuant(mode="sq8"))
+        tq = tquant.build_quantizer(x, TQuant(mode="sq8"))
+    tier = dict(mode="host", block_rows=16, cache_frac=0.25)
+    js = JStore(x, quant=jq, tier=JTier(dir=str(tmp_path / "j"), **tier))
+    ts = TStore(x, quant=tq, tier=TTier(dir=str(tmp_path / "t"), **tier))
+    assert js.tiered and ts.tiered
+    for step in steps:
+        jr, tr = step(js), step(ts)
+        if hasattr(jr, "remap"):
+            np.testing.assert_array_equal(tr.remap, jr.remap)
+        assert_stores_equal(js, ts)
+        assert len(ts.tier_caches()) == len(js.tier_caches())
+        for jc, tc in zip(js.tier_caches(), ts.tier_caches()):
+            assert (tc.name, tc.counters) == (jc.name, jc.counters)
+            np.testing.assert_array_equal(tc._map, jc._map)
 
 
 def test_store_arrays_cross_load():
