@@ -176,6 +176,35 @@ Phases, in order; any failure exits non-zero:
    resize, the caches re-key), delete 1,000 and compact, equal searches
    and no stale block after each step, then a save with the
    ``<path>.npz.tier/`` sidecar and a reload that searches the same.
+13. the sharded index's read path (``repro_torch.sharding.ShardedDQF``) on
+   phase 4's rows, config (fused), warm targets, fit queries and 4
+   batches.  S = 1: phase 4's index carried from its arrays (kept before
+   phase 11), no build; check 1: its search equals phase 4's
+   ``DQF.search`` bit for bit (ext ids, dists).  S = 2 and 4: build, warm
+   with phase 4's warm targets as global ext ids, fit_tree, each timed.
+   At every S, over the 4 batches (``record=False``): check 2, ``search``
+   (the stacked pass: S·B lanes, one hot-phase and one full-phase
+   fused_hop launch, one pool_merge) equals ``search_oracle`` (each
+   shard's own search, a stable host merge) bit for bit; check 3, the
+   stacked batches made 2 fused_hop and 1 pool_merge launches each
+   (counted from 0 just before them); check 5, ``memory_report``'s
+   per-shard device totals sum to the fleet's and ``scrape`` carries
+   ``shard=s`` for every s; at S = 4, check 4: ``search_degraded`` with
+   shard 2 lost has coverage 0.75, ids only of the live shards' rows, and
+   equals ``merge_with_dropout`` over the shards' own searches.  Printed:
+   ms a batch of the stacked and the oracle search (CUDA events), build,
+   warm and fit seconds and those of the stacked tables' set-up (made
+   once, before the timed searches), peak device memory, recall@10 of the
+   merged result (guard: at least half of S = 1's) and of the shards'
+   answers without the tree merged on the host, and for each shard its
+   recall@10 against the exact top-10 of its own rows with and without
+   the tree, the share of its lanes the tree ended and its mean
+   dist_count.  At S = 2 and 4 the two
+   kernels at the path's shapes against their plain versions, bit for
+   bit, timed beside them and their bounds: ``pool_merge`` on batch 0's
+   per-shard answers (the library's stable sort too), and one 8-hop
+   ``fused_hop`` launch from the stacked seed (S·B lanes, the per-lane
+   table base over the stacked tables and liveness).
 
 Recall guards against breakage, not a target: 0.5 for the float32 paths,
 half of phase 4's recall for the quantized ones.  Phases 7 and 8 search
@@ -682,7 +711,9 @@ def phase_main(dev, n, seed):
     t_build = time.perf_counter() - t0
     fused_hop_cuda.launches = 0
     t0 = time.perf_counter()
-    dqf.warm(warm_q)
+    # warm(warm_q) in its two steps, the targets kept for phase 13
+    warm_targets = dqf.search_baseline(warm_q).ids.cpu().numpy()
+    dqf.warm(warm_q, warm_targets)
     torch.cuda.synchronize()
     t_warm = time.perf_counter() - t0
     warm_launches = fused_hop_cuda.launches
@@ -695,8 +726,8 @@ def phase_main(dev, n, seed):
         f"fit_tree {t_fit:.3f} s  (hot index {dqf.hot.size} rows, "
         f"tree {dqf.tree.arrays.value.numel()} nodes)")
     gt = ground_truth(x, np.concatenate(batches), 10, device=dev)
-    _, _, (launches,), summary = run_searches(dqf, batches, gt,
-                                              [fused_hop_cuda])
+    results, _, (launches,), summary = run_searches(dqf, batches, gt,
+                                                    [fused_hop_cuda])
     peak = torch.cuda.max_memory_allocated()
     log(f"  fused_hop launches in the 4 searches: {launches}  peak device "
         f"memory {peak / 2**30:.3f} GiB")
@@ -719,8 +750,12 @@ def phase_main(dev, n, seed):
         log(f"  batch 0, {name}: recall@10 "
             f"{recall_at_k(res.ids.cpu().numpy(), gt0):.4f}, mean "
             f"dist_count {float(res.stats.dist_count.float().mean()):.2f}")
+    # phase 4's answers as ext ids (the identity at build), for phase 13
+    answers = [(dqf.to_external(r.ids.cpu().numpy()), r.dists.cpu().numpy())
+               for r in results]
     return dict(dqf=dqf, x=x, cfg=cfg, batches=batches, fit_q=fit_q, gt=gt,
-                launches=launches, summary=summary)
+                launches=launches, summary=summary, warm_q=warm_q,
+                warm_targets=warm_targets, answers=answers)
 
 
 # ------------------------------------------------------------------ phase 6
@@ -2182,6 +2217,338 @@ def _tier(ctx, dev, seed, saved, n_insert, n_delete, chaos_q, tmp):
     return out
 
 
+# ----------------------------------------------------------------- phase 13
+SHARD_COUNTS = (1, 2, 4)
+DEAD_SHARD = 2          # check 4 at S = 4: shard 2 lost
+
+
+def _bits(a: np.ndarray, b: np.ndarray) -> bool:
+    return a.shape == b.shape and a.dtype == b.dtype and np.array_equal(
+        np.ascontiguousarray(a).view(np.uint8),
+        np.ascontiguousarray(b).view(np.uint8))
+
+
+def timed_batches(fn, batches, counters=()):
+    """``fn(q)`` over ``batches``, CUDA events around each call (the host's
+    work and the copy of the result to the host included); each counter
+    set to 0 just before and read just after.  Returns (outputs, ms a
+    batch, launches)."""
+    for c in counters:
+        c.launches = 0
+    outs, times = [], []
+    for q in batches:
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        s.record()
+        outs.append(fn(q))
+        e.record()
+        torch.cuda.synchronize()
+        times.append(s.elapsed_time(e))
+    return outs, times, [c.launches for c in counters]
+
+
+def shard_pass(sd, x, batches, gt, dev):
+    """Each shard's own search of the batches (the oracle's pieces), and
+    its search without the tree (``search_dual_beam``), to locate a recall
+    loss: each one's recall@10 against the exact top-10 of the shard's own
+    rows, the share of lanes the tree ended, the mean dist_count; the
+    recall@10 of the shards' no-tree answers merged on the host; batch 0's
+    answers as ext ids and dists."""
+    from repro_torch.core.recall import ground_truth, recall_at_k
+    from repro_torch.sharding import merge_topk_host
+
+    qs = np.concatenate(batches)
+    stats, first, dual_ext = [], [], []
+    for sh in sd.shards:
+        res = [sh.dqf.search(q, record=False) for q in batches]
+        dual = [sh.dqf.search_dual_beam(q) for q in batches]
+        own_gt = gt if sd.num_shards == 1 else ground_truth(
+            x[sh.dqf.store.ext_ids], qs, 10, device=dev)
+        ids = lambda rs: np.concatenate([r.ids.cpu().numpy() for r in rs])
+        mean = lambda rs, f: float(torch.cat([getattr(r.stats, f)
+                                              for r in rs]).float().mean())
+        stats.append({"recall": recall_at_k(ids(res), own_gt),
+                      "terminated": mean(res, "terminated_early"),
+                      "dist_count": mean(res, "dist_count"),
+                      "recall_no_tree": recall_at_k(ids(dual), own_gt),
+                      "dist_count_no_tree": mean(dual, "dist_count")})
+        first.append((sh.dqf.to_external(res[0].ids.cpu().numpy()),
+                      res[0].dists.cpu().numpy()))
+        dual_ext.append((sh.dqf.to_external(ids(dual)), np.concatenate(
+            [r.dists.cpu().numpy() for r in dual])))
+    merged, _ = merge_topk_host([d[0] for d in dual_ext],
+                                [d[1] for d in dual_ext], sd.cfg.k)
+    return stats, first, recall_at_k(merged, gt)
+
+
+def sharded_merge_check(per_shard, k, dev):
+    """``pool_merge`` at the merge's shapes: batch 0's per-shard answers
+    (S, B, k) concatenated shard-major, the first k slots the pool, the
+    rest the candidates; the kernel against its plain version on the same
+    card tensors (bits) and ``merge_topk`` against the host oracle; the
+    kernel, the plain version and the library expression timed a call
+    alone (median of 20, 5 for the plain version).  Returns the timings."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.topk_merge import pool_merge_cuda
+    from repro_torch.sharding import merge_topk, merge_topk_host
+
+    S = len(per_shard)
+    d = torch.as_tensor(np.stack([p[1] for p in per_shard]), device=dev)
+    g = torch.as_tensor(np.stack([p[0] for p in per_shard]).astype(np.int32),
+                        device=dev)
+    ids, dists = merge_topk(d, g, k)
+    h_ids, h_dists = merge_topk_host([p[0] for p in per_shard],
+                                     [p[1] for p in per_shard], k)
+    if not (_bits(ids.cpu().numpy().astype(np.int64), h_ids)
+            and _bits(dists.cpu().numpy(), h_dists)):
+        raise SystemExit(f"S={S}: merge_topk differs from the host oracle")
+    B = d.shape[1]
+    cat_d = d.permute(1, 0, 2).reshape(B, S * k)
+    cat_g = g.permute(1, 0, 2).reshape(B, S * k)
+    args = (cat_d[:, :k].contiguous(), cat_g[:, :k].contiguous(),
+            cat_d[:, k:].contiguous(), cat_g[:, k:].contiguous())
+    saved = pool_merge_cuda.launches
+    got = pool_merge_cuda(*args)
+    want = ref.pool_merge(*args)
+    if not all(bits_equal(a, b) for a, b in zip(got, want)):
+        raise SystemExit(f"S={S}: pool_merge differs from its plain version "
+                         "at the merge's shapes")
+
+    def library():
+        srt = torch.sort(cat_d, dim=1, stable=True)
+        return srt.values[:, :k], cat_g.gather(1, srt.indices[:, :k])
+
+    ms = _median_ms(lambda: pool_merge_cuda(*args), 20)
+    device_ms = _median_ms(lambda: pool_merge_cuda(*args), 20, busy=True)
+    pool_merge_cuda.launches = saved
+    plain_ms = _median_ms(lambda: ref.pool_merge(*args), 5)
+    library_ms = _median_ms(library, 20)
+    merge_ms = _median_ms(lambda: merge_topk(d, g, k), 20)
+    pool_merge_cuda.launches = saved
+    moved = B * S * k * 8 + B * k * 8
+    bound_ms = moved / HBM_BYTES_PER_S * 1e3
+    err = float((got[0] - want[0]).abs().nan_to_num().max())
+    log(f"  S={S}: pool_merge at B={B} L={k} C={(S - 1) * k}: {ms:.4f} ms "
+        f"a call alone, device {device_ms:.4f}, plain {plain_ms:.4f}, "
+        f"library {library_ms:.4f} (torch.sort(stable=True), then a "
+        f"slice), bound {bound_ms:.6f} ms ({moved} bytes); merge_topk "
+        f"(layout + kernel) {merge_ms:.4f} ms; bits = plain = host oracle")
+    return {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes", "merge_topk_ms": merge_ms,
+            "max_abs_err": err, "shape": [B, k, (S - 1) * k]}
+
+
+def sharded_hop_check(sd, q, dev):
+    """One ``fused_hop`` launch of ``fused_hops`` hops at the stacked full
+    phase's shapes (S·B lanes, the per-lane table base over ``(S, cap+1,
+    ·)`` tables and liveness), from batch ``q``'s stacked seed, against
+    its plain version: every HopState field and ``seen`` bit for bit;
+    timed a call alone and the device alone beside the plain version and
+    the bound."""
+    from repro_torch.core import beam_search as bs
+    from repro_torch.core.dynamic_search import (_seed_full_state,
+                                                 hot_phase_stacked)
+    from repro_torch.core.features import hot_features
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fused_hop import fused_hop_cuda
+
+    c = sd.cfg
+    S, B = sd.num_shards, q.shape[0]
+    stk = sd._sync_stacked()
+    xh, adjh, idsh, enth, _ = sd._hot_stacked("default")
+    lane = torch.arange(S, device=dev).repeat_interleave(B)
+    qq = torch.as_tensor(q, device=dev).repeat(S, 1)
+    saved = fused_hop_cuda.launches
+    hot_pool, _ = hot_phase_stacked(xh, adjh, enth, None, lane, qq,
+                                    pool_size=c.hot_pool,
+                                    max_hops=c.max_hops, fused=True)
+    hot = hot_features(hot_pool, c.k)
+    x_pad, adj_pad, live = stk["x_pad"], stk["adj_pad"], stk["live_pad"]
+    n1 = x_pad.shape[1]
+    hs0 = bs.to_hop_state(_seed_full_state(
+        hot_pool, idsh[lane], n1 - 1, c.full_pool, bs.LaneTable(live, lane)))
+    seen0 = hs0.seen.clone()
+    args = (adj_pad, qq, live, "f32", x_pad, None, None, sd.tree.arrays,
+            hot.first.contiguous(), hot.first_div_kth.contiguous())
+    kw = dict(hops=c.fused_hops, max_hops=c.max_hops, k=c.k,
+              eval_gap=c.eval_gap, add_step=c.add_step,
+              tree_depth=c.tree_depth,
+              lane_base=(lane * n1).to(torch.int32))
+    reset = lambda: hs0.seen.copy_(seen0)
+    launch = lambda: fused_hop_cuda(hs0, *args, **kw)
+    reset()
+    launch()
+    ms, got = _event_ms(launch, 20, reset)
+    device_ms, _ = _event_ms(launch, 20, reset, busy=True)
+    reset()
+    got = launch()
+    seen_kernel = hs0.seen.clone()
+    fused_hop_cuda.launches = saved
+    reset()
+    plain_ms, want = _event_ms(lambda: ref.fused_hop(hs0, *args, **kw), 3,
+                               reset)
+    bad = [f for f in ref.HopState._fields if f != "seen"
+           and not bits_equal(getattr(want, f), getattr(got, f))]
+    if not torch.equal(hs0.seen, seen_kernel):
+        bad.append("seen")
+    del seen_kernel, seen0
+    if bad:
+        raise SystemExit(f"S={S}: the stacked fused_hop launch differs from "
+                         f"its plain version in {bad}")
+    L, R, d = hs0.ids.shape[1], adj_pad.shape[2], qq.shape[1]
+    rows = int((got.dist_count - hs0.dist_count).sum())
+    hops = int((got.hops - hs0.hops).sum())
+    bound_ms, by, moved = hop_bound("f32", S * B, L, R, d, d * 4,
+                                    S * B * d * 4, rows, hops)
+    err = float((want.dists - got.dists).abs().max())
+    log(f"  S={S}: stacked fused_hop at B={S * B} L={L} R={R} d={d} "
+        f"hops={c.fused_hops}, lane base over ({S}, {n1}, ·): {ms:.4f} ms "
+        f"a launch (device alone {device_ms:.4f}), plain {plain_ms:.4f} ms, "
+        f"bound {bound_ms:.5f} ms by {by} ({moved} bytes, {rows} rows "
+        f"scored); bits = plain")
+    return {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": by, "max_abs_err": err}
+
+
+def phase_sharding(ctx, dev, f32_arrays):
+    """Phase 13: ``ShardedDQF`` at S = 1 (phase 4's index carried, no
+    build), 2 and 4 (built) on phase 4's rows, config, warm targets,
+    fit queries and 4 batches.  Checks 1-5 and the recall guard, as the
+    module's docstring lists them; returns what the kernel line needs."""
+    from repro_torch.core.recall import recall_at_k
+    from repro_torch.kernels.fused_hop import fused_hop_cuda
+    from repro_torch.kernels.topk_merge import pool_merge_cuda
+    from repro_torch.serving.sharded import merge_with_dropout
+    from repro_torch.sharding import ShardedDQF
+
+    cfg, x, batches, gt = ctx["cfg"], ctx["x"], ctx["batches"], ctx["gt"]
+    counters = (fused_hop_cuda, pool_merge_cuda)
+    runs, one_recall = {}, None
+    for S in SHARD_COUNTS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if S == 1:
+            sd = ShardedDQF.from_arrays([f32_arrays], cfg, 1, device=dev)
+            torch.cuda.synchronize()
+            secs = {"carry": time.perf_counter() - t0}
+        else:
+            sd = ShardedDQF(cfg, S, device=dev).build(x)
+            torch.cuda.synchronize()
+            secs = {"build": time.perf_counter() - t0}
+            t0 = time.perf_counter()
+            sd.warm(ctx["warm_q"], ctx["warm_targets"])
+            torch.cuda.synchronize()
+            secs["warm"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            sd.fit_tree(ctx["fit_q"])
+            torch.cuda.synchronize()
+            secs["fit_tree"] = time.perf_counter() - t0
+        t0 = time.perf_counter()     # the stacked tables, built once
+        sd._sync_stacked()
+        sd._hot_stacked("default")
+        torch.cuda.synchronize()
+        secs["stack"] = time.perf_counter() - t0
+        sizes = [sh.dqf.store.n for sh in sd.shards]
+        hot = [sh.dqf.hot.size for sh in sd.shards]
+        log(f"  S={S}: {', '.join(f'{k} {v:.3f} s' for k, v in secs.items())}"
+            f"; rows a shard {sizes}, hot rows a shard {hot}, tree "
+            f"{sd.tree.arrays.value.numel()} nodes")
+        search = lambda q: sd.search(q, record=False)
+        stacked, ms, (hops, merges) = timed_batches(search, batches,
+                                                    counters)
+        oracle, oracle_ms, (o_hops, o_merges) = timed_batches(
+            sd.search_oracle, batches, counters)
+        fused_hop_cuda.launches = pool_merge_cuda.launches = 0
+        peak = torch.cuda.max_memory_allocated()
+        log(f"  S={S}: stacked search ms a batch "
+            f"{', '.join(f'{t:.3f}' for t in ms)} ({hops} fused_hop and "
+            f"{merges} pool_merge launches in the 4); oracle "
+            f"{', '.join(f'{t:.3f}' for t in oracle_ms)} ({o_hops} fused_hop"
+            f", {o_merges} pool_merge); peak device memory "
+            f"{peak / 2**30:.3f} GiB")
+        # check 1 (S = 1) and check 2: bit for bit
+        for i, (a, b) in enumerate(zip(stacked, oracle)):
+            if not (_bits(a.ids, b.ids) and _bits(a.dists, b.dists)):
+                raise SystemExit(f"check 2: S={S} search differs from "
+                                 f"search_oracle in batch {i}")
+            if S == 1:
+                ids, dists = ctx["answers"][i]
+                if not (_bits(a.ids, ids) and _bits(a.dists, dists)):
+                    raise SystemExit(f"check 1: one shard differs from "
+                                     f"phase 4's DQF.search in batch {i}")
+        log(f"  S={S}: search = search_oracle bit for bit in all 4 batches"
+            + (", and = phase 4's DQF.search (ext ids, dists)"
+               if S == 1 else ""))
+        # check 3: 2 fused_hop and 1 pool_merge launches a stacked batch
+        if (hops, merges) != (2 * len(batches), len(batches)):
+            raise SystemExit(f"check 3: S={S} stacked batches made {hops} "
+                             f"fused_hop and {merges} pool_merge launches, "
+                             f"not 2 and 1 a batch")
+        ids = np.concatenate([r.ids for r in stacked])
+        if ids.shape != (len(gt), cfg.k) or not np.isfinite(
+                np.concatenate([r.dists for r in stacked])).all() \
+                or ids.min() < 0 or ids.max() >= x.shape[0]:
+            raise SystemExit(f"S={S}: merged output malformed")
+        recall = recall_at_k(ids, gt)
+        if S == 1:
+            one_recall = recall
+        shards, first, no_tree = shard_pass(sd, x, batches, gt, dev)
+        log(f"  S={S}: recall@10 merged {recall:.4f} (one shard "
+            f"{one_recall:.4f}; merged without the tree {no_tree:.4f}); "
+            f"per shard against its own exact top-10: "
+            + "; ".join(f"{s}: recall {p['recall']:.4f} (no tree "
+                        f"{p['recall_no_tree']:.4f}), tree-ended "
+                        f"{p['terminated']:.4f}, dist_count "
+                        f"{p['dist_count']:.1f} (no tree "
+                        f"{p['dist_count_no_tree']:.1f})"
+                        for s, p in enumerate(shards)))
+        if recall < 0.5 * one_recall:
+            raise SystemExit(f"recall guard: S={S} merged recall@10 "
+                             f"{recall:.4f} < half of one shard's "
+                             f"{one_recall:.4f}")
+        # check 5: memory splits and shard labels
+        mr = sd.memory_report()
+        per = [e["device"]["total"] for e in mr["per_shard"]]
+        sc = sd.scrape()
+        if sum(per) != mr["device"]["total"] or not all(
+                any(k.endswith(f"shard={s}}}") for k in sc)
+                for s in range(S)):
+            raise SystemExit(f"check 5: S={S} memory_report or scrape labels")
+        log(f"  S={S}: device bytes a shard {per} (fleet "
+            f"{mr['device']['total']}); scrape labels shard=0..{S - 1}")
+        run = {"secs": secs, "stacked_ms": ms, "oracle_ms": oracle_ms,
+               "launches": {"fused_hop": hops, "pool_merge": merges},
+               "oracle_launches": {"fused_hop": o_hops,
+                                   "pool_merge": o_merges},
+               "recall": recall, "recall_no_tree": no_tree,
+               "shards": shards, "peak_bytes": peak,
+               "device_bytes": per}
+        if S > 1:
+            run["merge"] = sharded_merge_check(first, cfg.k, dev)
+            run["hop"] = sharded_hop_check(sd, batches[0], dev)
+        if S == 4:      # check 4: a lost shard
+            alive = [s != DEAD_SHARD for s in range(S)]
+            got = sd.search_degraded(batches[0], alive)
+            want = merge_with_dropout([p[0] for p in first],
+                                      [p[1] for p in first], alive, cfg.k)
+            owners = {sd._owner[int(e)] for e in got[0].ravel() if e >= 0}
+            if not (got[2] == 0.75 and DEAD_SHARD not in owners
+                    and _bits(got[0], want[0]) and _bits(got[1], want[1])):
+                raise SystemExit("check 4: search_degraded with shard 2 "
+                                 "lost")
+            log(f"  S=4, shard {DEAD_SHARD} lost: coverage {got[2]}, ids "
+                f"only from shards {sorted(owners)}, = merge_with_dropout "
+                f"of the shards' own searches; recall@10 of batch 0 "
+                f"{recall_at_k(got[0], gt[:len(batches[0])]):.4f}")
+        runs[S] = run
+        fused_hop_cuda.launches = pool_merge_cuda.launches = 0
+        del sd, stacked, oracle
+    return runs
+
+
 # ----------------------------------------------------------------- phase 3e
 def finite_err(want, got) -> float:
     """Largest |want - got| over the finite entries of ``want`` (the
@@ -2697,6 +3064,7 @@ def main() -> int:
           "cache sizes, f32, pq and mxu at 25%, both engines, mutation, "
           "chaos)")
     t12 = time.perf_counter()
+    f32_arrays = {k: v.copy() for k, v in saved["f32"].items()}
     tier = phase_tier(ctx, dev, args.seed, saved)
     del saved
     by_name["fused_topk_l2"]["tier"] = {"launches":
@@ -2707,6 +3075,23 @@ def main() -> int:
                                  "tiered store (checked around every "
                                  "tiered batch)"}
     log(f"  phase 12: {time.perf_counter() - t12:.1f} s")
+
+    phase("phase 13: ShardedDQF's read path at S = 1, 2, 4 on phase 4's "
+          "rows (stacked vs oracle, launches, a lost shard, memory, recall)")
+    t13 = time.perf_counter()
+    runs = phase_sharding(ctx, dev, f32_arrays)
+    del f32_arrays
+    for name, key, counter in (("pool_merge", "merge", "pool_merge"),
+                               ("fused_hop (f32)", "hop", "fused_hop")):
+        e = by_name[name]
+        e["sharded"] = {
+            "launches": {S: r["launches"][counter] for S, r in runs.items()},
+            "stacked_batch_ms": {S: r["stacked_ms"]
+                                 for S, r in runs.items()},
+            **{f"S={S} {key}": r[key] for S, r in runs.items() if key in r}}
+        e["max_abs_err"] = max([e["max_abs_err"]] + [
+            r[key]["max_abs_err"] for r in runs.values() if key in r])
+    log(f"  phase 13: {time.perf_counter() - t13:.1f} s")
 
     phase("done")
     log(f"  total {time.perf_counter() - t_all:.1f} s")

@@ -6,7 +6,8 @@ checkpoint's own keys (``repro.core.DQF.save`` and the port's
 ``.npz`` is such a mapping) and returns a port :class:`DQF` that searches
 the same store, graph, tenants' hot indexes, tree and quantizer.  It is
 the code path of :meth:`DQF.load`, so a checkpoint loads the same way
-either way.
+either way.  :func:`sharded_from_arrays` does the same for a sharded
+index, one such mapping a shard.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from __future__ import annotations
 from repro_torch.core.dqf import DQF
 from repro_torch.core.types import DQFConfig
 
-__all__ = ["dqf_from_arrays"]
+__all__ = ["dqf_from_arrays", "sharded_from_arrays"]
 
 
 def dqf_from_arrays(arrays, cfg: DQFConfig | None = None,
@@ -39,3 +40,19 @@ def dqf_from_arrays(arrays, cfg: DQFConfig | None = None,
     ``cfg.tier.dir`` (else a fresh temp dir) behind device block caches.
     """
     return DQF.from_arrays(arrays, cfg, device=device)
+
+
+def sharded_from_arrays(per_shard_arrays, owner, tree, cfg: DQFConfig | None,
+                        scfg, *, device=None):
+    """A port :class:`~repro_torch.sharding.ShardedDQF` over a sharded
+    index's saved state: one mapping a shard under the keys above (each
+    shard's ``DQF.save`` of a reference ``ShardedDQF``, or the port's
+    ``DQF.to_arrays``), the global ext id → shard map (the reference's
+    ``_owner``; None derives it from the live rows) and the shared tree
+    (a mapping with the ``tree_*`` keys, or None for the one the first
+    shard carries).  ``scfg`` is a ``ShardConfig``, a shard count, or None
+    for one shard a mapping.  See :meth:`ShardedDQF.from_arrays`."""
+    from repro_torch.sharding import ShardedDQF
+
+    return ShardedDQF.from_arrays(per_shard_arrays, cfg, scfg, owner=owner,
+                                  tree=tree, device=device)

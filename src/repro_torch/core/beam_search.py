@@ -13,10 +13,12 @@ The ``seen`` bitmap of a :class:`BeamState` is updated in place by
 :func:`expand_step` and the fused loop.
 
 Tables may be shared ``(n+1, ·)``, per lane ``(B, n+1, ·)``, or a
-:class:`LaneTable` — lane b reads block ``tenant_idx[b]`` of a stacked
+:class:`LaneTable` — lane b reads block ``lane_idx[b]`` of a stacked
 ``(T, n+1, ·)`` table without the per-lane copy ever being made (the
-stacked multi-tenant hot phase); entries may be shared ``(E,)`` or per
-lane ``(B, E)``.
+stacked multi-tenant hot phase, the stacked shards of
+:mod:`repro_torch.sharding`); entries may be shared ``(E,)`` or per lane
+``(B, E)``; liveness shared ``(n+1,)`` or a :class:`LaneTable` over a
+stacked ``(T, n+1)`` table (:func:`live_at`).
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ __all__ = [
     "BeamState", "init_state", "expand_step", "beam_loop", "beam_search",
     "pad_dataset", "pad_adjacency", "table_n", "as_view", "score_rows",
     "to_hop_state", "from_hop_state", "fused_beam_loop", "topk_from_pool",
-    "LaneTable", "next_expansions",
+    "LaneTable", "next_expansions", "live_at",
 ]
 
 
@@ -51,10 +53,11 @@ class LaneTable(NamedTuple):
     Rows are gathered by ``(lane_idx[b], id)`` where they are read, so a
     wave over a ``(T, n+1, w)`` stack never materializes the ``(B, n+1,
     w)`` per-lane copy.  Scores like a score table (``n``,
-    ``gather_score``), exactly in float32.
+    ``gather_score``), exactly in float32.  Over a ``(T, n+1)`` table
+    (liveness, id maps) ``rows`` gives lane b's entries ``(B, C)``.
     """
 
-    table: torch.Tensor      # (T, n+1, w)
+    table: torch.Tensor      # (T, n+1, w) or (T, n+1)
     lane_idx: torch.Tensor   # (B,) int64
 
     @property
@@ -68,6 +71,15 @@ class LaneTable(NamedTuple):
     def gather_score(self, queries: torch.Tensor,
                      cols: torch.Tensor) -> torch.Tensor:
         return sq_l2(self.rows(cols), queries[:, None, :])
+
+
+def live_at(live_pad, ids: torch.Tensor) -> torch.Tensor:
+    """(B, C) liveness of lane b's ids ``ids[b, c]``: from a shared
+    ``(n+1,)`` table, or lane b's block of a :class:`LaneTable` over a
+    stacked ``(T, n+1)`` one."""
+    if isinstance(live_pad, LaneTable):
+        return live_pad.rows(ids)
+    return live_pad[ids.long()]
 
 
 def pad_dataset(x: torch.Tensor, pad_value: float = 1e9) -> torch.Tensor:
@@ -169,7 +181,7 @@ def init_state(x_pad, queries: torch.Tensor, entries: torch.Tensor,
     d2 = score_rows(x_pad, queries, ids0)
     d2 = torch.where(ids0 == n, INF_DIST, d2)
     if live_pad is not None:
-        d2 = torch.where(live_pad[ids0.long()], d2, INF_DIST)
+        d2 = torch.where(live_at(live_pad, ids0), d2, INF_DIST)
     order = torch.sort(d2, dim=1, stable=True).indices
     ids0 = ids0.gather(1, order)
     d2 = d2.gather(1, order)
@@ -216,7 +228,7 @@ def expand_step(x_pad, adj_pad: torch.Tensor, queries: torch.Tensor,
     already = state.seen.gather(1, nbrs.long())
     valid = (nbrs != n) & (~already) & lane[:, None]
     if live_pad is not None:
-        valid &= live_pad[nbrs.long()]
+        valid &= live_at(live_pad, nbrs)
     cols = torch.where(valid, nbrs, n)
     seen = state.seen
     seen[rows[:, None], cols.long()] = True
@@ -293,7 +305,8 @@ def fused_beam_loop(x_pad, adj_pad, queries, state: BeamState,
     With ``tree`` and ``hot`` (the frozen hot-phase features) the kernel
     also runs the decision-tree check of the dynamic full phase.  A
     :class:`LaneTable` pair (``x_pad``, ``adj_pad``) runs through the
-    kernel's per-lane table base.
+    kernel's per-lane table base, with ``live_pad`` shared ``(n+1,)`` or
+    a :class:`LaneTable` over the stacked ``(T, n+1)`` liveness.
     """
     hf, hr = (hot.first.contiguous(), hot.first_div_kth.contiguous()) \
         if hot is not None else (None, None)
@@ -303,6 +316,10 @@ def fused_beam_loop(x_pad, adj_pad, queries, state: BeamState,
             raise TypeError("a LaneTable search needs a LaneTable adjacency")
         lane_base = (x_pad.lane_idx * (x_pad.n + 1)).to(torch.int32)
         x_pad, adj_pad = x_pad.table, adj_pad.table
+        if isinstance(live_pad, LaneTable):
+            live_pad = live_pad.table
+    elif isinstance(live_pad, LaneTable):
+        raise TypeError("a stacked liveness table needs LaneTable tables")
     hs = to_hop_state(state)
     kw = dict(max_hops=max_hops, k=k, eval_gap=eval_gap, add_step=add_step,
               tree_depth=tree_depth, lane_base=lane_base)

@@ -28,8 +28,9 @@ from .features import feature_matrix, hot_features
 from .types import (INF_DIST, INT_MAX, HotFeatures, PoolState, SearchResult,
                     SearchStats)
 
-__all__ = ["dynamic_search", "hot_phase", "hot_phase_graph",
-           "hot_phase_mxu", "hot_phase_stacked", "DynamicState"]
+__all__ = ["dynamic_search", "search_from_hot", "hot_phase",
+           "hot_phase_graph", "hot_phase_mxu", "hot_phase_stacked",
+           "DynamicState"]
 
 
 class DynamicState(NamedTuple):
@@ -158,7 +159,7 @@ def _exact_rerank(x_pad, queries, pool: PoolState, *, k: int,
     d2 = bs.score_rows(x_pad, queries, ids)
     d2 = torch.where(ids == n, INF_DIST, d2)
     if live_pad is not None:
-        d2 = torch.where(live_pad[ids.long()], d2, INF_DIST)
+        d2 = torch.where(bs.live_at(live_pad, ids), d2, INF_DIST)
     order = torch.sort(d2, dim=1, stable=True).indices[:, :k]
     return ids.gather(1, order), d2.gather(1, order)
 
@@ -180,9 +181,11 @@ def _seed_full_state(hot_pool: PoolState, hot_ids_pad: torch.Tensor,
     """Map the hot pool to global ids and seed the phase-2 state.
 
     Alg 4 line 11: all entries arrive unexpanded; line 12: counters reset.
-    ``live_pad`` masks hot results whose global row was tombstoned.
-    ``hot_ids_pad`` is the shared ``(H+1,)`` local→global map, or per-lane
-    ``(B, H+1)`` rows gathered from a stacked multi-tenant table.
+    ``live_pad`` masks hot results whose global row was tombstoned: shared
+    ``(n+1,)``, or a :class:`~repro_torch.core.beam_search.LaneTable` over
+    stacked ``(T, n+1)`` tables.  ``hot_ids_pad`` is the shared ``(H+1,)``
+    local→global map, or per-lane ``(B, H+1)`` rows gathered from a
+    stacked table.
     """
     B, s_l = hot_pool.ids.shape
     dev = hot_pool.ids.device
@@ -193,7 +196,7 @@ def _seed_full_state(hot_pool: PoolState, hot_ids_pad: torch.Tensor,
     gids = torch.where(hot_pool.dists >= INF_DIST, n, gids).to(torch.int32)
     dists = hot_pool.dists
     if live_pad is not None:
-        dead = ~live_pad[gids.long()]
+        dead = ~bs.live_at(live_pad, gids)
         gids = torch.where(dead, n, gids)
         dists = torch.where(dead, INF_DIST, dists)
     take = min(s_l, pool_size)
@@ -289,11 +292,37 @@ def dynamic_search(
     kernel (on the card one launch a phase), with bit-identical results.
     The tensors' device picks kernel or plain version.
     """
-    n = bs.table_n(x_pad)
     hot_pool, hot_stats = hot_phase(
         x_hot_pad, adj_hot_pad, hot_entries, queries,
         pool_size=hot_pool_size, max_hops=max_hops, mode=hot_mode,
         fused=fused)
+    res, hfeats = search_from_hot(
+        x_pad, adj_pad, hot_pool, hot_ids_pad, tree, queries, k=k,
+        full_pool_size=full_pool_size, eval_gap=eval_gap, add_step=add_step,
+        tree_depth=tree_depth, max_hops=max_hops, qtable=qtable,
+        rerank_k=rerank_k, live_pad=live_pad, fused=fused,
+        fused_hops=fused_hops)
+    return res, hot_stats, hfeats
+
+
+def search_from_hot(x_pad, adj_pad, hot_pool: PoolState,
+                    hot_ids_pad: torch.Tensor, tree: Optional[TreeArrays],
+                    queries: torch.Tensor, *, k: int, full_pool_size: int,
+                    eval_gap: int, add_step: int, tree_depth: int,
+                    max_hops: int = 512, qtable=None, rerank_k: int = 0,
+                    live_pad=None, fused: bool = False, fused_hops: int = 8
+                    ) -> tuple[SearchResult, HotFeatures]:
+    """Algorithm 4 after its hot phase: the hot features, the seed, the
+    full phase with its tree checks, the top-k (or the exact rerank).
+    Returns (result, hot_feats).
+
+    :func:`dynamic_search` runs it after :func:`hot_phase`.  A stacked
+    search runs it over stacked tables: ``x_pad``, ``adj_pad`` and
+    ``live_pad`` each a :class:`~repro_torch.core.beam_search.LaneTable`,
+    ``hot_ids_pad`` per-lane ``(B, H+1)`` rows, ids local to each lane's
+    block (sentinel n).
+    """
+    n = bs.table_n(x_pad)
     hfeats = hot_features(hot_pool, k)
     state = _seed_full_state(hot_pool, hot_ids_pad, n, full_pool_size,
                              live_pad)
@@ -313,5 +342,4 @@ def dynamic_search(
                                    rerank_k=rerank_k, live_pad=live_pad)
     else:
         ids, dists = bs.topk_from_pool(state.pool, k)
-    return (SearchResult(ids=ids, dists=dists, stats=state.stats),
-            hot_stats, hfeats)
+    return SearchResult(ids=ids, dists=dists, stats=state.stats), hfeats

@@ -27,6 +27,17 @@ def test_dqf_runs_on_the_card_by_default():
     assert DQF(DQFConfig(), device="cpu").device.type == "cpu"
 
 
+def test_sharded_dqf_runs_on_the_card_by_default():
+    from repro_torch.sharding import ShardedDQF
+
+    if torch.cuda.is_available():
+        assert ShardedDQF(DQFConfig(), 2).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            ShardedDQF(DQFConfig(), 2)
+    assert ShardedDQF(DQFConfig(), 2, device="cpu").device.type == "cpu"
+
+
 @pytest.mark.parametrize("mode", ["sq8", "pq"])
 def test_quantized_dqf_builds_and_searches_on_cpu(mode):
     from repro_torch.core import QuantConfig, ZipfWorkload
@@ -68,6 +79,7 @@ def test_port_imports_no_jax_and_nothing_of_repro():
             " repro_torch.kernels.gather_distance, repro_torch.quant,"
             " repro_torch.obs, repro_torch.obs.bundle, repro_torch.store,"
             " repro_torch.tenancy, repro_torch.tiering, repro_torch.chaos,"
+            " repro_torch.sharding, repro_torch.serving.sharded,"
             " repro_torch.serving.engine,"
             " repro_torch.serving.paged_engine,"
             " repro_torch.examples.streaming_updates;"
