@@ -204,7 +204,43 @@ Phases, in order; any failure exits non-zero:
    bit, timed beside them and their bounds: ``pool_merge`` on batch 0's
    per-shard answers (the library's stable sort too), and one 8-hop
    ``fused_hop`` launch from the stacked seed (S·B lanes, the per-lane
-   table base over the stacked tables and liveness).
+   table base over the stacked tables and liveness).  The S = 2 and 4
+   indexes stay for phase 14.
+14. the sharded engine (``repro_torch.sharding.ShardedEngine``) on phase
+   13's S = 2 and 4 indexes, not rebuilt (a tenant "b" warmed on phase
+   9's second Zipf stream; every Alg-2 trigger out of reach), phase 9's
+   shapes (256 lanes, ``tick_hops=8``, paged ``page_cols=256``) and
+   traffic (4096 at once; 8 bursts of 512, 4 steps apart; two tenants,
+   2048 each, interleaved by 64).  Check 1: the fixed fused engine ≡ the
+   fixed composed one per query (ids, dists, hops bit for bit), equal
+   ticks; check 2: the paged fused engine ≡ the fixed fused one in all
+   three runs, the page pool empty after each; check 3: every fixed
+   tick launched exactly 1 fused_hop and 1 pool_merge, every paged tick
+   1 fused_hop_paged and 1 pool_merge, every composed tick 1 pool_merge
+   (counted a tick by a wrapper around the tick function; the refills'
+   hot phases launch outside it); check 4: recall@10 at least the
+   stacked search's (phase 13) − 0.08 and every shard's Alg-2 clock
+   advanced by the query count; check 5: with shard 1 failing every
+   tick every result of batch 0 answers over S − 1 shards, degraded,
+   with no row of shard 1, after one quarantine, and a zero-rate plan
+   gives the bits of no plan; check 6: the fixed engine on the index and
+   the paged one on a clone (``ShardedDQF.from_arrays`` of its shards'
+   arrays), auto-compaction at 0.4% tombstones, serve the 4 batches as 4
+   rounds, insert 512 rows after round 1, delete 5,000 global ids after
+   round 2 and pin 3x the largest shard mass of traffic on 64 of shard
+   0's rows, so the compaction the engines run in round 3 rebalances
+   them: paged ≡ fixed every round, no deleted id returned, every live
+   id owned by the shard that stores it; check 7: the fixed tick's
+   8-hop ``fused_hop`` (S·256 lanes from the engine's own seed), the
+   paged tick's ``fused_hop_paged`` (S·256 lanes over the stacked pool,
+   page-table rows offset by ``s·n_pages``) and ``pool_merge`` at L = 10,
+   C = S·64 − 10 on pools made unsorted by masked ``INF_DIST`` slots,
+   each bit for bit with its plain version, timed beside it, the bound
+   and (the merge) the library's stable sort.  Printed: QPS, p99,
+   queue-wait p99, ticks, recall, launches, peak memory and the tick's
+   split by timeline span (hop, merge, retire, refill) per engine and
+   run; ``_sync_stacked`` seconds after each write, insert, delete and
+   compact seconds, rows rebalanced.
 
 Recall guards against breakage, not a target: 0.5 for the float32 paths,
 half of phase 4's recall for the quantized ones.  Phases 7 and 8 search
@@ -1124,12 +1160,14 @@ def phase_quant(ctx, mode, dev):
 
 
 # ------------------------------------------------------------------ phase 9
-def serve(eng, plan, counters, k, on_step=None):
+def serve(eng, plan, counters, k, on_step=None,
+          occupancy="engine_occupancy_ratio"):
     """Drive ``eng`` through ``plan`` — a list of (tenant, queries,
     steps after submitting) — then drain it, one ``step()`` at a time,
     calling ``on_step(eng)`` after each.  Every counter in ``counters`` is
-    set to 0 just before and read just after.  Returns (rids, results,
-    launches, summary)."""
+    set to 0 just before and read just after; ``occupancy`` is the
+    engine's occupancy series.  Returns (rids, results, launches,
+    summary)."""
     for c in counters:
         c.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -1138,7 +1176,7 @@ def serve(eng, plan, counters, k, on_step=None):
     t0 = time.perf_counter()
     def step():
         eng.step()
-        occ.append(eng._collect_metrics()["engine_occupancy_ratio"])
+        occ.append(eng._collect_metrics()[occupancy])
         if on_step is not None:
             on_step(eng)
 
@@ -2220,6 +2258,7 @@ def _tier(ctx, dev, seed, saved, n_insert, n_delete, chaos_q, tmp):
 # ----------------------------------------------------------------- phase 13
 SHARD_COUNTS = (1, 2, 4)
 DEAD_SHARD = 2          # check 4 at S = 4: shard 2 lost
+ENGINE_SHARDS = (2, 4)  # phase 14 serves phase 13's indexes at these S
 
 
 def _bits(a: np.ndarray, b: np.ndarray) -> bool:
@@ -2369,54 +2408,37 @@ def sharded_hop_check(sd, q, dev):
     n1 = x_pad.shape[1]
     hs0 = bs.to_hop_state(_seed_full_state(
         hot_pool, idsh[lane], n1 - 1, c.full_pool, bs.LaneTable(live, lane)))
-    seen0 = hs0.seen.clone()
     args = (adj_pad, qq, live, "f32", x_pad, None, None, sd.tree.arrays,
             hot.first.contiguous(), hot.first_div_kth.contiguous())
     kw = dict(hops=c.fused_hops, max_hops=c.max_hops, k=c.k,
               eval_gap=c.eval_gap, add_step=c.add_step,
               tree_depth=c.tree_depth,
               lane_base=(lane * n1).to(torch.int32))
-    reset = lambda: hs0.seen.copy_(seen0)
-    launch = lambda: fused_hop_cuda(hs0, *args, **kw)
-    reset()
-    launch()
-    ms, got = _event_ms(launch, 20, reset)
-    device_ms, _ = _event_ms(launch, 20, reset, busy=True)
-    reset()
-    got = launch()
-    seen_kernel = hs0.seen.clone()
+    ms, device_ms, plain_ms, got = _kernel_vs_plain(
+        lambda: fused_hop_cuda(hs0, *args, **kw),
+        lambda: ref.fused_hop(hs0, *args, **kw), hs0.seen,
+        f"S={S}: the stacked fused_hop launch")
     fused_hop_cuda.launches = saved
-    reset()
-    plain_ms, want = _event_ms(lambda: ref.fused_hop(hs0, *args, **kw), 3,
-                               reset)
-    bad = [f for f in ref.HopState._fields if f != "seen"
-           and not bits_equal(getattr(want, f), getattr(got, f))]
-    if not torch.equal(hs0.seen, seen_kernel):
-        bad.append("seen")
-    del seen_kernel, seen0
-    if bad:
-        raise SystemExit(f"S={S}: the stacked fused_hop launch differs from "
-                         f"its plain version in {bad}")
     L, R, d = hs0.ids.shape[1], adj_pad.shape[2], qq.shape[1]
     rows = int((got.dist_count - hs0.dist_count).sum())
     hops = int((got.hops - hs0.hops).sum())
     bound_ms, by, moved = hop_bound("f32", S * B, L, R, d, d * 4,
                                     S * B * d * 4, rows, hops)
-    err = float((want.dists - got.dists).abs().max())
     log(f"  S={S}: stacked fused_hop at B={S * B} L={L} R={R} d={d} "
         f"hops={c.fused_hops}, lane base over ({S}, {n1}, ·): {ms:.4f} ms "
         f"a launch (device alone {device_ms:.4f}), plain {plain_ms:.4f} ms, "
         f"bound {bound_ms:.5f} ms by {by} ({moved} bytes, {rows} rows "
         f"scored); bits = plain")
     return {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": by, "max_abs_err": err}
+            "bound_ms": bound_ms, "bound_by": by, "max_abs_err": 0.0}
 
 
 def phase_sharding(ctx, dev, f32_arrays):
     """Phase 13: ``ShardedDQF`` at S = 1 (phase 4's index carried, no
     build), 2 and 4 (built) on phase 4's rows, config, warm targets,
     fit queries and 4 batches.  Checks 1-5 and the recall guard, as the
-    module's docstring lists them; returns what the kernel line needs."""
+    module's docstring lists them; returns what the kernel line needs and
+    the S = 2 and 4 indexes, which phase 14 serves."""
     from repro_torch.core.recall import recall_at_k
     from repro_torch.kernels.fused_hop import fused_hop_cuda
     from repro_torch.kernels.topk_merge import pool_merge_cuda
@@ -2425,7 +2447,7 @@ def phase_sharding(ctx, dev, f32_arrays):
 
     cfg, x, batches, gt = ctx["cfg"], ctx["x"], ctx["batches"], ctx["gt"]
     counters = (fused_hop_cuda, pool_merge_cuda)
-    runs, one_recall = {}, None
+    runs, one_recall, kept = {}, None, {}
     for S in SHARD_COUNTS:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -2545,8 +2567,516 @@ def phase_sharding(ctx, dev, f32_arrays):
                 f"{recall_at_k(got[0], gt[:len(batches[0])]):.4f}")
         runs[S] = run
         fused_hop_cuda.launches = pool_merge_cuda.launches = 0
+        if S in ENGINE_SHARDS:
+            kept[S] = sd
         del sd, stacked, oracle
-    return runs
+    return runs, kept
+
+
+# ------------------------------------------------------------------ phase 14
+def _audit_ticks(eng, counters):
+    """Wrap the engine's tick function (its refills run outside it) to
+    record each tick's launches of ``counters``; returns the list it
+    appends one tuple a tick to."""
+    per_tick = []
+    inner = eng._tick_fn
+
+    def tick(*args):
+        before = [c.launches for c in counters]
+        out = inner(*args)
+        per_tick.append(tuple(c.launches - b
+                              for c, b in zip(counters, before)))
+        return out
+
+    eng._tick_fn = tick
+    return per_tick
+
+
+def _trigger_out_of_reach(sd):
+    """Every tenant's Alg-2 trigger out of reach, so no hot index changes
+    while the engines serve (as phase 9 sets ``n_query_trigger``)."""
+    for sh in sd.shards:
+        for t in sh.dqf.tenants:
+            t.counter.trigger = 10 ** 9
+
+
+def _kernel_vs_plain(kernel, plain, state, what):
+    """A hop launch ``kernel()`` and its plain version ``plain()`` from the
+    same ``state`` (the dense seen rows or the page pool, which both
+    update in place): every HopState field and ``state`` bit for bit; the
+    kernel timed a call alone and the device alone (means of 20), the
+    plain version over 3 calls.  Returns (ms, device_ms, plain_ms, the
+    kernel's output)."""
+    from repro_torch.kernels.ref import HopState
+
+    start = state.clone()
+    reset = lambda: state.copy_(start)
+    reset()
+    kernel()
+    ms, _ = _event_ms(kernel, 20, reset)
+    device_ms, _ = _event_ms(kernel, 20, reset, busy=True)
+    reset()
+    got = kernel()
+    after = state.clone()
+    plain_ms, want = _event_ms(plain, 3, reset)
+    bad = [f for f in HopState._fields if f != "seen"
+           and not bits_equal(getattr(want, f), getattr(got, f))]
+    if not torch.equal(state, after):
+        bad.append("seen")
+    reset()
+    del start, after
+    if bad:
+        raise SystemExit(f"{what} differs from its plain version in {bad}")
+    return ms, device_ms, plain_ms, got
+
+
+def engine_kernel_checks(sd, eng, peng, q, dev):
+    """Check 7: the fixed tick's ``fused_hop`` (S·W lanes seeded by the
+    engine's own refill, the per-lane table base, the tree, add_step 0),
+    the paged tick's ``fused_hop_paged`` (S·bucket lanes gathered from
+    the stacked slot arrays, the shard-offset page table over the stacked
+    pool) and the tick's ``pool_merge`` (L = k, C = S·full_pool − k, the
+    fixed hop's pools with 5% of their slots masked to ``INF_DIST`` as
+    deletes and dropped shards mask them) against their plain versions,
+    bit for bit, timed beside them and their bounds.  The launches made
+    here are not counted."""
+    from repro_torch.core import beam_search as bs
+    from repro_torch.core.types import INF_DIST
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fused_hop import (fused_hop_cuda,
+                                               fused_hop_paged_cuda)
+    from repro_torch.kernels.topk_merge import pool_merge_cuda
+    from repro_torch.serving import paged as pg
+
+    saved = (fused_hop_cuda.launches, fused_hop_paged_cuda.launches,
+             pool_merge_cuda.launches)
+    c, S, W = sd.cfg, sd.num_shards, min(eng.wave, q.shape[0])
+    stk = eng._stk
+    n1, R, d = stk["x_pad"].shape[1], stk["adj_pad"].shape[2], q.shape[1]
+    slots = np.asarray([[sh.dqf.tenants.slot_of("default")] * W
+                        for sh in sd.shards])
+    seeded, hf, qq = eng._seed(q[:W], slots)
+    lane = eng._lane_shard(W)
+    hs0 = bs.to_hop_state(seeded, evals_done=torch.zeros(
+        S * W, dtype=torch.int32, device=dev))
+    kw = dict(hops=eng.tick_hops, max_hops=c.max_hops, k=c.k,
+              eval_gap=c.eval_gap, add_step=0, tree_depth=c.tree_depth,
+              lane_base=(lane * n1).to(torch.int32))
+    args = (stk["adj_pad"], qq, stk["live_pad"], "f32", stk["x_pad"], None,
+            None, eng._tree, hf.first.contiguous(),
+            hf.first_div_kth.contiguous())
+    out = {}
+    ms, device_ms, plain_ms, got = _kernel_vs_plain(
+        lambda: fused_hop_cuda(hs0, *args, **kw),
+        lambda: ref.fused_hop(hs0, *args, **kw), hs0.seen,
+        f"check 7: S={S}: the fixed tick's fused_hop")
+    L = hs0.ids.shape[1]
+    rows = int((got.dist_count - hs0.dist_count).sum())
+    hops = int((got.hops - hs0.hops).sum())
+    bound_ms, by, moved = hop_bound("f32", S * W, L, R, d, d * 4,
+                                    S * W * d * 4, rows, hops)
+    out["hop"] = {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+                  "bound_ms": bound_ms, "bound_by": by,
+                  "max_abs_err": 0.0, "shape": [S * W, L, R, d]}
+    log(f"  S={S} check 7: fixed tick fused_hop at B={S * W} L={L} R={R} "
+        f"d={d} hops={eng.tick_hops} over ({S}, {n1}, ·): {ms:.4f} ms a "
+        f"launch (device alone {device_ms:.4f}), plain {plain_ms:.4f}, "
+        f"bound {bound_ms:.5f} ms by {by} ({moved} bytes, {rows} rows "
+        f"scored); bits = plain")
+
+    # the tick's merge at its shapes, pools made unsorted by masked slots
+    g = bs.LaneTable(stk["gid_pad"], lane).rows(got.ids)
+    dists = torch.where(g < 0, INF_DIST, got.dists)
+    rng = np.random.default_rng(S)
+    mask = torch.as_tensor(rng.random(tuple(g.shape)) < 0.05, device=dev)
+    dists = torch.where(mask, INF_DIST, dists)
+    g = torch.where(mask, -1, g)
+    cat_d = dists.reshape(S, W, L).permute(1, 0, 2).reshape(W, S * L)
+    cat_g = g.reshape(S, W, L).permute(1, 0, 2).reshape(W, S * L)
+    k = c.k
+    margs = (cat_d[:, :k].contiguous(), cat_g[:, :k].contiguous(),
+             cat_d[:, k:].contiguous(), cat_g[:, k:].contiguous())
+    unsorted = int((margs[0][:, 1:] < margs[0][:, :-1]).any(1).sum())
+    mgot = pool_merge_cuda(*margs)
+    mwant = ref.pool_merge(*margs)
+    if not all(bits_equal(a, b) for a, b in zip(mgot, mwant)) \
+            or unsorted == 0:
+        raise SystemExit(f"check 7: S={S} pool_merge at the tick's shapes "
+                         f"(unsorted pools: {unsorted})")
+
+    def library():
+        srt = torch.sort(cat_d, dim=1, stable=True)
+        return srt.values[:, :k], cat_g.gather(1, srt.indices[:, :k])
+
+    mms = _median_ms(lambda: pool_merge_cuda(*margs), 20)
+    mdev = _median_ms(lambda: pool_merge_cuda(*margs), 20, busy=True)
+    mplain = _median_ms(lambda: ref.pool_merge(*margs), 5)
+    mlib = _median_ms(library, 20)
+    mmoved = W * S * L * 8 + W * k * 8
+    mbound = mmoved / HBM_BYTES_PER_S * 1e3
+    out["merge"] = {"ms": mms, "device_ms": mdev, "plain_ms": mplain,
+                    "library_ms": mlib, "bound_ms": mbound,
+                    "bound_by": "bytes", "max_abs_err": 0.0,
+                    "shape": [W, k, S * L - k], "unsorted_pools": unsorted}
+    log(f"  S={S} check 7: pool_merge at B={W} L={k} C={S * L - k} "
+        f"({unsorted} of {W} pools unsorted by masked slots): {mms:.4f} ms "
+        f"a call alone, device {mdev:.4f}, plain {mplain:.4f}, library "
+        f"{mlib:.4f} (torch.sort(stable=True), then a slice), bound "
+        f"{mbound:.6f} ms ({mmoved} bytes); bits = plain")
+    del hs0, got, seeded
+
+    # the paged tick's hop over the stacked pool
+    peng.submit(q[:W])
+    peng._init_wave()
+    pool = peng.pagepool
+    lanes_np, pt_np, _ = pool.live_bucket(peng.min_bucket)
+    Bk = len(lanes_np)
+    rows_p = torch.as_tensor((np.arange(S)[:, None] * (W + 1)
+                              + lanes_np[None]).reshape(-1), device=dev)
+    pt = torch.as_tensor((pt_np[None] + np.arange(S)[:, None, None]
+                          * pool.n_pages).reshape(S * Bk, -1).astype(
+                              np.int32), device=dev)
+    wv = pg.gather_wave(peng._state, rows_p)
+    hp = bs.to_hop_state(wv.beam, evals_done=wv.evals)
+    lane_p = peng._lane_shard(Bk)
+    pkw = dict(kw, lane_base=(lane_p * n1).to(torch.int32),
+               page_cols=peng.page_cols)
+    pargs = (stk["adj_pad"], wv.queries, stk["live_pad"], "f32",
+             stk["x_pad"], None, None, peng._tree, wv.hot_first,
+             wv.hot_ratio)
+    ms, device_ms, plain_ms, got = _kernel_vs_plain(
+        lambda: fused_hop_paged_cuda(hp, pt, *pargs, **pkw),
+        lambda: ref.fused_hop_paged(hp, pt, *pargs, **pkw), hp.seen,
+        f"check 7: S={S}: the paged tick's fused_hop_paged")
+    rows = int((got.dist_count - hp.dist_count).sum())
+    hops = int((got.hops - hp.hops).sum())
+    bound_ms, by, moved = hop_bound("f32", S * Bk, L, R, d, d * 4,
+                                    S * Bk * (d * 4 + pt.shape[1] * 4),
+                                    rows, hops)
+    out["paged_hop"] = {"ms": ms, "device_ms": device_ms,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": by, "max_abs_err": 0.0,
+                        "shape": [S * Bk, L, R, d, peng.page_cols]}
+    log(f"  S={S} check 7: paged tick fused_hop_paged at B={S * Bk} "
+        f"(bucket {Bk} on {S} shards) page_cols={peng.page_cols}, pool "
+        f"({S * pool.n_pages}, {peng.page_cols}), page table rows offset "
+        f"by s*{pool.n_pages}: {ms:.4f} ms a launch (device alone "
+        f"{device_ms:.4f}), plain {plain_ms:.4f}, bound {bound_ms:.5f} ms "
+        f"by {by} ({moved} bytes, {rows} rows scored); bits = plain, pool "
+        f"included")
+    (fused_hop_cuda.launches, fused_hop_paged_cuda.launches,
+     pool_merge_cuda.launches) = saved
+    return out
+
+
+def _owned_where_stored(sd, what):
+    """Every live row's ext id is owned by the shard that stores it, and
+    the owner map holds nothing else."""
+    live = 0
+    for s, sh in enumerate(sd.shards):
+        st = sh.dqf.store
+        ext = st.ext_ids[:st.n][st.alive[:st.n]]
+        live += ext.size
+        if any(sd._owner.get(int(e)) != s for e in ext):
+            raise SystemExit(f"check 6: {what}: a live row of shard {s} is "
+                             f"owned elsewhere")
+    if live != len(sd._owner):
+        raise SystemExit(f"check 6: {what}: {len(sd._owner)} owned ids, "
+                         f"{live} live rows")
+
+
+def sharded_churn(ctx, dev, sd, make, counters, seed, n_insert=512,
+                  n_delete=5000):
+    """Check 6: the fixed engine on phase 13's index and the paged one on
+    a clone (``ShardedDQF.from_arrays`` of its shards' ``to_arrays``),
+    both with auto-compaction at a 0.4% tombstone ratio, serve phase 4's
+    4 batches as 4 rounds; between the drains the same writes go to both:
+    after round 1 insert 512 rows, after round 2 delete 5,000 global ids
+    and pin traffic to 64 of shard 0's rows (3x the largest shard mass,
+    the skew of ``tests/test_sharded.py:158-181``), so the compaction the
+    engines run in round 3 rebalances.  Per round paged ≡ fixed; no
+    deleted id returned; every live id owned where it is stored."""
+    from repro_torch.sharding import ShardedDQF
+
+    S, k = sd.num_shards, sd.cfg.k
+    t0 = time.perf_counter()
+    twin = ShardedDQF.from_arrays([sh.dqf.to_arrays() for sh in sd.shards],
+                                  sd.cfg, S, owner=dict(sd._owner),
+                                  device=dev)
+    _trigger_out_of_reach(twin)
+    torch.cuda.synchronize()
+    out = {"clone_s": time.perf_counter() - t0,
+           "compact": {"index": [], "clone": []}}
+    for d, name in ((sd, "index"), (twin, "clone")):
+        inner = d.compact
+
+        def timed(inner=inner, log_=out["compact"][name]):
+            t = time.perf_counter()
+            rep = inner()
+            torch.cuda.synchronize()
+            log_.append((time.perf_counter() - t, rep["rebalanced_rows"]))
+            return rep
+
+        d.compact = timed
+    fixed = make(sd, False, compact_ratio=0.004)
+    paged = make(twin, True, compact_ratio=0.004)
+    rng = np.random.default_rng(seed + 14)
+    dead = set()
+    qps = []
+
+    def write(label, fn):
+        """``fn`` on both twins (timed, the same result required), then
+        the index's stacked tables re-uploaded (timed)."""
+        secs, res = [], []
+        for d in (sd, twin):
+            t = time.perf_counter()
+            res.append(fn(d))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t)
+        if not np.array_equal(res[0], res[1]):
+            raise SystemExit(f"check 6: {label} differs between the twins")
+        t = time.perf_counter()
+        sd._sync_stacked()
+        torch.cuda.synchronize()
+        sync = time.perf_counter() - t
+        out[label] = {"s": secs, "sync_stacked_s": sync}
+        return res[0], secs, sync
+
+    for rnd, q in enumerate(ctx["batches"]):
+        if rnd == 1:
+            src = rng.choice(ctx["x"].shape[0], n_insert)
+            rows = ctx["x"][src] + 0.02 * rng.standard_normal(
+                (n_insert, ctx["x"].shape[1])).astype(np.float32)
+            _, secs, sync = write("insert", lambda d: d.insert(rows))
+            log(f"  S={S} check 6: insert {n_insert} rows {secs[0]:.3f} s "
+                f"({secs[0] / n_insert * 1e3:.3f} ms a row; clone "
+                f"{secs[1]:.3f} s), then _sync_stacked {sync:.3f} s")
+        if rnd == 2:
+            ids = rng.choice(np.fromiter(sd._owner, np.int64,
+                                         len(sd._owner)), n_delete,
+                             replace=False)
+            n, secs, sync = write("delete", lambda d: d.delete(ids))
+            dead |= set(ids.tolist())
+            # a shard's mass is the counts in each tenant's hot-sized head:
+            # pin the traffic on at most that many rows
+            d0 = sd.shards[0].dqf
+            st = d0.store
+            heads = min(t.hot.size for t in d0.tenants if t.hot is not None)
+            donors = st.ext_ids[:st.n][st.alive[:st.n]][:min(64, heads)]
+            donors = donors.astype(np.int64)
+            masses = [sd._shard_mass(sh) for sh in sd.shards]
+            reps = int(np.ceil(3 * max(masses) / donors.size))
+            for d in (sd, twin):
+                d.record(np.tile(donors, (reps, 1)))
+            log(f"  S={S} check 6: delete {n} global ids {secs[0]:.3f} s "
+                f"({secs[0] / n * 1e3:.3f} ms a row; clone {secs[1]:.3f} s)"
+                f", then _sync_stacked {sync:.3f} s; shard masses "
+                f"{[round(m) for m in masses]}, {reps} queries pinned to "
+                f"{donors.size} rows of shard 0")
+        got = []
+        for name, eng in (("fixed", fixed), ("paged", paged)):
+            ticks = eng.stats.ticks
+            _, res, _, summ = serve(eng, [("default", q, 0)], counters, k,
+                                    occupancy="sharded_engine_occupancy_"
+                                              "ratio")
+            ids = np.stack([r["ids"] for r in res])
+            if dead & set(ids.ravel().tolist()):
+                raise SystemExit(f"check 6: round {rnd} {name} returned a "
+                                 f"deleted id")
+            got.append((res, eng.stats.ticks - ticks))
+            qps.append((rnd, name, summ["qps"]))
+        compare_serving(got[0][0], got[1][0],
+                        f"S={S} check 6 round {rnd}: paged vs fixed",
+                        (got[0][1], got[1][1]))
+    done = out["compact"]
+    if not (fixed.stats.compactions == paged.stats.compactions
+            == len(done["index"]) == len(done["clone"]) >= 1):
+        raise SystemExit(f"check 6: compactions {fixed.stats.compactions}, "
+                         f"{paged.stats.compactions}")
+    for d, what in ((sd, "index"), (twin, "clone")):
+        _owned_where_stored(d, what)
+    if sd._owner != twin._owner:
+        raise SystemExit("check 6: the twins' owner maps differ")
+    moved = [r for _, r in done["index"]]
+    if moved != [r for _, r in done["clone"]] or moved[0] <= 0 or \
+            sum(moved) != sd.scrape()["shard_rebalanced_rows_total"]:
+        raise SystemExit(f"check 6: rows rebalanced {done}")
+    log(f"  S={S} check 6: {len(moved)} auto-compaction(s) from round 2, "
+        + ", ".join(f"{a:.3f} s (clone {b:.3f} s)" for (a, _), (b, _)
+                    in zip(done["index"], done["clone"]))
+        + f", the rebalance moving {moved} rows; every live id owned by "
+        f"the shard storing it; QPS a round "
+        + ", ".join(f"{r}/{n} {v:.1f}" for r, n, v in qps))
+    out.update(qps=qps, rebalanced=moved)
+    del twin, fixed, paged
+    return out
+
+
+def phase_sharded_engine(ctx, dev, kept, runs, seed):
+    """Phase 14: ``ShardedEngine`` on phase 13's S = 2 and 4 indexes
+    (phase 4's config, tree and queries), phase 9's traffic and engine
+    shapes; checks 1-7 as the module's docstring lists them.  Returns,
+    a shard count, what the kernel line needs."""
+    from repro_torch.chaos import FaultPlan, install_chaos
+    from repro_torch.core import ZipfWorkload
+    from repro_torch.core.recall import ground_truth, recall_at_k
+    from repro_torch.kernels.fused_hop import (fused_hop_cuda,
+                                               fused_hop_paged_cuda)
+    from repro_torch.kernels.topk_merge import pool_merge_cuda
+    from repro_torch.obs import ObsConfig
+    from repro_torch.sharding import ShardedEngine
+
+    counters = [fused_hop_cuda, fused_hop_paged_cuda, pool_merge_cuda]
+    names = ("fused_hop", "fused_hop_paged", "pool_merge")
+    obs = ObsConfig(timeline=True)
+    k = ctx["cfg"].k
+    queries, gt = np.concatenate(ctx["batches"]), ctx["gt"]
+    qb = ZipfWorkload(ctx["x"], seed=seed + 1)
+    b_warm, b_q = qb.sample(4096), qb.sample(2048)
+    b_gt = ground_truth(ctx["x"], b_q, 10, device=dev)
+    closed = [("default", queries, 0)]
+    bursts = [("default", queries[i:i + 512], 4)
+              for i in range(0, 4096, 512)]
+    mixed = []
+    for i in range(0, 2048, 64):
+        mixed += [("default", queries[i:i + 64], 0),
+                  ("b", b_q[i:i + 64], 0)]
+    mixed_gt = np.concatenate([np.concatenate([gt[i:i + 64],
+                                               b_gt[i:i + 64]])
+                               for i in range(0, 2048, 64)])
+
+    def make(sd, paged, **kw):
+        return ShardedEngine(sd, wave_size=256, tick_hops=8, paged=paged,
+                             page_cols=256, obs=obs, **kw)
+
+    def run(eng, plan, want_gt, what):
+        audit = _audit_ticks(eng, counters)
+        _, res, launches, summ = serve(
+            eng, plan, counters, k,
+            occupancy="sharded_engine_occupancy_ratio")
+        summ["recall"] = recall_at_k(np.stack([r["ids"] for r in res]),
+                                     want_gt)
+        summ["launches"] = dict(zip(names, launches))
+        want = ((0, 0, 1) if not eng.cfg.fused
+                else (0, 1, 1) if eng.paged else (1, 0, 1))
+        bad = [t for t in audit if t != want]
+        if bad or not audit:
+            raise SystemExit(f"check 3: {what}: ticks launched (fused_hop, "
+                             f"fused_hop_paged, pool_merge) {bad[:3]}, not "
+                             f"{want} each")
+        sp = summ["split_ms"]
+        log(f"  {what}: QPS {summ['qps']:.1f}, p99 {summ['p99_ms']:.3f} ms,"
+            f" queue-wait p99 {summ['queue_wait_p99_ms']:.3f} ms, ticks "
+            f"{summ['ticks']}, mean hops {summ['mean_hops']:.3f}, "
+            f"recall@10 {summ['recall']:.4f}, launches "
+            + ", ".join(f"{n} {v}" for n, v in summ["launches"].items())
+            + f" ({want} a tick), peak {summ['peak_gib']:.3f} GiB, mean "
+            f"occupancy {summ['occupancy']:.4f}")
+        log(f"    split, ms summed over the run's "
+            f"{summ['wall_s'] * 1e3:.1f}: ticks {sp.get('tick', 0):.1f} = "
+            f"hop {sp.get('tick.hop', 0):.1f} + merge "
+            f"{sp.get('tick.merge', 0):.1f} + retire "
+            f"{sp.get('tick.retire', 0):.1f} (pool free "
+            f"{sp.get('retire.free', 0):.1f}) + refill "
+            f"{sp.get('tick.refill', 0):.1f} + the rest; hot phase and "
+            f"seed {sp.get('refill.hot_phase', 0):.1f}, the first refill's "
+            f"included")
+        if eng.paged and (eng.pagepool.live_count
+                          or eng.scrape()["page_pool_pages_in_use"
+                                          "{pool=sharded}"]):
+            raise SystemExit(f"check 2: {what}: the page pool is not empty")
+        return res, summ
+
+    out = {}
+    for S in ENGINE_SHARDS:
+        sd = kept.pop(S)
+        t0 = time.perf_counter()
+        sd.warm(b_warm, tenant="b")
+        _trigger_out_of_reach(sd)
+        torch.cuda.synchronize()
+        log(f"  S={S}: tenant b warmed in {time.perf_counter() - t0:.3f} s "
+            f"(hot rows a shard "
+            f"{[sh.dqf.tenants.get('b').hot.size for sh in sd.shards]})")
+        o = {}
+        # checks 1-4 on the closed loop
+        since0 = [sh.dqf.tenants.default.counter.since_rebuild
+                  for sh in sd.shards]
+        fixed, fs = run(make(sd, False), closed, gt,
+                        f"S={S} closed loop, 4096 at once, fixed fused")
+        since = [sh.dqf.tenants.default.counter.since_rebuild - b
+                 for sh, b in zip(sd.shards, since0)]
+        if since != [len(queries)] * S:
+            raise SystemExit(f"check 4: S={S} Alg-2 clocks advanced {since}")
+        floor = runs[S]["recall"] - 0.08
+        if fs["recall"] < floor:
+            raise SystemExit(f"check 4: S={S} engine recall@10 "
+                             f"{fs['recall']:.4f} < stacked search's "
+                             f"{runs[S]['recall']:.4f} - 0.08")
+        log(f"  S={S} check 4: recall@10 {fs['recall']:.4f} >= stacked "
+            f"search's {runs[S]['recall']:.4f} - 0.08; every shard's Alg-2 "
+            f"clock advanced by {len(queries)}")
+        composed = copy.copy(sd)
+        composed.cfg = dataclasses.replace(sd.cfg, fused=False)
+        comp, cs = run(make(composed, False), closed, gt,
+                       f"S={S} closed loop, fixed composed")
+        del composed
+        compare_serving(fixed, comp, f"S={S} check 1: fused vs composed",
+                        (fs["ticks"], cs["ticks"]))
+        paged, ps = run(make(sd, True), closed, gt,
+                        f"S={S} closed loop, paged fused")
+        compare_serving(fixed, paged, f"S={S} check 2: paged vs fixed",
+                        (fs["ticks"], ps["ticks"]))
+        for title, plan, want_gt in (
+                ("open loop, 8 bursts of 512, 4 steps apart", bursts, gt),
+                ("two tenants, 2048 each, interleaved by 64", mixed,
+                 mixed_gt)):
+            a, sa = run(make(sd, False), plan, want_gt,
+                        f"S={S} {title}, fixed fused")
+            b, sb = run(make(sd, True), plan, want_gt,
+                        f"S={S} {title}, paged fused")
+            compare_serving(a, b, f"S={S} check 2, {title}: paged vs fixed",
+                            (sa["ticks"], sb["ticks"]))
+            if plan is bursts:
+                compare_serving(fixed, a, f"S={S} open loop vs closed "
+                                "loop, fixed")
+        # check 5: chaos
+        eng = make(sd, False)
+        install_chaos(eng, FaultPlan(seed=0))
+        _, zero, _, zs = serve(eng, closed, [], k, occupancy="sharded_"
+                               "engine_occupancy_ratio")
+        compare_serving(fixed, zero, f"S={S} check 5: a zero-rate plan vs "
+                        "no plan", (fs["ticks"], zs["ticks"]))
+        eng = make(sd, False)
+        install_chaos(eng, FaultPlan(seed=2, shard_fail_ticks={
+            1: frozenset(range(10 ** 6))}))
+        rids = eng.submit(ctx["batches"][0])
+        res = [eng.run_until_drained()["results"][r] for r in rids]
+        st = sd.shards[1].dqf.store
+        lost = set(st.ext_ids[:st.n].tolist())
+        ids = np.stack([r["ids"] for r in res])
+        if not (all(r["shards_responding"] == S - 1 and r["degraded"]
+                    and r["status"] == "degraded" for r in res)
+                and not lost & set(ids.ravel().tolist())
+                and eng.health.quarantines == 1):
+            raise SystemExit(f"check 5: S={S} shard 1 failing")
+        log(f"  S={S} check 5: shard 1 failing every tick: {len(res)} "
+            f"results over {S - 1} shards, degraded, none of shard 1's "
+            f"rows, 1 quarantine; recall@10 "
+            f"{recall_at_k(np.where(ids < 0, 0, ids), gt[:len(res)]):.4f}; "
+            f"a zero-rate plan gives the bits of no plan")
+        del eng
+        # check 7: the kernels at this path's shapes
+        o["kernels"] = engine_kernel_checks(sd, make(sd, False),
+                                            make(sd, True),
+                                            ctx["batches"][1], dev)
+        # check 6: churn
+        o["churn"] = sharded_churn(ctx, dev, sd, make, counters, seed)
+        o["launches"] = {"fixed": fs["launches"], "paged": ps["launches"],
+                         "composed": cs["launches"]}
+        out[S] = o
+        del sd, fixed, comp, paged
+        torch.cuda.empty_cache()
+    return out
 
 
 # ----------------------------------------------------------------- phase 3e
@@ -3079,7 +3609,7 @@ def main() -> int:
     phase("phase 13: ShardedDQF's read path at S = 1, 2, 4 on phase 4's "
           "rows (stacked vs oracle, launches, a lost shard, memory, recall)")
     t13 = time.perf_counter()
-    runs = phase_sharding(ctx, dev, f32_arrays)
+    runs, kept = phase_sharding(ctx, dev, f32_arrays)
     del f32_arrays
     for name, key, counter in (("pool_merge", "merge", "pool_merge"),
                                ("fused_hop (f32)", "hop", "fused_hop")):
@@ -3092,6 +3622,27 @@ def main() -> int:
         e["max_abs_err"] = max([e["max_abs_err"]] + [
             r[key]["max_abs_err"] for r in runs.values() if key in r])
     log(f"  phase 13: {time.perf_counter() - t13:.1f} s")
+
+    phase("phase 14: ShardedEngine on phase 13's S = 2 and 4 indexes "
+          "(fixed fused and composed, paged, two tenants, chaos, churn with "
+          "the rebalance, the kernels at the tick's shapes)")
+    t14 = time.perf_counter()
+    served = phase_sharded_engine(ctx, dev, kept, runs, args.seed)
+    for name, key, engine, counter in (
+            ("fused_hop (f32)", "hop", "fixed", "fused_hop"),
+            ("fused_hop_paged", "paged_hop", "paged", "fused_hop_paged"),
+            ("pool_merge", "merge", "fixed", "pool_merge")):
+        e = by_name[name]
+        e["sharded_engine"] = {
+            "launches": {S: o["launches"][engine][counter]
+                         for S, o in served.items()},
+            "launches_note": f"the {engine} engine's closed loop of 4096 "
+                             "queries (every tick one launch"
+                             + (", and one a refill's hot phase)"
+                                if counter == "fused_hop" else ")"),
+            **{f"S={S} {key}": o["kernels"][key]
+               for S, o in served.items()}}
+    log(f"  phase 14: {time.perf_counter() - t14:.1f} s")
 
     phase("done")
     log(f"  total {time.perf_counter() - t_all:.1f} s")

@@ -9,8 +9,9 @@ consults at its real fault points:
 * :meth:`repro_torch.tiering.cache.BlockCache.host_fetch` (the host read
   every tiered gather's misses go through, between launches),
 * :meth:`repro_torch.serving.paged.PagePool.alloc` (lane admission),
-* a sharded engine's shard-event consult, which arrives with the port's
-  sharding (``FaultPlan.shard_event`` is here already).
+* :meth:`repro_torch.sharding.engine.ShardedEngine._shard_masks` (each
+  tick's ``FaultPlan.shard_event``/``shard_ok``, folded into the engine's
+  :class:`~repro_torch.sharding.health.ShardHealth`).
 
 Every hook is ``None`` by default and checked with one ``is not None``
 branch — chaos off is the exact healthy code path.  :func:`install_chaos`

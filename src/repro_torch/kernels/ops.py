@@ -124,13 +124,15 @@ def fused_hop_paged(hs: ref.HopState, pt, adj_pad, queries, live_pad, table,
                     tree=None, hot_first=None, hot_ratio=None, *,
                     page_cols: int, hops: int, max_hops: int, k: int = 1,
                     eval_gap: int = 1, add_step: int = 0,
-                    tree_depth: int = 1) -> ref.HopState:
+                    tree_depth: int = 1, lane_base=None) -> ref.HopState:
     """:func:`fused_hop` with ``hs.seen`` the page pool ``(n_pages,
     page_cols)`` and ``pt`` the lanes' page table (one launch on the
-    card).  The pool is updated in place and returned in ``seen``."""
+    card).  The pool is updated in place and returned in ``seen``;
+    ``lane_base`` reads stacked tables as in :func:`fused_hop`."""
     mode, t0, t1, t2 = table_spec(table)
     kw = dict(page_cols=page_cols, hops=hops, max_hops=max_hops, k=k,
-              eval_gap=eval_gap, add_step=add_step, tree_depth=tree_depth)
+              eval_gap=eval_gap, add_step=add_step, tree_depth=tree_depth,
+              lane_base=lane_base)
     fn = (ref.fused_hop_paged if _device_type(t0) == "cpu"
           else fused_hop_paged_cuda)
     return fn(hs, pt, adj_pad, queries, live_pad, mode, t0, t1, t2, tree,

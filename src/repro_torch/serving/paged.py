@@ -336,6 +336,8 @@ def expand_step_paged(table, adj_pad: torch.Tensor, queries: torch.Tensor,
     except that ``state.seen`` is the shared page pool ``(n_pages,
     page_cols)`` (updated in place) and every seen read or write resolves
     ``(lane, id)`` to ``(pt[lane, id >> page_shift], id & (page_cols-1))``.
+    The tables may be :class:`~repro_torch.core.beam_search.LaneTable`
+    views of stacked ones (the sharded engine), as in ``expand_step``.
     """
     n = bs.table_n(table)
     B = state.pool.ids.shape[0]
@@ -348,11 +350,11 @@ def expand_step_paged(table, adj_pad: torch.Tensor, queries: torch.Tensor,
     expanded = state.pool.expanded.clone()
     expanded[rows, slot] = state.pool.expanded[rows, slot] | lane
 
-    nbrs = adj_pad[p.long()]                                 # (B, R)
+    nbrs = bs._adj_rows(adj_pad, p)                          # (B, R)
     already = state.seen[_page_index(pt, nbrs, page_shift)]  # (B, R)
     valid = (nbrs != n) & (~already) & lane[:, None]
     if live_pad is not None:
-        valid &= live_pad[nbrs.long()]
+        valid &= bs.live_at(live_pad, nbrs)
     cols = torch.where(valid, nbrs, n)
     seen = state.seen
     seen[_page_index(pt, cols, page_shift)] = True

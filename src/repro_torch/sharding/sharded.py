@@ -37,9 +37,18 @@ merged global top-k feeds each tenant's counters **once**: every winner
 id goes to the counter of the shard that owns the row, and every
 shard's Alg-2 clock advances by the query count.
 
-Not in this port yet: ``insert``, ``delete``, ``compact`` and the
-rebalance, and placement of the shards across cards (``use_mesh=True``).
-Runs on the card unless ``device="cpu"``.
+Writes: ``insert`` fills the least-loaded shards first, ``delete``
+routes by the owner map, ``compact`` compacts every shard and then
+rebalances (Quake-style: the hottest shard's most-hit live rows move to
+the coldest with their external ids and counter mass).  Each write moves
+a shard's store epoch, and the stacked tables follow at the next search
+(``_sync_stacked`` re-uploads every shard).  :class:`~repro_torch.
+sharding.engine.ShardedEngine` serves the index, writes included.
+
+Not in this port yet: placement of the shards across cards
+(``use_mesh=True``) and the reference's legacy segment index
+(``repro/serving/sharded.py::build_sharded_index``/``sharded_search``);
+both need more than one card.  Runs on the card unless ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -611,6 +620,134 @@ class ShardedDQF:
         for sh in self.shards:          # sequential path uses dqf.tree
             sh.dqf.tree = self.tree
         return self.tree
+
+    # ------------------------------------------------------------- mutation
+    def insert(self, rows: np.ndarray,
+               ext_ids: Optional[np.ndarray] = None) -> np.ndarray:
+        """Append rows, filling the least-loaded shards first; returns
+        their stable global external ids."""
+        self._require()
+        rows = np.atleast_2d(np.ascontiguousarray(rows, np.float32))
+        m = rows.shape[0]
+        if ext_ids is None:
+            ext = np.arange(self._next_ext, self._next_ext + m,
+                            dtype=np.int64)
+        else:
+            ext = np.asarray(ext_ids, np.int64).reshape(-1)
+            if ext.shape != (m,):
+                raise ValueError("one external id per row required")
+            known = [int(e) for e in ext if int(e) in self._owner]
+            if known:
+                raise ValueError(f"external ids already owned: {known[:5]}")
+        if m and ext.max() >= 2 ** 31:
+            raise ValueError("sharded external ids must fit in int32")
+        counts = np.array([sh.dqf.store.live_count for sh in self.shards])
+        assign = np.empty(m, np.int64)
+        for i in range(m):                          # greedy balance
+            s = int(np.argmin(counts))
+            assign[i] = s
+            counts[s] += 1
+        for s, sh in enumerate(self.shards):
+            idx = np.flatnonzero(assign == s)
+            if idx.size == 0:
+                continue
+            sh.dqf.insert(rows[idx], ext_ids=ext[idx])
+            for e in ext[idx]:
+                self._owner[int(e)] = s
+        if m:
+            self._next_ext = max(self._next_ext, int(ext.max()) + 1)
+        return ext
+
+    def delete(self, ext_ids: np.ndarray) -> int:
+        """Tombstone rows by global external id; returns the count."""
+        self._require()
+        req = np.unique(np.asarray(ext_ids, np.int64).reshape(-1))
+        groups: dict[int, list] = {}
+        for e in req:
+            s = self._owner.get(int(e))
+            if s is None:
+                raise KeyError(f"unknown external id {int(e)}")
+            groups.setdefault(s, []).append(int(e))
+        done = 0
+        for s, ids in groups.items():
+            done += self.shards[s].dqf.delete(np.asarray(ids, np.int64))
+            for e in ids:
+                self._owner.pop(e, None)
+        return done
+
+    def compact(self) -> dict:
+        """Compact every shard, then rebalance traffic if enabled.
+
+        Rebalancing is Quake-style adaptive partitioning: the per-tenant
+        ``tenant_head_mass`` / ``tenant_pref_mass_total`` gauges
+        (:mod:`repro_torch.obs`) give each shard's observed preference mass;
+        when the hottest shard carries more than
+        ``rebalance_imbalance``× the coldest's, its most-accessed rows
+        migrate there through the stores' delete/insert remap hooks —
+        external ids and per-tenant counter mass move with the rows.
+        """
+        self._require()
+        per = [sh.dqf.compact() for sh in self.shards]
+        moved = self._maybe_rebalance() if self.scfg.rebalance else 0
+        self._invalidate_stacked()
+        return {"per_shard": [{"dropped": p["dropped"], "n": p["n"]}
+                              for p in per],
+                "rebalanced_rows": moved}
+
+    def _shard_mass(self, sh: _Shard) -> float:
+        """Observed preference mass concentrated in this shard's heads
+        (the repro.obs head-mass gauges scaled by total mass)."""
+        sc = sh.dqf.scrape()
+        mass = 0.0
+        for key, v in sc.items():
+            if key.startswith("tenant_pref_mass_total{"):
+                lbl = key.partition("{")[2]
+                head = sc.get("tenant_head_mass{" + lbl, 0.0)
+                mass += float(v) * float(head)
+        return mass
+
+    def _maybe_rebalance(self) -> int:
+        if self.num_shards == 1:
+            return 0
+        masses = [self._shard_mass(sh) for sh in self.shards]
+        donor = int(np.argmax(masses))
+        recip = int(np.argmin(masses))
+        if donor == recip or masses[donor] <= 0.0:
+            return 0
+        if masses[donor] <= self.scfg.rebalance_imbalance \
+                * max(masses[recip], 1e-12):
+            return 0
+        ddqf = self.shards[donor].dqf
+        total = np.zeros(ddqf.store.n, np.float64)
+        for t in ddqf.tenants:
+            total += t.counter.counts[:ddqf.store.n]
+        total[~ddqf.store.alive] = 0.0
+        hot = np.flatnonzero(total > 0.0)
+        hot = hot[np.argsort(-total[hot], kind="stable")]
+        n_move = min(self.scfg.rebalance_max_rows, hot.size,
+                     ddqf.store.live_count - 2)
+        if n_move <= 0:
+            return 0
+        move = hot[:n_move]
+        ext = ddqf.store.to_external(move).copy()
+        rows = ddqf.store.x[move].copy()
+        saved = {t.name: t.counter.counts[move].copy()
+                 for t in ddqf.tenants}
+        ddqf.delete(ext)
+        rdqf = self.shards[recip].dqf
+        rdqf.insert(rows, ext_ids=ext)
+        new_int = rdqf.store.to_internal(ext)
+        for name, mass in saved.items():
+            if name not in rdqf.tenants:
+                rdqf.create_tenant(name)
+            t = rdqf.tenants.get(name)
+            t.counter.counts[new_int] += mass
+            if t.hot is not None and mass.sum() > 0:
+                rdqf.rebuild_hot(tenant=name)
+        for e in ext:
+            self._owner[int(e)] = recip
+        self._m_rebalanced.inc(n_move)
+        return int(n_move)
 
     # ----------------------------------------------------------------- misc
     def memory_report(self) -> dict:

@@ -22,9 +22,13 @@ class ShardConfig:
     CUDA devices than shards (as the reference does with too few devices)
     and ``NotImplementedError`` otherwise.
 
-    Rebalancing (``rebalance*``) belongs to compaction, which this port of
-    the index does not have yet; the fields are kept, validated as in the
-    reference.
+    ``use_mesh=True`` and the reference's legacy segment index wait for a
+    slice of the port that runs on more than one card.
+
+    Rebalancing (``rebalance*``) runs at the end of
+    :meth:`~repro_torch.sharding.ShardedDQF.compact`: when the hottest
+    shard's preference mass exceeds ``rebalance_imbalance`` times the
+    coldest's, up to ``rebalance_max_rows`` of its most-hit rows move there.
     """
 
     num_shards: int = 1

@@ -32,11 +32,13 @@ from repro_torch.serving.paged_engine import PagedWaveEngine
 from repro_torch.serving.status import SHED_POLICIES, EngineConfig, \
     QueryStatus
 from repro_torch.tiering import cache as tcache
+from tests._torch_threads import one_torch_thread  # noqa: F401
 from tests._hypothesis_compat import given, settings, st
 from tests.test_chaos import tier_world  # noqa: F401  (fixture)
 from tests.test_torch_search import port_cfg, saved  # noqa: F401
 
 STATUSES = {s.value for s in QueryStatus}
+
 
 
 # ------------------------------------------------------------ the draws
@@ -173,6 +175,56 @@ def test_tier_fault_past_retries_degrades_not_raises(tier_world):
     counters = dqf.store.full_phase_cache().counters
     assert counters["fetch_failures"] > 0
     assert eng.stats.degraded == len(degraded)
+
+
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("case", ["io_rate_1_retry", "first_fetch_2"])
+def test_tier_degraded_path_matches_reference_per_query(tier_world, case,
+                                                        paged):
+    """The tier's degraded path held per query against the reference:
+    both packages' engines over the same tiered checkpoint and the same
+    plan (every read failing with 1 retry, or each block's first fetch
+    failing with 2): status, degraded flag, ids and hops equal, dists
+    within rtol 1e-5, and the injected tallies equal.  Frontier prefetch
+    is off in both: its worker thread finishes when it finishes, so which
+    blocks a tick finds cached (and so which reads fail) would depend on
+    timing."""
+    from repro.chaos import install_chaos as j_install_chaos
+    from repro.serving.engine import WaveEngine as JWave
+    from repro.serving.paged_engine import PagedWaveEngine as JPaged
+    from tests.test_chaos import _load_tiered as j_load_tiered
+
+    kw, retries = ((dict(tier_io_rate=1.0), 1) if case == "io_rate_1_retry"
+                   else (dict(tier_fail_first_fetch=True), 2))
+    q = tier_world["wl"].sample(24)
+    name = f"{case}{int(paged)}"
+    jd = j_load_tiered(tier_world, "j" + name, fetch_retries=retries)
+    pd = _load_tiered(tier_world, "p" + name, fetch_retries=retries)
+    jplan, plan = JPlan(seed=5, **kw), FaultPlan(seed=5, **kw)
+    j_install_chaos(jd, jplan)
+    install_chaos(pd, plan)
+    if paged:
+        je = JPaged(jd, capacity=8, tick_hops=4, prefetch=False)
+        pe = PagedWaveEngine(pd, capacity=8, tick_hops=4, prefetch=False)
+    else:
+        je = JWave(jd, wave_size=8, tick_hops=4, prefetch=False)
+        pe = WaveEngine(pd, wave_size=8, tick_hops=4, prefetch=False)
+    ra, oa = je.submit(q), je.run_until_drained()
+    rb, ob = pe.submit(q), pe.run_until_drained()
+    for i, (a, b) in enumerate(zip(ra, rb)):
+        want, got = oa["results"][a], ob["results"][b]
+        for key in ("status", "degraded", "hops"):
+            assert got[key] == want[key], f"query {i} {key}"
+        np.testing.assert_array_equal(got["ids"], np.asarray(want["ids"]),
+                                      err_msg=f"query {i} ids")
+        np.testing.assert_allclose(got["dists"], np.asarray(want["dists"]),
+                                   rtol=1e-5, atol=0.0,
+                                   err_msg=f"query {i} dists")
+    assert plan.injected == jplan.injected and plan.injected["tier_io"] > 0
+    assert pe.stats.degraded == je.stats.degraded
+    assert pe.stats.ticks == je.stats.ticks
+    if case == "io_rate_1_retry":
+        assert pe.stats.degraded > 0
 
 
 def test_tier_metrics_published(tier_world):

@@ -43,6 +43,7 @@ from repro_torch.core import DQF, QuantConfig
 from repro_torch.core import hot_index as thot
 from repro_torch.core import ssg as tssg
 from repro_torch.tenancy import TenantRegistry as TRegistry
+from tests._torch_threads import one_torch_thread  # noqa: F401
 from tests.conftest import make_clustered
 from tests.test_torch_mutation_churn import churn_world  # noqa: F401
 from tests.test_torch_search import port_cfg

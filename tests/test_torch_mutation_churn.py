@@ -23,6 +23,7 @@ from repro_torch.core import DQF, DQFConfig, QuantConfig, ground_truth, \
     recall_at_k
 from repro_torch.serving.engine import WaveEngine
 from repro_torch.serving.paged_engine import PagedWaveEngine
+from tests._torch_threads import one_torch_thread  # noqa: F401
 from tests._hypothesis_compat import given, settings, st
 from tests.conftest import make_clustered
 from tests.test_torch_serving import _built, _cfg, diverging_queries

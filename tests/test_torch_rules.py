@@ -38,6 +38,32 @@ def test_sharded_dqf_runs_on_the_card_by_default():
     assert ShardedDQF(DQFConfig(), 2, device="cpu").device.type == "cpu"
 
 
+def test_sharded_engine_runs_on_the_card_by_default():
+    """The engine takes no device: it runs where its index is, which is
+    the card unless the index was built with ``device="cpu"``."""
+    import inspect
+
+    import numpy as np
+
+    from repro_torch.sharding import ShardedDQF, ShardedEngine
+
+    assert "device" not in inspect.signature(ShardedEngine).parameters
+    x = np.random.default_rng(0).standard_normal((160, 8)).astype(np.float32)
+    cfg = DQFConfig(dim=8, knn_k=8, out_degree=8, k=5, hot_pool=16,
+                    full_pool=32, max_hops=50)
+    cuda = torch.cuda.is_available()
+    sd = ShardedDQF(cfg, 2, device=None if cuda else "cpu").build(x)
+    sd.warm(x[:16])
+    for paged in (False, True):
+        eng = ShardedEngine(sd, wave_size=4, tick_hops=4, paged=paged)
+        assert eng.device == sd.device
+        assert eng.device.type == ("cuda" if cuda else "cpu")
+        eng.submit(x[:6])
+        assert eng.run_until_drained()["results"][5]["ids"].shape == (5,)
+        state = eng._state.seen_pages if paged else eng._state.seen
+        assert state.device == sd.device
+
+
 @pytest.mark.parametrize("mode", ["sq8", "pq"])
 def test_quantized_dqf_builds_and_searches_on_cpu(mode):
     from repro_torch.core import QuantConfig, ZipfWorkload
@@ -79,7 +105,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
             " repro_torch.kernels.gather_distance, repro_torch.quant,"
             " repro_torch.obs, repro_torch.obs.bundle, repro_torch.store,"
             " repro_torch.tenancy, repro_torch.tiering, repro_torch.chaos,"
-            " repro_torch.sharding, repro_torch.serving.sharded,"
+            " repro_torch.sharding, repro_torch.sharding.engine,"
+            " repro_torch.sharding.health, repro_torch.serving.sharded,"
             " repro_torch.serving.engine,"
             " repro_torch.serving.paged_engine,"
             " repro_torch.examples.streaming_updates;"

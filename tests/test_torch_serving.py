@@ -29,6 +29,7 @@ from repro_torch.convert import dqf_from_arrays
 from repro_torch.core import DQF, DQFConfig, QuantConfig
 from repro_torch.serving.engine import WaveEngine
 from repro_torch.serving.paged_engine import PagedWaveEngine
+from tests._torch_threads import one_torch_thread  # noqa: F401
 from tests.conftest import make_clustered
 from tests.test_fused_hop import _fused_cfg as _jax_cfg
 from tests.test_torch_search import port_cfg

@@ -24,6 +24,7 @@ from repro_torch.serving.engine import WaveEngine
 from repro_torch.serving.paged_engine import PagedWaveEngine
 from repro_torch.serving.status import (AdmissionController, EngineConfig,
                                         QueryStatus, shed_victim)
+from tests._torch_threads import one_torch_thread  # noqa: F401
 from tests.test_torch_serving import _built, _cfg, world_x  # noqa: F401
 
 
