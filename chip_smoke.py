@@ -241,9 +241,38 @@ Phases, in order; any failure exits non-zero:
    split by timeline span (hop, merge, retire, refill) per engine and
    run; ``_sync_stacked`` seconds after each write, insert, delete and
    compact seconds, rows rebalanced.
+15. the kNN-LM serving path (``phase_knnlm``): a datastore of
+   ``make_clustered(N, 128, 1024 clusters, spread 1.5)`` keys lifted to
+   d = 1024 by a seeded orthonormal map (distances kept), payload tokens
+   uniform below the vocab, phase 4's config (fused), warmed on 4096 Zipf
+   queries, the tree fit on 2048; N = 262,144 (kNN-LM's 103M cut to the
+   time limit) unless a timed build at 65,536 predicts more than 120 s,
+   then halved.  A: 4 x 1024 Zipf ``RetrievalService.lookup``s: ms a
+   batch, recall@10 against the exact top-10, mean dist_count,
+   early-terminated share, 2 fused_hop launches a lookup; a twin index
+   over the unlifted d = 128 keys (the queries projected back) gives the
+   recall this data allows, and the lookups' must reach it less 0.05.
+   B: Qwen3-0.6B (``get_config("qwen3-0.6b")``: 28 layers, d_model
+   1024, vocab 151,936, bf16) drawn from ``--seed``, and its float32
+   copy with TF32 off: a
+   64-token prompt decoded token by token against ``forward`` at every
+   position (float32 within 1e-3; bf16's max |diff| and argmax agreement
+   printed), then ``prefill`` of 256 tokens at B = 16 timed.  C:
+   ``serve_knnlm``'s loop at B = 16, 64 steps, ``max_len`` 512, the
+   query the embedding row of the step's argmax token, the head's
+   temperature 100 (the default 10 underflows every weight at these
+   distances): ms a step split into LM decode, lookup and head (CUDA
+   events), tokens/s, 2 fused_hop launches a step; every probability row
+   finite and summing to 1 within 1e-4, and equal within 1e-6 to the
+   reference's head recomputed on the host from the same logits, tokens
+   and distances.  D: one 8-hop ``fused_hop`` launch at the lookup's state
+   (B = 16, and B = 1024) against its plain version bit for bit, timed
+   beside it and its bound: a kernel-line entry of its own.  Peak device
+   memory.
 
 Recall guards against breakage, not a target: 0.5 for the float32 paths,
-half of phase 4's recall for the quantized ones.  Phases 7 and 8 search
+half of phase 4's recall for the quantized ones, the d = 128 twin's less
+0.05 for phase 15's lifted keys.  Phases 7 and 8 search
 with ``record=False``, so every path searches the same hot index.
 
 One ``{"kernels": [...]}`` line lists every kernel, each with its
@@ -3478,6 +3507,347 @@ def phase_scan(ctx, dev, syn_errs, reps=5):
     return entries, recalls
 
 
+# ----------------------------------------------------------------- phase 15
+KNN_N = 262_144          # datastore keys: kNN-LM's 103M cut to the limit
+KNN_PROBE = 65_536       # the build timed first, to size the real one
+KNN_BUILD_S = 120.0      # halve KNN_N when its build would pass this
+# The lift keeps distances, so the lookups' recall@10 is held to that of
+# a twin index over the unlifted d = 128 keys (same config, the queries
+# projected back), less this slack.  An absolute 0.5, phase 4's guard,
+# does not fit this data: 256 keys a cluster in 128 dimensions leave the
+# 10th neighbour only ~12% farther than the 2nd, and the first card run
+# read 0.2663.
+KNN_RECALL_SLACK = 0.05
+KNN_F32_TOL = 1e-3       # f32 decode replay vs forward (the reference 2e-2)
+KNN_HEAD_TOL = 1e-6      # the head vs its plain host recomputation
+KNN_SUM_TOL = 1e-4       # every probability row sums to 1
+# The demo query (the embedding row of the argmax token, |e|^2 ~ 1) lies
+# ~400 (squared L2) from every key, so the head's default temperature of
+# 10 puts every weight under the reference's 1e-9 floor and the kNN mass
+# vanishes; 100 keeps it.
+KNN_TEMPERATURE = 100.0
+
+
+def lift(n, d, seed):
+    """``make_clustered(n, 128, 1024 clusters, spread 1.5)`` and a seeded
+    orthonormal d x 128 map (numpy QR) that lifts it into ``d`` dimensions
+    (the LM's width): distances are kept, so the keys ``x @ basis.T`` have
+    the clustered data's neighbours and its low intrinsic dimension, and
+    ``q @ basis`` projects a query back."""
+    x = make_clustered(n, 128, clusters=1024, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    basis = np.linalg.qr(rng.standard_normal((d, 128)))[0]
+    return x, basis.astype(np.float32)
+
+
+def lifted(x, basis):
+    return np.ascontiguousarray(x @ basis.T, np.float32)
+
+
+def host_head(logits, tokens, dists, vocab, lam, temperature):
+    """The kNN-LM head of the reference (``serving/retrieval.py``) in
+    numpy on the host, from one step's logits, tokens and dists."""
+    w = np.exp(-dists / np.float32(temperature))
+    w = w / np.maximum(w.sum(axis=1, keepdims=True), np.float32(1e-9))
+    p_knn = np.zeros((tokens.shape[0], vocab), np.float32)
+    for b in range(tokens.shape[0]):
+        np.add.at(p_knn[b], tokens[b], w[b])
+    p_lm = np.exp(logits - logits.max(-1, keepdims=True))
+    p_lm = p_lm / p_lm.sum(-1, keepdims=True)
+    return np.float32(lam) * p_knn + np.float32(1.0 - lam) * p_lm
+
+
+def _events(n):
+    return [torch.cuda.Event(enable_timing=True) for _ in range(n)]
+
+
+def knn_retrieval(dev, seed, n, probe, d, vocab):
+    """Phase 15's datastore of ``d``-wide keys and payload tokens below
+    ``vocab``, and its check A: the build sized by a probe, then 4 Zipf
+    batches of 1024 through ``RetrievalService.lookup``."""
+    from repro_torch.core import DQF, DQFConfig, ZipfWorkload
+    from repro_torch.core.recall import ground_truth, recall_at_k
+    from repro_torch.kernels.fused_hop import fused_hop_cuda
+    from repro_torch.serving.retrieval import RetrievalService
+
+    # phase 4's config (the paper's defaults), fused
+    cfg = DQFConfig(knn_k=32, out_degree=32, index_ratio=0.005, k=10,
+                    hot_pool=32, full_pool=64, eval_gap=50, max_hops=512,
+                    fused=True, fused_hops=8, hot_mode="graph")
+    t0 = time.perf_counter()
+    DQF(cfg, device=dev).build(lifted(*lift(probe, d, seed)))
+    torch.cuda.synchronize()
+    t_probe = time.perf_counter() - t0
+    predicted = t_probe * n / probe           # the build is linear in n
+    log(f"  probe build at {probe} keys x {d}: {t_probe:.3f} s; "
+        f"{predicted:.1f} s predicted at {n} (limit {KNN_BUILD_S:g} s)")
+    if predicted > KNN_BUILD_S:
+        n //= 2
+        log(f"  the datastore is halved to {n} keys")
+    torch.cuda.empty_cache()
+
+    x128, basis = lift(n, d, seed)
+    keys = lifted(x128, basis)
+    payload = np.random.default_rng(seed + 2).integers(
+        0, vocab, n).astype(np.int32)
+    wl = ZipfWorkload(keys, seed=seed)
+    history, fit_q = wl.sample(4096), wl.sample(2048)
+    batches = [wl.sample(1024) for _ in range(4)]
+    t0 = time.perf_counter()
+    svc = RetrievalService.build(keys, payload, cfg, history=history,
+                                 device=dev)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    svc.dqf.fit_tree(fit_q)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    log(f"  RetrievalService.build (graph build + warm on 4096 Zipf "
+        f"queries) {t_build:.3f} s, fit_tree on 2048 {t_fit:.3f} s, hot "
+        f"index {svc.dqf.hot.size} rows, {keys.nbytes} bytes of keys")
+
+    gt = ground_truth(keys, np.concatenate(batches), 10, device=dev)
+    out, ms = [], []
+    fused_hop_cuda.launches = 0
+    for q in batches:
+        s, e = _events(2)
+        torch.cuda.synchronize()
+        s.record()
+        got = svc.lookup(q)
+        e.record()
+        torch.cuda.synchronize()
+        ms.append(s.elapsed_time(e))
+        out.append(got)
+    launches = fused_hop_cuda.launches
+    tokens = torch.cat([o[0] for o in out]).cpu().numpy()
+    dists = torch.cat([o[1] for o in out])
+    ids = torch.cat([o[2] for o in out]).cpu().numpy()
+    if ids.shape != (4096, 10) or not bool(torch.isfinite(dists).all()):
+        raise SystemExit("lookup output malformed (shape or non-finite)")
+    if not np.array_equal(tokens, payload[np.minimum(ids, n - 1)]):
+        raise SystemExit("lookup tokens are not the payload of its ids")
+    stats = [svc.dqf.search(q, record=False).stats for q in batches]
+    recall = recall_at_k(ids, gt)
+    base = recall_at_k(np.concatenate([svc.dqf.search_baseline(
+        q).ids.cpu().numpy() for q in batches]), gt)
+    fused_hop_cuda.launches = launches        # the stats' searches not
+    dc = float(torch.cat([st.dist_count for st in stats]).float().mean())
+    term = float(torch.cat([st.terminated_early
+                            for st in stats]).float().mean())
+    log(f"  A. 4 lookups of 1024: {', '.join(f'{m:.3f}' for m in ms)} ms "
+        f"(CUDA events), recall@10 {recall:.4f} (beam search without the "
+        f"dual index and tree {base:.4f}), mean dist_count {dc:.2f}, "
+        f"terminated early {term:.4f}, fused_hop launches {launches} "
+        f"({launches / 4:g} a lookup)")
+    if launches != 8:
+        raise SystemExit(f"4 lookups made {launches} fused_hop launches, "
+                         "not 2 each")
+
+    # the twin over the unlifted keys: what this data allows at d = 128
+    t0 = time.perf_counter()
+    twin = DQF(cfg, device=dev).build(x128)
+    twin.warm(history @ basis)
+    twin.fit_tree(fit_q @ basis)
+    q128 = [q @ basis for q in batches]
+    gt128 = ground_truth(x128, np.concatenate(q128), 10, device=dev)
+    twin_recall = recall_at_k(np.concatenate([twin.search(
+        q, record=False).ids.cpu().numpy() for q in q128]), gt128)
+    twin_base = recall_at_k(np.concatenate([twin.search_baseline(
+        q).ids.cpu().numpy() for q in q128]), gt128)
+    fused_hop_cuda.launches = launches
+    log(f"     the d = 128 twin (built, warmed, fit and searched in "
+        f"{time.perf_counter() - t0:.3f} s): recall@10 {twin_recall:.4f} "
+        f"(beam search {twin_base:.4f}); the exact top-10 of the lifted "
+        f"and the unlifted keys agree on "
+        f"{float((gt == gt128).all(1).mean()):.4f} of the queries")
+    del twin
+    torch.cuda.empty_cache()
+    if recall < twin_recall - KNN_RECALL_SLACK:
+        raise SystemExit(f"lookup recall@10 {recall:.4f} is below the d = "
+                         f"128 twin's {twin_recall:.4f} less "
+                         f"{KNN_RECALL_SLACK}")
+    summary = dict(n=n, probe_s=t_probe, build_s=t_build, fit_s=t_fit,
+                   lookup_ms=ms, recall=recall, recall_beam=base,
+                   twin_recall=twin_recall, twin_recall_beam=twin_base,
+                   dist_count=dc, terminated=term, launches=launches)
+    return svc, batches, summary
+
+
+def decode_replay(model, prompt):
+    """Decode ``prompt`` token by token from empty caches against
+    ``forward`` over it: (max |logit diff| over every position, share of
+    positions whose argmax agrees)."""
+    want = model(prompt)
+    B, S = prompt.shape
+    caches = model.init_decode_caches(B, S)
+    err, agree = 0.0, 0
+    for t in range(S):
+        logits, caches = model.decode_step(prompt[:, t:t + 1], caches, t)
+        err = max(err, float((logits[:, 0] - want[:, t]).abs().max()))
+        agree += int((logits[:, 0].argmax(-1)
+                      == want[:, t].argmax(-1)).sum())
+    return err, agree / (B * S)
+
+
+def knn_decoder(dev, seed, cfg):
+    """Check B: the decoder at ``cfg``'s width (bf16) and its float32 copy,
+    TF32 off: decode replays of a 64-token prompt, then a timed prefill of
+    256 tokens at B = 16."""
+    from repro_torch.models import DecoderLM
+
+    t0 = time.perf_counter()
+    model = DecoderLM(cfg, seed=seed, device=dev)
+    m32 = DecoderLM(dataclasses.replace(cfg, dtype="float32"), seed=None,
+                    device=dev)
+    m32.load_state_dict(model.state_dict())
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"  {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads} heads (kv {cfg.num_kv_heads}), head_dim "
+        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size},"
+        f" {cfg.dtype}; {n_params} parameters "
+        f"({sum(p.numel() * p.element_size() for p in model.parameters())}"
+        f" bytes), made with its float32 copy in "
+        f"{time.perf_counter() - t0:.3f} s")
+    gen = torch.Generator().manual_seed(seed + 3)
+    prompt = torch.randint(0, cfg.vocab_size, (4, 64), generator=gen).to(dev)
+    err32, agree32 = decode_replay(m32, prompt)
+    log(f"  B. float32 copy: 64 decode steps vs forward, max |diff| "
+        f"{err32:.3e} (tolerance {KNN_F32_TOL}), argmax agreement "
+        f"{agree32:.4f}")
+    if not err32 <= KNN_F32_TOL:
+        raise SystemExit(f"float32 decode differs from forward by {err32}")
+    del m32
+    torch.cuda.empty_cache()
+    err16, agree16 = decode_replay(model, prompt)
+    log(f"     bf16: max |diff| {err16:.3e}, argmax agreement "
+        f"{agree16:.4f}")
+    if not np.isfinite(err16):
+        raise SystemExit("bf16 decode replay is not finite")
+
+    long_prompt = torch.randint(0, cfg.vocab_size, (16, 256),
+                                generator=gen).to(dev)
+    model.prefill(long_prompt)                                 # warm up
+    s, e = _events(2)
+    s.record()
+    logits, caches = model.prefill(long_prompt)
+    e.record()
+    torch.cuda.synchronize()
+    prefill_ms = s.elapsed_time(e)
+    kv = caches[0].k
+    if (logits.shape != (16, 1, cfg.vocab_size) or len(caches) !=
+            cfg.num_layers or kv.shape != (16, 256, cfg.num_kv_heads,
+                                           cfg.resolved_head_dim)
+            or not bool(torch.isfinite(logits).all())):
+        raise SystemExit("prefill output malformed")
+    log(f"     prefill of 256 tokens at B = 16: {prefill_ms:.3f} ms, "
+        f"{16 * 256 / (prefill_ms / 1e3):.1f} tokens/s")
+    return model, dict(params=n_params, f32_err=err32, f32_agree=agree32,
+                       bf16_err=err16, bf16_agree=agree16,
+                       prefill_ms=prefill_ms)
+
+
+def knn_decode(model, svc, steps=64, B=16, max_len=512):
+    """Check C: ``serve_knnlm``'s loop at full width; every step's lookup
+    through ``RetrievalService`` and the fused hop.  Returns the last
+    step's queries and the summary."""
+    from repro_torch.kernels.fused_hop import fused_hop_cuda
+    from repro_torch.serving.retrieval import KNNLMHead
+
+    V = model.cfg.vocab_size
+    head = KNNLMHead(service=svc, vocab_size=V, lam=0.25,
+                     temperature=KNN_TEMPERATURE)
+    caches = model.init_decode_caches(B, max_len)
+    tok = torch.zeros((B, 1), dtype=torch.long, device=model.device)
+    split = np.zeros(3)
+    kept = []
+    torch.cuda.synchronize()
+    fused_hop_cuda.launches = 0
+    t0 = time.perf_counter()
+    for t in range(steps):
+        ev = _events(4)
+        ev[0].record()
+        logits, caches = model.decode_step(tok, caches, t)
+        lm_logits = logits[:, 0]
+        q = model.embed[lm_logits.argmax(-1)]     # serve_knnlm's query
+        ev[1].record()
+        tokens, dists, _ = svc.lookup(q)
+        ev[2].record()
+        probs = head.mix(lm_logits, tokens, dists)
+        ev[3].record()
+        tok = probs.argmax(-1)[:, None]
+        torch.cuda.synchronize()
+        split += [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+        kept.append((lm_logits, tokens, dists, probs))
+    wall = time.perf_counter() - t0
+    launches = fused_hop_cuda.launches
+    split /= steps
+    log(f"  C. kNN-LM decode, B = {B}, {steps} steps, max_len {max_len}: "
+        f"{split.sum():.3f} ms a step (LM decode {split[0]:.3f}, lookup "
+        f"{split[1]:.3f}, head {split[2]:.3f}; CUDA events), "
+        f"{B * steps / wall:.1f} tokens/s (host clock), fused_hop launches "
+        f"{launches} ({launches / steps:g} a step)")
+    if launches != 2 * steps:
+        raise SystemExit(f"the decode's {steps} lookups made {launches} "
+                         "fused_hop launches, not 2 each")
+    head_err, sum_err, knn_mass = 0.0, 0.0, 1.0
+    for lm_logits, tokens, dists, probs in kept:
+        p = probs.cpu().numpy()
+        if p.shape != (B, V) or not np.isfinite(p).all():
+            raise SystemExit("kNN-LM probabilities malformed")
+        sum_err = max(sum_err, float(np.abs(p.sum(-1) - 1.0).max()))
+        d = dists.cpu().numpy()
+        want = host_head(lm_logits.cpu().numpy(), tokens.cpu().numpy(), d,
+                         V, head.lam, head.temperature)
+        head_err = max(head_err, float(np.abs(p - want).max()))
+        w = np.exp(-d / np.float32(head.temperature)).sum(-1)
+        knn_mass = min(knn_mass, float(w.min()))
+    log(f"     every row finite, |sum - 1| <= {sum_err:.3e} (tolerance "
+        f"{KNN_SUM_TOL}); head vs its host recomputation {head_err:.3e} "
+        f"(tolerance {KNN_HEAD_TOL}); least kNN weight sum {knn_mass:.3e}")
+    if sum_err > KNN_SUM_TOL:
+        raise SystemExit(f"a probability row sums {sum_err} off 1")
+    if head_err > KNN_HEAD_TOL:
+        raise SystemExit(f"the head differs from its host recomputation by "
+                         f"{head_err}")
+    return q, dict(step_ms=split.sum(), lm_ms=split[0], lookup_ms=split[1],
+                   head_ms=split[2], tokens_per_s=B * steps / wall,
+                   launches=launches, head_err=head_err, sum_err=sum_err)
+
+
+def phase_knnlm(dev, seed, n=KNN_N, probe=KNN_PROBE, lm_cfg=None):
+    """Phase 15: the kNN-LM serving path at full width (module docstring).
+    Returns its ``fused_hop`` entry for the kernel line and a summary."""
+    from repro_torch.configs import get_config
+
+    cfg = lm_cfg or get_config("qwen3-0.6b")
+    torch.cuda.reset_peak_memory_stats()
+    svc, batches, retrieval = knn_retrieval(dev, seed, n, probe,
+                                            cfg.d_model, cfg.vocab_size)
+    model, decoder = knn_decoder(dev, seed, cfg)
+    q_last, decode = knn_decode(model, svc)
+    del model
+    torch.cuda.empty_cache()
+    log(f"  D. fused_hop at the lookup's state (d = {cfg.d_model}):")
+    hop16 = time_hop(svc.dqf, q_last, decode["launches"],
+                     "kNN-LM decode lookup, B=16")
+    hop1k = time_hop(svc.dqf, batches[0], retrieval["launches"],
+                     "kNN-LM lookup batch, B=1024")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  peak device memory in phase 15: {peak / 2**30:.3f} GiB")
+    entry = dict(hop16, name="fused_hop (f32, kNN-LM lookup)",
+                 launches_note="phase 15's 64-step kNN-LM decode, 2 a "
+                 "lookup; the top-level numbers are one 8-hop launch at its "
+                 f"B = 16, d = {cfg.d_model}",
+                 batch_1024={k: hop1k[k] for k in (
+                     "launches", "max_abs_err", "ms", "device_ms",
+                     "plain_ms", "bound_ms", "bound_by", "full_phase_ms",
+                     "full_phase_device_ms", "full_phase_bound_ms")})
+    entry["max_abs_err"] = max(hop16["max_abs_err"], hop1k["max_abs_err"])
+    return entry, dict(retrieval=retrieval, decoder=decoder, decode=decode,
+                       peak_bytes=peak)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3643,6 +4013,15 @@ def main() -> int:
             **{f"S={S} {key}": o["kernels"][key]
                for S, o in served.items()}}
     log(f"  phase 14: {time.perf_counter() - t14:.1f} s")
+    del kept, served
+    torch.cuda.empty_cache()
+
+    phase("phase 15: the kNN-LM serving path (Qwen3-0.6B at full width, "
+          "bf16, decoding with DQF retrieval through fused_hop)")
+    t15 = time.perf_counter()
+    knn_entry, _ = phase_knnlm(dev, args.seed)
+    entries.append(knn_entry)
+    log(f"  phase 15: {time.perf_counter() - t15:.1f} s")
 
     phase("done")
     log(f"  total {time.perf_counter() - t_all:.1f} s")

@@ -7,15 +7,19 @@ checkpoint's own keys (``repro.core.DQF.save`` and the port's
 the same store, graph, tenants' hot indexes, tree and quantizer.  It is
 the code path of :meth:`DQF.load`, so a checkpoint loads the same way
 either way.  :func:`sharded_from_arrays` does the same for a sharded
-index, one such mapping a shard.
+index, one such mapping a shard, and :func:`lm_from_arrays` carries the
+reference decoder LM's parameter tree into a port ``DecoderLM``.
 """
 
 from __future__ import annotations
 
+import numpy as np
+import torch
+
 from repro_torch.core.dqf import DQF
 from repro_torch.core.types import DQFConfig
 
-__all__ = ["dqf_from_arrays", "sharded_from_arrays"]
+__all__ = ["dqf_from_arrays", "sharded_from_arrays", "lm_from_arrays"]
 
 
 def dqf_from_arrays(arrays, cfg: DQFConfig | None = None,
@@ -56,3 +60,57 @@ def sharded_from_arrays(per_shard_arrays, owner, tree, cfg: DQFConfig | None,
 
     return ShardedDQF.from_arrays(per_shard_arrays, cfg, scfg, owner=owner,
                                   tree=tree, device=device)
+
+
+def _tensor(a) -> torch.Tensor:
+    """A numpy array (bfloat16 ones from JAX included) as a CPU tensor."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.tensor(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.tensor(a)
+
+
+def lm_from_arrays(params, cfg, device=None):
+    """A port :class:`~repro_torch.models.DecoderLM` over the reference's
+    parameter tree (``repro.models.lm.init_params``), its leaves numpy
+    arrays: ``embed``, ``lm_head`` (absent under ``tie_embeddings``),
+    ``final_norm`` and ``blocks[kind][path][i]``, the i-th layer of that
+    kind, unstacked onto the port's blocks in layer order.  Weights keep
+    the reference's ``(d_in, d_out)`` layout; each is cast to the
+    config's dtype.  A tree whose leaves do not match the port's
+    parameters is refused."""
+    from repro_torch.models import DecoderLM
+
+    model = DecoderLM(cfg, seed=None, device=device)
+    taken: dict[str, int] = {}
+
+    def leaf(tree, path):
+        for part in path.split("."):
+            tree = tree[part]
+        return tree
+
+    def paths(tree, prefix=""):
+        if not isinstance(tree, dict):
+            return [prefix[:-1]]
+        return [p for k in sorted(tree)
+                for p in paths(tree[k], f"{prefix}{k}.")]
+
+    with torch.no_grad():
+        for name in ("final_norm", "embed", "lm_head"):
+            t = getattr(model, name)
+            if (t is None) != (name not in params):
+                raise ValueError(f"{name}: the tree and the config disagree")
+            if t is not None:
+                t.copy_(_tensor(params[name]))
+        for blk in model.blocks:
+            i = taken.get(blk.kind, 0)
+            taken[blk.kind] = i + 1
+            tree = params["blocks"][blk.kind]
+            names = dict(blk.named_parameters())
+            if sorted(names) != sorted(paths(tree)):
+                raise ValueError(
+                    f"{blk.kind} block: the tree holds {sorted(paths(tree))}"
+                    f", the port {sorted(names)}")
+            for path, t in names.items():
+                t.copy_(_tensor(leaf(tree, path)[i]))
+    return model

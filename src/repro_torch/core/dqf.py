@@ -98,13 +98,13 @@ class _Timings:
     compact_repair: float = 0.0
 
 
-def resolve_device(device=None) -> torch.device:
+def resolve_device(device=None, what: str = "DQF") -> torch.device:
     """The device an entry point runs on: the card unless asked otherwise."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
-                "DQF runs on a CUDA device by default and none is present; "
-                "pass device='cpu' to run the plain versions on the CPU")
+                f"{what} runs on a CUDA device by default and none is "
+                "present; pass device='cpu' to run on the CPU")
         device = "cuda"
     return torch.device(device)
 
@@ -338,12 +338,18 @@ class DQF:
         return self.cfg.quant.rerank_k if self._quant_active else 0
 
     def _queries(self, queries) -> torch.Tensor:
-        q = np.asarray(queries, np.float32)
+        """The query batch as a contiguous float32 tensor on the device; a
+        tensor already there (an LM's hidden states) is not copied."""
+        if isinstance(queries, torch.Tensor):
+            q = queries.to(self.device, torch.float32).contiguous()
+        else:
+            q = torch.as_tensor(np.ascontiguousarray(queries, np.float32),
+                                device=self.device)
         if q.ndim != 2 or q.shape[1] != self.store.d:
             raise ValueError(
                 f"queries must be (B, {self.store.d}) for this index, got "
-                f"{q.shape}")
-        return torch.as_tensor(np.ascontiguousarray(q), device=self.device)
+                f"{tuple(q.shape)}")
+        return q
 
     def _search_begin(self, queries) -> torch.Tensor:
         """Per-search-entry checks (one seam for all search paths): the

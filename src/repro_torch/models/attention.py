@@ -1,0 +1,240 @@
+"""GQA attention of the port: chunked prefill and ring-buffer decode.
+
+The torch counterpart of the reference's ``models/attention.py``, GQA path
+only.  Prefill runs the reference's flash-style streaming softmax over its
+static chunk-pair schedule (:func:`make_pair_schedule`: only the (q-chunk,
+kv-chunk) pairs with a live entry under causality and the window), one
+pair at a time; the running (max, denominator, accumulator) of a q-chunk
+row resets at the row's first pair.  Scores, softmax and the weighted sum
+run in float32 whatever the operands' dtype, as the reference's
+``preferred_element_type`` asks.
+
+Decode keeps one :class:`KVCache` a layer, a ring buffer of ``W =
+min(window, max_len)`` (or ``max_len``) slots written at ``pos % W``; a
+slot's absolute position is ``-1`` until written.
+
+MLA, cross-attention and the sequence-sharded flash decode
+(``flash_mesh``) are not ported (ROADMAP.md, queue 1, the LLM substrate).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from .common import apply_rope, dense_init, rms_norm, rope_angles, zeros
+
+__all__ = ["NEG_INF", "make_pair_schedule", "chunked_attention", "KVCache",
+           "init_gqa_params", "gqa_forward", "gqa_init_cache", "gqa_decode"]
+
+NEG_INF = -1e30          # a finite mask value, as the reference's
+
+
+def make_pair_schedule(nq: int, nk: int, *, cq: int, ck: int, causal: bool,
+                       window: int = 0,
+                       q_pos_offset: int = 0) -> tuple[np.ndarray, ...]:
+    """Static (i, j, new_row) arrays of chunk pairs with any live entry.
+
+    Predicates are in *positions*, not chunk indices, so mixed chunk sizes
+    (cq != ck) stay exact: q chunk i spans [off+i·cq, off+(i+1)·cq) and kv
+    chunk j spans [j·ck, (j+1)·ck).  Row-major in i so the streaming-softmax
+    carry is valid.
+    """
+    i_l, j_l, n_l = [], [], []
+    for i in range(nq):
+        q_lo = q_pos_offset + i * cq
+        q_hi = q_pos_offset + (i + 1) * cq - 1
+        first = True
+        for j in range(nk):
+            k_lo = j * ck
+            k_hi = (j + 1) * ck - 1
+            if causal and k_lo > q_hi:
+                continue          # entirely in the future
+            if causal and window and k_hi <= q_lo - window:
+                continue          # entirely outside the window
+            i_l.append(i)
+            j_l.append(j)
+            n_l.append(first)
+            first = False
+        if first:
+            raise ValueError("empty schedule row")
+    return (np.asarray(i_l, np.int32), np.asarray(j_l, np.int32),
+            np.asarray(n_l, np.bool_))
+
+
+def chunked_attention(
+    q: torch.Tensor,                 # (B, S, H, dk)
+    kv_raw: torch.Tensor,            # (B, Skv, raw) stacked kv
+    expand_fn: Callable,             # (kv_chunk (B,ck,raw), j) -> (k,v)
+    *,
+    chunk_q: int,
+    chunk_k: int,
+    causal: bool,
+    window: int = 0,                 # 0 = unlimited
+    q_pos_offset: int = 0,
+    out_dim: Optional[int] = None,   # v head dim (defaults to dk)
+    scale: Optional[float] = None,
+    kv_valid_len: Optional[int] = None,  # mask padded kv tail
+) -> torch.Tensor:
+    B, S, H, dk = q.shape
+    Skv = kv_raw.shape[1]
+    dv = out_dim or dk
+    cq, ck = min(chunk_q, S), min(chunk_k, Skv)
+    if S % cq or Skv % ck:
+        raise ValueError(f"S={S}/{Skv} not divisible by chunks {cq}/{ck}")
+    i_arr, j_arr, new_arr = make_pair_schedule(
+        S // cq, Skv // ck, cq=cq, ck=ck, causal=causal, window=window,
+        q_pos_offset=q_pos_offset)
+    sc = scale if scale is not None else dk ** -0.5
+    dev = q.device
+    rows = torch.arange(cq, device=dev)[:, None]
+    cols = torch.arange(ck, device=dev)[None, :]
+    out = torch.zeros((B, S, H, dv), dtype=q.dtype, device=dev)
+    m = l = acc = None
+    for i, j, new_row in zip(i_arr.tolist(), j_arr.tolist(),
+                             new_arr.tolist()):
+        qc = q[:, i * cq:(i + 1) * cq]
+        kc, vc = expand_fn(kv_raw[:, j * ck:(j + 1) * ck], j)
+        s = torch.einsum("bqhd,bkhd->bhqk", qc.float(), kc.float()) * sc
+        qpos = q_pos_offset + i * cq + rows
+        kpos = j * ck + cols
+        live = torch.ones((cq, ck), dtype=torch.bool, device=dev)
+        if causal:
+            live &= kpos <= qpos
+        if window:
+            live &= kpos > qpos - window
+        if kv_valid_len is not None and kv_valid_len < Skv:
+            live &= kpos < kv_valid_len
+        s = torch.where(live, s, NEG_INF)
+
+        if new_row:                      # reset the row state
+            m = torch.full((B, H, cq), NEG_INF, device=dev)
+            l = torch.zeros((B, H, cq), device=dev)
+            acc = torch.zeros((B, H, cq, dv), device=dev)
+        m_new = torch.maximum(m, s.amax(dim=-1))          # (B,H,cq)
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])               # (B,H,cq,ck)
+        l = l * alpha + p.sum(dim=-1)
+        pv = torch.einsum("bhqk,bkhd->bhqd", p.to(vc.dtype).float(),
+                          vc.float())
+        acc = acc * alpha[..., None] + pv
+        m = m_new
+        norm = acc / torch.clamp(l, min=1e-30)[..., None]  # (B,H,cq,dv)
+        out[:, i * cq:(i + 1) * cq] = norm.transpose(1, 2).to(out.dtype)
+    return out
+
+
+def _decode_attention(q1, k_all, v_all, live, scale):
+    """Single-position attention: q (B,1,H,dk) vs full caches (B,W,H,·)."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q1.float(), k_all.float()) * scale
+    s = torch.where(live[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhqk,bkhd->bqhd", p.to(v_all.dtype).float(),
+                     v_all.float())
+    return o.to(q1.dtype)
+
+
+class KVCache(NamedTuple):
+    """Ring-buffer KV cache (window layers wrap; full layers W = max_len)."""
+
+    k: torch.Tensor          # (B, W, Hkv, hd)
+    v: torch.Tensor          # (B, W, Hkv, hd)
+    pos: torch.Tensor        # (W,) int32 absolute positions, -1 = empty
+
+
+def init_gqa_params(gen, cfg, dtype, device) -> torch.nn.ParameterDict:
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    p = {
+        "wq": dense_init(gen, d, cfg.num_heads * hd, dtype, device),
+        "wk": dense_init(gen, d, cfg.num_kv_heads * hd, dtype, device),
+        "wv": dense_init(gen, d, cfg.num_kv_heads * hd, dtype, device),
+        "wo": dense_init(gen, cfg.num_heads * hd, d, dtype, device),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = zeros((hd,), dtype, device)
+        p["k_norm"] = zeros((hd,), dtype, device)
+    return torch.nn.ParameterDict(p)
+
+
+def _gqa_qkv(p, x, positions, *, cfg, theta):
+    """Projections, per-head QK-RMSNorm (when the config has it), then
+    RoPE on q and k."""
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q = (x @ p["wq"]).reshape(B, S, cfg.num_heads, hd)
+    k = (x @ p["wk"]).reshape(B, S, cfg.num_kv_heads, hd)
+    v = (x @ p["wv"]).reshape(B, S, cfg.num_kv_heads, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    sin, cos = rope_angles(positions, hd, theta)
+    return apply_rope(q, sin, cos), apply_rope(k, sin, cos), v
+
+
+def gqa_forward(p, x, *, cfg, theta: float, window: int,
+                chunk_q: int = 1024, chunk_k: int = 1024,
+                return_kv: bool = False):
+    """Prefill GQA over the full sequence."""
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim
+    n_kv = cfg.num_kv_heads
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
+    q, k, v = _gqa_qkv(p, x, positions, cfg=cfg, theta=theta)
+    groups = cfg.num_heads // n_kv
+    kv_raw = torch.cat([k.reshape(B, S, -1), v.reshape(B, S, -1)], dim=-1)
+
+    def expand(kvc, j):
+        ck = kvc.shape[1]
+        kk = kvc[..., : n_kv * hd].reshape(B, ck, n_kv, hd)
+        vv = kvc[..., n_kv * hd:].reshape(B, ck, n_kv, hd)
+        return (torch.repeat_interleave(kk, groups, dim=2),
+                torch.repeat_interleave(vv, groups, dim=2))
+
+    out = chunked_attention(q, kv_raw, expand, chunk_q=chunk_q,
+                            chunk_k=chunk_k, causal=True, window=window)
+    out = out.reshape(B, S, -1) @ p["wo"]
+    if return_kv:
+        return out, (k, v)
+    return out
+
+
+def gqa_init_cache(cfg, batch: int, max_len: int, window: int, dtype,
+                   device) -> KVCache:
+    W = min(window, max_len) if window else max_len
+    shape = (batch, W, cfg.num_kv_heads, cfg.resolved_head_dim)
+    return KVCache(
+        k=torch.zeros(shape, dtype=dtype, device=device),
+        v=torch.zeros(shape, dtype=dtype, device=device),
+        pos=torch.full((W,), -1, dtype=torch.int32, device=device),
+    )
+
+
+def gqa_decode(p, x1, cache: KVCache, pos: int, *, cfg, theta: float,
+               window: int, flash_mesh=None):
+    """One decode step at absolute position ``pos``: writes the new K/V
+    into the cache's slot ``pos % W`` in place and returns (out, cache)."""
+    if flash_mesh is not None:
+        raise NotImplementedError(
+            "flash decoding over a device mesh is not ported (ROADMAP.md, "
+            "queue 1, the LLM substrate)")
+    B = x1.shape[0]
+    hd = cfg.resolved_head_dim
+    pos = int(pos)
+    positions = torch.full((1, 1), pos, dtype=torch.int32, device=x1.device)
+    q, k, v = _gqa_qkv(p, x1, positions, cfg=cfg, theta=theta)
+    W = cache.k.shape[1]
+    slot = pos % W
+    cache.k[:, slot] = k[:, 0]
+    cache.v[:, slot] = v[:, 0]
+    cache.pos[slot] = pos
+    live = (cache.pos >= 0) & (cache.pos <= pos)
+    if window:
+        live &= cache.pos > pos - window
+    groups = cfg.num_heads // cfg.num_kv_heads
+    k_all = torch.repeat_interleave(cache.k, groups, dim=2)
+    v_all = torch.repeat_interleave(cache.v, groups, dim=2)
+    o = _decode_attention(q, k_all, v_all, live[None].expand(B, W),
+                          hd ** -0.5)
+    return o.reshape(B, 1, -1) @ p["wo"], cache

@@ -25,6 +25,7 @@ from repro_torch.core import ssg as tssg
 from repro_torch.core.decision_tree import predict, tree_arrays
 from repro_torch.core.recall import ground_truth, recall_at_k
 from tests.conftest import make_clustered
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 
 def rows_identical(a, b) -> float:

@@ -1,0 +1,339 @@
+"""The port's decoder LM (``repro_torch.configs`` and ``repro_torch.models``)
+against the JAX package on the CPU.
+
+Configs field for field; the primitives (``rms_norm``, RoPE, the MLP,
+``chunked_attention`` at ``tests/test_model_numerics.py``'s shapes, GQA
+prefill and ring-buffer decode) within rtol/atol 1e-5 on the same numpy
+inputs; whole models (qwen3-0.6b, gemma3-4b with global layers and a
+window the replay wraps, musicgen-medium fed embeddings) at reduced sizes
+in float32, the reference's weights carried by ``lm_from_arrays``:
+forward, prefill and a 20-step decode replay with equal argmax ids and
+logits within 1e-4.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from repro.configs import ARCH_IDS as J_ARCH_IDS
+from repro.configs import SHAPES as J_SHAPES
+from repro.configs import applicable_shapes as j_applicable
+from repro.configs import get_config as j_get_config
+from repro.models import attention as jattn
+from repro.models import lm as jlm
+from repro.models.common import apply_rope as j_apply_rope
+from repro.models.common import rms_norm as j_rms_norm
+from repro.models.common import rope_angles as j_rope_angles
+from repro.models.mlp import mlp_forward as j_mlp_forward
+from repro_torch.configs import ARCH_IDS, SHAPES, applicable_shapes, get_config
+from repro_torch.convert import lm_from_arrays
+from repro_torch.models import DecoderLM, layer_runs
+from repro_torch.models import attention as tattn
+from repro_torch.models.common import apply_rope, rms_norm, rope_angles
+from repro_torch.models.mlp import mlp_forward
+from tests._torch_threads import one_torch_thread  # noqa: F401
+
+T = torch.as_tensor
+TOL = dict(rtol=1e-5, atol=1e-5)
+LOGIT_TOL = dict(rtol=0, atol=1e-4)
+# (arch, reduced() overrides): gemma3's reduced 4 layers hold no global
+# layer (every 6th is), so it keeps 6 and a window of 16 the replay wraps
+LMS = {"qwen3-0.6b": {},
+       "gemma3-4b": dict(num_layers=6, window_size=16),
+       "musicgen-medium": {}}
+REFUSED = ("deepseek-moe-16b", "deepseek-v2-lite-16b", "hymba-1.5b",
+           "llama-3.2-vision-11b", "xlstm-1.3b")
+
+
+def rand(rng, *shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+def close(got: torch.Tensor, want, tol=TOL):
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               **tol)
+
+
+# ------------------------------------------------------------------ configs
+@pytest.mark.parametrize("arch", J_ARCH_IDS)
+def test_config_equals_reference(arch):
+    got, want = get_config(arch), j_get_config(arch)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert dataclasses.asdict(got.reduced()) == \
+        dataclasses.asdict(want.reduced())
+    assert got.layer_kinds == want.layer_kinds
+    assert got.resolved_head_dim == want.resolved_head_dim
+    assert (got.active_params(), got.total_params()) == \
+        (want.active_params(), want.total_params())
+    assert layer_runs(got) == jlm.layer_runs(want)
+    assert [s.name for s in applicable_shapes(got)] == \
+        [s.name for s in j_applicable(want)]
+
+
+def test_registry_equals_reference():
+    assert ARCH_IDS == J_ARCH_IDS
+    assert {k: dataclasses.asdict(v) for k, v in SHAPES.items()} == \
+        {k: dataclasses.asdict(v) for k, v in J_SHAPES.items()}
+
+
+# --------------------------------------------------------------- primitives
+@pytest.mark.parametrize("shape", [(3, 5, 16), (2, 7, 4, 32)])
+def test_rms_norm_matches_reference(shape):
+    rng = np.random.default_rng(0)
+    x, w = rand(rng, *shape) * 3.0, rand(rng, shape[-1]) * 0.1
+    close(rms_norm(T(x), T(w), 1e-6), j_rms_norm(x, w, 1e-6))
+
+
+@pytest.mark.parametrize("theta", [10_000.0, 1_000_000.0])
+def test_rope_matches_reference(theta):
+    rng = np.random.default_rng(1)
+    pos = np.arange(40, dtype=np.int32)[None, :]
+    x = rand(rng, 2, 40, 3, 32)
+    sin, cos = rope_angles(T(pos), 32, theta)
+    jsin, jcos = j_rope_angles(jnp.asarray(pos), 32, theta)
+    close(sin, jsin)
+    close(cos, jcos)
+    close(apply_rope(T(x), sin, cos), j_apply_rope(x, jsin, jcos))
+
+
+def test_mlp_forward_matches_reference():
+    rng = np.random.default_rng(2)
+    p = {"w_gate": rand(rng, 32, 64) * 0.2, "w_up": rand(rng, 32, 64) * 0.2,
+         "w_down": rand(rng, 64, 32) * 0.2}
+    x = rand(rng, 2, 5, 32)
+    close(mlp_forward({k: T(v) for k, v in p.items()}, T(x)),
+          j_mlp_forward(p, x))
+
+
+def _expand(B, H, dk):
+    def expand(kvc, j):
+        c = kvc.shape[1]
+        return (kvc[..., : H * dk].reshape(B, c, H, dk),
+                kvc[..., H * dk:].reshape(B, c, H, dk))
+    return expand
+
+
+@pytest.mark.parametrize("S,cq,ck,window", [
+    (64, 16, 16, 0), (64, 32, 16, 0), (64, 16, 16, 24), (128, 32, 32, 32),
+])
+def test_chunked_attention_matches_reference(S, cq, ck, window):
+    rng = np.random.default_rng(3)
+    B, H, dk = 2, 3, 16
+    q, k, v = (rand(rng, B, S, H, dk) for _ in range(3))
+    kv_raw = np.concatenate([k.reshape(B, S, -1), v.reshape(B, S, -1)], -1)
+    kw = dict(chunk_q=cq, chunk_k=ck, causal=True, window=window)
+    got = tattn.chunked_attention(T(q), T(kv_raw), _expand(B, H, dk), **kw)
+    want = jattn.chunked_attention(jnp.asarray(q), jnp.asarray(kv_raw),
+                                   _expand(B, H, dk), **kw)
+    close(got, want)
+
+
+def test_chunked_attention_noncausal_kv_valid_len_matches_reference():
+    rng = np.random.default_rng(4)
+    B, S, H, dk = 1, 32, 2, 8
+    q = rand(rng, B, S, H, dk)
+    kv_raw = rand(rng, B, 32, 2 * H * dk)
+    kv_raw[:, 24:] = 7.7                      # garbage that must be masked
+    kw = dict(chunk_q=16, chunk_k=16, causal=False, kv_valid_len=24)
+    got = tattn.chunked_attention(T(q), T(kv_raw), _expand(B, H, dk), **kw)
+    want = jattn.chunked_attention(jnp.asarray(q), jnp.asarray(kv_raw),
+                                   _expand(B, H, dk), **kw)
+    close(got, want)
+
+
+def test_chunked_attention_refuses_indivisible_chunks():
+    q = torch.zeros(1, 48, 1, 8)
+    with pytest.raises(ValueError, match="not divisible"):
+        tattn.chunked_attention(q, torch.zeros(1, 48, 16), _expand(1, 1, 8),
+                                chunk_q=32, chunk_k=16, causal=True)
+
+
+@pytest.mark.parametrize("nq,nk,cq,ck,window,off", [
+    (4, 4, 16, 16, 0, 0), (4, 8, 32, 16, 24, 0), (3, 5, 8, 8, 12, 16)])
+def test_pair_schedule_equals_reference(nq, nk, cq, ck, window, off):
+    kw = dict(cq=cq, ck=ck, causal=True, window=window, q_pos_offset=off)
+    for got, want in zip(tattn.make_pair_schedule(nq, nk, **kw),
+                         jattn.make_pair_schedule(nq, nk, **kw)):
+        np.testing.assert_array_equal(got, want)
+
+
+def _gqa_world(qk_norm, window):
+    cfg = dataclasses.replace(get_config("qwen3-0.6b").reduced(),
+                              qk_norm=qk_norm, window_size=window)
+    jcfg = dataclasses.replace(j_get_config("qwen3-0.6b").reduced(),
+                               qk_norm=qk_norm, window_size=window)
+    jp = jax.tree.map(np.asarray, jattn.init_gqa_params(
+        jlm.Initializer(jax.random.PRNGKey(5)), jcfg, jnp.float32))
+    if qk_norm:                    # a non-trivial norm scale
+        rng = np.random.default_rng(6)
+        jp["q_norm"] = rand(rng, cfg.resolved_head_dim) * 0.2
+        jp["k_norm"] = rand(rng, cfg.resolved_head_dim) * 0.2
+    return cfg, jcfg, jp, {k: torch.tensor(v) for k, v in jp.items()}
+
+
+@pytest.mark.parametrize("qk_norm,window", [(True, 0), (False, 24)])
+def test_gqa_forward_matches_reference(qk_norm, window):
+    cfg, jcfg, jp, tp = _gqa_world(qk_norm, window)
+    x = rand(np.random.default_rng(7), 2, 64, cfg.d_model)
+    kw = dict(theta=cfg.rope_theta, window=window, chunk_q=16, chunk_k=32,
+              return_kv=True)
+    out, (k, v) = tattn.gqa_forward(tp, T(x), cfg=cfg, **kw)
+    jout, (jk, jv) = jattn.gqa_forward(jp, jnp.asarray(x), cfg=jcfg, **kw)
+    close(out, jout)
+    close(k, jk)
+    close(v, jv)
+
+
+@pytest.mark.parametrize("window,max_len", [(0, 24), (8, 24)])
+def test_gqa_decode_matches_reference(window, max_len):
+    """Step by step from empty caches; with a window the ring wraps."""
+    cfg, jcfg, jp, tp = _gqa_world(True, window)
+    B = 2
+    xs = rand(np.random.default_rng(8), 20, B, 1, cfg.d_model)
+    cache = tattn.gqa_init_cache(cfg, B, max_len, window, torch.float32,
+                                 "cpu")
+    jcache = jattn.gqa_init_cache(jcfg, B, max_len, window, jnp.float32)
+    step = jax.jit(lambda c, x1, pos: jattn.gqa_decode(
+        jp, x1, c, pos, cfg=jcfg, theta=jcfg.rope_theta, window=window))
+    for t, x1 in enumerate(xs):
+        out, cache = tattn.gqa_decode(tp, T(x1), cache, t, cfg=cfg,
+                                      theta=cfg.rope_theta, window=window)
+        jout, jcache = step(jcache, jnp.asarray(x1), jnp.int32(t))
+        close(out, jout)
+    for got, want in zip(cache, jcache):
+        close(got, want)
+
+
+def test_flash_decode_is_refused():
+    cfg, _, _, tp = _gqa_world(True, 0)
+    cache = tattn.gqa_init_cache(cfg, 1, 8, 0, torch.float32, "cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tattn.gqa_decode(tp, torch.zeros(1, 1, cfg.d_model), cache, 0,
+                         cfg=cfg, theta=1.0, window=0, flash_mesh=object())
+
+
+# ------------------------------------------------------------- whole models
+def _lm_twins(arch):
+    cfg = get_config(arch).reduced(**LMS[arch])
+    jcfg = j_get_config(arch).reduced(**LMS[arch])
+    params = jlm.init_params(jcfg, jax.random.PRNGKey(0))
+    model = lm_from_arrays(jax.tree.map(np.asarray, params), cfg,
+                           device="cpu")
+    return cfg, jcfg, params, model
+
+
+def _inputs(cfg, rng, B, S):
+    """Token ids, or frame embeddings for a model fed embeddings."""
+    if cfg.embed_inputs:
+        return dict(tokens=rng.integers(0, cfg.vocab_size, (B, S)).astype(
+            np.int32))
+    return dict(embeds=rand(rng, B, S, cfg.d_model))
+
+
+def _step_input(inp, t):
+    (key, arr), = inp.items()
+    return arr[:, t:t + 1]
+
+
+def close_logits(got: torch.Tensor, want):
+    want = np.asarray(want)
+    np.testing.assert_array_equal(got.numpy().argmax(-1), want.argmax(-1))
+    close(got, want, LOGIT_TOL)
+
+
+@pytest.mark.parametrize("arch", sorted(LMS))
+def test_lm_forward_prefill_decode_match_reference(arch):
+    cfg, jcfg, params, model = _lm_twins(arch)
+    assert [b.kind for b in model.blocks] == list(cfg.layer_kinds)
+    B, S, steps = 2, 40, 20
+    inp = _inputs(cfg, np.random.default_rng(9), B, S)
+    jinp = {k: jnp.asarray(v) for k, v in inp.items()}
+    # one JAX call gives forward's logits and prefill's caches (prefill is
+    # forward with the caches, its logits the last position's)
+    want, _, jcaches = jax.jit(lambda p, a: jlm.forward(
+        p, jcfg, want_caches=True, **a))(params, jinp)
+    close_logits(model(**inp), want)
+
+    logits, caches = model.prefill(**inp)
+    close_logits(logits, want[:, -1:])
+    seen: dict = {}
+    for blk, cache in zip(model.blocks, caches):
+        i = seen[blk.kind] = seen.get(blk.kind, -1) + 1
+        for got_leaf, want_leaf in zip(cache, jcaches[blk.kind]):
+            close(got_leaf, want_leaf[i])
+
+    caches = model.init_decode_caches(B, max_len=32)
+    jcaches = jlm.init_decode_caches(jcfg, B, max_len=32)
+    dec = jax.jit(lambda p, t, c, pos: jlm.decode_step(p, jcfg, t, c, pos))
+    for t in range(steps):
+        x = _step_input(inp, t)
+        logits, caches = model.decode_step(x, caches, t)
+        jlogits, jcaches = dec(params, jnp.asarray(x), jcaches, jnp.int32(t))
+        close_logits(logits, jlogits)
+
+
+def test_prefill_matches_decode_qwen():
+    """The reference's own check on the port: decoding S+1 tokens one by
+    one ≡ forward over them (last logits), at its tolerance."""
+    cfg = get_config("qwen3-0.6b").reduced()
+    model = DecoderLM(cfg, seed=0, device="cpu")
+    B, S = 2, 16
+    gen = torch.Generator().manual_seed(1)
+    tok = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen)
+    want = model(tok)[:, -1]
+    caches = model.init_decode_caches(B, max_len=S + 8)
+    for t in range(S + 1):
+        logits, caches = model.decode_step(tok[:, t:t + 1], caches, t)
+    np.testing.assert_allclose(logits[:, 0].numpy(), want.numpy(),
+                               rtol=2e-2, atol=2e-2)
+
+
+def test_port_init_is_seeded_and_at_reference_scale():
+    cfg = get_config("qwen3-0.6b").reduced()
+    a, b = (DecoderLM(cfg, seed=3, device="cpu") for _ in range(2))
+    for (name, p), q in zip(a.named_parameters(), b.parameters()):
+        assert torch.equal(p, q), name
+    assert not a.blocks[0].attn["wq"].requires_grad
+    std = float(a.blocks[0].attn["wq"].std())
+    assert abs(std - cfg.d_model ** -0.5 * 0.9866) < 0.01   # 3σ truncation
+    assert float(a.embed.abs().max()) <= 3 * cfg.d_model ** -0.5 + 1e-6
+    assert a.lm_head is None and a.head is a.embed       # tied embeddings
+
+
+@pytest.mark.parametrize("arch", REFUSED)
+def test_unported_kinds_raise(arch):
+    """8 layers, so the vision config's every-5th cross layer is there."""
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        DecoderLM(get_config(arch).reduced(num_layers=8), device="cpu")
+
+
+def test_lm_from_arrays_carries_bf16_weights_bit_for_bit():
+    """A bf16 tree (the production dtype) lands unchanged."""
+    arch = "qwen3-0.6b"
+    cfg = get_config(arch).reduced(num_layers=2, dtype="bfloat16")
+    jcfg = j_get_config(arch).reduced(num_layers=2, dtype="bfloat16")
+    tree = jax.tree.map(np.asarray, jlm.init_params(
+        jcfg, jax.random.PRNGKey(1)))
+    model = lm_from_arrays(tree, cfg, device="cpu")
+    assert model.embed.dtype == torch.bfloat16
+    want = tree["blocks"]["dense"]["attn"]["wq"][1].view(np.uint16)
+    got = model.blocks[1].attn["wq"].view(torch.int16).numpy()
+    np.testing.assert_array_equal(got.view(np.uint16), want)
+    np.testing.assert_array_equal(
+        model.embed.view(torch.int16).numpy().view(np.uint16),
+        tree["embed"].view(np.uint16))
+
+
+def test_lm_from_arrays_refuses_a_foreign_tree():
+    cfg = get_config("qwen3-0.6b").reduced()
+    jcfg = dataclasses.replace(j_get_config("qwen3-0.6b").reduced(),
+                               qk_norm=False)
+    tree = jax.tree.map(np.asarray, jlm.init_params(
+        jcfg, jax.random.PRNGKey(0)))
+    with pytest.raises(ValueError, match="q_norm"):
+        lm_from_arrays(tree, cfg, device="cpu")

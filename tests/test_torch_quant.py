@@ -41,6 +41,7 @@ from repro_torch.kernels import ref as tref
 from tests.test_torch_cuda import make_tree, make_world, quant_table
 from tests.test_torch_fused_hop import J, T, diverging_lanes, port_state
 from tests.test_torch_search import assert_lanes_match, port_cfg
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 MODES = {"sq8": dict(mode="sq8"), "pq": dict(mode="pq")}
 

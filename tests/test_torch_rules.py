@@ -64,6 +64,41 @@ def test_sharded_engine_runs_on_the_card_by_default():
         assert state.device == sd.device
 
 
+def test_decoder_lm_runs_on_the_card_by_default():
+    from repro_torch.configs import get_config
+    from repro_torch.models import DecoderLM
+
+    cfg = get_config("qwen3-0.6b").reduced(num_layers=2)
+    if torch.cuda.is_available():
+        assert DecoderLM(cfg).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            DecoderLM(cfg)
+    model = DecoderLM(cfg, device="cpu")
+    assert model.device.type == "cpu"
+    assert {p.device.type for p in model.parameters()} == {"cpu"}
+
+
+def test_retrieval_service_runs_on_the_card_by_default():
+    import numpy as np
+
+    from repro_torch.serving.retrieval import RetrievalService
+
+    x = np.random.default_rng(0).standard_normal((160, 8)).astype(np.float32)
+    cfg = DQFConfig(knn_k=8, out_degree=8, k=5, hot_pool=16, full_pool=32,
+                    max_hops=50)
+    payload = np.arange(160)
+    if torch.cuda.is_available():
+        assert RetrievalService.build(x, payload, cfg).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            RetrievalService.build(x, payload, cfg)
+    svc = RetrievalService.build(x, payload, cfg, device="cpu")
+    tok, dists, ids = svc.lookup(torch.as_tensor(x[:4]))
+    assert svc.device.type == "cpu" and svc.payload.device.type == "cpu"
+    assert {t.device.type for t in (tok, dists, ids)} == {"cpu"}
+
+
 @pytest.mark.parametrize("mode", ["sq8", "pq"])
 def test_quantized_dqf_builds_and_searches_on_cpu(mode):
     from repro_torch.core import QuantConfig, ZipfWorkload
@@ -109,7 +144,15 @@ def test_port_imports_no_jax_and_nothing_of_repro():
             " repro_torch.sharding.health, repro_torch.serving.sharded,"
             " repro_torch.serving.engine,"
             " repro_torch.serving.paged_engine,"
-            " repro_torch.examples.streaming_updates;"
+            " repro_torch.serving.retrieval, repro_torch.configs,"
+            " repro_torch.models, repro_torch.models.lm,"
+            " repro_torch.core.complexity, repro_torch.launch.serve,"
+            " repro_torch.examples.streaming_updates,"
+            " repro_torch.examples.quickstart,"
+            " repro_torch.examples.drift_adaptation,"
+            " repro_torch.examples.serve_knnlm;"
+            "from repro_torch.configs import get_config, ARCH_IDS;"
+            "[get_config(a) for a in ARCH_IDS];"
             "bad = [m for m in sys.modules if m in ('jax', 'repro') or "
             "m.startswith(('jax.', 'repro.'))]; print(bad)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

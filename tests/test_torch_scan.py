@@ -73,6 +73,7 @@ from tests.test_torch_cuda import (MERGE_KINDS, SCAN_D, SCAN_MERGE,
                                    tf32_pairwise_l2, tf32_rna,
                                    tf32_sq8_fold_pairwise_l2, tol_rows)
 from tests.test_torch_search import port_cfg, queries, saved  # noqa: F401
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 T = torch.as_tensor
 

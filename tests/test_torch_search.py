@@ -29,6 +29,7 @@ from repro_torch.core import beam_search as tbs
 from repro_torch.core.dynamic_search import dynamic_search as t_dynamic
 from repro_torch.core.dynamic_search import hot_phase as t_hot
 from repro_torch.core.tree_training import collect_training_data as t_collect
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 MAX_DIVERGENT = 0.01
 

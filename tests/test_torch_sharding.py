@@ -30,6 +30,7 @@ from repro_torch.serving.sharded import merge_with_dropout
 from repro_torch.sharding import (ShardConfig, ShardedDQF, merge_topk,
                                   merge_topk_host)
 from tests.test_torch_search import MAX_DIVERGENT, port_cfg
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 D = 16
 CFG = dict(dim=D, k=5, hot_pool=16, full_pool=32, max_hops=100,

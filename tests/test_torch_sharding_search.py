@@ -22,6 +22,7 @@ from repro_torch.core import DQF, DQFConfig, beam_search as bs
 from repro_torch.core.recall import ground_truth, recall_at_k
 from repro_torch.sharding import ShardedDQF
 from tests.test_torch_sharding import CFG, _assert_parity, _data
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -55,6 +55,7 @@ from repro_torch.store import VectorStore
 from repro_torch.tiering import BlockCache, BlockFile, TieredTable
 from tests.conftest import make_clustered
 from tests.test_torch_search import assert_lanes_match, port_cfg
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 N, D = 900, 16
 FRACS = (1.0, 0.25, 0.1)

@@ -46,6 +46,7 @@ from repro_torch.kernels import ref as tref
 from tests.test_torch_cuda import duplicated_rows, topk_rows
 from tests.test_torch_search import (assert_lanes_match, port_cfg,  # noqa: F401
                                      queries, saved)
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("B,N,k,d", [
