@@ -74,7 +74,9 @@ Phases, in order; any failure exits non-zero:
 7. the mxu main path on phase 4's index (``hot_mode="mxu"``): 4 searches,
    top-k launches counted around them, the plain top-k against the
    kernel's on batch 0 bit for bit, the phase split;
-8. the quantized main path, sq8 then pq: quantizer trained on the host,
+8. the quantized main path, sq8 then pq: quantizer trained on the host
+   (pq: 5 k-means rounds, not the default 15, to keep the script inside
+   its limit),
    phase 4's state carried over by ``DQF.to_arrays`` (what ``DQF.save``
    writes, under the reference checkpoint's keys) and ``dqf_from_arrays``,
    fit_tree on the codes, 4 searches, fused against composed on batch 0 bit
@@ -126,7 +128,7 @@ Phases, in order; any failure exits non-zero:
    per query in every round, with the same churn applied to both twins at
    the drain boundaries: after round 1, insert 512 rows (``x`` at seeded
    random rows + 0.02 N(0, 1); capacity 1,000,000 -> 1,048,576), after
-   round 2 delete 5,000 live rows (the same external ids; the hot rows hit
+   round 2 delete 2,000 live rows (the same external ids; the hot rows hit
    are rebuilt), after round 3 compact.  Checks: no tombstoned id in any
    result (``search`` over the 4 batches, ``search_dual_beam``,
    ``search_baseline``, both engines); the inserted rows, searched as
@@ -181,7 +183,8 @@ Phases, in order; any failure exits non-zero:
    batches.  S = 1: phase 4's index carried from its arrays (kept before
    phase 11), no build; check 1: its search equals phase 4's
    ``DQF.search`` bit for bit (ext ids, dists).  S = 2 and 4: build, warm
-   with phase 4's warm targets as global ext ids, fit_tree, each timed.
+   with phase 4's warm targets as global ext ids, fit_tree on 1,024 of
+   phase 4's fit queries, each timed.
    At every S, over the 4 batches (``record=False``): check 2, ``search``
    (the stacked pass: S·B lanes, one hot-phase and one full-phase
    fused_hop launch, one pool_merge) equals ``search_oracle`` (each
@@ -269,10 +272,56 @@ Phases, in order; any failure exits non-zero:
    (B = 16, and B = 1024) against its plain version bit for bit, timed
    beside it and its bound: a kernel-line entry of its own.  Peak device
    memory.
+16. the frozen segment index (``repro_torch.serving.sharded``): phase 4's
+   rows dealt into S = 4 segments of 250,000 (``build_sharded_index``,
+   phase 4's SSG parameters, each segment's graph built on the card; the
+   seconds a segment), the stacked tables uploaded once (seconds apart
+   from the search's ms, device bytes), phase 4's 4 batches through
+   ``sharded_search`` with ``DQFConfig(k=10, full_pool=64,
+   max_hops=512)``: ms a batch (CUDA events, the copy to the host in), 1
+   ``fused_hop`` and 1 ``pool_merge`` launch a batch (counted from 0 just
+   before them); every batch bit for bit with the sequential oracle (one
+   plain ``beam_search`` a segment on the card, ids mapped, then
+   ``merge_topk_host``); recall@10 against phase 4's exact top-10 at least
+   half of that of phase 4's plain beam search over the whole graph
+   (``search_baseline``, the same Algorithm 3 at the same pool), as phase
+   13 holds S > 1 shards, and each segment's recall against the exact
+   top-10 of its own rows; a lane's mean hops and dist_count.  Then one 8-hop ``fused_hop``
+   launch at the 4096 stacked lanes (the per-lane table base, no tree)
+   and ``pool_merge`` at the merge's shapes, each against its plain
+   version bit for bit, timed beside it, its bound and (the merge) the
+   library's stable sort: two kernel-line entries.  Peak device memory.
+17. a kNN-LM over DeepSeek-V2-Lite at full width
+   (``get_config("deepseek-v2-lite-16b")``: 27 layers, d_model 2048, MLA
+   rank 512, 64 routed experts top-6 + 2 shared, vocab 102,400, bf16;
+   15.71 B parameters drawn from ``--seed``): phase 15's datastore recipe
+   and check A at d = 2048 (N by the same timed probe: 262,144 of
+   kNN-LM's 103M keys).  B: float32 copies at full width cut to 4 layers
+   (1 dense + 3 MoE: a float32 copy of all 27 layers, 63 GB, does not fit
+   beside the bf16 model), their capacity factor raised to E / K so that
+   no token is dropped (the reference's capacity grows with the token
+   count, so a capacity-bound model's decode is not its forward), of
+   DeepSeek-V2-Lite and of deepseek-moe-16b (MoE with MHA attention, a
+   dense layer 10,944 wide): a 64-token prompt at B = 4 decoded token by
+   token against ``forward``, within 1e-3; then the bf16 model's own
+   replay (max |diff| and argmax agreement printed), the MoE's dropped
+   fraction at B = 16 and at 16 x 256, the MLA cache bytes, the experts'
+   bf16 product with a float32 result timed beside widening its operands
+   (one layer's ``w_gate`` at the decode's and the prefill's capacity),
+   a timed prefill of 16 x 256.  C: phase 15's decode loop (B = 16, 64 steps, a
+   lookup a step through ``RetrievalService`` and the fused hop): ms a
+   step split into LM decode, lookup and head, tokens/s, 2 fused_hop
+   launches a step, the head within 1e-6 of its host recomputation and
+   every row summing to 1 within 1e-4; the step beside its byte bound
+   (the model's weight bytes over the card's memory rate).  D: one 8-hop
+   ``fused_hop`` launch at the lookup's state (B = 16, d = 2048) against
+   its plain version bit for bit: a kernel-line entry.  Peak device
+   memory.
 
 Recall guards against breakage, not a target: 0.5 for the float32 paths,
 half of phase 4's recall for the quantized ones, the d = 128 twin's less
-0.05 for phase 15's lifted keys.  Phases 7 and 8 search
+0.05 for phase 15's lifted keys, half of phase 4's plain beam search for
+phase 16's segments.  Phases 7 and 8 search
 with ``record=False``, so every path searches the same hot index.
 
 One ``{"kernels": [...]}`` line lists every kernel, each with its
@@ -287,6 +336,7 @@ import argparse
 import copy
 import dataclasses
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -815,12 +865,22 @@ def phase_main(dev, n, seed):
         log(f"  batch 0, {name}: recall@10 "
             f"{recall_at_k(res.ids.cpu().numpy(), gt0):.4f}, mean "
             f"dist_count {float(res.stats.dist_count.float().mean()):.2f}")
+    # the plain Algorithm 3 over the whole graph, all 4 batches: what
+    # phase 16's segment search (the same beam search a segment) is held to
+    base = [dqf.search_baseline(q) for q in batches]
+    baseline_recall = recall_at_k(
+        np.concatenate([r.ids.cpu().numpy() for r in base]), gt)
+    base_dc = torch.cat([r.stats.dist_count for r in base]).float().mean()
+    log(f"  beam search over the full graph (search_baseline, pool "
+        f"{cfg.full_pool}), 4 batches: recall@10 {baseline_recall:.4f}, "
+        f"mean dist_count {float(base_dc):.2f}")
     # phase 4's answers as ext ids (the identity at build), for phase 13
     answers = [(dqf.to_external(r.ids.cpu().numpy()), r.dists.cpu().numpy())
                for r in results]
     return dict(dqf=dqf, x=x, cfg=cfg, batches=batches, fit_q=fit_q, gt=gt,
                 launches=launches, summary=summary, warm_q=warm_q,
-                warm_targets=warm_targets, answers=answers)
+                warm_targets=warm_targets, answers=answers,
+                baseline_recall=baseline_recall)
 
 
 # ------------------------------------------------------------------ phase 6
@@ -1143,13 +1203,17 @@ def phase_mxu(ctx):
 
 
 # ------------------------------------------------------------------ phase 8
+PQ_ITERS = 5     # k-means rounds of the PQ training on the host (the
+                 # default 15 took 80-100 s of the script's limit)
+
+
 def phase_quant(ctx, mode, dev):
     from repro_torch.convert import dqf_from_arrays
     from repro_torch.core import QuantConfig
     from repro_torch.kernels.fused_hop import fused_hop_cuda
     from repro_torch.quant import build_quantizer
 
-    qcfg = QuantConfig(mode=mode, rerank_k=64)
+    qcfg = QuantConfig(mode=mode, rerank_k=64, pq_iters=PQ_ITERS)
     t0 = time.perf_counter()
     state = build_quantizer(ctx["x"], qcfg)
     t_train = time.perf_counter() - t0
@@ -1492,6 +1556,10 @@ def _live_recall(dqf, batches, k, dev):
             recall_at_k(run(dqf.search_dual_beam), gt))
 
 
+MUTATION_DELETES = 2000   # rows phase 11 deletes (cut from 5,000 to keep
+                          # the script inside its limit)
+
+
 def phase_mutation(ctx, dev, seed, n_insert=512, n_delete=5000):
     """Phase 11: the mutable main path on phase 4's index.  Save and load
     a clone, then serve four rounds through the fixed engine (original)
@@ -1632,7 +1700,7 @@ def _mutation(ctx, dev, seed, n_insert, n_delete, tmp):
                 raise SystemExit("recall after the insert fell more than "
                                  "0.02 below phase 4's")
             fused_vs_composed("after insert, float32")
-        elif rnd == 1:                                      # delete 5,000
+        elif rnd == 1:                                      # delete
             live = orig.store.live_ids()
             dead_int = rng.choice(live, n_delete, replace=False)
             dead_ext = orig.store.to_external(dead_int)
@@ -2288,6 +2356,8 @@ def _tier(ctx, dev, seed, saved, n_insert, n_delete, chaos_q, tmp):
 SHARD_COUNTS = (1, 2, 4)
 DEAD_SHARD = 2          # check 4 at S = 4: shard 2 lost
 ENGINE_SHARDS = (2, 4)  # phase 14 serves phase 13's indexes at these S
+SHARD_FIT = 1024        # of phase 4's 2048 fit queries (cut from all of
+                        # them to keep the script inside its limit)
 
 
 def _bits(a: np.ndarray, b: np.ndarray) -> bool:
@@ -2494,7 +2564,7 @@ def phase_sharding(ctx, dev, f32_arrays):
             torch.cuda.synchronize()
             secs["warm"] = time.perf_counter() - t0
             t0 = time.perf_counter()
-            sd.fit_tree(ctx["fit_q"])
+            sd.fit_tree(ctx["fit_q"][:SHARD_FIT])
             torch.cuda.synchronize()
             secs["fit_tree"] = time.perf_counter() - t0
         t0 = time.perf_counter()     # the stacked tables, built once
@@ -3848,6 +3918,399 @@ def phase_knnlm(dev, seed, n=KNN_N, probe=KNN_PROBE, lm_cfg=None):
                        peak_bytes=peak)
 
 
+# ----------------------------------------------------------------- phase 16
+SEGMENTS = 4             # segments of the frozen index, as the reference's
+                         # own test takes
+# The segment search is the plain Algorithm 3 a segment (no hot index, no
+# tree, pool 64).  As phase 13 holds S > 1 shards to half of one shard's
+# recall, its recall@10 is held to this share of the same beam search
+# over phase 4's whole graph (``search_baseline``); each segment's recall
+# against its own exact top-10 locates a loss.  Phase 4's 0.5 belongs to
+# the dual-index search: on an H100 80GB HBM3 (700 W) the segments read
+# 0.2942, bit for bit with the oracle, against 0.4369 over the whole
+# graph.
+SEGMENT_RECALL_SHARE = 0.5
+
+
+def segment_oracle(tables, q, cfg):
+    """Phase 16's sequential oracle: one plain ``beam_search`` a segment
+    (the composed loop, on the card) over the stacked tables' block s, ids
+    mapped through the segment's global ids (pool sentinel or padding row
+    -> -1, inf), merged by ``merge_topk_host``.  Returns (ids, dists, the
+    per-segment answers, hops and dist_count of every lane)."""
+    from repro_torch.core import beam_search as bs
+    from repro_torch.sharding import merge_topk_host
+
+    x_t, adj_t, ent_t, off_t = tables
+    n_seg = off_t.shape[1]
+    per, hops, dc = [], [], []
+    for s in range(off_t.shape[0]):
+        res = bs.beam_search(x_t[s], adj_t[s], ent_t[s], q,
+                             pool_size=cfg.full_pool, k=cfg.k,
+                             max_hops=cfg.max_hops)
+        local = res.ids.cpu().numpy()
+        rows = off_t[s].cpu().numpy()[np.minimum(local, n_seg - 1)]
+        bad = (local >= n_seg) | (rows < 0)
+        per.append((np.where(bad, -1, rows).astype(np.int64),
+                    np.where(bad, np.inf, res.dists.cpu().numpy()).astype(
+                        np.float32)))
+        hops.append(res.stats.hops)
+        dc.append(res.stats.dist_count)
+    ids, dists = merge_topk_host([p[0] for p in per], [p[1] for p in per],
+                                 cfg.k)
+    return ids, dists, per, torch.cat(hops), torch.cat(dc)
+
+
+def segment_hop_check(tables, q, cfg, dev):
+    """One ``fused_hop`` launch of ``fused_hops`` hops at the segment
+    search's shapes (S·B lanes seeded by ``init_state`` from each
+    segment's entries, the per-lane table base over the stacked ``(S,
+    n_seg+1, ·)`` tables, no liveness, no tree) against its plain version,
+    bit for bit; timed a call alone and the device alone beside the plain
+    version and the bound."""
+    from repro_torch.core import beam_search as bs
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fused_hop import fused_hop_cuda
+
+    x_t, adj_t, ent_t, off_t = tables
+    S, B = off_t.shape[0], q.shape[0]
+    n1 = x_t.shape[1]
+    lane = torch.arange(S, device=dev).repeat_interleave(B)
+    qq = q.repeat(S, 1)
+    hs0 = bs.to_hop_state(bs.init_state(bs.LaneTable(x_t, lane), qq,
+                                        ent_t[lane], cfg.full_pool))
+    args = (adj_t, qq, None, "f32", x_t, None, None, None, None, None)
+    kw = dict(hops=cfg.fused_hops, max_hops=cfg.max_hops, k=cfg.k,
+              eval_gap=cfg.eval_gap, add_step=cfg.add_step,
+              tree_depth=cfg.tree_depth,
+              lane_base=(lane * n1).to(torch.int32))
+    saved = fused_hop_cuda.launches
+    ms, device_ms, plain_ms, got = _kernel_vs_plain(
+        lambda: fused_hop_cuda(hs0, *args, **kw),
+        lambda: ref.fused_hop(hs0, *args, **kw), hs0.seen,
+        "the segment search's fused_hop launch")
+    fused_hop_cuda.launches = saved
+    L, R, d = hs0.ids.shape[1], adj_t.shape[2], qq.shape[1]
+    rows = int((got.dist_count - hs0.dist_count).sum())
+    hops = int((got.hops - hs0.hops).sum())
+    bound_ms, by, moved = hop_bound("f32", S * B, L, R, d, d * 4,
+                                    S * B * d * 4, rows, hops)
+    log(f"  fused_hop at the segment lanes, B={S * B} L={L} R={R} d={d} "
+        f"hops={cfg.fused_hops}, lane base over ({S}, {n1}, ·): {ms:.4f} ms "
+        f"a launch (device alone {device_ms:.4f}), plain {plain_ms:.4f} ms, "
+        f"bound {bound_ms:.5f} ms by {by} ({moved} bytes, {rows} rows "
+        f"scored); bits = plain")
+    return {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": by, "max_abs_err": 0.0}
+
+
+def phase_segments(ctx, dev, seed, num_shards=SEGMENTS):
+    """Phase 16: the frozen segment index (``repro_torch.serving.sharded``)
+    over phase 4's rows, SSG parameters and batches (module docstring).
+    Returns the kernel-line entries of its path and a summary."""
+    from repro_torch.core import DQFConfig
+    from repro_torch.core.recall import ground_truth, recall_at_k
+    from repro_torch.core.ssg import SSGParams
+    from repro_torch.kernels.fused_hop import fused_hop_cuda
+    from repro_torch.kernels.topk_merge import pool_merge_cuda
+    from repro_torch.serving.sharded import (build_sharded_index,
+                                             sharded_search)
+
+    x, batches, gt, pc = ctx["x"], ctx["batches"], ctx["gt"], ctx["cfg"]
+    params = SSGParams(knn_k=pc.knn_k, out_degree=pc.out_degree,
+                       alpha_deg=pc.alpha_deg)
+    cfg = DQFConfig(k=10, full_pool=64, max_hops=512)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    index = build_sharded_index(x, num_shards, params, seed=seed, device=dev)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tables = index.upload(dev)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    dev_bytes = sum(t.numel() * t.element_size() for t in tables)
+    n_seg = index.offsets.shape[1]
+    log(f"  build_sharded_index: {num_shards} segments of {n_seg} rows, "
+        f"{build_s:.3f} s ({build_s / num_shards:.3f} s a segment), R = "
+        f"{index.adj_pad.shape[2]}, {index.entries.shape[1]} entries a "
+        f"segment; upload of the stacked tables {upload_s:.3f} s, "
+        f"{dev_bytes} device bytes")
+
+    search = lambda q: sharded_search(index, q, cfg=cfg, device=dev)
+    outs, ms, (hop_l, merge_l) = timed_batches(
+        search, batches, (fused_hop_cuda, pool_merge_cuda))
+    fused_hop_cuda.launches = pool_merge_cuda.launches = 0
+    log(f"  sharded_search, 4 batches of {len(batches[0])}: "
+        f"{', '.join(f'{t:.3f}' for t in ms)} ms a batch (CUDA events, the "
+        f"copy to the host in); {hop_l} fused_hop and {merge_l} pool_merge "
+        f"launches in the 4")
+    if (hop_l, merge_l) != (len(batches), len(batches)):
+        raise SystemExit(f"the segment search made {hop_l} fused_hop and "
+                         f"{merge_l} pool_merge launches in "
+                         f"{len(batches)} batches, not 1 and 1 a batch")
+    t0 = time.perf_counter()
+    oracle = [segment_oracle(tables, torch.as_tensor(q, device=dev), cfg)
+              for q in batches]
+    oracle_s = time.perf_counter() - t0
+    fused_hop_cuda.launches = pool_merge_cuda.launches = 0
+    for i, ((ids, dists), o) in enumerate(zip(outs, oracle)):
+        if not (np.array_equal(ids.astype(np.int64), o[0])
+                and _bits(dists, o[1])):
+            raise SystemExit(f"the stacked segment search differs from its "
+                             f"sequential oracle in batch {i}")
+    ids = np.concatenate([o[0] for o in outs])
+    dists = np.concatenate([o[1] for o in outs])
+    if ids.shape != (len(gt), cfg.k) or ids.min() < 0 or \
+            ids.max() >= x.shape[0] or not np.isfinite(dists).all():
+        raise SystemExit("segment search output malformed")
+    recall = recall_at_k(ids, gt)
+    hops = torch.cat([o[3] for o in oracle]).float()
+    dc = torch.cat([o[4] for o in oracle]).float()
+    guard = SEGMENT_RECALL_SHARE * ctx["baseline_recall"]
+    qs = np.concatenate(batches)
+    own = []                     # each segment against its own top-10
+    for s in range(num_shards):
+        rows = index.offsets[s][index.offsets[s] >= 0]
+        seg_gt = rows[ground_truth(x[rows], qs, cfg.k, device=dev)]
+        own.append(recall_at_k(np.concatenate([o[2][s][0] for o in oracle]),
+                               seg_gt))
+    log(f"  = the sequential oracle ({num_shards} plain beam_search calls a "
+        f"batch on the card, merge_topk_host; {oracle_s:.3f} s for the 4) "
+        f"bit for bit in all 4 batches; recall@10 {recall:.4f} (guard "
+        f"{guard:.4f}: {SEGMENT_RECALL_SHARE} of phase 4's beam search over "
+        f"the whole graph, {ctx['baseline_recall']:.4f}); each segment "
+        f"against its own exact top-10 "
+        f"{', '.join(f'{r:.4f}' for r in own)}; a segment lane's mean hops "
+        f"{float(hops.mean()):.2f} (most {int(hops.max())}), mean "
+        f"dist_count {float(dc.mean()):.2f}")
+    if recall < guard:
+        raise SystemExit(f"segment search recall@10 {recall:.4f} < "
+                         f"{guard:.4f}")
+    merge = sharded_merge_check(oracle[0][2], cfg.k, dev)
+    hop = segment_hop_check(tables, torch.as_tensor(batches[0], device=dev),
+                            cfg, dev)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  peak device memory in phase 16: {peak / 2**30:.3f} GiB")
+    note = (f"phase 16's {len(batches)} batches of {len(batches[0])} over "
+            f"{num_shards} segments of {n_seg} rows, one launch a batch")
+    entries = [
+        {"name": "fused_hop (f32, segment index)", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/fused_hop.cu",
+         "replaces": "src/repro/kernels/fused_hop.py:313",
+         "launches": hop_l, "max_abs_err": hop["max_abs_err"],
+         "ms": hop["ms"], "plain_ms": hop["plain_ms"],
+         "bound_ms": hop["bound_ms"], "bound_by": hop["bound_by"],
+         "library_ms": None,
+         "library_note": "no single PyTorch call computes a graph hop",
+         "device_ms": hop["device_ms"], "contract": "bits",
+         "launches_note": note + f"; the numbers are one {cfg.fused_hops}-"
+         f"hop launch at its {num_shards * len(batches[0])} stacked lanes"},
+        {"name": "pool_merge (segment merge)", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/pool_merge.cu",
+         "replaces": "src/repro/kernels/topk_merge.py:40",
+         "launches": merge_l, "max_abs_err": merge["max_abs_err"],
+         "ms": merge["ms"], "plain_ms": merge["plain_ms"],
+         "bound_ms": merge["bound_ms"], "bound_by": merge["bound_by"],
+         "library_ms": merge["library_ms"],
+         "library_note": "torch.sort(stable=True), then a slice",
+         "device_ms": merge["device_ms"], "contract": "bits",
+         "launches_note": note + "; the numbers are one merge of batch "
+         "0's per-segment answers"}]
+    summary = dict(build_s=build_s, upload_s=upload_s, batch_ms=ms,
+                   recall=recall, segment_recall=own,
+                   baseline_recall=ctx["baseline_recall"],
+                   mean_hops=float(hops.mean()),
+                   dist_count=float(dc.mean()), device_bytes=dev_bytes,
+                   peak_bytes=peak)
+    del index, tables, outs, oracle
+    torch.cuda.empty_cache()
+    return entries, summary
+
+
+# ----------------------------------------------------------------- phase 17
+DS_ARCH = "deepseek-v2-lite-16b"
+DS_REPLAY_ARCHS = ("deepseek-v2-lite-16b", "deepseek-moe-16b")
+DS_REPLAY_LAYERS = 4     # 1 dense + 3 MoE layers in the float32 replays
+
+
+def replay_config(cfg):
+    """``cfg`` at ``DS_REPLAY_LAYERS`` layers in float32, its capacity
+    factor raised to E / K so that no token is dropped: the reference's
+    capacity grows with the token count, so a capacity-bound model's
+    decode is not its forward."""
+    m = cfg.moe
+    return dataclasses.replace(
+        cfg, num_layers=DS_REPLAY_LAYERS, dtype="float32",
+        moe=dataclasses.replace(
+            m, capacity_factor=m.num_experts / m.experts_per_token))
+
+
+def float32_replay(cfg, dev, seed, prompt):
+    """A float32 copy of ``cfg`` at full width and ``DS_REPLAY_LAYERS``
+    layers, drawn from ``seed``: ``prompt`` decoded token by token against
+    ``forward``, within ``KNN_F32_TOL``."""
+    from repro_torch.models import DecoderLM
+
+    rcfg = replay_config(cfg)
+    t0 = time.perf_counter()
+    model = DecoderLM(rcfg, seed=seed, device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    err, agree = decode_replay(model, prompt)
+    _, aux = model(prompt, want_aux=True)
+    dropped = float(aux[2])
+    secs = time.perf_counter() - t0
+    del model
+    torch.cuda.empty_cache()
+    log(f"  B. {cfg.name}, float32 at full width, {rcfg.num_layers} layers "
+        f"({', '.join(rcfg.layer_kinds)}), capacity factor "
+        f"{rcfg.moe.capacity_factor:.4f}: {n_params} parameters; "
+        f"{prompt.shape[1]} decode steps at B = {prompt.shape[0]} vs "
+        f"forward, max |diff| {err:.3e} (tolerance {KNN_F32_TOL}), argmax "
+        f"agreement {agree:.4f}, dropped fraction summed over layers "
+        f"{dropped:.4f}; {secs:.3f} s")
+    if not err <= KNN_F32_TOL:
+        raise SystemExit(f"{cfg.name}: float32 decode differs from forward "
+                         f"by {err}")
+    return dict(params=n_params, err=err, agree=agree, dropped=dropped)
+
+
+def expert_product_timing(model, cfg):
+    """The route the MoE takes for its expert products under bf16
+    (``models/moe.py::_expert_mm``) beside widening the operands first,
+    on one layer's ``w_gate`` at the decode's (C = 2) and the 16 x 256
+    prefill's capacity: median ms of 20 (CUDA events), max |diff|."""
+    from repro_torch.models.moe import _expert_mm
+
+    m = cfg.moe
+    w = next(b for b in model.blocks if b.kind == "moe").moe["w_gate"]
+    gen = torch.Generator(device=w.device).manual_seed(7)
+    out = {}
+    for T in (16, 16 * 256):
+        C = math.ceil(T * m.experts_per_token / m.num_experts
+                      * m.capacity_factor)
+        buf = torch.randn((m.num_experts, C, cfg.d_model), generator=gen,
+                          device=w.device).to(w.dtype)
+        route = _median_ms(lambda: _expert_mm(buf, w), 20)
+        widened = _median_ms(lambda: torch.bmm(buf.float(), w.float()), 20)
+        err = float((_expert_mm(buf, w)
+                     - torch.bmm(buf.float(), w.float())).abs().max())
+        out[C] = dict(route_ms=route, widened_ms=widened, max_abs_err=err)
+        log(f"     expert product (E, C, d) @ (E, d, f) at C = {C}, bf16: "
+            f"bmm with a float32 result {route:.4f} ms, widened first "
+            f"{widened:.4f} ms (median of 20), max |diff| {err:.3e}")
+        del buf
+    return out
+
+
+def deepseek_decoder(dev, seed, cfg, replay_cfgs):
+    """Check B of phase 17: the float32 replays of ``replay_cfgs``, then
+    ``cfg`` at full width (its dtype, bf16) drawn from ``seed``: its bf16
+    replay, the dropped fraction at B = 16, the MLA cache bytes, a timed
+    prefill of 256 tokens at B = 16."""
+    from repro_torch.models import DecoderLM
+    from repro_torch.models.attention import MLACache
+
+    gen = torch.Generator().manual_seed(seed + 3)
+    prompt = torch.randint(0, cfg.vocab_size, (4, 64), generator=gen).to(dev)
+    replays = {c.name: float32_replay(c, dev, seed, prompt)
+               for c in replay_cfgs}
+    t0 = time.perf_counter()
+    model = DecoderLM(cfg, seed=seed, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    m = cfg.moe
+    n_moe = cfg.layer_kinds.count("moe")
+    log(f"  {cfg.name}: {cfg.num_layers} layers ({n_moe} moe), d_model "
+        f"{cfg.d_model}, {cfg.num_heads} heads, MLA rank "
+        f"{cfg.mla.kv_lora_rank}, {m.num_experts} routed experts top-"
+        f"{m.experts_per_token} + {m.num_shared} shared of {m.d_expert}, "
+        f"dense layer {cfg.dense_layer_ff}, vocab {cfg.vocab_size}, "
+        f"{cfg.dtype}; {n_params} parameters ({w_bytes} bytes), drawn in "
+        f"{time.perf_counter() - t0:.3f} s")
+    err16, agree16 = decode_replay(model, prompt)
+    log(f"     bf16 at full depth: max |diff| {err16:.3e}, argmax agreement "
+        f"{agree16:.4f} (capacity {m.capacity_factor}: the decode's and the "
+        f"forward's token counts drop differently)")
+    if not np.isfinite(err16):
+        raise SystemExit("bf16 decode replay is not finite")
+
+    long_prompt = torch.randint(0, cfg.vocab_size, (16, 256),
+                                generator=gen).to(dev)
+    _, aux1 = model(long_prompt[:, :1], want_aux=True)
+    _, aux256 = model(long_prompt, want_aux=True, logits_mode="last")
+    drop16, drop4096 = float(aux1[2]) / n_moe, float(aux256[2]) / n_moe
+    per_tok = (cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim) * 2
+    gqa_tok = 2 * cfg.num_kv_heads * cfg.mla.v_head_dim * 2
+    cap16 = math.ceil(16 * m.experts_per_token / m.num_experts
+                      * m.capacity_factor)
+    log(f"     MoE dropped fraction a layer: {drop16:.4f} at B = 16 (one "
+        f"token each, T = 16, C = {cap16}), {drop4096:.4f} at 16 x 256; "
+        f"MLA cache {per_tok} bytes a token a layer ({gqa_tok} as GQA with "
+        f"the same heads), "
+        f"{per_tok * cfg.num_layers * 16 * 512} bytes at B = 16, max_len "
+        f"512")
+    experts = expert_product_timing(model, cfg)
+    model.prefill(long_prompt)                                 # warm up
+    s, e = _events(2)
+    s.record()
+    logits, caches = model.prefill(long_prompt)
+    e.record()
+    torch.cuda.synchronize()
+    prefill_ms = s.elapsed_time(e)
+    if (logits.shape != (16, 1, cfg.vocab_size)
+            or len(caches) != cfg.num_layers
+            or not isinstance(caches[0], MLACache)
+            or caches[0].c_kv.shape != (16, 256, cfg.mla.kv_lora_rank)
+            or not bool(torch.isfinite(logits).all())):
+        raise SystemExit("prefill output malformed")
+    del caches, logits
+    log(f"     prefill of 256 tokens at B = 16: {prefill_ms:.3f} ms, "
+        f"{16 * 256 / (prefill_ms / 1e3):.1f} tokens/s")
+    return model, dict(params=n_params, weight_bytes=w_bytes,
+                       replays=replays, experts=experts,
+                       bf16_err=err16, bf16_agree=agree16,
+                       dropped_b16=drop16, dropped_prefill=drop4096,
+                       mla_bytes_token_layer=per_tok, prefill_ms=prefill_ms)
+
+
+def phase_deepseek(dev, seed, n=KNN_N, probe=KNN_PROBE, lm_cfg=None,
+                   replay_cfgs=None):
+    """Phase 17: a kNN-LM over DeepSeek-V2-Lite at full width (module
+    docstring).  Returns its ``fused_hop`` entry and a summary."""
+    from repro_torch.configs import get_config
+
+    cfg = lm_cfg or get_config(DS_ARCH)
+    replay_cfgs = replay_cfgs or [get_config(a) for a in DS_REPLAY_ARCHS]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    svc, batches, retrieval = knn_retrieval(dev, seed, n, probe,
+                                            cfg.d_model, cfg.vocab_size)
+    model, decoder = deepseek_decoder(dev, seed, cfg, replay_cfgs)
+    q_last, decode = knn_decode(model, svc)
+    bound_ms = decoder["weight_bytes"] / HBM_BYTES_PER_S * 1e3
+    log(f"     the step's byte bound: {decoder['weight_bytes']} weight bytes "
+        f"a step can touch / {HBM_BYTES_PER_S:.3g} B/s = {bound_ms:.3f} ms "
+        f"(the step {decode['step_ms']:.3f} ms, LM decode "
+        f"{decode['lm_ms']:.3f})")
+    del model
+    torch.cuda.empty_cache()
+    log(f"  D. fused_hop at the lookup's state (d = {cfg.d_model}):")
+    hop16 = time_hop(svc.dqf, q_last, decode["launches"],
+                     f"{cfg.name} kNN-LM decode lookup, B=16")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  peak device memory in phase 17: {peak / 2**30:.3f} GiB")
+    entry = dict(hop16, name=f"fused_hop (f32, kNN-LM lookup, {cfg.name})",
+                 launches_note=f"phase 17's 64-step kNN-LM decode, 2 a "
+                 "lookup; the top-level numbers are one 8-hop launch at its "
+                 f"B = 16, d = {cfg.d_model}")
+    del svc
+    torch.cuda.empty_cache()
+    return entry, dict(retrieval=retrieval, decoder=decoder, decode=decode,
+                       step_bound_ms=bound_ms, peak_bytes=peak)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3945,7 +4408,7 @@ def main() -> int:
     phase("phase 11: the mutable main path on phase 4's index (save, load, "
           "insert, delete, compact; both engines across the churn)")
     saved["f32"] = copy_arrays(ctx["dqf"])    # phase 11 mutates it
-    mut = phase_mutation(ctx, dev, args.seed)
+    mut = phase_mutation(ctx, dev, args.seed, n_delete=MUTATION_DELETES)
     by_name = {e["name"]: e for e in entries}
     keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
             "max_abs_err", "full_phase_ms", "full_phase_device_ms",
@@ -4022,6 +4485,21 @@ def main() -> int:
     knn_entry, _ = phase_knnlm(dev, args.seed)
     entries.append(knn_entry)
     log(f"  phase 15: {time.perf_counter() - t15:.1f} s")
+
+    phase("phase 16: the frozen segment index at 1M x 128, S = 4 segments "
+          "as stacked lanes (stacked vs sequential oracle, launches, "
+          "recall)")
+    t16 = time.perf_counter()
+    seg_entries, _ = phase_segments(ctx, dev, args.seed)
+    entries += seg_entries
+    log(f"  phase 16: {time.perf_counter() - t16:.1f} s")
+
+    phase("phase 17: a kNN-LM over DeepSeek-V2-Lite at full width (bf16, "
+          "MoE and MLA, decoding with DQF retrieval through fused_hop)")
+    t17 = time.perf_counter()
+    ds_entry, _ = phase_deepseek(dev, args.seed)
+    entries.append(ds_entry)
+    log(f"  phase 17: {time.perf_counter() - t17:.1f} s")
 
     phase("done")
     log(f"  total {time.perf_counter() - t_all:.1f} s")

@@ -75,9 +75,12 @@ def lm_from_arrays(params, cfg, device=None):
     parameter tree (``repro.models.lm.init_params``), its leaves numpy
     arrays: ``embed``, ``lm_head`` (absent under ``tie_embeddings``),
     ``final_norm`` and ``blocks[kind][path][i]``, the i-th layer of that
-    kind, unstacked onto the port's blocks in layer order.  Weights keep
-    the reference's ``(d_in, d_out)`` layout; each is cast to the
-    config's dtype.  A tree whose leaves do not match the port's
+    kind, unstacked onto the port's blocks in layer order (a MoE layer's
+    ``moe.router``, its ``(E, d, f)`` expert stacks and ``moe.shared``;
+    MLA's ``attn`` leaves ``wq``, ``w_dkv``, ``kv_norm``, ``w_uk``,
+    ``w_uv``, ``wo``).  Weights keep the reference's ``(d_in, d_out)``
+    layout; each is cast to its parameter's dtype, the config's (the
+    router stays float32).  A tree whose leaves do not match the port's
     parameters is refused."""
     from repro_torch.models import DecoderLM
 

@@ -1,20 +1,28 @@
-"""GQA attention of the port: chunked prefill and ring-buffer decode.
+"""GQA and MLA attention of the port: chunked prefill, ring-buffer decode.
 
-The torch counterpart of the reference's ``models/attention.py``, GQA path
-only.  Prefill runs the reference's flash-style streaming softmax over its
-static chunk-pair schedule (:func:`make_pair_schedule`: only the (q-chunk,
-kv-chunk) pairs with a live entry under causality and the window), one
-pair at a time; the running (max, denominator, accumulator) of a q-chunk
-row resets at the row's first pair.  Scores, softmax and the weighted sum
-run in float32 whatever the operands' dtype, as the reference's
-``preferred_element_type`` asks.
+The torch counterpart of the reference's ``models/attention.py``, its GQA
+and MLA paths.  Prefill runs the reference's flash-style streaming
+softmax over its static chunk-pair schedule (:func:`make_pair_schedule`:
+only the (q-chunk, kv-chunk) pairs with a live entry under causality and
+the window), one pair at a time; the running (max, denominator,
+accumulator) of a q-chunk row resets at the row's first pair.  Scores,
+softmax and the weighted sum run in float32 whatever the operands'
+dtype, as the reference's ``preferred_element_type`` asks.
 
 Decode keeps one :class:`KVCache` a layer, a ring buffer of ``W =
 min(window, max_len)`` (or ``max_len``) slots written at ``pos % W``; a
 slot's absolute position is ``-1`` until written.
 
-MLA, cross-attention and the sequence-sharded flash decode
-(``flash_mesh``) are not ported (ROADMAP.md, queue 1, the LLM substrate).
+MLA (DeepSeek-V2) keeps a compressed cache, :class:`MLACache`: the
+normed latent ``c_kv`` and one shared RoPE key a position.  Its prefill
+expands each kv chunk's keys and values from the latent inside
+:func:`chunked_attention` (value width ``v_head_dim``, score scale
+``(nope + rope)^-0.5``); its decode absorbs ``W_uk`` into the query and
+scores in the latent space, rounding ``q_lat`` and ``o_lat`` to the model
+dtype where the reference does.
+
+Cross-attention and the sequence-sharded flash decode (``flash_mesh``)
+are not ported (ROADMAP.md, queue 1, the LLM substrate).
 """
 
 from __future__ import annotations
@@ -27,7 +35,9 @@ import torch
 from .common import apply_rope, dense_init, rms_norm, rope_angles, zeros
 
 __all__ = ["NEG_INF", "make_pair_schedule", "chunked_attention", "KVCache",
-           "init_gqa_params", "gqa_forward", "gqa_init_cache", "gqa_decode"]
+           "init_gqa_params", "gqa_forward", "gqa_init_cache", "gqa_decode",
+           "MLACache", "init_mla_params", "mla_forward", "mla_init_cache",
+           "mla_decode"]
 
 NEG_INF = -1e30          # a finite mask value, as the reference's
 
@@ -237,4 +247,130 @@ def gqa_decode(p, x1, cache: KVCache, pos: int, *, cfg, theta: float,
     v_all = torch.repeat_interleave(cache.v, groups, dim=2)
     o = _decode_attention(q, k_all, v_all, live[None].expand(B, W),
                           hd ** -0.5)
+    return o.reshape(B, 1, -1) @ p["wo"], cache
+
+
+# ======================================================================= MLA
+class MLACache(NamedTuple):
+    """Compressed cache: latent c_kv + shared rope key (the MLA point)."""
+
+    c_kv: torch.Tensor       # (B, W, rank)
+    k_rope: torch.Tensor     # (B, W, rope_dim)
+    pos: torch.Tensor        # (W,) int32 absolute positions, -1 = empty
+
+
+def init_mla_params(gen, cfg, dtype, device) -> torch.nn.ParameterDict:
+    m = cfg.mla
+    d, H = cfg.d_model, cfg.num_heads
+    qd = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return torch.nn.ParameterDict({
+        "wq": dense_init(gen, d, H * qd, dtype, device),
+        "w_dkv": dense_init(gen, d, m.kv_lora_rank + m.qk_rope_head_dim,
+                            dtype, device),
+        "kv_norm": zeros((m.kv_lora_rank,), dtype, device),
+        "w_uk": dense_init(gen, m.kv_lora_rank, H * m.qk_nope_head_dim,
+                           dtype, device),
+        "w_uv": dense_init(gen, m.kv_lora_rank, H * m.v_head_dim, dtype,
+                           device),
+        "wo": dense_init(gen, H * m.v_head_dim, d, dtype, device),
+    })
+
+
+def _mla_q(p, x, positions, cfg):
+    m = cfg.mla
+    B, S, _ = x.shape
+    qd = m.qk_nope_head_dim + m.qk_rope_head_dim
+    q = (x @ p["wq"]).reshape(B, S, cfg.num_heads, qd)
+    q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
+    sin, cos = rope_angles(positions, m.qk_rope_head_dim, cfg.rope_theta)
+    return q_nope, apply_rope(q_rope, sin, cos)
+
+
+def _mla_compress(p, x, positions, cfg):
+    m = cfg.mla
+    ckv = x @ p["w_dkv"]                                 # (B,S,rank+rope)
+    c, k_rope = ckv[..., :m.kv_lora_rank], ckv[..., m.kv_lora_rank:]
+    c = rms_norm(c, p["kv_norm"], cfg.norm_eps)
+    sin, cos = rope_angles(positions, m.qk_rope_head_dim, cfg.rope_theta)
+    k_rope = apply_rope(k_rope[..., None, :], sin, cos)[..., 0, :]
+    return c, k_rope
+
+
+def mla_forward(p, x, *, cfg, chunk_q: int = 1024, chunk_k: int = 1024,
+                return_kv: bool = False):
+    """Train/prefill MLA; k/v expanded chunk-locally from the latent."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
+    q_nope, q_rope = _mla_q(p, x, positions, cfg)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    c, k_rope = _mla_compress(p, x, positions, cfg)
+    kv_raw = torch.cat([c, k_rope], dim=-1)
+
+    def expand(kvc, j):
+        ck = kvc.shape[1]
+        cc = kvc[..., :m.kv_lora_rank]
+        kr = kvc[..., m.kv_lora_rank:]
+        k_nope = (cc @ p["w_uk"]).reshape(B, ck, H, m.qk_nope_head_dim)
+        v = (cc @ p["w_uv"]).reshape(B, ck, H, m.v_head_dim)
+        kr = kr[..., None, :].expand(B, ck, H, m.qk_rope_head_dim)
+        return torch.cat([k_nope, kr], dim=-1), v
+
+    dk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    out = chunked_attention(q, kv_raw, expand, chunk_q=chunk_q,
+                            chunk_k=chunk_k, causal=True,
+                            out_dim=m.v_head_dim, scale=dk ** -0.5)
+    out = out.reshape(B, S, -1) @ p["wo"]
+    if return_kv:
+        return out, (c, k_rope)
+    return out
+
+
+def mla_init_cache(cfg, batch: int, max_len: int, dtype, device
+                   ) -> MLACache:
+    m = cfg.mla
+    return MLACache(
+        c_kv=torch.zeros((batch, max_len, m.kv_lora_rank), dtype=dtype,
+                         device=device),
+        k_rope=torch.zeros((batch, max_len, m.qk_rope_head_dim),
+                           dtype=dtype, device=device),
+        pos=torch.full((max_len,), -1, dtype=torch.int32, device=device),
+    )
+
+
+def mla_decode(p, x1, cache: MLACache, pos: int, *, cfg):
+    """Decode with weight absorption — scores live in the latent space.
+    Writes the new latent and rope key into slot ``pos % W`` in place and
+    returns (out, cache)."""
+    m = cfg.mla
+    B = x1.shape[0]
+    H = cfg.num_heads
+    pos = int(pos)
+    positions = torch.full((1, 1), pos, dtype=torch.int32, device=x1.device)
+    q_nope, q_rope = _mla_q(p, x1, positions, cfg)
+    c1, kr1 = _mla_compress(p, x1, positions, cfg)
+    W = cache.c_kv.shape[1]
+    slot = pos % W
+    cache.c_kv[:, slot] = c1[:, 0]
+    cache.k_rope[:, slot] = kr1[:, 0]
+    cache.pos[slot] = pos
+    live = (cache.pos >= 0) & (cache.pos <= pos)
+    cc, ckr = cache.c_kv.float(), cache.k_rope.float()
+
+    # absorb W_uk into q: (B,1,H,rank)
+    w_uk = p["w_uk"].reshape(m.kv_lora_rank, H, m.qk_nope_head_dim)
+    q_lat = torch.einsum("bqhn,rhn->bqhr", q_nope.float(),
+                         w_uk.float()).to(x1.dtype)
+    s = (torch.einsum("bqhr,bkr->bhqk", q_lat.float(), cc)
+         + torch.einsum("bqhn,bkn->bhqk", q_rope.float(), ckr))
+    dk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    s = s * dk ** -0.5
+    s = torch.where(live[None, None, None, :], s, NEG_INF)
+    pattn = torch.softmax(s, dim=-1)
+    o_lat = torch.einsum("bhqk,bkr->bqhr",
+                         pattn.to(cache.c_kv.dtype).float(), cc)
+    w_uv = p["w_uv"].reshape(m.kv_lora_rank, H, m.v_head_dim)
+    o = torch.einsum("bqhr,rhv->bqhv", o_lat.to(x1.dtype).float(),
+                     w_uv.float()).to(x1.dtype)
     return o.reshape(B, 1, -1) @ p["wo"], cache

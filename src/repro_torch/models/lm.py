@@ -8,10 +8,14 @@ layer order; the reference's per-kind parameter stacks and ``lax.scan``
 are a compile-time device of XLA and are not copied
 (:func:`repro_torch.convert.lm_from_arrays` unstacks them).
 
-The block kinds ``dense``, ``local`` and ``global`` with GQA attention are
-ported: qwen3-0.6b, yi-34b, glm4-9b, gemma3-4b and musicgen-medium (fed
-embeddings).  Any other kind, and MLA, raise ``NotImplementedError``.
-Training (the loss, remat, optimizers) is not ported.
+The block kinds ``dense``, ``local``, ``global`` and ``moe`` are ported,
+with GQA or (``cfg.mla_enabled``) MLA attention: qwen3-0.6b, yi-34b,
+glm4-9b, gemma3-4b, musicgen-medium (fed embeddings), deepseek-moe-16b
+and deepseek-v2-lite-16b.  A dense layer of a MoE config is
+``cfg.dense_layer_ff`` wide.  The kinds ``hybrid``, ``cross``, ``mlstm``
+and ``slstm`` raise ``NotImplementedError``.  Training (the loss, remat,
+optimizers) is not ported; ``forward`` returns the MoE aux sums the loss
+reads (``want_aux``).
 
 The model runs on the card unless ``device="cpu"`` is given; its weights
 are drawn from ``seed`` by a ``torch.Generator`` on that device.
@@ -29,10 +33,11 @@ from . import attention as attn
 from .common import (dtype_of, embed, kernel_init, rms_norm, unembed,
                      zeros)
 from .mlp import init_mlp_params, mlp_forward
+from .moe import init_moe_params, moe_forward
 
 __all__ = ["DecoderLM", "Block", "layer_runs", "PORTED_KINDS"]
 
-PORTED_KINDS = ("dense", "local", "global")
+PORTED_KINDS = ("dense", "local", "global", "moe")
 
 
 def layer_runs(cfg) -> list[tuple[str, int, int]]:
@@ -69,18 +74,20 @@ def _attn_chunks(cfg, seq_len: int) -> tuple[int, int]:
 
 def _refuse_unported(cfg) -> None:
     other = sorted(set(cfg.layer_kinds) - set(PORTED_KINDS))
-    what = [f"block kinds {other}"] if other else []
-    if cfg.mla_enabled:
-        what.append("MLA attention")
-    if what:
+    if other:
         raise NotImplementedError(
-            f"{cfg.name}: {' and '.join(what)} not ported yet (ROADMAP.md, "
+            f"{cfg.name}: block kinds {other} not ported yet (ROADMAP.md, "
             f"queue 1, the LLM substrate); ported kinds: "
             f"{', '.join(PORTED_KINDS)}")
 
 
-def _cache_from_kv(kv, window: int, seq_len: int) -> attn.KVCache:
-    """The ring-buffer cache of a layer from its full prefill K/V."""
+def _cache_from_kv(cfg, kv, window: int, seq_len: int):
+    """The ring-buffer cache of a layer from its full prefill K/V (MLA:
+    the latent and rope key of every position, no window)."""
+    if cfg.mla_enabled:
+        c, k_rope = kv
+        pos = torch.arange(seq_len, dtype=torch.int32, device=c.device)
+        return attn.MLACache(c_kv=c, k_rope=k_rope, pos=pos)
     k, v = kv
     if window and seq_len >= window and seq_len % window == 0:
         # the last `window` positions land exactly on slots 0..W-1
@@ -93,7 +100,8 @@ def _cache_from_kv(kv, window: int, seq_len: int) -> attn.KVCache:
 
 
 class Block(torch.nn.Module):
-    """One pre-norm decoder layer: GQA attention, then the SwiGLU MLP."""
+    """One pre-norm decoder layer: GQA or MLA attention, then the SwiGLU
+    MLP (``dense``, ``local``, ``global``) or the MoE (``moe``)."""
 
     def __init__(self, kind: str, cfg, gen, dtype, device):
         super().__init__()
@@ -102,31 +110,53 @@ class Block(torch.nn.Module):
         self.theta, self.window = _kind_attn_mode(cfg, kind)
         d = cfg.d_model
         self.ln1 = zeros((d,), dtype, device)
-        self.attn = attn.init_gqa_params(gen, cfg, dtype, device)
+        self.attn = (attn.init_mla_params(gen, cfg, dtype, device)
+                     if cfg.mla_enabled else
+                     attn.init_gqa_params(gen, cfg, dtype, device))
         self.ln2 = zeros((d,), dtype, device)
-        self.mlp = init_mlp_params(gen, d, cfg.d_ff, dtype, device)
+        if kind == "moe":
+            self.moe = init_moe_params(gen, cfg, dtype, device)
+        else:
+            ff = (cfg.dense_layer_ff
+                  if cfg.moe is not None and kind == "dense" else cfg.d_ff)
+            self.mlp = init_mlp_params(gen, d, ff, dtype, device)
+
+    def _ffn(self, x):
+        """The layer's second half: (x, aux (3,) = load balance, z,
+        dropped; zeros for a dense layer)."""
+        h = rms_norm(x, self.ln2, self.cfg.norm_eps)
+        if self.kind == "moe":
+            y, aux = moe_forward(self.moe, h, self.cfg)
+            return x + y, torch.stack(list(aux))
+        return (x + mlp_forward(self.mlp, h),
+                torch.zeros(3, dtype=torch.float32, device=x.device))
 
     def forward(self, x, *, chunks: tuple[int, int], want_kv: bool):
-        """The layer over a full sequence; with ``want_kv`` also its K/V."""
+        """The layer over a full sequence: (x, aux, kv), ``kv`` its K/V
+        (MLA: its latent and rope key) with ``want_kv``, else None."""
         cfg = self.cfg
         h = rms_norm(x, self.ln1, cfg.norm_eps)
-        a = attn.gqa_forward(self.attn, h, cfg=cfg, theta=self.theta,
-                             window=self.window, chunk_q=chunks[0],
-                             chunk_k=chunks[1], return_kv=want_kv)
+        kw = dict(chunk_q=chunks[0], chunk_k=chunks[1], return_kv=want_kv)
+        if cfg.mla_enabled:
+            a = attn.mla_forward(self.attn, h, cfg=cfg, **kw)
+        else:
+            a = attn.gqa_forward(self.attn, h, cfg=cfg, theta=self.theta,
+                                 window=self.window, **kw)
         kv = None
         if want_kv:
             a, kv = a
-        x = x + a
-        x = x + mlp_forward(self.mlp, rms_norm(x, self.ln2, cfg.norm_eps))
-        return x, kv
+        x, aux = self._ffn(x + a)
+        return x, aux, kv
 
-    def decode(self, x1, cache: attn.KVCache, pos: int):
+    def decode(self, x1, cache, pos: int):
         cfg = self.cfg
         h = rms_norm(x1, self.ln1, cfg.norm_eps)
-        a, cache = attn.gqa_decode(self.attn, h, cache, pos, cfg=cfg,
-                                   theta=self.theta, window=self.window)
-        x1 = x1 + a
-        x1 = x1 + mlp_forward(self.mlp, rms_norm(x1, self.ln2, cfg.norm_eps))
+        if cfg.mla_enabled:
+            a, cache = attn.mla_decode(self.attn, h, cache, pos, cfg=cfg)
+        else:
+            a, cache = attn.gqa_decode(self.attn, h, cache, pos, cfg=cfg,
+                                       theta=self.theta, window=self.window)
+        x1, _ = self._ffn(x1 + a)
         return x1, cache
 
 
@@ -172,38 +202,48 @@ class DecoderLM(torch.nn.Module):
         return embed(self.embed, tokens, self.embed_scale)
 
     def forward(self, tokens=None, embeds=None, *, want_caches: bool = False,
-                logits_mode: str = "all"):
+                logits_mode: str = "all", want_aux: bool = False):
         """Full-sequence forward: float32 logits ``(B, S, V)`` (``(B, 1,
-        V)`` with ``logits_mode="last"``) and, with ``want_caches``, one
-        :class:`~repro_torch.models.attention.KVCache` a layer."""
+        V)`` with ``logits_mode="last"``); with ``want_aux`` then the
+        layers' summed MoE aux terms ``(3,)`` (load balance, z, dropped
+        fraction), and with ``want_caches`` last one cache a layer
+        (:class:`~repro_torch.models.attention.KVCache`, or ``MLACache``)."""
         x = self._inputs(tokens, embeds)
         S = x.shape[1]
         chunks = _attn_chunks(self.cfg, S)
         caches = []
+        aux_sum = torch.zeros(3, dtype=torch.float32, device=x.device)
         for blk in self.blocks:
-            x, kv = blk(x, chunks=chunks, want_kv=want_caches)
+            x, aux, kv = blk(x, chunks=chunks, want_kv=want_caches)
+            aux_sum = aux_sum + aux
             if want_caches:
-                caches.append(_cache_from_kv(kv, blk.window, S))
+                caches.append(_cache_from_kv(self.cfg, kv, blk.window, S))
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
         if logits_mode == "last":
             x = x[:, -1:]
-        logits = unembed(x, self.head)
-        return (logits, caches) if want_caches else logits
+        out = (unembed(x, self.head),)
+        if want_aux:
+            out += (aux_sum,)
+        if want_caches:
+            out += (caches,)
+        return out if len(out) > 1 else out[0]
 
     def prefill(self, tokens=None, embeds=None):
         """Full forward, per-layer caches and last-position logits."""
         return self.forward(tokens, embeds, want_caches=True,
                             logits_mode="last")
 
-    def init_decode_caches(self, batch: int, max_len: int
-                           ) -> list[attn.KVCache]:
-        """Empty ring-buffer caches, one a layer."""
+    def init_decode_caches(self, batch: int, max_len: int) -> list:
+        """Empty ring-buffer caches, one a layer (``MLACache`` under MLA)."""
         dtype = dtype_of(self.cfg)
+        if self.cfg.mla_enabled:
+            return [attn.mla_init_cache(self.cfg, batch, max_len, dtype,
+                                        self.device) for _ in self.blocks]
         return [attn.gqa_init_cache(self.cfg, batch, max_len, blk.window,
                                     dtype, self.device)
                 for blk in self.blocks]
 
-    def decode_step(self, token, caches: list[attn.KVCache], pos: int):
+    def decode_step(self, token, caches: list, pos: int):
         """One serving step: ``token`` (B, 1) ids (or (B, 1, d) embeds for
         a model fed embeddings) at absolute position ``pos``.  Returns
         (float32 logits (B, 1, V), caches), the caches updated in place."""

@@ -1,0 +1,196 @@
+"""Fine-grained Mixture-of-Experts (DeepSeekMoE-style) of the port.
+
+The torch counterpart of the reference's ``models/moe.py``: token-choice
+top-k routing with capacity, dispatched **sort-based** (a stable sort of
+the chosen experts gives every (token, choice) its slot in its expert's
+capacity ``C``; slot ``E·C`` catches the overflow, whose output is 0),
+the router in float32 whatever the model's dtype, and the
+Switch-style load-balance and z aux losses.
+
+``lax.top_k`` orders ties toward the smaller index and ``torch.topk``
+promises no order, so every top-k here is a stable sort of the negated
+values (:func:`_top_k`): the exact zeros that masked expert groups put
+into the probabilities tie, and keep the reference's order.
+
+The expert products keep the reference's ``preferred_element_type=
+float32`` (:func:`_expert_mm`).  Expert weight stacks carry a leading
+expert axis ``(E, d, f)``.  Shared experts (always on) are a plain
+SwiGLU of width ``num_shared * d_expert``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from .common import kernel_init
+from .mlp import init_mlp_params, mlp_forward
+
+__all__ = ["init_moe_params", "moe_forward", "MoEAux", "MoEParams"]
+
+
+class MoEAux(NamedTuple):
+    load_balance_loss: torch.Tensor   # scalar
+    router_z_loss: torch.Tensor       # scalar
+    dropped_fraction: torch.Tensor    # scalar, tokens over capacity
+
+
+class MoEParams(torch.nn.Module):
+    """A MoE layer's parameters under the reference's leaf names
+    (``router``, ``w_gate``, ``w_up``, ``w_down``, ``shared.*``), read
+    like the reference's dict: ``p["router"]``, ``"shared" in p``."""
+
+    def __init__(self, leaves: dict):
+        super().__init__()
+        for name, leaf in leaves.items():
+            if isinstance(leaf, torch.nn.Parameter):
+                self.register_parameter(name, leaf)
+            else:
+                self.add_module(name, leaf)
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._parameters or name in self._modules
+
+
+def init_moe_params(gen, cfg, dtype, device) -> MoEParams:
+    m = cfg.moe
+    d = cfg.d_model
+    e, f = m.num_experts, m.d_expert
+    p = {
+        "router": kernel_init(gen, (d, e), torch.float32, device,
+                              scale=d ** -0.5),
+        "w_gate": kernel_init(gen, (e, d, f), dtype, device),
+        "w_up": kernel_init(gen, (e, d, f), dtype, device),
+        "w_down": kernel_init(gen, (e, f, d), dtype, device),
+    }
+    if m.num_shared:
+        p["shared"] = init_mlp_params(gen, d, m.num_shared * f, dtype, device)
+    return MoEParams(p)
+
+
+def _top_k(v: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``lax.top_k`` over the last axis: the k largest, ties toward the
+    smaller index (a stable ascending sort of ``-v``)."""
+    idx = torch.sort(-v, dim=-1, stable=True).indices[..., :k]
+    return v.gather(-1, idx), idx
+
+
+def _expert_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``(E, C, i) @ (E, i, o)`` with a float32 result, as the reference's
+    ``einsum(..., preferred_element_type=float32)``.
+
+    Float32 operands multiply as they are (TF32 off).  Narrower operands
+    on the card go through one batched product with a float32 output
+    (``out_dtype``), which reads each expert's weights once in their own
+    dtype; on the CPU, which has no such product, they are widened first.
+    Both keep every product exact and the sums in float32.
+    """
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        return torch.bmm(a, b)
+    if a.is_cuda:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+def _quantize_rows(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """int8 rows and one float32 scale a row (``round`` is half to even,
+    as ``jnp.round``)."""
+    s = v.abs().float().amax(-1) / 127.0 + 1e-12
+    q = torch.clamp(torch.round(v / s[:, None]), -127, 127).to(torch.int8)
+    return q, s
+
+
+def moe_forward(p, x: torch.Tensor, cfg) -> tuple[torch.Tensor, MoEAux]:
+    """x: (B, S, d) → (B, S, d), plus router aux losses."""
+    m = cfg.moe
+    B, S, d = x.shape
+    T = B * S
+    E, K = m.num_experts, m.experts_per_token
+    C = int(math.ceil(T * K / E * m.capacity_factor))
+    dev = x.device
+    xt = x.reshape(T, d)
+
+    # ---- router (f32) -------------------------------------------------
+    logits = xt.float() @ p["router"].float()                # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    if m.route_groups:
+        # device-limited routing (DeepSeek-V2 §2.1.2): keep each token's
+        # best `route_groups` expert groups by group-max affinity
+        G = m.num_groups or max(E // 8, 1)
+        gsz = E // G
+        gmax = probs.reshape(T, G, gsz).amax(dim=-1)         # (T, G)
+        _, top_g = _top_k(gmax, m.route_groups)              # (T, Rg)
+        keep_g = torch.zeros((T, G), dtype=torch.bool, device=dev)
+        keep_g.scatter_(1, top_g, True)
+        probs = torch.where(keep_g.repeat_interleave(gsz, dim=1), probs,
+                            0.0)
+    top_p, top_e = _top_k(probs, K)                          # (T, K)
+    top_p = top_p / top_p.sum(dim=-1, keepdim=True)          # deepseek norm
+
+    # aux losses (Switch-style load balance + z-loss)
+    me = probs.mean(dim=0)                                   # (E,)
+    # the mean of one_hot(top_e[:, 0]) as a scatter (one_hot's range
+    # check would stop the host for the card)
+    ce = torch.zeros(E, device=dev).index_add_(
+        0, top_e[:, 0], torch.ones(T, device=dev)) / T
+    lb = E * torch.sum(me * ce)
+    z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+
+    # ---- sort-based dispatch ------------------------------------------
+    flat_e = top_e.reshape(-1)                               # (T*K,)
+    order = torch.sort(flat_e, stable=True).indices
+    ranks = torch.empty_like(order)
+    ranks[order] = torch.arange(T * K, device=dev)
+    counts = torch.zeros(E, dtype=flat_e.dtype, device=dev).index_add_(
+        0, flat_e, torch.ones_like(flat_e))
+    starts = torch.cumsum(counts, dim=0) - counts
+    pos = ranks - starts[flat_e]                             # slot in expert
+    keep = pos < C
+    slot = torch.where(keep, flat_e * C + pos, E * C)        # overflow slot
+
+    token_rep = xt.repeat_interleave(K, dim=0)               # (T*K, d)
+    if m.quantize_dispatch:
+        # int8 transport with one float32 scale a row, dequantized on the
+        # expert side
+        tok_q, s_in = _quantize_rows(token_rep)
+        buf_q = torch.zeros((E * C + 1, d), dtype=torch.int8, device=dev)
+        buf_q[slot] = tok_q
+        buf_s = torch.zeros((E * C + 1,), dtype=torch.float32, device=dev)
+        buf_s[slot] = s_in
+        buf = (buf_q[:E * C].float() * buf_s[:E * C, None]).to(
+            x.dtype).reshape(E, C, d)
+    else:
+        buf = torch.zeros((E * C + 1, d), dtype=x.dtype, device=dev)
+        buf[slot] = token_rep
+        buf = buf[:E * C].reshape(E, C, d)
+
+    # ---- expert FFN (batched over E) ----------------------------------
+    g = _expert_mm(buf, p["w_gate"])                         # (E, C, f)
+    u = _expert_mm(buf, p["w_up"])
+    h = (torch.nn.functional.silu(g) * u).to(x.dtype)
+    out_buf = _expert_mm(h, p["w_down"])                     # (E, C, d)
+
+    # ---- combine -------------------------------------------------------
+    zero_row = torch.zeros((1, d), dtype=torch.float32, device=dev)
+    if m.quantize_dispatch:
+        ob_q, s_out = _quantize_rows(out_buf.reshape(E * C, d))
+        out_q = torch.cat([ob_q, zero_row.to(torch.int8)])
+        out_s = torch.cat([s_out, zero_row[0, :1]])
+        gathered = (out_q[slot].float() * out_s[slot, None]).reshape(T, K, d)
+    else:
+        out_flat = torch.cat([out_buf.reshape(E * C, d), zero_row])
+        gathered = out_flat[slot].reshape(T, K, d)           # dropped → 0
+    w = (top_p * keep.reshape(T, K)).float()
+    out = torch.einsum("tkd,tk->td", gathered, w).to(x.dtype)
+
+    if m.num_shared:
+        out = out + mlp_forward(p["shared"], xt)
+
+    aux = MoEAux(load_balance_loss=lb, router_z_loss=z,
+                 dropped_fraction=1.0 - keep.float().mean())
+    return out.reshape(B, S, d), aux

@@ -1,17 +1,179 @@
-"""The degraded cross-shard merge of ``repro/serving/sharded.py``.
+"""The frozen segment index of ``repro/serving/sharded.py``, on one card.
 
-Only :func:`merge_with_dropout` is ported here: ``ShardedDQF.
-search_degraded`` merges over the shards that responded with it.  The
-frozen segment index of that module (``ShardedIndex``,
-``build_sharded_index``, ``sharded_search``) needs a two-axis mesh and is
-not ported yet.
+The database is row-partitioned into ``S`` segments; each segment gets
+its own NSSG built offline (:func:`build_sharded_index`).  The reference
+searches segment ``s`` on device ``s`` of a mesh and merges the
+all-gathered per-segment top-k.  On one card :func:`sharded_search` runs
+the ``S`` segments as ``S·B`` stacked lanes of one beam search: lane
+``s·B + b`` is segment ``s`` and query ``b``, reading block ``s`` of the
+stacked ``(S, n_seg+1, ·)`` tables through the hop's per-lane table base
+(:class:`~repro_torch.core.beam_search.LaneTable`).  On the card that is
+one ``fused_hop`` launch and one ``pool_merge`` launch a batch; on the
+CPU the composed beam loop (``fused=False``, as the reference) and the
+merge's plain version run.  Placement across cards, the reference's
+mesh, waits for a slice of the port that runs on more than one card.
+
+Fault tolerance: :func:`merge_with_dropout` renormalizes the merge over
+the segments that responded — a lost host degrades recall by roughly its
+data share instead of failing the query.
 """
 
 from __future__ import annotations
 
-import numpy as np
+import dataclasses
+import math
 
-__all__ = ["merge_with_dropout"]
+import numpy as np
+import torch
+
+from repro_torch.core import beam_search as bs
+from repro_torch.core.dqf import resolve_device
+from repro_torch.core.ssg import SSGParams, build_ssg
+from repro_torch.core.types import DQFConfig
+from repro_torch.kernels import ops as kops
+from repro_torch.sharding.merge import merge_topk
+
+__all__ = ["ShardedIndex", "build_sharded_index", "sharded_search",
+           "merge_with_dropout"]
+
+
+@dataclasses.dataclass
+class ShardedIndex:
+    """Host-side bundle of per-segment artifacts, stacked segment-major."""
+
+    x_pad: np.ndarray         # (S, n_seg+1, d) float32
+    adj_pad: np.ndarray       # (S, n_seg+1, R) int32
+    entries: np.ndarray       # (S, E) int32
+    offsets: np.ndarray       # (S, n_seg) int32 global id of each row, -1
+    n_total: int
+    _tables: dict = dataclasses.field(default_factory=dict, init=False,
+                                      repr=False, compare=False)
+
+    @property
+    def num_shards(self) -> int:
+        return self.x_pad.shape[0]
+
+    def upload(self, device) -> tuple[torch.Tensor, ...]:
+        """The stacked tables on ``device`` (x_pad, adj_pad, entries,
+        offsets), uploaded on the first call for that device and kept."""
+        dev = torch.device(device)
+        key = str(dev)
+        if key not in self._tables:
+            self._tables[key] = tuple(
+                torch.as_tensor(np.ascontiguousarray(a), device=dev)
+                for a in (self.x_pad, self.adj_pad, self.entries,
+                          self.offsets))
+        return self._tables[key]
+
+
+def build_sharded_index(x: np.ndarray, num_shards: int,
+                        params: SSGParams | None = None,
+                        n_entry: int = 8, seed: int = 0,
+                        device=None) -> ShardedIndex:
+    """Round-robin rows into segments; independent NSSG per segment.
+
+    ``n`` need not divide ``num_shards``: segments differ by at most one
+    row, and shorter segments are padded to the common width with
+    unreachable sentinel rows (distance-1e9 vectors whose adjacency points
+    at the segment sentinel, global id ``-1``) — the external-id mapping
+    in ``offsets`` stays exact for every real row.  Each segment's graph
+    is built on ``device`` (the card unless asked otherwise).
+    """
+    dev = resolve_device(device, what="build_sharded_index")
+    params = params or SSGParams()
+    n, d = x.shape
+    n_seg = -(-n // num_shards)                  # ceil: common segment width
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(n)                    # density-balance segments
+    xs, adjs, ents, offs = [], [], [], []
+    R = 0
+    segs = [np.sort(perm[s::num_shards]) for s in range(num_shards)]
+    if min(len(r) for r in segs) < 2:
+        raise ValueError(
+            f"n={n} leaves a segment with < 2 rows over {num_shards} shards")
+    for rows in segs:
+        n_s = rows.size
+        seg = np.ascontiguousarray(x[rows], np.float32)
+        idx = build_ssg(seg, params, n_entry=n_entry, device=dev)
+        xp = np.full((n_seg + 1, d), 1e9, np.float32)
+        xp[:n_s] = seg
+        R = max(R, idx.adj.shape[1])
+        ap = np.full((n_seg + 1, idx.adj.shape[1]), n_seg, np.int32)
+        a = idx.adj
+        ap[:n_s] = np.where((a < 0) | (a >= n_s), n_seg, a)
+        xs.append(xp)
+        adjs.append(ap)
+        e = idx.entries
+        if e.size < n_entry:                    # pad entries to equal width
+            e = np.concatenate([e, np.full(n_entry - e.size, e[0], e.dtype)])
+        ents.append(e[:n_entry])
+        rp = np.full(n_seg, -1, np.int64)
+        rp[:n_s] = rows                          # global ids; -1 = padding
+        offs.append(rp)
+    adjs = [np.pad(a, ((0, 0), (0, R - a.shape[1])),
+                   constant_values=n_seg) for a in adjs]
+    return ShardedIndex(
+        x_pad=np.stack(xs), adj_pad=np.stack(adjs),
+        entries=np.stack(ents).astype(np.int32),
+        offsets=np.stack(offs).astype(np.int32), n_total=n)
+
+
+def _mesh_cards(mesh) -> int:
+    """Devices in a mesh given as the reference's: the product of its
+    ``shape``'s axis sizes (``{axis name: size}``)."""
+    return math.prod(dict(mesh.shape).values())
+
+
+def _stacked_search(tables, queries: torch.Tensor, *, pool_size: int, k: int,
+                    max_hops: int, fused: bool):
+    """Every segment's beam search as ``S·B`` stacked lanes, ids mapped
+    through the segments' global ids, merged: ``(B, k)`` ids and dists.
+
+    ``fused`` runs the expansion loop through the fused hop (one launch on
+    the card); otherwise the composed loop.  Both give the same bits.
+    """
+    x_t, adj_t, ent_t, off_t = tables
+    S, n_seg = off_t.shape
+    B = queries.shape[0]
+    lane = torch.arange(S, device=queries.device).repeat_interleave(B)
+    qq = queries.repeat(S, 1)                            # lane s·B + b
+    xl, al = bs.LaneTable(x_t, lane), bs.LaneTable(adj_t, lane)
+    state = bs.init_state(xl, qq, ent_t[lane], pool_size)
+    loop = bs.fused_beam_loop if fused else bs.beam_loop
+    state = loop(xl, al, qq, state, max_hops)
+    ids, dists = bs.topk_from_pool(state.pool, k)
+    # invalid = pool sentinel OR a remainder-padding row (global id -1)
+    rows = off_t[lane[:, None], ids.clamp(max=n_seg - 1).long()]
+    bad = (ids >= n_seg) | (rows < 0)
+    gids = torch.where(bad, -1, rows).to(torch.int32)
+    dists = torch.where(bad, float("inf"), dists)
+    return merge_topk(dists.view(S, B, k), gids.view(S, B, k), k)
+
+
+def sharded_search(index: ShardedIndex, queries, mesh=None, *,
+                   cfg: DQFConfig, model_axis: str = "model",
+                   data_axis: str = "data", device=None):
+    """Batched search over every segment: (B, k) global ids + dists, numpy.
+
+    ``mesh`` None (or a mesh of one device) searches the segments on one
+    card as stacked lanes; the axis names are the reference's and matter
+    only to a mesh, whose placement across cards is not ported.  The
+    device is the card unless ``device="cpu"`` is given; the stacked
+    tables are uploaded once per index and device
+    (:meth:`ShardedIndex.upload`).
+    """
+    if mesh is not None and _mesh_cards(mesh) > 1:
+        raise NotImplementedError(
+            f"sharded_search over a {_mesh_cards(mesh)}-device mesh "
+            f"(axes {model_axis!r}, {data_axis!r}): placement across cards "
+            "is not ported (ROADMAP.md, queue 1, 'Needs more than one "
+            "card'); pass mesh=None to search the segments on one card")
+    dev = resolve_device(device, what="sharded_search")
+    q = torch.as_tensor(queries, dtype=torch.float32, device=dev)
+    ids, dists = _stacked_search(
+        index.upload(dev), q, pool_size=cfg.full_pool, k=cfg.k,
+        max_hops=cfg.max_hops, fused=kops._device_type(q) == "cuda")
+    return ids.cpu().numpy(), dists.cpu().numpy()
 
 
 def merge_with_dropout(per_shard_ids: list, per_shard_dists: list,

@@ -46,9 +46,10 @@ a shard's store epoch, and the stacked tables follow at the next search
 sharding.engine.ShardedEngine` serves the index, writes included.
 
 Not in this port yet: placement of the shards across cards
-(``use_mesh=True``) and the reference's legacy segment index
-(``repro/serving/sharded.py::build_sharded_index``/``sharded_search``);
-both need more than one card.  Runs on the card unless ``device="cpu"``.
+(``use_mesh=True``), which needs more than one card.  The reference's
+legacy segment index runs on one card in
+:mod:`repro_torch.serving.sharded`.  Runs on the card unless
+``device="cpu"``.
 """
 
 from __future__ import annotations

@@ -22,8 +22,9 @@ class ShardConfig:
     CUDA devices than shards (as the reference does with too few devices)
     and ``NotImplementedError`` otherwise.
 
-    ``use_mesh=True`` and the reference's legacy segment index wait for a
-    slice of the port that runs on more than one card.
+    ``use_mesh=True`` waits for a slice of the port that runs on more than
+    one card; the reference's legacy segment index runs on one card
+    (:mod:`repro_torch.serving.sharded`).
 
     Rebalancing (``rebalance*``) runs at the end of
     :meth:`~repro_torch.sharding.ShardedDQF.compact`: when the hottest

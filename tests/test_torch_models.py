@@ -3,12 +3,14 @@ against the JAX package on the CPU.
 
 Configs field for field; the primitives (``rms_norm``, RoPE, the MLP,
 ``chunked_attention`` at ``tests/test_model_numerics.py``'s shapes, GQA
-prefill and ring-buffer decode) within rtol/atol 1e-5 on the same numpy
+prefill and ring-buffer decode, the MoE with its aux terms, grouped
+routing, int8 dispatch and dropped tokens, MLA prefill and its absorbed
+decode over a wrapping ring) within rtol/atol 1e-5 on the same numpy
 inputs; whole models (qwen3-0.6b, gemma3-4b with global layers and a
-window the replay wraps, musicgen-medium fed embeddings) at reduced sizes
-in float32, the reference's weights carried by ``lm_from_arrays``:
-forward, prefill and a 20-step decode replay with equal argmax ids and
-logits within 1e-4.
+window the replay wraps, musicgen-medium fed embeddings, deepseek-moe-16b
+and deepseek-v2-lite-16b) at reduced sizes in float32, the reference's
+weights carried by ``lm_from_arrays``: forward with its aux sums, prefill
+and a 20-step decode replay with equal argmax ids and logits within 1e-4.
 """
 
 import dataclasses
@@ -30,12 +32,14 @@ from repro.models.common import apply_rope as j_apply_rope
 from repro.models.common import rms_norm as j_rms_norm
 from repro.models.common import rope_angles as j_rope_angles
 from repro.models.mlp import mlp_forward as j_mlp_forward
+from repro.models import moe as jmoe
 from repro_torch.configs import ARCH_IDS, SHAPES, applicable_shapes, get_config
 from repro_torch.convert import lm_from_arrays
 from repro_torch.models import DecoderLM, layer_runs
 from repro_torch.models import attention as tattn
 from repro_torch.models.common import apply_rope, rms_norm, rope_angles
 from repro_torch.models.mlp import mlp_forward
+from repro_torch.models.moe import moe_forward
 from tests._torch_threads import one_torch_thread  # noqa: F401
 
 T = torch.as_tensor
@@ -45,9 +49,10 @@ LOGIT_TOL = dict(rtol=0, atol=1e-4)
 # layer (every 6th is), so it keeps 6 and a window of 16 the replay wraps
 LMS = {"qwen3-0.6b": {},
        "gemma3-4b": dict(num_layers=6, window_size=16),
-       "musicgen-medium": {}}
-REFUSED = ("deepseek-moe-16b", "deepseek-v2-lite-16b", "hymba-1.5b",
-           "llama-3.2-vision-11b", "xlstm-1.3b")
+       "musicgen-medium": {},
+       "deepseek-moe-16b": {},
+       "deepseek-v2-lite-16b": {}}
+REFUSED = ("hymba-1.5b", "llama-3.2-vision-11b", "xlstm-1.3b")
 
 
 def rand(rng, *shape):
@@ -209,6 +214,100 @@ def test_gqa_decode_matches_reference(window, max_len):
         close(got, want)
 
 
+# ---------------------------------------------------------------------- MoE
+def _tensors(tree):
+    return {k: _tensors(v) if isinstance(v, dict) else torch.tensor(v)
+            for k, v in tree.items()}
+
+
+# (reduced() overrides of the MoE, B, S): deepseek-moe-16b reduced (8
+# experts, top-2, 2 shared), DeepSeek-V2's grouped routing, the int8
+# dispatch, and a capacity that drops tokens
+MOE_CASES = {
+    "plain": (dict(), 2, 24),
+    "route_groups": (dict(route_groups=2, num_groups=4), 2, 24),
+    "quantize_dispatch": (dict(quantize_dispatch=True), 2, 24),
+    "drops": (dict(capacity_factor=0.5), 3, 40),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MOE_CASES))
+def test_moe_forward_matches_reference(case):
+    over, B, S = MOE_CASES[case]
+    cfgs = []
+    for get in (get_config, j_get_config):
+        base = get("deepseek-moe-16b").reduced()
+        cfgs.append(dataclasses.replace(
+            base, moe=dataclasses.replace(base.moe, **over)))
+    cfg, jcfg = cfgs
+    jp = jax.tree.map(np.asarray, jmoe.init_moe_params(
+        jlm.Initializer(jax.random.PRNGKey(10)), jcfg, jnp.float32))
+    x = rand(np.random.default_rng(11), B, S, cfg.d_model)
+    out, aux = moe_forward(_tensors(jp), T(x), cfg)
+    jout, jaux = jax.jit(lambda p, a: jmoe.moe_forward(p, a, jcfg))(jp, x)
+    close(out, jout)
+    for got, want in zip(aux, jaux):
+        close(got, want)
+    if case == "drops":
+        assert float(aux.dropped_fraction) > 0.1
+
+
+def test_moe_ties_order_as_lax_top_k():
+    """Masked groups leave exact zeros that tie; the port's top-k keeps
+    ``lax.top_k``'s order (the smaller index first)."""
+    from repro_torch.models.moe import _top_k
+
+    rng = np.random.default_rng(12)
+    v = rng.integers(0, 4, (64, 16)).astype(np.float32) / 4.0
+    v[:, ::3] = 0.0
+    got_v, got_i = _top_k(T(v), 6)
+    want_v, want_i = jax.lax.top_k(jnp.asarray(v), 6)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
+
+
+# ---------------------------------------------------------------------- MLA
+def _mla_world():
+    cfg = get_config("deepseek-v2-lite-16b").reduced()
+    jcfg = j_get_config("deepseek-v2-lite-16b").reduced()
+    jp = jax.tree.map(np.asarray, jattn.init_mla_params(
+        jlm.Initializer(jax.random.PRNGKey(13)), jcfg, jnp.float32))
+    jp["kv_norm"] = rand(np.random.default_rng(14),
+                         cfg.mla.kv_lora_rank) * 0.2
+    return cfg, jcfg, jp, _tensors(jp)
+
+
+def test_mla_forward_matches_reference():
+    """Chunks smaller than the sequence; values 32 wide against keys of
+    48, the scale 48^-0.5."""
+    cfg, jcfg, jp, tp = _mla_world()
+    x = rand(np.random.default_rng(15), 2, 64, cfg.d_model)
+    kw = dict(chunk_q=16, chunk_k=32, return_kv=True)
+    out, (c, kr) = tattn.mla_forward(tp, T(x), cfg=cfg, **kw)
+    jout, (jc, jkr) = jattn.mla_forward(jp, jnp.asarray(x), cfg=jcfg, **kw)
+    close(out, jout)
+    close(c, jc)
+    close(kr, jkr)
+
+
+@pytest.mark.parametrize("max_len", [24, 8])
+def test_mla_decode_matches_reference(max_len):
+    """Step by step from an empty cache; at max_len 8 the ring wraps."""
+    cfg, jcfg, jp, tp = _mla_world()
+    B = 2
+    xs = rand(np.random.default_rng(16), 20, B, 1, cfg.d_model)
+    cache = tattn.mla_init_cache(cfg, B, max_len, torch.float32, "cpu")
+    jcache = jattn.mla_init_cache(jcfg, B, max_len, jnp.float32)
+    step = jax.jit(lambda c, x1, pos: jattn.mla_decode(jp, x1, c, pos,
+                                                       cfg=jcfg))
+    for t, x1 in enumerate(xs):
+        out, cache = tattn.mla_decode(tp, T(x1), cache, t, cfg=cfg)
+        jout, jcache = step(jcache, jnp.asarray(x1), jnp.int32(t))
+        close(out, jout)
+    for got, want in zip(cache, jcache):
+        close(got, want)
+
+
 def test_flash_decode_is_refused():
     cfg, _, _, tp = _gqa_world(True, 0)
     cache = tattn.gqa_init_cache(cfg, 1, 8, 0, torch.float32, "cpu")
@@ -255,9 +354,11 @@ def test_lm_forward_prefill_decode_match_reference(arch):
     jinp = {k: jnp.asarray(v) for k, v in inp.items()}
     # one JAX call gives forward's logits and prefill's caches (prefill is
     # forward with the caches, its logits the last position's)
-    want, _, jcaches = jax.jit(lambda p, a: jlm.forward(
+    want, jaux, jcaches = jax.jit(lambda p, a: jlm.forward(
         p, jcfg, want_caches=True, **a))(params, jinp)
-    close_logits(model(**inp), want)
+    logits, aux = model(**inp, want_aux=True)
+    close_logits(logits, want)
+    close(aux, jaux)
 
     logits, caches = model.prefill(**inp)
     close_logits(logits, want[:, -1:])
@@ -327,6 +428,40 @@ def test_lm_from_arrays_carries_bf16_weights_bit_for_bit():
     np.testing.assert_array_equal(
         model.embed.view(torch.int16).numpy().view(np.uint16),
         tree["embed"].view(np.uint16))
+
+
+def test_lm_from_arrays_carries_moe_and_mla_leaves_bit_for_bit():
+    """deepseek-v2-lite in bf16: the float32 router, the bf16 expert
+    stacks (one layer of the (n, E, d, f) stack each), the MLA leaves; the
+    dense layer is ``dense_layer_ff`` wide (384 here, ``d_ff`` 256)."""
+    arch = "deepseek-v2-lite-16b"
+    over = dict(dtype="bfloat16", dense_layer_ff=384)
+    cfg = get_config(arch).reduced(**over)
+    jcfg = j_get_config(arch).reduced(**over)
+    tree = jax.tree.map(np.asarray, jlm.init_params(
+        jcfg, jax.random.PRNGKey(2)))
+    model = lm_from_arrays(tree, cfg, device="cpu")
+    dense, moe = model.blocks[0], model.blocks[2]
+    assert (dense.kind, moe.kind) == ("dense", "moe")
+    assert dense.mlp["w_gate"].shape == (cfg.d_model, cfg.dense_layer_ff)
+    assert cfg.dense_layer_ff != cfg.d_ff
+    jm = tree["blocks"]["moe"]["moe"]
+    assert moe.moe["router"].dtype == torch.float32
+    np.testing.assert_array_equal(moe.moe["router"].numpy(), jm["router"][1])
+
+    def bits(t):
+        return t.view(torch.int16).numpy().view(np.uint16)
+
+    for name in ("w_gate", "w_up", "w_down"):
+        assert moe.moe[name].dtype == torch.bfloat16
+        np.testing.assert_array_equal(bits(moe.moe[name]),
+                                      jm[name][1].view(np.uint16))
+    np.testing.assert_array_equal(bits(moe.moe["shared"]["w_up"]),
+                                  jm["shared"]["w_up"][1].view(np.uint16))
+    ja = tree["blocks"]["moe"]["attn"]
+    for name in ("wq", "w_dkv", "kv_norm", "w_uk", "w_uv", "wo"):
+        np.testing.assert_array_equal(bits(moe.attn[name]),
+                                      ja[name][1].view(np.uint16))
 
 
 def test_lm_from_arrays_refuses_a_foreign_tree():

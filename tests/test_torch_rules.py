@@ -79,6 +79,31 @@ def test_decoder_lm_runs_on_the_card_by_default():
     assert {p.device.type for p in model.parameters()} == {"cpu"}
 
 
+def test_segment_index_runs_on_the_card_by_default():
+    import numpy as np
+
+    from repro_torch.core.ssg import SSGParams
+    from repro_torch.serving.sharded import (build_sharded_index,
+                                             sharded_search)
+
+    x = np.random.default_rng(0).standard_normal((64, 8)).astype(np.float32)
+    params = SSGParams(knn_k=6, out_degree=6)
+    cfg = DQFConfig(k=5, full_pool=16, max_hops=20)
+    if torch.cuda.is_available():
+        idx = build_sharded_index(x, 2, params)
+        sharded_search(idx, x[:4], cfg=cfg)
+        assert list(idx._tables) == ["cuda"]
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build_sharded_index(x, 2, params)
+        idx = build_sharded_index(x, 2, params, device="cpu")
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            sharded_search(idx, x[:4], cfg=cfg)
+    idx = build_sharded_index(x, 2, params, device="cpu")
+    ids, _ = sharded_search(idx, x[:4], cfg=cfg, device="cpu")
+    assert list(idx._tables) == ["cpu"] and ids.shape == (4, 5)
+
+
 def test_retrieval_service_runs_on_the_card_by_default():
     import numpy as np
 
@@ -146,6 +171,7 @@ def test_port_imports_no_jax_and_nothing_of_repro():
             " repro_torch.serving.paged_engine,"
             " repro_torch.serving.retrieval, repro_torch.configs,"
             " repro_torch.models, repro_torch.models.lm,"
+            " repro_torch.models.moe, repro_torch.models.attention,"
             " repro_torch.core.complexity, repro_torch.launch.serve,"
             " repro_torch.examples.streaming_updates,"
             " repro_torch.examples.quickstart,"
