@@ -316,7 +316,30 @@ Phases, in order; any failure exits non-zero:
    (the model's weight bytes over the card's memory rate).  D: one 8-hop
    ``fused_hop`` launch at the lookup's state (B = 16, d = 2048) against
    its plain version bit for bit: a kernel-line entry.  Peak device
-   memory.
+   memory.  Its ``RetrievalService`` goes on to phase 18.
+18. the last block kinds at full width, weights drawn from ``--seed``.
+   A: a kNN-LM over xLSTM-1.3B (48 layers: 42 mLSTM + 6 sLSTM, d_model
+   2048, 4 heads, vocab 50,304, bf16) on phase 17's datastore, its
+   payload drawn anew below that vocabulary (no index is built): a
+   float32 copy at full width cut to 8 layers (7 mLSTM + 1 sLSTM), a
+   64-token prompt at B = 4 decoded from empty state against ``forward``
+   within 1e-3; the bf16 model's own replay; a timed prefill of 16 x 256
+   (its xLSTM layers return no cache, as the reference's); phase 15's
+   decode loop (B = 16, 64 steps, 128 ``fused_hop`` launches, the head
+   within 1e-6 of its host recomputation, rows summing to 1 within 1e-4)
+   beside its byte bound (the weights, and the recurrent state read and
+   written); one 8-hop ``fused_hop`` launch at the lookup's state against
+   its plain version bit for bit: a kernel-line entry.  B: Hymba-1.5B
+   (32 hybrid layers, attention + Mamba): a float32 copy at 4 layers
+   replayed as in A; in bf16 at full depth a timed prefill of 16 x 256
+   and decode steps at B = 16.  C: Llama-3.2-Vision-11B (40 layers, 8
+   of them cross-attention to media of (B, 1601, 4096)), cross gates
+   opened to 0.5 (at their init of 0 a cross layer adds nothing): a
+   float32 copy at 5 layers (4 dense + 1 cross), ``forward`` with media
+   against a decode replay whose cross K/V come from ``prefill``, within
+   1e-3; in bf16 at full depth a timed prefill of 16 x 256 text tokens
+   with media, the cross K/V bytes, and decode steps at B = 16 over
+   them.  Peak device memory.
 
 Recall guards against breakage, not a target: 0.5 for the float32 paths,
 half of phase 4's recall for the quantized ones, the d = 128 twin's less
@@ -3743,13 +3766,19 @@ def knn_retrieval(dev, seed, n, probe, d, vocab):
     return svc, batches, summary
 
 
-def decode_replay(model, prompt):
+def decode_replay(model, prompt, media=None):
     """Decode ``prompt`` token by token from empty caches against
     ``forward`` over it: (max |logit diff| over every position, share of
-    positions whose argmax agrees)."""
-    want = model(prompt)
+    positions whose argmax agrees).  With ``media`` the forward attends to
+    it, and the decode's cross layers read its K/V from ``prefill``."""
+    want = model(prompt, media=media)
     B, S = prompt.shape
     caches = model.init_decode_caches(B, S)
+    if media is not None:
+        _, pre = model.prefill(prompt, media=media)
+        caches = [p if blk.kind == "cross" else c
+                  for blk, c, p in zip(model.blocks, caches, pre)]
+        del pre
     err, agree = 0.0, 0
     for t in range(S):
         logits, caches = model.decode_step(prompt[:, t:t + 1], caches, t)
@@ -3757,6 +3786,46 @@ def decode_replay(model, prompt):
         agree += int((logits[:, 0].argmax(-1)
                       == want[:, t].argmax(-1)).sum())
     return err, agree / (B * S)
+
+
+def prefill_ok(model, logits, caches, B, S, T=0) -> bool:
+    """A prefill of ``B`` x ``S`` tokens (and ``T`` media tokens) shaped as
+    the reference's: finite last logits, one cache a layer: none for an
+    xLSTM layer, the media's K/V for a cross layer, else the K/V of every
+    position (the last window's where the window divides ``S``), a hybrid
+    layer's SSM state beside them."""
+    cfg = model.cfg
+    kv = (cfg.num_kv_heads, cfg.resolved_head_dim)
+    for blk, c in zip(model.blocks, caches):
+        if blk.kind in ("mlstm", "slstm"):
+            ok = c is None
+        elif blk.kind == "cross":
+            ok = all(t.shape == (B, T, *kv) for t in c)
+        else:
+            if blk.kind == "hybrid":
+                c, sc = c
+                if sc.state.shape[0] != B or sc.state.dtype != torch.float32:
+                    return False
+            W = blk.window
+            W = W if W and S >= W and S % W == 0 else S
+            ok = c.k.shape == (B, W, *kv)
+        if not ok:
+            return False
+    return (logits.shape == (B, 1, cfg.vocab_size)
+            and len(caches) == cfg.num_layers
+            and bool(torch.isfinite(logits).all()))
+
+
+def timed_prefill(model, prompt, media=None):
+    """ms of one ``prefill`` (CUDA events, after a warm-up call) and its
+    output."""
+    model.prefill(prompt, media=media)                         # warm up
+    s, e = _events(2)
+    s.record()
+    logits, caches = model.prefill(prompt, media=media)
+    e.record()
+    torch.cuda.synchronize()
+    return s.elapsed_time(e), logits, caches
 
 
 def knn_decoder(dev, seed, cfg):
@@ -3797,18 +3866,8 @@ def knn_decoder(dev, seed, cfg):
 
     long_prompt = torch.randint(0, cfg.vocab_size, (16, 256),
                                 generator=gen).to(dev)
-    model.prefill(long_prompt)                                 # warm up
-    s, e = _events(2)
-    s.record()
-    logits, caches = model.prefill(long_prompt)
-    e.record()
-    torch.cuda.synchronize()
-    prefill_ms = s.elapsed_time(e)
-    kv = caches[0].k
-    if (logits.shape != (16, 1, cfg.vocab_size) or len(caches) !=
-            cfg.num_layers or kv.shape != (16, 256, cfg.num_kv_heads,
-                                           cfg.resolved_head_dim)
-            or not bool(torch.isfinite(logits).all())):
+    prefill_ms, logits, caches = timed_prefill(model, long_prompt)
+    if not prefill_ok(model, logits, caches, 16, 256):
         raise SystemExit("prefill output malformed")
     log(f"     prefill of 256 tokens at B = 16: {prefill_ms:.3f} ms, "
         f"{16 * 256 / (prefill_ms / 1e3):.1f} tokens/s")
@@ -4278,7 +4337,8 @@ def deepseek_decoder(dev, seed, cfg, replay_cfgs):
 def phase_deepseek(dev, seed, n=KNN_N, probe=KNN_PROBE, lm_cfg=None,
                    replay_cfgs=None):
     """Phase 17: a kNN-LM over DeepSeek-V2-Lite at full width (module
-    docstring).  Returns its ``fused_hop`` entry and a summary."""
+    docstring).  Returns its ``fused_hop`` entry, a summary and its
+    ``RetrievalService``, which phase 18 serves again."""
     from repro_torch.configs import get_config
 
     cfg = lm_cfg or get_config(DS_ARCH)
@@ -4305,10 +4365,242 @@ def phase_deepseek(dev, seed, n=KNN_N, probe=KNN_PROBE, lm_cfg=None,
                  launches_note=f"phase 17's 64-step kNN-LM decode, 2 a "
                  "lookup; the top-level numbers are one 8-hop launch at its "
                  f"B = 16, d = {cfg.d_model}")
-    del svc
     torch.cuda.empty_cache()
     return entry, dict(retrieval=retrieval, decoder=decoder, decode=decode,
-                       step_bound_ms=bound_ms, peak_bytes=peak)
+                       step_bound_ms=bound_ms, peak_bytes=peak), svc
+
+
+# ----------------------------------------------------------------- phase 18
+XL_ARCH = "xlstm-1.3b"
+HYMBA_ARCH = "hymba-1.5b"
+VISION_ARCH = "llama-3.2-vision-11b"
+# float32 replays at full width, cut in depth: 7 mLSTM + 1 sLSTM, 4
+# hybrid, 4 dense + 1 cross layers
+REPLAY_LAYERS = {XL_ARCH: 8, HYMBA_ARCH: 4, VISION_ARCH: 5}
+CROSS_GATE = 0.5         # the gate starts at 0, where a cross layer adds
+                         # nothing and any parity over it holds vacuously
+DECODE_TIMED = 8         # decode steps timed (after one untimed)
+
+
+def open_cross_gates(model):
+    with torch.no_grad():
+        for blk in model.blocks:
+            if blk.kind == "cross":
+                blk.attn["gate"].fill_(CROSS_GATE)
+
+
+def replay32(cfg, dev, seed, prompt, media=None):
+    """A float32 copy of ``cfg`` at full width and ``REPLAY_LAYERS``
+    layers, drawn from ``seed`` (cross gates opened): ``prompt`` decoded
+    token by token against ``forward`` (with float32 ``media``), within
+    ``KNN_F32_TOL``."""
+    from repro_torch.models import DecoderLM
+
+    rcfg = dataclasses.replace(cfg, num_layers=REPLAY_LAYERS[cfg.name],
+                               dtype="float32")
+    t0 = time.perf_counter()
+    model = DecoderLM(rcfg, seed=seed, device=dev)
+    open_cross_gates(model)
+    n_params = sum(p.numel() for p in model.parameters())
+    err, agree = decode_replay(model, prompt, media)
+    del model
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t0
+    log(f"  {cfg.name}, float32 at full width, {rcfg.num_layers} layers "
+        f"({', '.join(rcfg.layer_kinds)}): {n_params} parameters; "
+        f"{prompt.shape[1]} decode steps at B = {prompt.shape[0]} from "
+        f"empty state"
+        + (" (cross K/V from prefill)" if media is not None else "")
+        + f" vs forward, max |diff| {err:.3e} (tolerance {KNN_F32_TOL}), "
+        f"argmax agreement {agree:.4f}; {secs:.3f} s")
+    if not err <= KNN_F32_TOL:
+        raise SystemExit(f"{cfg.name}: float32 decode differs from forward "
+                         f"by {err}")
+    return dict(params=n_params, err=err, agree=agree)
+
+
+def full_model(cfg, dev, seed):
+    """``cfg`` at full size in its dtype, drawn from ``seed``: the model,
+    its parameter count and weight bytes."""
+    from repro_torch.models import DecoderLM
+
+    t0 = time.perf_counter()
+    model = DecoderLM(cfg, seed=seed, device=dev)
+    open_cross_gates(model)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    kinds = {k: cfg.layer_kinds.count(k) for k in dict.fromkeys(
+        cfg.layer_kinds)}
+    log(f"  {cfg.name}: {cfg.num_layers} layers ("
+        f"{', '.join(f'{v} {k}' for k, v in kinds.items())}), d_model "
+        f"{cfg.d_model}, {cfg.num_heads} heads (kv {cfg.num_kv_heads}), "
+        f"vocab {cfg.vocab_size}, {cfg.dtype}; {n} parameters ({nbytes} "
+        f"bytes; the config's approximate count {cfg.total_params()}), drawn"
+        f" in {time.perf_counter() - t0:.3f} s")
+    return model, n, nbytes
+
+
+def timed_decode(model, caches, B):
+    """Mean ms of ``DECODE_TIMED`` decode steps at B (CUDA events), after
+    one untimed step; every step's logits finite."""
+    tok = torch.zeros((B, 1), dtype=torch.long, device=model.device)
+    ms = []
+    for t in range(DECODE_TIMED + 1):
+        s, e = _events(2)
+        s.record()
+        logits, caches = model.decode_step(tok, caches, t)
+        e.record()
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(logits).all()):
+            raise SystemExit(f"{model.cfg.name}: decode step not finite")
+        ms.append(s.elapsed_time(e))
+    return float(np.mean(ms[1:]))
+
+
+def xlstm_knnlm(dev, seed, cfg, svc):
+    """Check A of phase 18: a kNN-LM over ``cfg`` (xLSTM) on ``svc``'s
+    datastore, its payload drawn anew below ``cfg``'s vocabulary."""
+    from repro_torch.serving.retrieval import RetrievalService
+
+    n = svc.payload.shape[0]
+    payload = np.random.default_rng(seed + 18).integers(
+        0, cfg.vocab_size, n).astype(np.int32)
+    xsvc = RetrievalService(dqf=svc.dqf, payload=torch.as_tensor(
+        payload, device=dev))
+    gen = torch.Generator().manual_seed(seed + 3)
+    prompt = torch.randint(0, cfg.vocab_size, (4, 64), generator=gen).to(dev)
+    f32 = replay32(cfg, dev, seed, prompt)
+    model, n_params, w_bytes = full_model(cfg, dev, seed)
+    err16, agree16 = decode_replay(model, prompt)
+    log(f"     bf16 at full depth: 64 decode steps vs forward, max |diff| "
+        f"{err16:.3e}, argmax agreement {agree16:.4f}")
+    if not np.isfinite(err16):
+        raise SystemExit("bf16 decode replay is not finite")
+    long_prompt = torch.randint(0, cfg.vocab_size, (16, 256),
+                                generator=gen).to(dev)
+    prefill_ms, logits, caches = timed_prefill(model, long_prompt)
+    if not prefill_ok(model, logits, caches, 16, 256):
+        raise SystemExit("prefill output malformed")
+    del logits, caches
+    log(f"     prefill of 256 tokens at B = 16: {prefill_ms:.3f} ms, "
+        f"{16 * 256 / (prefill_ms / 1e3):.1f} tokens/s; no cache for its "
+        f"mLSTM and sLSTM layers, as the reference's")
+    # the xLSTM layers' decode state, read and written every step
+    state = sum(t.numel() * t.element_size() for blk, c in zip(
+        model.blocks, model.init_decode_caches(16, 1)) for t in c
+        if blk.kind in ("mlstm", "slstm"))
+    torch.cuda.empty_cache()
+    q_last, decode = knn_decode(model, xsvc)
+    step_bytes = w_bytes + 2 * state
+    bound_ms = step_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"     the step's byte bound: {w_bytes} weight bytes + 2 x {state} "
+        f"bytes of recurrent state at B = 16 (read and written) = "
+        f"{step_bytes} bytes / {HBM_BYTES_PER_S:.3g} B/s = {bound_ms:.3f} "
+        f"ms (the step {decode['step_ms']:.3f} ms, LM decode "
+        f"{decode['lm_ms']:.3f})")
+    del model
+    torch.cuda.empty_cache()
+    return q_last, dict(params=n_params, weight_bytes=w_bytes,
+                        state_bytes=state, f32=f32, bf16_err=err16,
+                        bf16_agree=agree16, prefill_ms=prefill_ms,
+                        decode=decode, step_bound_ms=bound_ms)
+
+
+def hymba_check(dev, seed, cfg):
+    """Check B of phase 18: Hymba's float32 replay, then the bf16 model at
+    full depth: a timed prefill of 16 x 256 and decode steps at B = 16."""
+    gen = torch.Generator().manual_seed(seed + 4)
+    prompt = torch.randint(0, cfg.vocab_size, (4, 64), generator=gen).to(dev)
+    f32 = replay32(cfg, dev, seed, prompt)
+    model, n_params, w_bytes = full_model(cfg, dev, seed)
+    long_prompt = torch.randint(0, cfg.vocab_size, (16, 256),
+                                generator=gen).to(dev)
+    prefill_ms, logits, caches = timed_prefill(model, long_prompt)
+    if not prefill_ok(model, logits, caches, 16, 256):
+        raise SystemExit("hymba prefill output malformed")
+    del logits, caches
+    decode_ms = timed_decode(model, model.init_decode_caches(16, 512), 16)
+    log(f"     bf16 at full depth: prefill of 256 tokens at B = 16 "
+        f"{prefill_ms:.3f} ms ({16 * 256 / (prefill_ms / 1e3):.1f} "
+        f"tokens/s); a decode step at B = 16 {decode_ms:.3f} ms (mean of "
+        f"{DECODE_TIMED}), its weight-byte bound "
+        f"{w_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms")
+    del model
+    torch.cuda.empty_cache()
+    return dict(params=n_params, weight_bytes=w_bytes, f32=f32,
+                prefill_ms=prefill_ms, decode_ms=decode_ms)
+
+
+def vision_check(dev, seed, cfg):
+    """Check C of phase 18: Llama-3.2-Vision's float32 replay with media,
+    then the bf16 model at full depth: a timed prefill of 16 x 256 text
+    tokens with media, and decode steps at B = 16 over its cross K/V."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
+    T = cfg.vision_tokens
+    prompt = torch.randint(0, cfg.vocab_size, (4, 64), generator=gen,
+                           device=dev)
+    media = torch.randn((4, T, cfg.d_model), generator=gen, device=dev)
+    f32 = replay32(cfg, dev, seed, prompt, media)
+    model, n_params, w_bytes = full_model(cfg, dev, seed)
+    dtype = model.head.dtype
+    long_prompt = torch.randint(0, cfg.vocab_size, (16, 256), generator=gen,
+                                device=dev)
+    media = torch.randn((16, T, cfg.d_model), generator=gen,
+                        device=dev).to(dtype)
+    prefill_ms, logits, pre = timed_prefill(model, long_prompt, media)
+    if not prefill_ok(model, logits, pre, 16, 256, T):
+        raise SystemExit("vision prefill output malformed")
+    cross = [c for blk, c in zip(model.blocks, pre) if blk.kind == "cross"]
+    kv_bytes = sum(t.numel() * t.element_size() for c in cross for t in c)
+    caches = model.init_decode_caches(16, 512)
+    caches = [p if blk.kind == "cross" else c
+              for blk, c, p in zip(model.blocks, caches, pre)]
+    del logits, pre
+    decode_ms = timed_decode(model, caches, 16)
+    log(f"     bf16 at full depth, media (16, {T}, {cfg.d_model}): prefill "
+        f"of 256 text tokens at B = 16 {prefill_ms:.3f} ms "
+        f"({16 * 256 / (prefill_ms / 1e3):.1f} tokens/s); cross K/V "
+        f"{kv_bytes} bytes over {len(cross)} cross layers; a decode step at "
+        f"B = 16 over them {decode_ms:.3f} ms (mean of {DECODE_TIMED}), its "
+        f"byte bound (weights + cross K/V) "
+        f"{(w_bytes + kv_bytes) / HBM_BYTES_PER_S * 1e3:.3f} ms")
+    del model, caches, cross
+    torch.cuda.empty_cache()
+    return dict(params=n_params, weight_bytes=w_bytes, f32=f32,
+                prefill_ms=prefill_ms, cross_kv_bytes=kv_bytes,
+                decode_ms=decode_ms)
+
+
+def phase_blocks(dev, seed, svc, xl_cfg=None, hymba_cfg=None,
+                 vision_cfg=None):
+    """Phase 18: the last block kinds at full width (module docstring),
+    over phase 17's ``RetrievalService``.  Returns its ``fused_hop`` entry
+    and a summary."""
+    from repro_torch.configs import get_config
+
+    xl_cfg = xl_cfg or get_config(XL_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    log(f"  A. a kNN-LM over {xl_cfg.name} on phase 17's datastore "
+        f"({svc.payload.shape[0]} keys x {svc.dqf.store.d}):")
+    q_last, xl = xlstm_knnlm(dev, seed, xl_cfg, svc)
+    log(f"     fused_hop at the lookup's state (d = {xl_cfg.d_model}):")
+    hop16 = time_hop(svc.dqf, q_last, xl["decode"]["launches"],
+                     f"{xl_cfg.name} kNN-LM decode lookup, B=16")
+    log("  B. hymba:")
+    hymba = hymba_check(dev, seed, hymba_cfg or get_config(HYMBA_ARCH))
+    log("  C. vision:")
+    vision = vision_check(dev, seed, vision_cfg or get_config(VISION_ARCH))
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  peak device memory in phase 18: {peak / 2**30:.3f} GiB")
+    entry = dict(hop16, name=f"fused_hop (f32, kNN-LM lookup, "
+                 f"{xl_cfg.name})",
+                 launches_note=f"phase 18's 64-step kNN-LM decode, 2 a "
+                 "lookup; the top-level numbers are one 8-hop launch at its "
+                 f"B = 16, d = {xl_cfg.d_model}")
+    return entry, dict(xlstm=xl, hymba=hymba, vision=vision,
+                       peak_bytes=peak)
 
 
 def main() -> int:
@@ -4497,9 +4789,19 @@ def main() -> int:
     phase("phase 17: a kNN-LM over DeepSeek-V2-Lite at full width (bf16, "
           "MoE and MLA, decoding with DQF retrieval through fused_hop)")
     t17 = time.perf_counter()
-    ds_entry, _ = phase_deepseek(dev, args.seed)
+    ds_entry, _, ds_svc = phase_deepseek(dev, args.seed)
     entries.append(ds_entry)
     log(f"  phase 17: {time.perf_counter() - t17:.1f} s")
+
+    phase("phase 18: the last block kinds at full width (a kNN-LM over "
+          "xLSTM-1.3B on phase 17's datastore; Hymba-1.5B; "
+          "Llama-3.2-Vision-11B with media)")
+    t18 = time.perf_counter()
+    xl_entry, _ = phase_blocks(dev, args.seed, ds_svc)
+    entries.append(xl_entry)
+    del ds_svc
+    torch.cuda.empty_cache()
+    log(f"  phase 18: {time.perf_counter() - t18:.1f} s")
 
     phase("done")
     log(f"  total {time.perf_counter() - t_all:.1f} s")

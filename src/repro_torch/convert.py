@@ -75,13 +75,17 @@ def lm_from_arrays(params, cfg, device=None):
     parameter tree (``repro.models.lm.init_params``), its leaves numpy
     arrays: ``embed``, ``lm_head`` (absent under ``tie_embeddings``),
     ``final_norm`` and ``blocks[kind][path][i]``, the i-th layer of that
-    kind, unstacked onto the port's blocks in layer order (a MoE layer's
-    ``moe.router``, its ``(E, d, f)`` expert stacks and ``moe.shared``;
-    MLA's ``attn`` leaves ``wq``, ``w_dkv``, ``kv_norm``, ``w_uk``,
-    ``w_uv``, ``wo``).  Weights keep the reference's ``(d_in, d_out)``
-    layout; each is cast to its parameter's dtype, the config's (the
-    router stays float32).  A tree whose leaves do not match the port's
-    parameters is refused."""
+    kind, unstacked onto the port's blocks in layer order: ``ln1``,
+    ``ln2``, ``attn.*`` (GQA; MLA's ``wq``, ``w_dkv``, ``kv_norm``,
+    ``w_uk``, ``w_uv``, ``wo``; cross's ``wq``, ``wk``, ``wv``, ``wo``,
+    the 0-d ``gate``, ``q_norm``, ``k_norm``), ``mlp.*``, ``moe.*`` (the
+    router, the ``(E, d, f)`` expert stacks, ``shared.*``), a hybrid
+    layer's ``ssm.*`` and an xLSTM layer's ``mix.*``.  Weights keep the
+    reference's ``(d_in, d_out)`` layout; each is cast to its parameter's
+    dtype, the config's but for the leaves the reference keeps in float32
+    (the router, ``ssm.dt_bias``, ``ssm.a_log``, ``ssm.d_skip``,
+    ``mix.w_if`` and both ``mix.f_bias``).  A tree whose leaves do not
+    match the port's parameters is refused."""
     from repro_torch.models import DecoderLM
 
     model = DecoderLM(cfg, seed=None, device=device)

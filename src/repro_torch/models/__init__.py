@@ -1,4 +1,5 @@
-"""Decoder LM of the port for serving (see lm.py): dense, local, global and
-MoE blocks over GQA or MLA attention."""
+"""Decoder LM of the port for serving (see lm.py): every block kind of the
+reference (dense, local, global, MoE over GQA or MLA; hybrid attention +
+Mamba; cross-attention; xLSTM's mLSTM and sLSTM)."""
 
 from .lm import DecoderLM, layer_runs  # noqa: F401

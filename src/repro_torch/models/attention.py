@@ -21,8 +21,14 @@ expands each kv chunk's keys and values from the latent inside
 scores in the latent space, rounding ``q_lat`` and ``o_lat`` to the model
 dtype where the reference does.
 
-Cross-attention and the sequence-sharded flash decode (``flash_mesh``)
-are not ported (ROADMAP.md, queue 1, the LLM substrate).
+Cross-attention (llama-3.2-vision) lets text queries attend to
+``media`` tokens without RoPE, behind a tanh gate that starts at 0.  Its
+keys and values are the media's projections (:func:`_cross_kv`), in the
+dtype JAX promotes the media and the weights to; a decode reads them from
+the layer's cache, filled by prefill.
+
+The sequence-sharded flash decode (``flash_mesh``) is not ported
+(ROADMAP.md, queue 1, the LLM substrate).
 """
 
 from __future__ import annotations
@@ -37,7 +43,8 @@ from .common import apply_rope, dense_init, rms_norm, rope_angles, zeros
 __all__ = ["NEG_INF", "make_pair_schedule", "chunked_attention", "KVCache",
            "init_gqa_params", "gqa_forward", "gqa_init_cache", "gqa_decode",
            "MLACache", "init_mla_params", "mla_forward", "mla_init_cache",
-           "mla_decode"]
+           "mla_decode", "init_cross_params", "cross_forward",
+           "cross_decode"]
 
 NEG_INF = -1e30          # a finite mask value, as the reference's
 
@@ -374,3 +381,81 @@ def mla_decode(p, x1, cache: MLACache, pos: int, *, cfg):
     o = torch.einsum("bqhr,rhv->bqhv", o_lat.to(x1.dtype).float(),
                      w_uv.float()).to(x1.dtype)
     return o.reshape(B, 1, -1) @ p["wo"], cache
+
+
+# ============================================================ cross-attention
+def init_cross_params(gen, cfg, dtype, device) -> torch.nn.ParameterDict:
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    return torch.nn.ParameterDict({
+        "wq": dense_init(gen, d, cfg.num_heads * hd, dtype, device),
+        "wk": dense_init(gen, d, cfg.num_kv_heads * hd, dtype, device),
+        "wv": dense_init(gen, d, cfg.num_kv_heads * hd, dtype, device),
+        "wo": dense_init(gen, cfg.num_heads * hd, d, dtype, device),
+        "gate": zeros((), dtype, device),   # llama3.2-style tanh gate, 0
+        "q_norm": zeros((hd,), dtype, device),
+        "k_norm": zeros((hd,), dtype, device),
+    })
+
+
+def _cross_kv(p, media, cfg):
+    """The media's keys (normed) and values, (B, T, Hkv, hd) each, in the
+    dtype JAX gives ``media @ w`` (float32 media against bf16 weights:
+    float32)."""
+    B, T, _ = media.shape
+    hd = cfg.resolved_head_dim
+    dt = torch.promote_types(media.dtype, p["wk"].dtype)
+    media = media.to(dt)
+    k = (media @ p["wk"].to(dt)).reshape(B, T, cfg.num_kv_heads, hd)
+    v = (media @ p["wv"].to(dt)).reshape(B, T, cfg.num_kv_heads, hd)
+    k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    return k, v
+
+
+def _cross_gate(p, out):
+    return torch.tanh(p["gate"].float()).to(out.dtype)
+
+
+def cross_forward(p, x, media, *, cfg, chunk_q: int = 1024):
+    """Text queries attend to the media tokens — no rope, gated."""
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim
+    n_kv = cfg.num_kv_heads
+    q = (x @ p["wq"]).reshape(B, S, cfg.num_heads, hd)
+    q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+    k, v = _cross_kv(p, media, cfg)
+    T = k.shape[1]
+    groups = cfg.num_heads // n_kv
+    # pad the media tokens to a chunk multiple; kv_valid_len masks the tail
+    ck = min(1024, 1 << (T - 1).bit_length())
+    Tp = -(-T // ck) * ck
+    kv_raw = torch.cat([k.reshape(B, T, -1), v.reshape(B, T, -1)], dim=-1)
+    kv_raw = torch.nn.functional.pad(kv_raw, (0, 0, 0, Tp - T))
+
+    def expand(kvc, j):
+        cc = kvc.shape[1]
+        kk = kvc[..., : n_kv * hd].reshape(B, cc, n_kv, hd)
+        vv = kvc[..., n_kv * hd:].reshape(B, cc, n_kv, hd)
+        return (torch.repeat_interleave(kk, groups, dim=2),
+                torch.repeat_interleave(vv, groups, dim=2))
+
+    out = chunked_attention(q, kv_raw, expand, chunk_q=min(chunk_q, S),
+                            chunk_k=ck, causal=False, window=0,
+                            kv_valid_len=T)
+    out = out.reshape(B, S, -1) @ p["wo"]
+    return out * _cross_gate(p, out)
+
+
+def cross_decode(p, x1, k_cache, v_cache, *, cfg):
+    """Decode: the media's K/V come from prefill; nothing is written."""
+    B = x1.shape[0]
+    hd = cfg.resolved_head_dim
+    q = (x1 @ p["wq"]).reshape(B, 1, cfg.num_heads, hd)
+    q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+    groups = cfg.num_heads // cfg.num_kv_heads
+    k_all = torch.repeat_interleave(k_cache, groups, dim=2)
+    v_all = torch.repeat_interleave(v_cache, groups, dim=2)
+    live = torch.ones((B, k_all.shape[1]), dtype=torch.bool,
+                      device=x1.device)
+    o = _decode_attention(q, k_all, v_all, live, hd ** -0.5)
+    out = o.reshape(B, 1, -1) @ p["wo"]
+    return out * _cross_gate(p, out)

@@ -8,14 +8,19 @@ layer order; the reference's per-kind parameter stacks and ``lax.scan``
 are a compile-time device of XLA and are not copied
 (:func:`repro_torch.convert.lm_from_arrays` unstacks them).
 
-The block kinds ``dense``, ``local``, ``global`` and ``moe`` are ported,
-with GQA or (``cfg.mla_enabled``) MLA attention: qwen3-0.6b, yi-34b,
-glm4-9b, gemma3-4b, musicgen-medium (fed embeddings), deepseek-moe-16b
-and deepseek-v2-lite-16b.  A dense layer of a MoE config is
-``cfg.dense_layer_ff`` wide.  The kinds ``hybrid``, ``cross``, ``mlstm``
-and ``slstm`` raise ``NotImplementedError``.  Training (the loss, remat,
-optimizers) is not ported; ``forward`` returns the MoE aux sums the loss
-reads (``want_aux``).
+Every block kind is ported: ``dense``, ``local``, ``global`` and ``moe``
+over GQA or (``cfg.mla_enabled``) MLA attention; ``hybrid``, 0.5 ·
+(windowed GQA + a Mamba branch, :mod:`~repro_torch.models.ssm`);
+``cross``, gated cross-attention to ``media`` tokens; and xLSTM's
+``mlstm`` and ``slstm`` (:mod:`~repro_torch.models.xlstm`), which carry
+no MLP.  So every config of :mod:`repro_torch.configs` is served.  A
+dense layer of a MoE config is ``cfg.dense_layer_ff`` wide.  Training
+(the loss, remat, optimizers) is not ported; ``forward`` returns the MoE
+aux sums the loss reads (``want_aux``).
+
+As the reference's, an xLSTM layer's prefill returns no cache (its
+``_block_forward`` returns None for them): an xLSTM sequence is decoded
+from :meth:`DecoderLM.init_decode_caches`, one token a step.
 
 The model runs on the card unless ``device="cpu"`` is given; its weights
 are drawn from ``seed`` by a ``torch.Generator`` on that device.
@@ -30,14 +35,16 @@ import torch
 from repro_torch.core.dqf import resolve_device
 
 from . import attention as attn
+from . import ssm
+from . import xlstm as xl
 from .common import (dtype_of, embed, kernel_init, rms_norm, unembed,
                      zeros)
 from .mlp import init_mlp_params, mlp_forward
 from .moe import init_moe_params, moe_forward
 
-__all__ = ["DecoderLM", "Block", "layer_runs", "PORTED_KINDS"]
+__all__ = ["DecoderLM", "Block", "layer_runs"]
 
-PORTED_KINDS = ("dense", "local", "global", "moe")
+XLSTM_KINDS = ("mlstm", "slstm")
 
 
 def layer_runs(cfg) -> list[tuple[str, int, int]]:
@@ -72,15 +79,6 @@ def _attn_chunks(cfg, seq_len: int) -> tuple[int, int]:
     return min(c, seq_len), min(c, seq_len)
 
 
-def _refuse_unported(cfg) -> None:
-    other = sorted(set(cfg.layer_kinds) - set(PORTED_KINDS))
-    if other:
-        raise NotImplementedError(
-            f"{cfg.name}: block kinds {other} not ported yet (ROADMAP.md, "
-            f"queue 1, the LLM substrate); ported kinds: "
-            f"{', '.join(PORTED_KINDS)}")
-
-
 def _cache_from_kv(cfg, kv, window: int, seq_len: int):
     """The ring-buffer cache of a layer from its full prefill K/V (MLA:
     the latent and rope key of every position, no window)."""
@@ -100,8 +98,10 @@ def _cache_from_kv(cfg, kv, window: int, seq_len: int):
 
 
 class Block(torch.nn.Module):
-    """One pre-norm decoder layer: GQA or MLA attention, then the SwiGLU
-    MLP (``dense``, ``local``, ``global``) or the MoE (``moe``)."""
+    """One pre-norm decoder layer: a mixer, then (but in an xLSTM layer)
+    the SwiGLU MLP or the MoE.  The mixer is GQA or MLA attention
+    (``dense``, ``local``, ``global``, ``moe``), 0.5 · (GQA + Mamba)
+    (``hybrid``), cross-attention (``cross``), or an xLSTM block."""
 
     def __init__(self, kind: str, cfg, gen, dtype, device):
         super().__init__()
@@ -110,9 +110,20 @@ class Block(torch.nn.Module):
         self.theta, self.window = _kind_attn_mode(cfg, kind)
         d = cfg.d_model
         self.ln1 = zeros((d,), dtype, device)
-        self.attn = (attn.init_mla_params(gen, cfg, dtype, device)
-                     if cfg.mla_enabled else
-                     attn.init_gqa_params(gen, cfg, dtype, device))
+        if kind == "mlstm":
+            self.mix = xl.init_mlstm_params(gen, cfg, dtype, device)
+        elif kind == "slstm":
+            self.mix = xl.init_slstm_params(gen, cfg, dtype, device)
+        elif kind == "cross":
+            self.attn = attn.init_cross_params(gen, cfg, dtype, device)
+        else:
+            self.attn = (attn.init_mla_params(gen, cfg, dtype, device)
+                         if cfg.mla_enabled else
+                         attn.init_gqa_params(gen, cfg, dtype, device))
+        if kind == "hybrid":
+            self.ssm = ssm.init_mamba_params(gen, cfg, dtype, device)
+        if kind in XLSTM_KINDS:
+            return
         self.ln2 = zeros((d,), dtype, device)
         if kind == "moe":
             self.moe = init_moe_params(gen, cfg, dtype, device)
@@ -123,35 +134,98 @@ class Block(torch.nn.Module):
 
     def _ffn(self, x):
         """The layer's second half: (x, aux (3,) = load balance, z,
-        dropped; zeros for a dense layer)."""
+        dropped; zeros but for a MoE layer)."""
+        zero = torch.zeros(3, dtype=torch.float32, device=x.device)
+        if self.kind in XLSTM_KINDS:
+            return x, zero
         h = rms_norm(x, self.ln2, self.cfg.norm_eps)
         if self.kind == "moe":
             y, aux = moe_forward(self.moe, h, self.cfg)
             return x + y, torch.stack(list(aux))
-        return (x + mlp_forward(self.mlp, h),
-                torch.zeros(3, dtype=torch.float32, device=x.device))
+        return x + mlp_forward(self.mlp, h), zero
 
-    def forward(self, x, *, chunks: tuple[int, int], want_kv: bool):
-        """The layer over a full sequence: (x, aux, kv), ``kv`` its K/V
-        (MLA: its latent and rope key) with ``want_kv``, else None."""
+    def forward(self, x, *, chunks: tuple[int, int], want_cache: bool,
+                media=None):
+        """The layer over a full sequence: (x, aux, cache), the cache a
+        decode continues from with ``want_cache`` (a ``KVCache`` or
+        ``MLACache``; hybrid: (``KVCache``, ``SSMCache``); cross: the
+        media's (k, v)), else None; an xLSTM layer's is always None."""
         cfg = self.cfg
         h = rms_norm(x, self.ln1, cfg.norm_eps)
-        kw = dict(chunk_q=chunks[0], chunk_k=chunks[1], return_kv=want_kv)
-        if cfg.mla_enabled:
-            a = attn.mla_forward(self.attn, h, cfg=cfg, **kw)
+        cache = None
+        if self.kind == "mlstm":
+            x = x + xl.mlstm_forward(self.mix, h, cfg=cfg)
+        elif self.kind == "slstm":
+            x = x + xl.slstm_forward(self.mix, h, cfg=cfg)
+        elif self.kind == "cross":
+            if media is None:
+                raise ValueError(f"{cfg.name}: a cross layer needs media")
+            x = x + attn.cross_forward(self.attn, h, media, cfg=cfg,
+                                       chunk_q=chunks[0])
+            if want_cache:
+                cache = attn._cross_kv(self.attn, media, cfg)
         else:
-            a = attn.gqa_forward(self.attn, h, cfg=cfg, theta=self.theta,
-                                 window=self.window, **kw)
-        kv = None
-        if want_kv:
-            a, kv = a
-        x, aux = self._ffn(x + a)
-        return x, aux, kv
+            kw = dict(chunk_q=chunks[0], chunk_k=chunks[1],
+                      return_kv=want_cache)
+            if cfg.mla_enabled:
+                a = attn.mla_forward(self.attn, h, cfg=cfg, **kw)
+            else:
+                a = attn.gqa_forward(self.attn, h, cfg=cfg,
+                                     theta=self.theta, window=self.window,
+                                     **kw)
+            if want_cache:
+                a, kv = a
+                cache = _cache_from_kv(cfg, kv, self.window, x.shape[1])
+            if self.kind == "hybrid":
+                s = ssm.mamba_forward(self.ssm, h, cfg=cfg,
+                                      return_state=want_cache)
+                if want_cache:
+                    s, ssm_cache = s
+                    cache = (cache, ssm_cache)
+                a = 0.5 * (a + s)
+            x = x + a
+        x, aux = self._ffn(x)
+        return x, aux, cache
+
+    def init_cache(self, batch: int, max_len: int):
+        """The layer's empty decode cache (a cross layer's: zero media
+        K/V of ``cfg.vision_tokens``, as the reference's)."""
+        cfg, dev = self.cfg, self.ln1.device
+        dtype = dtype_of(cfg)
+        if self.kind == "mlstm":
+            return xl.mlstm_init_cache(cfg, batch, dev)
+        if self.kind == "slstm":
+            return xl.slstm_init_cache(cfg, batch, dev)
+        if self.kind == "cross":
+            shape = (batch, cfg.vision_tokens, cfg.num_kv_heads,
+                     cfg.resolved_head_dim)
+            return tuple(torch.zeros(shape, dtype=dtype, device=dev)
+                         for _ in range(2))
+        if cfg.mla_enabled:
+            return attn.mla_init_cache(cfg, batch, max_len, dtype, dev)
+        kv = attn.gqa_init_cache(cfg, batch, max_len, self.window, dtype,
+                                 dev)
+        if self.kind == "hybrid":
+            return kv, ssm.mamba_init_cache(cfg, batch, dtype, dev)
+        return kv
 
     def decode(self, x1, cache, pos: int):
         cfg = self.cfg
         h = rms_norm(x1, self.ln1, cfg.norm_eps)
-        if cfg.mla_enabled:
+        if self.kind == "mlstm":
+            a, cache = xl.mlstm_decode(self.mix, h, cache, cfg=cfg)
+        elif self.kind == "slstm":
+            a, cache = xl.slstm_decode(self.mix, h, cache, cfg=cfg)
+        elif self.kind == "cross":
+            a = attn.cross_decode(self.attn, h, *cache, cfg=cfg)
+        elif self.kind == "hybrid":
+            kv, ssm_cache = cache
+            a, kv = attn.gqa_decode(self.attn, h, kv, pos, cfg=cfg,
+                                    theta=self.theta, window=self.window)
+            s, ssm_cache = ssm.mamba_decode(self.ssm, h, ssm_cache, cfg=cfg)
+            a = 0.5 * (a + s)
+            cache = (kv, ssm_cache)
+        elif cfg.mla_enabled:
             a, cache = attn.mla_decode(self.attn, h, cache, pos, cfg=cfg)
         else:
             a, cache = attn.gqa_decode(self.attn, h, cache, pos, cfg=cfg,
@@ -170,7 +244,6 @@ class DecoderLM(torch.nn.Module):
 
     def __init__(self, cfg, *, seed: Optional[int] = 0, device=None):
         super().__init__()
-        _refuse_unported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device, what="DecoderLM")
         dev = self.device
@@ -201,23 +274,27 @@ class DecoderLM(torch.nn.Module):
         tokens = torch.as_tensor(tokens, device=self.device).long()
         return embed(self.embed, tokens, self.embed_scale)
 
-    def forward(self, tokens=None, embeds=None, *, want_caches: bool = False,
-                logits_mode: str = "all", want_aux: bool = False):
+    def forward(self, tokens=None, embeds=None, media=None, *,
+                want_caches: bool = False, logits_mode: str = "all",
+                want_aux: bool = False):
         """Full-sequence forward: float32 logits ``(B, S, V)`` (``(B, 1,
         V)`` with ``logits_mode="last"``); with ``want_aux`` then the
         layers' summed MoE aux terms ``(3,)`` (load balance, z, dropped
         fraction), and with ``want_caches`` last one cache a layer
-        (:class:`~repro_torch.models.attention.KVCache`, or ``MLACache``)."""
+        (:meth:`Block.forward`; None for an xLSTM layer).  ``media`` (B,
+        T, d), the tokens a cross layer attends to, is used in its own
+        dtype, as the reference uses it."""
         x = self._inputs(tokens, embeds)
-        S = x.shape[1]
-        chunks = _attn_chunks(self.cfg, S)
+        if media is not None:
+            media = torch.as_tensor(media, device=self.device)
+        chunks = _attn_chunks(self.cfg, x.shape[1])
         caches = []
         aux_sum = torch.zeros(3, dtype=torch.float32, device=x.device)
         for blk in self.blocks:
-            x, aux, kv = blk(x, chunks=chunks, want_kv=want_caches)
+            x, aux, cache = blk(x, chunks=chunks, want_cache=want_caches,
+                                media=media)
             aux_sum = aux_sum + aux
-            if want_caches:
-                caches.append(_cache_from_kv(self.cfg, kv, blk.window, S))
+            caches.append(cache)
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
         if logits_mode == "last":
             x = x[:, -1:]
@@ -228,25 +305,20 @@ class DecoderLM(torch.nn.Module):
             out += (caches,)
         return out if len(out) > 1 else out[0]
 
-    def prefill(self, tokens=None, embeds=None):
+    def prefill(self, tokens=None, embeds=None, media=None):
         """Full forward, per-layer caches and last-position logits."""
-        return self.forward(tokens, embeds, want_caches=True,
+        return self.forward(tokens, embeds, media, want_caches=True,
                             logits_mode="last")
 
     def init_decode_caches(self, batch: int, max_len: int) -> list:
-        """Empty ring-buffer caches, one a layer (``MLACache`` under MLA)."""
-        dtype = dtype_of(self.cfg)
-        if self.cfg.mla_enabled:
-            return [attn.mla_init_cache(self.cfg, batch, max_len, dtype,
-                                        self.device) for _ in self.blocks]
-        return [attn.gqa_init_cache(self.cfg, batch, max_len, blk.window,
-                                    dtype, self.device)
-                for blk in self.blocks]
+        """Empty decode caches, one a layer (:meth:`Block.init_cache`)."""
+        return [blk.init_cache(batch, max_len) for blk in self.blocks]
 
     def decode_step(self, token, caches: list, pos: int):
         """One serving step: ``token`` (B, 1) ids (or (B, 1, d) embeds for
         a model fed embeddings) at absolute position ``pos``.  Returns
-        (float32 logits (B, 1, V), caches), the caches updated in place."""
+        (float32 logits (B, 1, V), caches): attention caches are updated
+        in place, a recurrent layer's state replaced in the list."""
         if self.cfg.embed_inputs:
             x = self._inputs(token, None)
         else:

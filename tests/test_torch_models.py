@@ -7,10 +7,14 @@ prefill and ring-buffer decode, the MoE with its aux terms, grouped
 routing, int8 dispatch and dropped tokens, MLA prefill and its absorbed
 decode over a wrapping ring) within rtol/atol 1e-5 on the same numpy
 inputs; whole models (qwen3-0.6b, gemma3-4b with global layers and a
-window the replay wraps, musicgen-medium fed embeddings, deepseek-moe-16b
-and deepseek-v2-lite-16b) at reduced sizes in float32, the reference's
-weights carried by ``lm_from_arrays``: forward with its aux sums, prefill
-and a 20-step decode replay with equal argmax ids and logits within 1e-4.
+window the replay wraps, musicgen-medium fed embeddings, deepseek-moe-16b,
+deepseek-v2-lite-16b, hymba-1.5b with a window the replay wraps,
+xlstm-1.3b with its sLSTM layer, llama-3.2-vision-11b with its cross layer
+and media) at reduced sizes in float32, the reference's weights carried
+by ``lm_from_arrays``: forward with its aux sums, prefill (caches equal,
+none for an xLSTM layer in either package) and a 20-step decode replay
+with equal argmax ids and logits within 1e-4.  The module tests of the
+hybrid, xLSTM and cross blocks are in ``test_torch_blocks.py``.
 """
 
 import dataclasses
@@ -45,14 +49,19 @@ from tests._torch_threads import one_torch_thread  # noqa: F401
 T = torch.as_tensor
 TOL = dict(rtol=1e-5, atol=1e-5)
 LOGIT_TOL = dict(rtol=0, atol=1e-4)
-# (arch, reduced() overrides): gemma3's reduced 4 layers hold no global
-# layer (every 6th is), so it keeps 6 and a window of 16 the replay wraps
+# (arch, reduced() overrides): reduced() keeps 4 layers, so gemma3 (a
+# global layer every 6th) keeps 6, xlstm (an sLSTM every 8th) 8 and the
+# vision config (a cross layer every 5th) 5; gemma3's and hymba's windows
+# of 16 wrap in the 20-step replay (64 would not)
 LMS = {"qwen3-0.6b": {},
        "gemma3-4b": dict(num_layers=6, window_size=16),
        "musicgen-medium": {},
        "deepseek-moe-16b": {},
-       "deepseek-v2-lite-16b": {}}
-REFUSED = ("hymba-1.5b", "llama-3.2-vision-11b", "xlstm-1.3b")
+       "deepseek-v2-lite-16b": {},
+       "hymba-1.5b": dict(window_size=16),
+       "xlstm-1.3b": dict(num_layers=8),
+       "llama-3.2-vision-11b": dict(num_layers=5)}
+CROSS_GATE = 0.5     # the gate starts at 0: a fresh cross layer adds nothing
 
 
 def rand(rng, *shape):
@@ -321,22 +330,47 @@ def _lm_twins(arch):
     cfg = get_config(arch).reduced(**LMS[arch])
     jcfg = j_get_config(arch).reduced(**LMS[arch])
     params = jlm.init_params(jcfg, jax.random.PRNGKey(0))
+    if "cross" in params["blocks"]:
+        attn = params["blocks"]["cross"]["attn"]
+        attn["gate"] = jnp.full_like(attn["gate"], CROSS_GATE)
     model = lm_from_arrays(jax.tree.map(np.asarray, params), cfg,
                            device="cpu")
     return cfg, jcfg, params, model
 
 
 def _inputs(cfg, rng, B, S):
-    """Token ids, or frame embeddings for a model fed embeddings."""
+    """Token ids, or frame embeddings for a model fed embeddings; media
+    of ``cfg.vision_tokens`` for a model with cross layers."""
     if cfg.embed_inputs:
-        return dict(tokens=rng.integers(0, cfg.vocab_size, (B, S)).astype(
+        inp = dict(tokens=rng.integers(0, cfg.vocab_size, (B, S)).astype(
             np.int32))
-    return dict(embeds=rand(rng, B, S, cfg.d_model))
+    else:
+        inp = dict(embeds=rand(rng, B, S, cfg.d_model))
+    if cfg.vision_tokens:
+        inp["media"] = rand(rng, B, cfg.vision_tokens, cfg.d_model)
+    return inp
 
 
 def _step_input(inp, t):
-    (key, arr), = inp.items()
+    arr = inp["tokens"] if "tokens" in inp else inp["embeds"]
     return arr[:, t:t + 1]
+
+
+def _leaves(cache):
+    """A cache's tensors, nested tuples walked in order (as
+    ``jax.tree.leaves`` walks the reference's)."""
+    if isinstance(cache, torch.Tensor):
+        return [cache]
+    return [t for part in cache for t in _leaves(part)]
+
+
+def _replay(model, jcfg, params, inp, caches, jcaches, steps):
+    dec = jax.jit(lambda p, t, c, pos: jlm.decode_step(p, jcfg, t, c, pos))
+    for t in range(steps):
+        x = _step_input(inp, t)
+        logits, caches = model.decode_step(x, caches, t)
+        jlogits, jcaches = dec(params, jnp.asarray(x), jcaches, jnp.int32(t))
+        close_logits(logits, jlogits)
 
 
 def close_logits(got: torch.Tensor, want):
@@ -362,20 +396,40 @@ def test_lm_forward_prefill_decode_match_reference(arch):
 
     logits, caches = model.prefill(**inp)
     close_logits(logits, want[:, -1:])
-    seen: dict = {}
-    for blk, cache in zip(model.blocks, caches):
-        i = seen[blk.kind] = seen.get(blk.kind, -1) + 1
-        for got_leaf, want_leaf in zip(cache, jcaches[blk.kind]):
+    for (blk, i), cache in zip(_kind_index(model), caches):
+        if blk.kind in ("mlstm", "slstm"):       # no prefill state in either
+            assert cache is None and blk.kind not in jcaches
+            continue
+        got, wanted = _leaves(cache), jax.tree.leaves(jcaches[blk.kind])
+        assert len(got) == len(wanted)
+        for got_leaf, want_leaf in zip(got, wanted):
             close(got_leaf, want_leaf[i])
+    prefilled = caches, jcaches
 
     caches = model.init_decode_caches(B, max_len=32)
     jcaches = jlm.init_decode_caches(jcfg, B, max_len=32)
-    dec = jax.jit(lambda p, t, c, pos: jlm.decode_step(p, jcfg, t, c, pos))
-    for t in range(steps):
-        x = _step_input(inp, t)
-        logits, caches = model.decode_step(x, caches, t)
-        jlogits, jcaches = dec(params, jnp.asarray(x), jcaches, jnp.int32(t))
-        close_logits(logits, jlogits)
+    for (blk, _), cache in zip(_kind_index(model), caches):
+        assert [tuple(t.shape) for t in _leaves(cache)] == [
+            w.shape[1:] for w in jax.tree.leaves(jcaches[blk.kind])]
+    _replay(model, jcfg, params, inp, caches, jcaches, steps)
+    if cfg.vision_tokens:
+        # the cross layers' media K/V from each package's prefill
+        caches = model.init_decode_caches(B, max_len=32)
+        jcaches = jlm.init_decode_caches(jcfg, B, max_len=32)
+        for i, blk in enumerate(model.blocks):
+            if blk.kind == "cross":
+                caches[i] = prefilled[0][i]
+        jcaches["cross"] = prefilled[1]["cross"]
+        _replay(model, jcfg, params, inp, caches, jcaches, steps)
+
+
+def _kind_index(model):
+    """(block, its index among its kind's layers), in layer order: the
+    reference's per-kind stacks index their layers so."""
+    seen: dict = {}
+    for blk in model.blocks:
+        seen[blk.kind] = seen.get(blk.kind, -1) + 1
+        yield blk, seen[blk.kind]
 
 
 def test_prefill_matches_decode_qwen():
@@ -406,11 +460,26 @@ def test_port_init_is_seeded_and_at_reference_scale():
     assert a.lm_head is None and a.head is a.embed       # tied embeddings
 
 
-@pytest.mark.parametrize("arch", REFUSED)
-def test_unported_kinds_raise(arch):
-    """8 layers, so the vision config's every-5th cross layer is there."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        DecoderLM(get_config(arch).reduced(num_layers=8), device="cpu")
+@pytest.mark.parametrize("arch", J_ARCH_IDS)
+def test_every_config_builds_and_serves(arch):
+    """Every config builds at full size (parameters on the meta device,
+    its kinds in layer order) and serves at its reduced size: a forward,
+    a prefill and two decode steps, all finite."""
+    cfg = get_config(arch)
+    full = DecoderLM(cfg, seed=None, device="meta")
+    assert [b.kind for b in full.blocks] == list(cfg.layer_kinds)
+    cfg = cfg.reduced(num_layers=max(cfg.cross_attn_every,
+                                     cfg.xlstm_slstm_every, 2))
+    model = DecoderLM(cfg, seed=0, device="cpu")
+    assert set(b.kind for b in model.blocks) == set(cfg.layer_kinds)
+    inp = _inputs(cfg, np.random.default_rng(3), 2, 8)
+    logits, caches = model.prefill(**inp)
+    assert logits.shape == (2, 1, cfg.vocab_size)
+    caches = model.init_decode_caches(2, 8)
+    for t in range(2):
+        step, caches = model.decode_step(_step_input(inp, t), caches, t)
+        assert bool(torch.isfinite(step).all())
+    assert bool(torch.isfinite(logits).all())
 
 
 def test_lm_from_arrays_carries_bf16_weights_bit_for_bit():
@@ -462,6 +531,45 @@ def test_lm_from_arrays_carries_moe_and_mla_leaves_bit_for_bit():
     for name in ("wq", "w_dkv", "kv_norm", "w_uk", "w_uv", "wo"):
         np.testing.assert_array_equal(bits(moe.attn[name]),
                                       ja[name][1].view(np.uint16))
+
+
+# the leaves the reference keeps in float32 in a bf16 model
+FLOAT32_LEAVES = {"hymba-1.5b": {"ssm.dt_bias", "ssm.a_log", "ssm.d_skip"},
+                  "xlstm-1.3b": {"mix.w_if", "mix.f_bias"},
+                  "llama-3.2-vision-11b": set()}
+
+
+@pytest.mark.parametrize("arch", sorted(FLOAT32_LEAVES))
+def test_lm_from_arrays_carries_the_new_kinds_bit_for_bit(arch):
+    """bf16 trees of the hybrid, xLSTM (both kinds) and cross blocks:
+    every leaf of every layer lands with its bits and its dtype, the
+    float32 ones float32, the cross ``gate`` 0-d."""
+    cfg = get_config(arch).reduced(dtype="bfloat16", **LMS[arch])
+    jcfg = j_get_config(arch).reduced(dtype="bfloat16", **LMS[arch])
+    tree = jax.tree.map(np.asarray, jlm.init_params(
+        jcfg, jax.random.PRNGKey(4)))
+    if "cross" in tree["blocks"]:
+        gate = tree["blocks"]["cross"]["attn"]["gate"]
+        tree["blocks"]["cross"]["attn"]["gate"] = np.full_like(gate, 0.5)
+    model = lm_from_arrays(tree, cfg, device="cpu")
+    f32 = set()
+    for blk, i in _kind_index(model):
+        for path, t in blk.named_parameters():
+            want = tree["blocks"][blk.kind]
+            for part in path.split("."):
+                want = want[part]
+            want = want[i]
+            assert tuple(t.shape) == want.shape, path
+            if want.dtype == np.float32:
+                f32.add(path)
+                assert t.dtype == torch.float32, path
+                np.testing.assert_array_equal(t.numpy(), want)
+            else:
+                assert t.dtype == torch.bfloat16, path
+                np.testing.assert_array_equal(
+                    t.view(torch.int16).numpy().view(np.uint16),
+                    want.view(np.uint16))
+    assert f32 == FLOAT32_LEAVES[arch]
 
 
 def test_lm_from_arrays_refuses_a_foreign_tree():

@@ -172,6 +172,7 @@ def test_port_imports_no_jax_and_nothing_of_repro():
             " repro_torch.serving.retrieval, repro_torch.configs,"
             " repro_torch.models, repro_torch.models.lm,"
             " repro_torch.models.moe, repro_torch.models.attention,"
+            " repro_torch.models.ssm, repro_torch.models.xlstm,"
             " repro_torch.core.complexity, repro_torch.launch.serve,"
             " repro_torch.examples.streaming_updates,"
             " repro_torch.examples.quickstart,"
