@@ -249,8 +249,9 @@ Phases, in order; any failure exits non-zero:
    d = 1024 by a seeded orthonormal map (distances kept), payload tokens
    uniform below the vocab, phase 4's config (fused), warmed on 4096 Zipf
    queries, the tree fit on 2048; N = 262,144 (kNN-LM's 103M cut to the
-   time limit) unless a timed build at 65,536 predicts more than 120 s,
-   then halved.  A: 4 x 1024 Zipf ``RetrievalService.lookup``s: ms a
+   time limit; no timed probe build sizes it any more: the probe never
+   halved it, and at half the keys phase 17's recall fell under its
+   guard).  A: 4 x 1024 Zipf ``RetrievalService.lookup``s: ms a
    batch, recall@10 against the exact top-10, mean dist_count,
    early-terminated share, 2 fused_hop launches a lookup; a twin index
    over the unlifted d = 128 keys (the queries projected back) gives the
@@ -295,8 +296,7 @@ Phases, in order; any failure exits non-zero:
    (``get_config("deepseek-v2-lite-16b")``: 27 layers, d_model 2048, MLA
    rank 512, 64 routed experts top-6 + 2 shared, vocab 102,400, bf16;
    15.71 B parameters drawn from ``--seed``): phase 15's datastore recipe
-   and check A at d = 2048 (N by the same timed probe: 262,144 of
-   kNN-LM's 103M keys).  B: float32 copies at full width cut to 4 layers
+   and check A at d = 2048 (N = 262,144 of kNN-LM's 103M keys).  B: float32 copies at full width cut to 4 layers
    (1 dense + 3 MoE: a float32 copy of all 27 layers, 63 GB, does not fit
    beside the bf16 model), their capacity factor raised to E / K so that
    no token is dropped (the reference's capacity grows with the token
@@ -340,6 +340,35 @@ Phases, in order; any failure exits non-zero:
    1e-3; in bf16 at full depth a timed prefill of 16 x 256 text tokens
    with media, the cross K/V bytes, and decode steps at B = 16 over
    them.  Peak device memory.
+19. training at full width (no kernel of the port: the training path
+   reaches no ``pl.pallas_call`` in the reference), weights drawn from
+   ``--seed``.  A: Qwen3-0.6B at full width and depth (28 layers, bf16)
+   trained 12 steps (30 planned; cut to the time limit) in the launcher's
+   loop through ``make_train_step``
+   (``TrainConfig(remat=True, microbatches=2)``, warmup-cosine at peak
+   1e-3, 16 x 1024 synthetic tokens a step from ``data/pipeline.py``): ms
+   a step (CUDA events, median of steps 2-11 but the save's) split into
+   forward+backward and the optimizer, tokens/s, the model-FLOPs share
+   (6 N tokens over the step time against ``BF16_FLOPS``), the optimizer
+   beside its byte bound, peak device memory; loss and grad norm finite
+   at every step, and the last 5 steps' mean loss at least
+   ``TRAIN_LOSS_FALL`` nats below the first 3's.  C: the state after 8
+   steps saved by the port's ``Checkpointer`` while the last 4 run (bytes,
+   seconds the loop was blocked, seconds to publish), restored into a
+   fresh ``TrainState`` (seconds): params, m, v and step bit for bit
+   against a device copy taken at the save; 3 steps from the restore
+   within 1e-3 of the unbroken run's losses.  B: the same step in float32
+   at full width cut to 2 layers (B = 4, S = 64), the card against the
+   port's CPU path on the same weights and batch: the loss within 1e-5
+   relative, each gradient leaf within 1e-4 of its largest |g| (TF32
+   off); remat against none on the card bit for bit (the embedding's
+   gradient, accumulated by ``index_put_``, allowed 1e-6); microbatches 2
+   against 1 within 1e-4.  D: one train step of each of the ten configs'
+   ``reduced()`` forms on the card (with embeds or media where the config
+   needs them; depth overrides keep gemma3's global layer, an sLSTM layer
+   and a cross layer with its gate opened to 0.5) in float32 against its
+   CPU twin at B's tolerances, and of both DeepSeek configs in bf16 (the
+   experts' ``out_dtype`` product differentiated): finite.
 
 Recall guards against breakage, not a target: 0.5 for the float32 paths,
 half of phase 4's recall for the quantized ones, the d = 128 twin's less
@@ -377,6 +406,7 @@ import torch  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (data sheet)
 FP32_FLOPS = 67e12               # H100 SXM float32 outside tensor cores
 TF32_FLOPS = 495e12              # H100 SXM dense TF32 on the tensor cores
+BF16_FLOPS = 989e12              # H100 SXM dense bf16 on the tensor cores
 N = 1_000_000                    # rows of the main path's index
 
 
@@ -3602,8 +3632,6 @@ def phase_scan(ctx, dev, syn_errs, reps=5):
 
 # ----------------------------------------------------------------- phase 15
 KNN_N = 262_144          # datastore keys: kNN-LM's 103M cut to the limit
-KNN_PROBE = 65_536       # the build timed first, to size the real one
-KNN_BUILD_S = 120.0      # halve KNN_N when its build would pass this
 # The lift keeps distances, so the lookups' recall@10 is held to that of
 # a twin index over the unlifted d = 128 keys (same config, the queries
 # projected back), less this slack.  An absolute 0.5, phase 4's guard,
@@ -3654,10 +3682,10 @@ def _events(n):
     return [torch.cuda.Event(enable_timing=True) for _ in range(n)]
 
 
-def knn_retrieval(dev, seed, n, probe, d, vocab):
-    """Phase 15's datastore of ``d``-wide keys and payload tokens below
-    ``vocab``, and its check A: the build sized by a probe, then 4 Zipf
-    batches of 1024 through ``RetrievalService.lookup``."""
+def knn_retrieval(dev, seed, n, d, vocab):
+    """Phase 15's datastore of ``n`` ``d``-wide keys and payload tokens
+    below ``vocab``, and its check A: 4 Zipf batches of 1024 through
+    ``RetrievalService.lookup``."""
     from repro_torch.core import DQF, DQFConfig, ZipfWorkload
     from repro_torch.core.recall import ground_truth, recall_at_k
     from repro_torch.kernels.fused_hop import fused_hop_cuda
@@ -3667,17 +3695,6 @@ def knn_retrieval(dev, seed, n, probe, d, vocab):
     cfg = DQFConfig(knn_k=32, out_degree=32, index_ratio=0.005, k=10,
                     hot_pool=32, full_pool=64, eval_gap=50, max_hops=512,
                     fused=True, fused_hops=8, hot_mode="graph")
-    t0 = time.perf_counter()
-    DQF(cfg, device=dev).build(lifted(*lift(probe, d, seed)))
-    torch.cuda.synchronize()
-    t_probe = time.perf_counter() - t0
-    predicted = t_probe * n / probe           # the build is linear in n
-    log(f"  probe build at {probe} keys x {d}: {t_probe:.3f} s; "
-        f"{predicted:.1f} s predicted at {n} (limit {KNN_BUILD_S:g} s)")
-    if predicted > KNN_BUILD_S:
-        n //= 2
-        log(f"  the datastore is halved to {n} keys")
-    torch.cuda.empty_cache()
 
     x128, basis = lift(n, d, seed)
     keys = lifted(x128, basis)
@@ -3759,7 +3776,7 @@ def knn_retrieval(dev, seed, n, probe, d, vocab):
         raise SystemExit(f"lookup recall@10 {recall:.4f} is below the d = "
                          f"128 twin's {twin_recall:.4f} less "
                          f"{KNN_RECALL_SLACK}")
-    summary = dict(n=n, probe_s=t_probe, build_s=t_build, fit_s=t_fit,
+    summary = dict(n=n, build_s=t_build, fit_s=t_fit,
                    lookup_ms=ms, recall=recall, recall_beam=base,
                    twin_recall=twin_recall, twin_recall_beam=twin_base,
                    dist_count=dc, terminated=term, launches=launches)
@@ -3944,14 +3961,14 @@ def knn_decode(model, svc, steps=64, B=16, max_len=512):
                    launches=launches, head_err=head_err, sum_err=sum_err)
 
 
-def phase_knnlm(dev, seed, n=KNN_N, probe=KNN_PROBE, lm_cfg=None):
+def phase_knnlm(dev, seed, n=KNN_N, lm_cfg=None):
     """Phase 15: the kNN-LM serving path at full width (module docstring).
     Returns its ``fused_hop`` entry for the kernel line and a summary."""
     from repro_torch.configs import get_config
 
     cfg = lm_cfg or get_config("qwen3-0.6b")
     torch.cuda.reset_peak_memory_stats()
-    svc, batches, retrieval = knn_retrieval(dev, seed, n, probe,
+    svc, batches, retrieval = knn_retrieval(dev, seed, n,
                                             cfg.d_model, cfg.vocab_size)
     model, decoder = knn_decoder(dev, seed, cfg)
     q_last, decode = knn_decode(model, svc)
@@ -4334,7 +4351,7 @@ def deepseek_decoder(dev, seed, cfg, replay_cfgs):
                        mla_bytes_token_layer=per_tok, prefill_ms=prefill_ms)
 
 
-def phase_deepseek(dev, seed, n=KNN_N, probe=KNN_PROBE, lm_cfg=None,
+def phase_deepseek(dev, seed, n=KNN_N, lm_cfg=None,
                    replay_cfgs=None):
     """Phase 17: a kNN-LM over DeepSeek-V2-Lite at full width (module
     docstring).  Returns its ``fused_hop`` entry, a summary and its
@@ -4345,7 +4362,7 @@ def phase_deepseek(dev, seed, n=KNN_N, probe=KNN_PROBE, lm_cfg=None,
     replay_cfgs = replay_cfgs or [get_config(a) for a in DS_REPLAY_ARCHS]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    svc, batches, retrieval = knn_retrieval(dev, seed, n, probe,
+    svc, batches, retrieval = knn_retrieval(dev, seed, n,
                                             cfg.d_model, cfg.vocab_size)
     model, decoder = deepseek_decoder(dev, seed, cfg, replay_cfgs)
     q_last, decode = knn_decode(model, svc)
@@ -4603,6 +4620,390 @@ def phase_blocks(dev, seed, svc, xl_cfg=None, hymba_cfg=None,
                        peak_bytes=peak)
 
 
+# ------------------------------------------------------------------ phase 19
+# the reduced() forms of phase 19 D, with the depth overrides that keep
+# every block kind (tests/test_torch_models.py::LMS): gemma3's global
+# layer, an sLSTM layer, a cross layer; windows of 16 under S = 32
+TRAIN_DEPTHS = {"gemma3-4b": dict(num_layers=6, window_size=16),
+                "hymba-1.5b": dict(window_size=16),
+                "xlstm-1.3b": dict(num_layers=8),
+                "llama-3.2-vision-11b": dict(num_layers=5)}
+TRAIN_STEPS = 12                 # phase 19 A's steps at full width (30
+                                 # planned: cut to the script's limit)
+TRAIN_CKPT_AT = 8                # the step phase 19 C saves after
+TRAIN_EXTRA = 3                  # steps phase 19 C runs from the restore
+# the guard written with the prediction, before the first card run
+# (PERF.md §6): the mean loss of the last 5 steps at least this far
+# (nats) below the mean of the first 3 (steps in warmup, near the init's
+# loss)
+TRAIN_LOSS_FALL = 0.03
+
+
+def _ms_between(a, b, dev) -> float:
+    """ms between two marks: CUDA events on the card, else host seconds
+    (a CPU rehearsal)."""
+    if dev.type == "cuda":
+        return a.elapsed_time(b)
+    return (b - a) * 1e3
+
+
+def _mark(dev):
+    if dev.type == "cuda":
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+    return time.perf_counter()
+
+
+def _clone_model(model, dev):
+    """A ``DecoderLM`` on ``dev`` with ``model``'s weights."""
+    from repro_torch.models import DecoderLM
+
+    twin = DecoderLM(model.cfg, seed=None, device=dev)
+    src = dict(model.named_parameters())
+    with torch.no_grad():
+        for k, p in twin.named_parameters():
+            p.copy_(src[k])
+    return twin
+
+
+def _train_inputs(cfg, rng, B, S):
+    """numpy inputs as tests/test_arch_smoke.py::_inputs: tokens or
+    embeds, media for a cross model, labels."""
+    b = {}
+    if cfg.embed_inputs:
+        b["tokens"] = rng.integers(0, cfg.vocab_size, (B, S)).astype(
+            np.int32)
+    else:
+        b["embeds"] = 0.02 * rng.standard_normal(
+            (B, S, cfg.d_model)).astype(np.float32)
+    if cfg.cross_attn_every:
+        b["media"] = 0.02 * rng.standard_normal(
+            (B, cfg.vision_tokens, cfg.d_model)).astype(np.float32)
+    b["labels"] = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    return b
+
+
+def _loss_grads(model, batch, tcfg):
+    """(loss, metrics, grads) of ``make_train_step(model, tcfg).grads``
+    (the parameters made trainable; no optimizer state is made)."""
+    from repro_torch.training import TrainState, make_train_step
+
+    for p in model.parameters():
+        p.requires_grad_(True)
+    return make_train_step(model, tcfg).grads(TrainState(model, None, None),
+                                              batch)
+
+
+def _grad_errs(got: dict, want: dict) -> tuple[float, str]:
+    """The largest |got - want| / max|want| over the leaves, and its leaf
+    (``got`` moved to the CPU)."""
+    worst, name = 0.0, ""
+    for k, w in want.items():
+        w = w.float()
+        err = float((got[k].float().cpu() - w).abs().max()) / max(
+            float(w.abs().max()), 1e-30)
+        if err > worst:
+            worst, name = err, k
+    return worst, name
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bit equality where the tensors live (no host copy): floats compared
+    as integers of their width, so NaN payloads and -0.0 count."""
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
+            torch.float16: torch.int16}
+    a, b = a.detach(), b.detach()
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype in ints:
+        a, b = a.view(ints[a.dtype]), b.view(ints[a.dtype])
+    return bool(torch.equal(a, b))
+
+
+def _all_finite(tensors) -> bool:
+    return all(bool(torch.isfinite(t).all()) for t in tensors)
+
+
+def phase_train_full(dev, seed, cfg, *, steps=TRAIN_STEPS, batch=16,
+                     seq=1024, ckpt_at=TRAIN_CKPT_AT, extra=TRAIN_EXTRA):
+    """19 A and C: ``cfg`` trained ``steps`` steps in the launcher's loop
+    (synthetic batches of ``batch`` x ``seq`` from ``data/pipeline.py``,
+    microbatches 2, remat, warmup-cosine); the state saved asynchronously
+    after step ``ckpt_at`` while the loop runs on, restored into a fresh
+    ``TrainState`` (bit for bit against a device copy taken at the save),
+    then ``extra`` steps from the restore against the unbroken run."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.data.pipeline import DataConfig, make_source
+    from repro_torch.models import DecoderLM
+    from repro_torch.training import (TrainConfig, make_train_step,
+                                      train_state_init)
+
+    t0 = time.perf_counter()
+    model = DecoderLM(cfg, seed=seed, device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    tcfg = TrainConfig(microbatches=2, peak_lr=1e-3, warmup_steps=3,
+                       total_steps=steps, schedule="warmup_cosine",
+                       remat=True)
+    state = train_state_init(model, tcfg)
+    step_fn = make_train_step(model, tcfg)
+    src = make_source(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                 global_batch=batch, seed=seed))
+    M = tcfg.microbatches
+
+    def batch_at(s):
+        return {k: torch.as_tensor(v, device=dev).reshape(M, -1, seq)
+                for k, v in src.batch(s).items()}
+
+    log(f"  {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"vocab {cfg.vocab_size}, {cfg.dtype}; {n_params:,} parameters; "
+        f"init {time.perf_counter() - t0:.1f} s")
+    tmp = tempfile.mkdtemp(prefix="phase19_ckpt_")
+    ck = Checkpointer(tmp, keep=1)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    marks, metrics_all, snap = [], [], None
+    t_loop = time.perf_counter()
+    for s in range(steps):
+        b = batch_at(s)
+        m0 = _mark(dev)
+        loss, metrics, grads = step_fn.grads(state, b)
+        m1 = _mark(dev)
+        state, metrics = step_fn.update(state, loss, metrics, grads)
+        m2 = _mark(dev)
+        del grads
+        marks.append((m0, m1, m2))
+        metrics_all.append(metrics)
+        if s + 1 == ckpt_at:
+            ck.save(ckpt_at, state, extra={"arch": cfg.name})
+            blocked_s = ck.last_blocked_s
+            # a device copy of the saved state, for the bit check
+            snap = ({k: p.detach().clone()
+                     for k, p in state.model.named_parameters()},
+                    {k: t.clone() for k, t in state.opt.m.items()},
+                    {k: t.clone() for k, t in state.opt.v.items()},
+                    state.opt.step.clone())
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t_loop
+    peak = (torch.cuda.max_memory_allocated() / 2 ** 30
+            if dev.type == "cuda" else float("nan"))
+    ck.wait()
+    losses = torch.stack([m["loss"] for m in metrics_all]).float().cpu()
+    gnorms = torch.stack([m["grad_norm"] for m in metrics_all]).float().cpu()
+    if not (torch.isfinite(losses).all() and torch.isfinite(gnorms).all()):
+        raise RuntimeError(f"phase 19 A: a non-finite loss or grad norm: "
+                           f"{losses.tolist()} {gnorms.tolist()}")
+    fall = float(losses[:3].mean() - losses[-5:].mean())
+    fb = [_ms_between(a, b, dev) for a, b, _ in marks]
+    opt = [_ms_between(b, c, dev) for _, b, c in marks]
+    # steps 0-1 warm the allocator and the kernels; the save's step is out
+    timed = [i for i in range(2, steps) if i + 1 != ckpt_at] or [0]
+    step_ms = float(np.median([fb[i] + opt[i] for i in timed]))
+    fb_ms = float(np.median([fb[i] for i in timed]))
+    opt_ms = float(np.median([opt[i] for i in timed]))
+    tokens = batch * seq
+    tok_s = tokens / (step_ms / 1e3)
+    mfu = 6.0 * n_params * tokens / (step_ms / 1e3) / BF16_FLOPS
+    # AdamW's bytes: params read and written, float32 grads read, m and v
+    # read and written
+    p_bytes = sum(p.numel() * p.element_size()
+                  for p in state.model.parameters())
+    opt_bytes = 2 * p_bytes + n_params * 4 + 4 * n_params * 4
+    opt_bound = opt_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"  losses {[round(float(v), 4) for v in losses]}; the last 5 "
+        f"steps' mean {fall:.4f} nats below the first 3's")
+    log(f"  grad norms {[round(float(v), 4) for v in gnorms]}")
+    log(f"  step {step_ms:.3f} ms (forward+backward {fb_ms:.3f}, optimizer "
+        f"{opt_ms:.3f}; median of steps {timed[0]}-{timed[-1]}), "
+        f"{tok_s:,.0f} tokens/s, model-FLOPs share {mfu:.4f} (6 N tokens "
+        f"/ step time / {BF16_FLOPS / 1e12:.0f} TFLOP/s, N = {n_params:,})")
+    log(f"  optimizer {opt_ms:.3f} ms vs its byte bound {opt_bound:.3f} ms "
+        f"({opt_bytes / 1e9:.3f} GB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s; "
+        f"{len(state.opt.m)} leaves); loop "
+        f"{loop_s:.1f} s; peak device memory {peak:.2f} GiB")
+    if not fall >= TRAIN_LOSS_FALL:
+        raise RuntimeError(f"phase 19 A: the loss fell {fall:.4f} nats "
+                           f"(the last 5 steps' mean below the first 3's), "
+                           f"under the {TRAIN_LOSS_FALL} predicted")
+
+    # ---- C: restore into a fresh state, bit for bit, then steps on -----
+    ck_bytes = ck.last_bytes
+    save_s = ck.last_save_s
+    unbroken = losses[ckpt_at: ckpt_at + extra]
+    del state, model, step_fn, metrics_all
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    fresh = train_state_init(DecoderLM(cfg, seed=None, device=dev), tcfg)
+    t_r = time.perf_counter()
+    fresh, meta = ck.restore(fresh)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t_r
+    params, m_snap, v_snap, step_snap = snap
+    same = (meta["step"] == ckpt_at
+            and _same_bits(fresh.opt.step, step_snap)
+            and all(_same_bits(p, params[k])
+                    for k, p in fresh.model.named_parameters())
+            and all(_same_bits(fresh.opt.m[k], m_snap[k]) for k in m_snap)
+            and all(_same_bits(fresh.opt.v[k], v_snap[k]) for k in v_snap))
+    del snap, params, m_snap, v_snap
+    if not same:
+        raise RuntimeError("phase 19 C: the restored state differs from the "
+                           "saved one")
+    step2 = make_train_step(fresh.model, tcfg)
+    resumed = []
+    for s in range(ckpt_at, ckpt_at + extra):
+        fresh, mt = step2(fresh, batch_at(s))
+        resumed.append(mt["loss"])
+    resumed = torch.stack(resumed).float().cpu()
+    rel = float(((resumed - unbroken).abs() / unbroken.abs()).max())
+    log(f"  checkpoint at step {ckpt_at}: {ck_bytes:,} bytes; the loop "
+        f"blocked {blocked_s:.3f} s (device->host), save {save_s:.3f} s to "
+        f"publish, restore {restore_s:.3f} s; params, m, v and step bit for "
+        f"bit; {extra} steps from the restore {resumed.tolist()} vs the "
+        f"unbroken run {unbroken.tolist()}: max rel {rel:.3e}")
+    if not rel <= 1e-3:
+        raise RuntimeError(f"phase 19 C: resumed losses differ by {rel:.3e}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    del fresh, step2
+    return dict(step_ms=step_ms, fb_ms=fb_ms, opt_ms=opt_ms,
+                opt_bound_ms=opt_bound, tok_s=tok_s, mfu=mfu, peak_gib=peak,
+                loss_fall=fall, ckpt_bytes=ck_bytes, blocked_s=blocked_s,
+                save_s=save_s, restore_s=restore_s, resume_rel=rel)
+
+
+def phase_train_parity(dev, seed, cfg, *, B=4, S=64):
+    """19 B: ``cfg`` (full width, cut in depth) in float32: the card's
+    loss and gradients against the port's CPU path on the same weights and
+    batch; remat against none on the card; microbatches 2 against 1."""
+    from repro_torch.models import DecoderLM
+    from repro_torch.training import TrainConfig
+
+    cpu = torch.device("cpu")
+    host = DecoderLM(cfg, seed=seed, device=cpu)
+    card = _clone_model(host, dev)
+    b = _train_inputs(cfg, np.random.default_rng(seed), B, S)
+    t0 = time.perf_counter()
+    tc = TrainConfig(microbatches=1, remat=False)
+    l_cpu, _, g_cpu = _loss_grads(host, b, tc)
+    cpu_s = time.perf_counter() - t0
+    del host
+    l_dev, _, g_dev = _loss_grads(card, b, tc)
+    loss_rel = abs(float(l_dev) - float(l_cpu)) / abs(float(l_cpu))
+    g_err, g_leaf = _grad_errs(g_dev, g_cpu)
+    del g_cpu
+    _, _, g_remat = _loss_grads(card, b, TrainConfig(microbatches=1,
+                                                     remat=True))
+    remat_bits = [k for k in g_dev if not _same_bits(g_dev[k], g_remat[k])]
+    remat_err = _grad_errs(g_remat, {k: g_dev[k].cpu() for k in remat_bits}
+                           )[0] if remat_bits else 0.0
+    micro = {k: torch.as_tensor(v).reshape(2, B // 2, *v.shape[1:])
+             for k, v in b.items()}
+    l_mb, _, _ = _loss_grads(card, micro, TrainConfig(microbatches=2,
+                                                      remat=True))
+    mb_rel = abs(float(l_mb) - float(l_dev)) / abs(float(l_dev))
+    log(f"  {cfg.name} at {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"vocab {cfg.vocab_size}, float32, B={B} S={S}: loss card "
+        f"{float(l_dev):.6f} cpu {float(l_cpu):.6f} (rel {loss_rel:.2e}); "
+        f"worst gradient leaf {g_leaf} at {g_err:.2e} of its max |g|; the "
+        f"CPU's step {cpu_s:.1f} s")
+    log(f"  remat vs none on the card: {len(g_dev) - len(remat_bits)} of "
+        f"{len(g_dev)} leaves bit for bit"
+        + (f"; {remat_bits} within {remat_err:.2e} (the embedding gather's "
+           f"backward, index_put_ with accumulate)" if remat_bits else "")
+        + f"; microbatches 2 vs 1: loss rel {mb_rel:.2e}")
+    ok = (loss_rel <= 1e-5 and g_err <= 1e-4 and mb_rel <= 1e-4
+          and set(remat_bits) <= {"embed"} and remat_err <= 1e-6
+          and _all_finite(g_dev.values()))
+    if not ok:
+        raise RuntimeError("phase 19 B: the card's float32 step is off its "
+                           "CPU twin or its remat/microbatch twins")
+    return dict(loss_rel=loss_rel, grad_err=g_err, remat_bits=remat_bits,
+                mb_rel=mb_rel, cpu_s=cpu_s)
+
+
+def phase_train_configs(dev, seed, *, B=2, S=32):
+    """19 D: one train step of each config's reduced() form on the card,
+    float32, against its CPU twin (loss 1e-5 relative, each gradient leaf
+    1e-4 of its max |g|); the two DeepSeek configs also in bf16 (the
+    experts' ``out_dtype`` product differentiated): finite."""
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.models import DecoderLM
+    from repro_torch.training import (TrainConfig, make_train_step,
+                                      train_state_init)
+
+    cpu = torch.device("cpu")
+    tc = TrainConfig(microbatches=1, remat=True, peak_lr=1e-3,
+                     warmup_steps=0, total_steps=10)
+    out = {}
+    runs = [(a, "float32") for a in ARCH_IDS] + [
+        ("deepseek-v2-lite-16b", "bfloat16"),
+        ("deepseek-moe-16b", "bfloat16")]
+    for arch, dtype in runs:
+        cfg = get_config(arch).reduced(**TRAIN_DEPTHS.get(arch, {}),
+                                       dtype=dtype)
+        host = DecoderLM(cfg, seed=seed, device=cpu)
+        if cfg.cross_attn_every:         # open the cross gates (init 0)
+            with torch.no_grad():
+                for blk in host.blocks:
+                    if blk.kind == "cross":
+                        blk.attn.gate.fill_(0.5)
+        card = _clone_model(host, dev)
+        b = _train_inputs(cfg, np.random.default_rng(seed + 1), B, S)
+        l_dev, _, g_dev = _loss_grads(card, b, tc)
+        finite = bool(torch.isfinite(l_dev)) and _all_finite(g_dev.values())
+        if dtype == "float32":
+            l_cpu, _, g_cpu = _loss_grads(host, b, tc)
+            loss_rel = abs(float(l_dev) - float(l_cpu)) / abs(float(l_cpu))
+            g_err, g_leaf = _grad_errs(g_dev, g_cpu)
+        else:
+            loss_rel, g_err, g_leaf = 0.0, 0.0, ""
+        state = train_state_init(card, tc)
+        state, mt = make_train_step(card, tc).update(
+            state, l_dev, {}, g_dev)
+        finite = finite and _all_finite(card.parameters()) and bool(
+            torch.isfinite(mt["grad_norm"]))
+        kinds = sorted(set(cfg.layer_kinds))
+        log(f"  {arch} ({dtype}, {cfg.num_layers} layers {kinds}): loss "
+            f"{float(l_dev):.6f}, grad norm {float(mt['grad_norm']):.4f}"
+            + (f"; vs CPU loss rel {loss_rel:.2e}, worst leaf {g_leaf} "
+               f"{g_err:.2e}" if dtype == "float32" else "; finite"))
+        if not (finite and loss_rel <= 1e-5 and g_err <= 1e-4):
+            raise RuntimeError(f"phase 19 D: {arch} ({dtype}) failed its "
+                               "train step on the card")
+        out[f"{arch} {dtype}"] = dict(loss_rel=loss_rel, grad_err=g_err)
+    return out
+
+
+def phase_training(dev, seed, full_cfg=None, parity_cfg=None, **full_kw):
+    """Phase 19: training at full width (A and C), the float32 parity at
+    full width cut to 2 layers (B), the ten configs' train steps (D)."""
+    from repro_torch.configs import get_config
+
+    full_cfg = full_cfg or get_config("qwen3-0.6b")
+    parity_cfg = parity_cfg or dataclasses.replace(full_cfg, num_layers=2,
+                                                   dtype="float32")
+    t = time.perf_counter()
+    log("  A/C: Qwen3-0.6B at full width and depth, bf16")
+    full = phase_train_full(dev, seed, full_cfg, **full_kw)
+    log(f"  (A and C: {time.perf_counter() - t:.1f} s)")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t = time.perf_counter()
+    log("  B: float32 at full width, 2 layers, the card vs the CPU")
+    parity = phase_train_parity(dev, seed, parity_cfg)
+    log(f"  (B: {time.perf_counter() - t:.1f} s)")
+    t = time.perf_counter()
+    log("  D: one train step of each config's reduced() form")
+    configs = phase_train_configs(dev, seed)
+    log(f"  (D: {time.perf_counter() - t:.1f} s)")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return dict(full=full, parity=parity, configs=configs)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4802,6 +5203,13 @@ def main() -> int:
     del ds_svc
     torch.cuda.empty_cache()
     log(f"  phase 18: {time.perf_counter() - t18:.1f} s")
+
+    phase("phase 19: training at full width (Qwen3-0.6B, bf16, remat, "
+          "microbatches 2, AdamW, async checkpoint and restore; float32 "
+          "card vs CPU at 2 layers; the ten configs' train steps)")
+    t19 = time.perf_counter()
+    phase_training(dev, args.seed)
+    log(f"  phase 19: {time.perf_counter() - t19:.1f} s")
 
     phase("done")
     log(f"  total {time.perf_counter() - t_all:.1f} s")

@@ -8,7 +8,12 @@ the same store, graph, tenants' hot indexes, tree and quantizer.  It is
 the code path of :meth:`DQF.load`, so a checkpoint loads the same way
 either way.  :func:`sharded_from_arrays` does the same for a sharded
 index, one such mapping a shard, and :func:`lm_from_arrays` carries the
-reference decoder LM's parameter tree into a port ``DecoderLM``.
+reference decoder LM's parameter tree into a port ``DecoderLM``;
+:func:`lm_to_arrays` is its inverse.  :func:`train_state_from_arrays`
+carries a training checkpoint of either package (the flat keys that the
+reference's ``Checkpointer`` writes, e.g.
+``.params['blocks']['dense']['attn']['wq']``, ``.opt.step``,
+``.opt.m[...]``, ``.err[...]``) into a port ``TrainState``.
 """
 
 from __future__ import annotations
@@ -19,7 +24,9 @@ import torch
 from repro_torch.core.dqf import DQF
 from repro_torch.core.types import DQFConfig
 
-__all__ = ["dqf_from_arrays", "sharded_from_arrays", "lm_from_arrays"]
+__all__ = ["dqf_from_arrays", "sharded_from_arrays", "lm_from_arrays",
+           "lm_to_arrays", "train_state_from_arrays", "train_state_leaves",
+           "train_state_to_arrays", "load_train_state_"]
 
 
 def dqf_from_arrays(arrays, cfg: DQFConfig | None = None,
@@ -62,12 +69,158 @@ def sharded_from_arrays(per_shard_arrays, owner, tree, cfg: DQFConfig | None,
                                   tree=tree, device=device)
 
 
-def _tensor(a) -> torch.Tensor:
-    """A numpy array (bfloat16 ones from JAX included) as a CPU tensor."""
+def _tensor(a, dtype: torch.dtype | None = None) -> torch.Tensor:
+    """A numpy array as a CPU tensor, in ``dtype`` if given.  A bfloat16
+    array from JAX (``ml_dtypes``; ``np.load`` of one from an ``.npz``
+    gives 2-byte void) is read as bfloat16, and so is a ``uint16`` array
+    bound for a bfloat16 tensor: the 16 bits the port stores a bfloat16
+    leaf as (:func:`train_state_to_arrays`)."""
     a = np.asarray(a)
-    if a.dtype.name == "bfloat16":
-        return torch.tensor(a.view(np.uint16)).view(torch.bfloat16)
-    return torch.tensor(a)
+    bits = (a.dtype.name == "bfloat16"
+            or (a.dtype.kind == "V" and a.dtype.itemsize == 2)
+            or (a.dtype == np.uint16 and dtype == torch.bfloat16))
+    if bits:
+        t = torch.from_numpy(np.array(a).view(np.int16)).view(
+            torch.bfloat16)
+    else:
+        t = torch.tensor(a)
+    return t if dtype is None else t.to(dtype)
+
+
+def _host_array(tensors: list, stacked: bool) -> np.ndarray:
+    """The tensors (one a layer when ``stacked``) as one numpy array on
+    the host, copied leaf by leaf; a bfloat16 leaf as its 16 bits
+    (``uint16``), which numpy without ``ml_dtypes`` can hold."""
+    t0 = tensors[0]
+    store = torch.int16 if t0.dtype == torch.bfloat16 else t0.dtype
+    shape = (len(tensors), *t0.shape) if stacked else tuple(t0.shape)
+    out = torch.empty(shape, dtype=store)
+    with torch.no_grad():
+        for j, t in enumerate(tensors):
+            (out[j] if stacked else out).copy_(t.detach().view(store))
+    a = out.numpy()
+    return a.view(np.uint16) if store == torch.int16 else a
+
+
+def _lm_layout(cfg, names) -> dict[tuple, tuple[list[str], bool]]:
+    """The reference's tree path of each port parameter: ``blocks.{i}.
+    {leaf}`` is row j of ``("blocks", kind, *leaf)``, the i-th layer
+    being the j-th of its kind; ``embed``, ``lm_head`` and
+    ``final_norm`` are their own paths.  Path → (port names in stack
+    order, stacked)."""
+    kinds = cfg.layer_kinds
+    out: dict[tuple, tuple[list[str], bool]] = {}
+    for name in names:
+        parts = name.split(".")
+        if parts[0] == "blocks":
+            path = ("blocks", kinds[int(parts[1])], *parts[2:])
+            out.setdefault(path, ([], True))[0].append(name)
+        else:
+            out[tuple(parts)] = ([name], False)
+    for ns, stacked in out.values():
+        if stacked:
+            ns.sort(key=lambda n: int(n.split(".")[1]))
+    return out
+
+
+def _keystr(path: tuple) -> str:
+    """``jax.tree_util.keystr`` of a dict path: ``['blocks']['dense']``."""
+    return "".join(f"['{p}']" for p in path)
+
+
+def lm_to_arrays(src, cfg=None) -> dict:
+    """The inverse of :func:`lm_from_arrays`: a ``DecoderLM``'s parameters,
+    or a mapping keyed by its parameter names (its gradients, AdamW's
+    ``m`` or ``v``; ``cfg`` then names the model's config), as the
+    reference's per-kind stacked tree of numpy arrays
+    (``blocks[kind][path]`` of shape ``(n_kind, ...)``).  A bfloat16 leaf
+    comes out as its 16 bits (``uint16``; ``.view(ml_dtypes.bfloat16)``
+    where that package is installed)."""
+    if isinstance(src, torch.nn.Module):
+        cfg = src.cfg
+        src = dict(src.named_parameters())
+    if cfg is None:
+        raise ValueError("lm_to_arrays of a mapping needs its cfg")
+    tree: dict = {}
+    for path, (names, stacked) in _lm_layout(cfg, src).items():
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = _host_array([src[n] for n in names], stacked)
+    return tree
+
+
+def train_state_leaves(state) -> dict[str, tuple[list, bool]]:
+    """A port ``TrainState``'s tensors under the reference checkpoint's
+    flat keys: key → (tensors, one a layer when stacked)."""
+    params = dict(state.model.named_parameters())
+    layout = _lm_layout(state.model.cfg, params)
+    groups = [(".params", params), (".opt.m", state.opt.m),
+              (".opt.v", state.opt.v)]
+    if state.err is not None:
+        groups.append((".err", state.err))
+    out = {}
+    for prefix, tensors in groups:
+        for path, (names, stacked) in layout.items():
+            out[prefix + _keystr(path)] = ([tensors[n] for n in names],
+                                           stacked)
+    out[".opt.step"] = ([state.opt.step], False)
+    return out
+
+
+def train_state_to_arrays(state) -> dict[str, np.ndarray]:
+    """The flat arrays a checkpoint holds (:func:`train_state_leaves`'
+    keys), copied to the host; bfloat16 leaves as their 16 bits."""
+    return {k: _host_array(ts, stacked)
+            for k, (ts, stacked) in train_state_leaves(state).items()}
+
+
+def _shape_of(flat, key: str) -> tuple:
+    """A leaf's shape; from an ``.npz``'s header without reading it."""
+    if isinstance(flat, np.lib.npyio.NpzFile):
+        with flat.zip.open(key + ".npy") as f:
+            version = np.lib.format.read_magic(f)
+            read = (np.lib.format.read_array_header_1_0 if version == (1, 0)
+                    else np.lib.format.read_array_header_2_0)
+            return tuple(read(f)[0])
+    return tuple(np.shape(flat[key]))
+
+
+def load_train_state_(state, flat):
+    """Copy a flat checkpoint mapping into ``state`` in place (params,
+    ``m``, ``v``, step and, if ``state`` carries one, the error residual),
+    every key and shape checked before anything is written; each leaf is
+    cast to its tensor's dtype.  Returns ``state``."""
+    leaves = train_state_leaves(state)
+    for key, (ts, stacked) in leaves.items():
+        if key not in flat:
+            raise KeyError(f"checkpoint missing {key}")
+        want = (len(ts), *ts[0].shape) if stacked else tuple(ts[0].shape)
+        got = _shape_of(flat, key)
+        if got != want:
+            raise ValueError(f"{key}: checkpoint shape {got} != {want}")
+    with torch.no_grad():
+        for key, (ts, stacked) in leaves.items():
+            src = _tensor(flat[key], ts[0].dtype)
+            for j, t in enumerate(ts):
+                t.copy_(src[j] if stacked else src)
+    return state
+
+
+def train_state_from_arrays(flat, cfg, device=None):
+    """A port ``TrainState`` (``repro_torch.training``) over a flat
+    checkpoint mapping of either package (``np.load`` of its
+    ``arrays.npz``): a ``DecoderLM`` of ``cfg`` with the checkpoint's
+    parameters, AdamW's ``m``, ``v`` and step, and the error residual
+    when the checkpoint holds one (``.err[...]``); on the card unless
+    ``device`` says otherwise."""
+    from repro_torch.models import DecoderLM
+    from repro_torch.training.train_step import TrainConfig, train_state_init
+
+    model = DecoderLM(cfg, seed=None, device=device)
+    compress = any(k.startswith(".err") for k in flat)
+    state = train_state_init(model, TrainConfig(compress_grads=compress))
+    return load_train_state_(state, flat)
 
 
 def lm_from_arrays(params, cfg, device=None):
@@ -85,7 +238,8 @@ def lm_from_arrays(params, cfg, device=None):
     dtype, the config's but for the leaves the reference keeps in float32
     (the router, ``ssm.dt_bias``, ``ssm.a_log``, ``ssm.d_skip``,
     ``mix.w_if`` and both ``mix.f_bias``).  A tree whose leaves do not
-    match the port's parameters is refused."""
+    match the port's parameters is refused.  :func:`lm_to_arrays` is the
+    inverse."""
     from repro_torch.models import DecoderLM
 
     model = DecoderLM(cfg, seed=None, device=device)

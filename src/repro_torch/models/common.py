@@ -1,6 +1,7 @@
 """Shared model primitives of the port: norms, RoPE, embeddings, init, dtypes.
 
-The torch counterpart of the reference's ``models/common.py`` for serving.
+The torch counterpart of the reference's ``models/common.py``: serving's
+primitives and the training loss (:func:`softmax_cross_entropy`).
 Conventions kept from it:
 
 * weight matrices are stored ``(d_in, d_out)``, so a layer is ``x @ w``;
@@ -21,7 +22,7 @@ import torch
 
 __all__ = ["DTYPES", "dtype_of", "frozen", "zeros", "kernel_init",
            "dense_init", "rms_norm", "rope_angles", "apply_rope", "embed",
-           "unembed"]
+           "unembed", "softmax_cross_entropy"]
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
           "float16": torch.float16}
@@ -110,3 +111,18 @@ def unembed(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     a bf16 operand is widened first, which is exact, so the products and
     their sum are float32 and never rounded to the operands' dtype."""
     return x.float() @ table.float().T
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean token NLL; logits (..., V) float32, labels (...) integer ids:
+    a float32 ``logsumexp`` less the gathered logit, then the mean (or
+    the mean over ``mask``), as the reference's expression."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - ll
+    if mask is not None:
+        mask = mask.float()
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)

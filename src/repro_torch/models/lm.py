@@ -1,4 +1,5 @@
-"""The decoder LM of the port: serving (forward, prefill, decode).
+"""The decoder LM of the port: serving (forward, prefill, decode) and the
+training loss (:func:`lm_loss`, with per-block remat).
 
 A :class:`DecoderLM` reads an :class:`~repro_torch.configs.ArchConfig` as
 the reference's ``models/lm.py`` does: ``cfg.layer_kinds`` gives each
@@ -14,9 +15,17 @@ over GQA or (``cfg.mla_enabled``) MLA attention; ``hybrid``, 0.5 ·
 ``cross``, gated cross-attention to ``media`` tokens; and xLSTM's
 ``mlstm`` and ``slstm`` (:mod:`~repro_torch.models.xlstm`), which carry
 no MLP.  So every config of :mod:`repro_torch.configs` is served.  A
-dense layer of a MoE config is ``cfg.dense_layer_ff`` wide.  Training
-(the loss, remat, optimizers) is not ported; ``forward`` returns the MoE
-aux sums the loss reads (``want_aux``).
+dense layer of a MoE config is ``cfg.dense_layer_ff`` wide.
+
+Training reads :func:`lm_loss`: the token NLL
+(:func:`~repro_torch.models.common.softmax_cross_entropy`) plus the
+weighted MoE aux terms, through ``forward(..., remat=True)``, which runs
+each block under ``torch.utils.checkpoint`` (the reference's
+``jax.checkpoint`` of a block): a block keeps its input and recomputes its
+activations in the backward pass.  Serving's parameters are frozen
+(``requires_grad=False``);
+:func:`repro_torch.training.train_step.train_state_init` makes them
+trainable.
 
 As the reference's, an xLSTM layer's prefill returns no cache (its
 ``_block_forward`` returns None for them): an xLSTM sequence is decoded
@@ -31,18 +40,19 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.dqf import resolve_device
 
 from . import attention as attn
 from . import ssm
 from . import xlstm as xl
-from .common import (dtype_of, embed, kernel_init, rms_norm, unembed,
-                     zeros)
+from .common import (dtype_of, embed, kernel_init, rms_norm,
+                     softmax_cross_entropy, unembed, zeros)
 from .mlp import init_mlp_params, mlp_forward
 from .moe import init_moe_params, moe_forward
 
-__all__ = ["DecoderLM", "Block", "layer_runs"]
+__all__ = ["DecoderLM", "Block", "layer_runs", "lm_loss"]
 
 XLSTM_KINDS = ("mlstm", "slstm")
 
@@ -276,14 +286,18 @@ class DecoderLM(torch.nn.Module):
 
     def forward(self, tokens=None, embeds=None, media=None, *,
                 want_caches: bool = False, logits_mode: str = "all",
-                want_aux: bool = False):
+                want_aux: bool = False, remat: bool = False):
         """Full-sequence forward: float32 logits ``(B, S, V)`` (``(B, 1,
         V)`` with ``logits_mode="last"``); with ``want_aux`` then the
         layers' summed MoE aux terms ``(3,)`` (load balance, z, dropped
         fraction), and with ``want_caches`` last one cache a layer
         (:meth:`Block.forward`; None for an xLSTM layer).  ``media`` (B,
         T, d), the tokens a cross layer attends to, is used in its own
-        dtype, as the reference uses it."""
+        dtype, as the reference uses it.  ``remat`` checkpoints each
+        block (training: keep only each block's input, recompute its
+        activations in the backward pass); it takes no caches."""
+        if remat and want_caches:
+            raise ValueError("remat is for training and returns no caches")
         x = self._inputs(tokens, embeds)
         if media is not None:
             media = torch.as_tensor(media, device=self.device)
@@ -291,8 +305,13 @@ class DecoderLM(torch.nn.Module):
         caches = []
         aux_sum = torch.zeros(3, dtype=torch.float32, device=x.device)
         for blk in self.blocks:
-            x, aux, cache = blk(x, chunks=chunks, want_cache=want_caches,
-                                media=media)
+            if remat:
+                x, aux, cache = checkpoint(
+                    blk, x, chunks=chunks, want_cache=False, media=media,
+                    use_reentrant=False)
+            else:
+                x, aux, cache = blk(x, chunks=chunks,
+                                    want_cache=want_caches, media=media)
             aux_sum = aux_sum + aux
             caches.append(cache)
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
@@ -327,3 +346,19 @@ class DecoderLM(torch.nn.Module):
             x, caches[i] = blk.decode(x, caches[i], pos)
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
         return unembed(x, self.head), caches
+
+
+def lm_loss(model: DecoderLM, tokens=None, embeds=None, labels=None,
+            media=None, *, aux_weight: float = 0.01, z_weight: float = 1e-4,
+            remat: bool = False):
+    """The training loss: (total, metrics), total = the mean token NLL +
+    ``aux_weight`` · load balance + ``z_weight`` · router z; metrics
+    ``nll``, ``load_balance``, ``router_z`` and ``dropped_frac`` (0-d
+    float32 tensors), as the reference's ``lm_loss``."""
+    logits, aux = model(tokens, embeds, media, want_aux=True, remat=remat)
+    labels = torch.as_tensor(labels, device=logits.device)
+    loss = softmax_cross_entropy(logits, labels)
+    total = loss + aux_weight * aux[0] + z_weight * aux[1]
+    metrics = {"nll": loss, "load_balance": aux[0], "router_z": aux[1],
+               "dropped_frac": aux[2]}
+    return total, metrics

@@ -80,6 +80,32 @@ def _top_k(v: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     return v.gather(-1, idx), idx
 
 
+class _WidenedMM(torch.autograd.Function):
+    """``bmm(a, b)`` of narrow operands with a float32 result, and its
+    derivative, which torch has none of for ``bmm(..., out_dtype=)``: each
+    operand's gradient is the product of the float32 cotangent with the
+    other operand widened (exact), a float32 result cast to the operand's
+    dtype, as JAX transposes a ``preferred_element_type=float32``
+    einsum."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        if a.is_cuda:
+            return torch.bmm(a, b, out_dtype=torch.float32)
+        return torch.bmm(a.float(), b.float())
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = torch.bmm(g, b.float().transpose(1, 2)).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = torch.bmm(a.float().transpose(1, 2), g).to(b.dtype)
+        return ga, gb
+
+
 def _expert_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``(E, C, i) @ (E, i, o)`` with a float32 result, as the reference's
     ``einsum(..., preferred_element_type=float32)``.
@@ -88,13 +114,12 @@ def _expert_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     on the card go through one batched product with a float32 output
     (``out_dtype``), which reads each expert's weights once in their own
     dtype; on the CPU, which has no such product, they are widened first.
-    Both keep every product exact and the sums in float32.
+    Both keep every product exact and the sums in float32; the backward is
+    :class:`_WidenedMM`'s.
     """
     if a.dtype == torch.float32 and b.dtype == torch.float32:
         return torch.bmm(a, b)
-    if a.is_cuda:
-        return torch.bmm(a, b, out_dtype=torch.float32)
-    return torch.bmm(a.float(), b.float())
+    return _WidenedMM.apply(a, b)
 
 
 def _quantize_rows(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

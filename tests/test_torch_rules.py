@@ -79,6 +79,37 @@ def test_decoder_lm_runs_on_the_card_by_default():
     assert {p.device.type for p in model.parameters()} == {"cpu"}
 
 
+def test_train_launcher_runs_on_the_card_by_default():
+    """``--device`` defaults to the card: with none present the launcher
+    and the example refuse, naming ``--device cpu``'s way out, and never
+    train on the CPU unasked."""
+    from repro_torch.examples import train_lm
+    from repro_torch.launch import train
+
+    argv = ["--reduced", "--steps", "1", "--batch", "2", "--seq", "8"]
+    if torch.cuda.is_available():
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(argv)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_lm.main(["--steps", "1"])
+
+
+def test_train_state_follows_its_model_device():
+    from repro_torch.configs import get_config
+    from repro_torch.convert import train_state_from_arrays
+    from repro_torch.models import DecoderLM
+    from repro_torch.training import TrainConfig, train_state_init
+
+    cfg = get_config("qwen3-0.6b").reduced(num_layers=1)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            train_state_from_arrays({}, cfg)
+    state = train_state_init(DecoderLM(cfg, device="cpu"), TrainConfig())
+    assert state.opt.step.device.type == "cpu"
+    assert {t.device.type for t in state.opt.m.values()} == {"cpu"}
+
+
 def test_segment_index_runs_on_the_card_by_default():
     import numpy as np
 
@@ -177,7 +208,12 @@ def test_port_imports_no_jax_and_nothing_of_repro():
             " repro_torch.examples.streaming_updates,"
             " repro_torch.examples.quickstart,"
             " repro_torch.examples.drift_adaptation,"
-            " repro_torch.examples.serve_knnlm;"
+            " repro_torch.examples.serve_knnlm, repro_torch.optim,"
+            " repro_torch.optim.adamw, repro_torch.optim.schedule,"
+            " repro_torch.training, repro_torch.training.train_step,"
+            " repro_torch.data, repro_torch.data.pipeline,"
+            " repro_torch.checkpoint, repro_torch.checkpoint.checkpointer,"
+            " repro_torch.launch.train, repro_torch.examples.train_lm;"
             "from repro_torch.configs import get_config, ARCH_IDS;"
             "[get_config(a) for a in ARCH_IDS];"
             "bad = [m for m in sys.modules if m in ('jax', 'repro') or "
