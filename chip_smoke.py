@@ -166,7 +166,7 @@ Phases, in order; any failure exits non-zero:
    their resident ``fused=False`` twins, and mxu at 25% on the f32 twin
    (``fused_topk_l2`` launches counted); equality with the resident
    ``fused=True`` searches is reported.  Both engines (phase 9's shapes,
-   4096 queries at once) on the sq8 twin at 25% with prefetch: paged ≡
+   2048 queries at once) on the sq8 twin at 25% with prefetch: paged ≡
    fixed and both ≡ the resident ``fused=False`` engines per query, QPS,
    p99, queue-wait p99, tick hit rate, prefetches, pinned blocks.  Chaos:
    every block's first read failing (``FaultPlan(tier_fail_first_fetch=
@@ -369,6 +369,28 @@ Phases, in order; any failure exits non-zero:
    and a cross layer with its gate opened to 0.5) in float32 against its
    CPU twin at B's tolerances, and of both DeepSeek configs in bf16 (the
    experts' ``out_dtype`` product differentiated): finite.
+20. the multi-rank code at world 1 over NCCL (``phase_distributed``).  A:
+   ``repro_torch.distributed.mesh.init_distributed("cuda")`` starts a world of
+   one over a ``FileStore`` in a temporary directory (the machine has no
+   network): backend, world size, NCCL's version, the device count; the
+   multi-rank checks (worlds of 2 and 4) run on the CPU only, in the
+   ``tests/test_torch_dist_*.py`` files, since NCCL allows one rank a
+   device and this machine has one card.  B: phase 19's Qwen3-0.6B (full
+   width, bf16, B = 16) decodes 32 seeded tokens through
+   ``flash_mesh=make_test_mesh(1, 1)`` and through the default path from
+   the same empty caches: argmax agreement at least 0.99 and max |Δ
+   logits| at most 2e-2 of max |logits| (the reference test's contract),
+   ms a step both ways (CUDA events); a float32 4-layer replay within
+   1e-5 of max |logits|.  C: three data-parallel train steps at world 1
+   (one all-reduce of a flat float32 buffer a step) from phase 19's
+   restored state, 4 x 256 tokens, beside the one-device step on a twin
+   of that state: the loss at each step and every parameter after the
+   third bit for bit; ms a step both ways.  D: ``sharded_search`` through
+   the mesh path on a (1, 1) mesh over phase 16's segment 0 (an S = 1
+   ``ShardedIndex``, no build) against ``mesh=None`` on the same index,
+   4 batches of 1024: ids and dists bit for bit, 1 ``fused_hop`` and 1
+   ``pool_merge`` launch a batch, ms a batch both ways.  The group is
+   destroyed at the end of the phase.
 
 Recall guards against breakage, not a target: 0.5 for the float32 paths,
 half of phase 4's recall for the quantized ones, the d = 128 twin's less
@@ -2176,8 +2198,10 @@ def _tier(ctx, dev, seed, saved, n_insert, n_delete, chaos_q, tmp):
         _free(t, r)
         del t, r, f
 
-    # --- engines on the sq8 twin at 25%, prefetch on
-    queries = np.concatenate(batches)
+    # --- engines on the sq8 twin at 25%, prefetch on; phase 4's first two
+    # batches (all four until the script neared its time limit on a slow
+    # host)
+    queries = np.concatenate(batches[:2])
     cache = t25.store.full_phase_cache()
     obs = ObsConfig(timeline=True)
     fixed_r = copy.copy(r_sq8)
@@ -4089,7 +4113,8 @@ def phase_segments(ctx, dev, seed, num_shards=SEGMENTS):
     from repro_torch.core.ssg import SSGParams
     from repro_torch.kernels.fused_hop import fused_hop_cuda
     from repro_torch.kernels.topk_merge import pool_merge_cuda
-    from repro_torch.serving.sharded import (build_sharded_index,
+    from repro_torch.serving.sharded import (ShardedIndex,
+                                             build_sharded_index,
                                              sharded_search)
 
     x, batches, gt, pc = ctx["x"], ctx["batches"], ctx["gt"], ctx["cfg"]
@@ -4198,7 +4223,12 @@ def phase_segments(ctx, dev, seed, num_shards=SEGMENTS):
                    baseline_recall=ctx["baseline_recall"],
                    mean_hops=float(hops.mean()),
                    dist_count=float(dc.mean()), device_bytes=dev_bytes,
-                   peak_bytes=peak)
+                   peak_bytes=peak, cfg=cfg,
+                   segment0=ShardedIndex(       # phase 20 D's index
+                       *(a[:1].copy() for a in (index.x_pad, index.adj_pad,
+                                                index.entries,
+                                                index.offsets)),
+                       n_total=int((index.offsets[0] >= 0).sum())))
     del index, tables, outs, oracle
     torch.cuda.empty_cache()
     return entries, summary
@@ -4867,11 +4897,12 @@ def phase_train_full(dev, seed, cfg, *, steps=TRAIN_STEPS, batch=16,
     if not rel <= 1e-3:
         raise RuntimeError(f"phase 19 C: resumed losses differ by {rel:.3e}")
     shutil.rmtree(tmp, ignore_errors=True)
-    del fresh, step2
+    del step2
     return dict(step_ms=step_ms, fb_ms=fb_ms, opt_ms=opt_ms,
                 opt_bound_ms=opt_bound, tok_s=tok_s, mfu=mfu, peak_gib=peak,
                 loss_fall=fall, ckpt_bytes=ck_bytes, blocked_s=blocked_s,
-                save_s=save_s, restore_s=restore_s, resume_rel=rel)
+                save_s=save_s, restore_s=restore_s, resume_rel=rel,
+                state=fresh, tcfg=tcfg)
 
 
 def phase_train_parity(dev, seed, cfg, *, B=4, S=64):
@@ -5002,6 +5033,212 @@ def phase_training(dev, seed, full_cfg=None, parity_cfg=None, **full_kw):
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     return dict(full=full, parity=parity, configs=configs)
+
+
+# ----------------------------------------------------------------- phase 20
+FLASH_STEPS = 32                 # phase 20 B's decode steps
+DP_STEPS = 3                     # phase 20 C's train steps
+FLASH_ARGMAX = 0.99              # the reference test's contract
+FLASH_REL = 2e-2
+FLASH_REPLAY_REL = 1e-5
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _decode_both(model, mesh, tokens, max_len):
+    """``tokens`` (T, B, 1) decoded from empty caches through the default
+    path and through ``flash_mesh=mesh``: (logits (T, B, V) of each, ms a
+    step of each; CUDA events around the whole loop)."""
+    out, ms = [], []
+    for flash in (None, mesh):
+        with torch.no_grad():            # warm both paths before the clock
+            warm = model.init_decode_caches(tokens.shape[1], max_len,
+                                            flash_mesh=flash)
+            for t in range(2):
+                model.decode_step(tokens[t], warm, t, flash_mesh=flash)
+        del warm
+        caches = model.init_decode_caches(tokens.shape[1], max_len,
+                                          flash_mesh=flash)
+        logits = []
+        with torch.no_grad():
+            a = _mark(model.device)
+            for t in range(tokens.shape[0]):
+                lg, caches = model.decode_step(tokens[t], caches, t,
+                                               flash_mesh=flash)
+                logits.append(lg[:, 0])
+            b = _mark(model.device)
+        _sync(model.device)
+        ms.append(_ms_between(a, b, model.device) / tokens.shape[0])
+        out.append(torch.stack(logits).float())
+        del caches
+    return out, ms
+
+
+def _flash_decode_check(dev, seed, model, mesh):
+    """20 B: full width against the default decode, then a float32
+    4-layer replay."""
+    from repro_torch.models import DecoderLM
+
+    cfg = model.cfg
+    gen = np.random.default_rng(seed + 20)
+    tokens = torch.as_tensor(gen.integers(0, cfg.vocab_size, (
+        FLASH_STEPS, 16, 1)).astype(np.int64), device=dev)
+    (plain, flash), (plain_ms, flash_ms) = _decode_both(model, mesh, tokens,
+                                                        2 * FLASH_STEPS)
+    agree = float((plain.argmax(-1) == flash.argmax(-1)).float().mean())
+    rel = float((plain - flash).abs().max() / plain.abs().max())
+    log(f"  B: {cfg.name} ({cfg.num_layers} layers, {cfg.dtype}), B = 16, "
+        f"{FLASH_STEPS} steps from empty caches: argmax agreement "
+        f"{agree:.4f} (guard {FLASH_ARGMAX}), max |Δ logits| {rel:.3e} of "
+        f"max |logits| (guard {FLASH_REL}); ms a step: default "
+        f"{plain_ms:.3f}, flash {flash_ms:.3f} (CUDA events)")
+    if agree < FLASH_ARGMAX or not rel <= FLASH_REL:
+        raise RuntimeError("phase 20 B: flash decoding differs from the "
+                           "default decode beyond the reference's contract")
+    del plain, flash
+    cfg32 = dataclasses.replace(cfg, num_layers=4, dtype="float32")
+    m32 = DecoderLM(cfg32, seed=seed, device=dev)
+    (plain, flash), _ = _decode_both(m32, mesh, tokens, 2 * FLASH_STEPS)
+    rel32 = float((plain - flash).abs().max() / plain.abs().max())
+    log(f"  B: float32 replay at 4 layers: max |Δ logits| {rel32:.3e} of "
+        f"max |logits| (guard {FLASH_REPLAY_REL})")
+    if not rel32 <= FLASH_REPLAY_REL:
+        raise RuntimeError(f"phase 20 B: the float32 replay differs by "
+                           f"{rel32:.3e}")
+    del m32, plain, flash
+    return dict(argmax=agree, rel=rel, rel32=rel32, plain_ms=plain_ms,
+                flash_ms=flash_ms)
+
+
+def _dp_check(dev, seed, state, tcfg, mesh):
+    """20 C: DP steps at world 1 against the one-device step on a twin of
+    ``state``, bit for bit."""
+    from repro_torch.data.pipeline import DataConfig, make_source
+    from repro_torch.optim.adamw import AdamWState
+    from repro_torch.training import TrainState, make_train_step
+
+    model = state.model
+    twin = _clone_model(model, dev)
+    for p in twin.parameters():
+        p.requires_grad_(True)
+    opt = state.opt
+    tstate = TrainState(twin, AdamWState(
+        opt.step.clone(), {k: t.clone() for k, t in opt.m.items()},
+        {k: t.clone() for k, t in opt.v.items()}), None)
+    tcfg = dataclasses.replace(tcfg, microbatches=1)
+    dp = make_train_step(model, tcfg, mesh=mesh)
+    one = make_train_step(twin, tcfg)
+    src = make_source(DataConfig(vocab_size=model.cfg.vocab_size,
+                                 seq_len=256, global_batch=4, seed=seed + 20))
+    same_loss, ms = [], {"dp": [], "one": []}
+    for s in range(DP_STEPS):
+        b = {k: torch.as_tensor(v, device=dev)
+             for k, v in src.batch(s).items()}
+        losses = {}
+        for name, fn, st in (("dp", dp, state), ("one", one, tstate)):
+            _sync(dev)
+            a = _mark(dev)
+            st, m = fn(st, b)
+            e = _mark(dev)
+            _sync(dev)
+            ms[name].append(_ms_between(a, e, dev))
+            losses[name] = m["loss"]
+            if name == "dp":
+                state = st
+            else:
+                tstate = st
+        same_loss.append(_same_bits(losses["dp"], losses["one"]))
+    same = all(_same_bits(p, q) for p, q in zip(model.parameters(),
+                                                twin.parameters()))
+    log(f"  C: {DP_STEPS} data-parallel steps at world 1 (4 x 256 tokens, "
+        f"{model.cfg.dtype}) vs the one-device step: losses bit for bit "
+        f"{same_loss}, every parameter after step {DP_STEPS} bit for bit "
+        f"{same}; ms a step: DP {[round(v, 3) for v in ms['dp']]}, one "
+        f"device {[round(v, 3) for v in ms['one']]}")
+    if not (all(same_loss) and same):
+        raise RuntimeError("phase 20 C: the data-parallel step at world 1 "
+                           "differs from the one-device step")
+    del twin, tstate
+    return dict(dp_ms=ms["dp"], one_ms=ms["one"])
+
+
+def _segment_mesh_check(dev, segments, batches, mesh):
+    """20 D: ``sharded_search`` through the mesh path on a (1, 1) mesh
+    against ``mesh=None`` over one segment, bit for bit, 1 + 1 launches a
+    batch."""
+    from repro_torch.kernels.fused_hop import fused_hop_cuda
+    from repro_torch.kernels.topk_merge import pool_merge_cuda
+    from repro_torch.serving.sharded import sharded_search
+
+    index, cfg = segments["segment0"], segments["cfg"]
+    one = lambda q: sharded_search(index, q, cfg=cfg, device=dev)  # noqa
+    on_mesh = lambda q: sharded_search(index, q, mesh, cfg=cfg,  # noqa
+                                       device=dev)
+    one(batches[0])
+    on_mesh(batches[0])                   # both uploads before the clock
+    want, one_ms, _ = timed_batches(one, batches)
+    got, mesh_ms, (hop_l, merge_l) = timed_batches(
+        on_mesh, batches, (fused_hop_cuda, pool_merge_cuda))
+    fused_hop_cuda.launches = pool_merge_cuda.launches = 0
+    same = all(np.array_equal(a[0], b[0]) and _bits(a[1], b[1])
+               for a, b in zip(got, want))
+    log(f"  D: sharded_search on a (1, 1) mesh over segment 0 "
+        f"({index.offsets.shape[1]} rows), {len(batches)} batches of "
+        f"{len(batches[0])}: ids and dists bit for bit with mesh=None "
+        f"{same}; {hop_l} fused_hop and {merge_l} pool_merge launches; ms "
+        f"a batch: mesh {[round(v, 3) for v in mesh_ms]}, one card "
+        f"{[round(v, 3) for v in one_ms]} (CUDA events, the copy to the "
+        f"host in)")
+    if not same:
+        raise RuntimeError("phase 20 D: the mesh path differs from the "
+                           "one-card search")
+    if (hop_l, merge_l) != (len(batches), len(batches)):
+        raise RuntimeError(f"phase 20 D: {hop_l} fused_hop and {merge_l} "
+                           f"pool_merge launches in {len(batches)} batches")
+    return dict(hop_launches=hop_l, merge_launches=merge_l,
+                mesh_ms=mesh_ms, one_ms=one_ms)
+
+
+def phase_distributed(dev, seed, trained, segments, batches):
+    """Phase 20 (module docstring): the multi-rank code at world 1 over
+    NCCL.  ``trained`` is phase 19's result (its restored state),
+    ``segments`` phase 16's summary (its segment 0)."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.mesh import init_distributed, make_test_mesh
+
+    t0 = time.perf_counter()
+    rank_dev = init_distributed(dev.type)
+    try:
+        log(f"  A: backend {dist.get_backend()}, world size "
+            f"{dist.get_world_size()}, rank {dist.get_rank()} on "
+            f"{rank_dev}, NCCL "
+            f"{torch.cuda.nccl.version() if dev.type == 'cuda' else None}, "
+            f"{torch.cuda.device_count()} CUDA device(s); set up in "
+            f"{time.perf_counter() - t0:.2f} s")
+        log("  A: the multi-rank checks (worlds of 2 and 4: flash decoding, "
+            "the pipeline, data-parallel steps, checkpoints across worlds, "
+            "placed shards and segments) ran on the CPU only, in "
+            "tests/test_torch_dist_*.py over gloo: NCCL allows one rank a "
+            "device, and this machine has "
+            f"{torch.cuda.device_count()} card(s)")
+        mesh = make_test_mesh(1, 1)
+        t = time.perf_counter()
+        flash = _flash_decode_check(dev, seed, trained["state"].model, mesh)
+        log(f"  (B: {time.perf_counter() - t:.1f} s)")
+        t = time.perf_counter()
+        dp = _dp_check(dev, seed, trained["state"], trained["tcfg"],
+                       make_test_mesh(1, 1))
+        log(f"  (C: {time.perf_counter() - t:.1f} s)")
+        t = time.perf_counter()
+        seg = _segment_mesh_check(dev, segments, batches, mesh)
+        log(f"  (D: {time.perf_counter() - t:.1f} s)")
+    finally:
+        dist.destroy_process_group()
+    return dict(flash=flash, dp=dp, segments=seg)
 
 
 def main() -> int:
@@ -5183,7 +5420,7 @@ def main() -> int:
           "as stacked lanes (stacked vs sequential oracle, launches, "
           "recall)")
     t16 = time.perf_counter()
-    seg_entries, _ = phase_segments(ctx, dev, args.seed)
+    seg_entries, seg_summary = phase_segments(ctx, dev, args.seed)
     entries += seg_entries
     log(f"  phase 16: {time.perf_counter() - t16:.1f} s")
 
@@ -5208,8 +5445,28 @@ def main() -> int:
           "microbatches 2, AdamW, async checkpoint and restore; float32 "
           "card vs CPU at 2 layers; the ten configs' train steps)")
     t19 = time.perf_counter()
-    phase_training(dev, args.seed)
+    trained = phase_training(dev, args.seed)["full"]
     log(f"  phase 19: {time.perf_counter() - t19:.1f} s")
+
+    phase("phase 20: the multi-rank code at world 1 over NCCL (flash "
+          "decoding at full width, data-parallel steps, the segment search "
+          "on a mesh)")
+    t20 = time.perf_counter()
+    dist_out = phase_distributed(dev, args.seed, trained, seg_summary,
+                                 ctx["batches"])
+    del trained, seg_summary
+    seg = dist_out["segments"]
+    by_name = {e["name"]: e for e in entries}
+    for name, key in (("fused_hop (f32, segment index)", "hop_launches"),
+                      ("pool_merge (segment merge)", "merge_launches")):
+        by_name[name]["distributed"] = {
+            "launches": seg[key],
+            "launches_note": "phase 20 D: the mesh path of sharded_search "
+                             f"at world 1, {len(ctx['batches'])} batches "
+                             "over segment 0",
+            "ms_a_batch": seg["mesh_ms"]}
+    torch.cuda.empty_cache()
+    log(f"  phase 20: {time.perf_counter() - t20:.1f} s")
 
     phase("done")
     log(f"  total {time.perf_counter() - t_all:.1f} s")

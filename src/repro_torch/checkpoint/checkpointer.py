@@ -19,6 +19,14 @@ loader (:func:`repro_torch.convert.train_state_from_arrays`) reads a
 checkpoint of either package.  A bfloat16 leaf is stored as its 16 bits
 (``uint16``) and ``meta.json`` names each leaf's dtype under ``dtypes``.
 The data cursor is the step: the data pipeline is stateless.
+
+Inside an initialised process group of more than one rank (data
+parallelism keeps the state replicated) every rank calls ``save`` and
+``restore``: the ranks
+meet at a barrier, rank 0 alone writes, and a blocking save ends at a
+second barrier, after the directory is published; every rank restores
+from the same files, so a checkpoint written by a world of 4 restores
+onto a world of 2 bit for bit.
 """
 
 from __future__ import annotations
@@ -36,6 +44,16 @@ from repro_torch.convert import (load_train_state_, train_state_leaves,
                                  train_state_to_arrays)
 
 __all__ = ["Checkpointer", "latest_step"]
+
+
+def _group():
+    """``torch.distributed`` when a process group of more than one rank
+    is initialised, else None."""
+    import torch.distributed as dist
+    if (dist.is_available() and dist.is_initialized()
+            and dist.get_world_size() > 1):
+        return dist
+    return None
 
 
 def latest_step(directory: str) -> Optional[int]:
@@ -65,8 +83,16 @@ class Checkpointer:
     # ------------------------------------------------------------------ save
     def save(self, step: int, state, extra: Optional[dict] = None,
              block: bool = False) -> None:
-        """Snapshot (device→host now, IO async)."""
+        """Snapshot (device→host now, IO async); over a process group
+        rank 0 writes after a barrier (see the module docstring)."""
         self.wait()                         # one in-flight save at a time
+        dist = _group()
+        if dist is not None:
+            dist.barrier()
+            if dist.get_rank() != 0:
+                if block:
+                    dist.barrier()
+                return
         t0 = time.perf_counter()
         host = train_state_to_arrays(state)
         meta = {"step": step, "time": time.time(),
@@ -99,6 +125,8 @@ class Checkpointer:
         self._thread.start()
         if block:
             self.wait()
+            if dist is not None:
+                dist.barrier()
 
     def wait(self) -> None:
         if self._thread is not None:

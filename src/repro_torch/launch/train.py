@@ -1,7 +1,7 @@
 """Training launcher of the port.
 
-Wires together: config → model on one device → AdamW state → data
-pipeline → train loop with async checkpointing and restart-resume.
+Wires together: config → process group and mesh → model → AdamW state →
+data pipeline → train loop with async checkpointing and restart-resume.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
       --steps 100 --batch 8 --seq 256 --ckpt-dir <dir> [--reduced]
@@ -11,9 +11,21 @@ pipeline → train loop with async checkpointing and restart-resume.
 It runs on the CUDA card unless ``--device`` names another device.
 Fault tolerance: kill it at any step and rerun the same command — it
 resumes from the latest atomic checkpoint (params, optimizer state; the
-step is the data cursor).  One device only: a ``--mesh`` over more than
-one device, and a multi-host job (``JAX_COORDINATOR`` set, the
-reference's multi-host entry), raise ``NotImplementedError``.
+step is the data cursor).
+
+Data parallelism: under torchrun (or inside an initialised process
+group) each rank runs this same entry point, one card a rank over NCCL
+(gloo with ``--device cpu``); ``--mesh Dx1`` trains over a world of D
+ranks and no ``--mesh`` spans the whole world with the data axis.  Each
+rank reads its rows of the global batch (``DataConfig(num_hosts=D,
+host_id=rank)``) and the step averages the gradients over the data axis
+(:func:`repro_torch.training.train_step.make_train_step`); rank 0 writes
+the checkpoints.
+
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train --mesh 4x1 ...
+
+A model axis above 1 (``--mesh DxM``, M > 1) raises
+``NotImplementedError``: it needs tensor parallelism.
 """
 
 from __future__ import annotations
@@ -22,8 +34,9 @@ import argparse
 import os
 import time
 
-MULTI_DEVICE = ("the port trains on one device; a mesh over more than one "
-                "device is ROADMAP queue 1 item 2 (needs more than one card)")
+TENSOR_PARALLEL = ("a model axis above 1 needs tensor parallelism, "
+                   "ROADMAP queue 1 item 2's next step; the port trains "
+                   "data-parallel only (--mesh Dx1)")
 
 
 def main(argv=None):
@@ -42,26 +55,27 @@ def main(argv=None):
                                                             "file"))
     ap.add_argument("--data-path", default=None)
     ap.add_argument("--mesh", default="",
-                    help="(data)x(model); only 1x1 runs in the port")
+                    help="(data)x(model); the model axis must be 1")
     ap.add_argument("--compress-grads", action="store_true")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda",
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
 
-    if os.environ.get("JAX_COORDINATOR"):
-        raise NotImplementedError(f"multi-host training: {MULTI_DEVICE}")
+    data = None
     if args.mesh:
-        d, m = (int(v) for v in args.mesh.split("x"))
-        if d * m > 1:
-            raise NotImplementedError(f"--mesh {args.mesh}: {MULTI_DEVICE}")
+        data, m = (int(v) for v in args.mesh.split("x"))
+        if m > 1:
+            raise NotImplementedError(f"--mesh {args.mesh}: {TENSOR_PARALLEL}")
 
     import torch
+    import torch.distributed as dist
 
     from repro_torch.checkpoint.checkpointer import Checkpointer, latest_step
     from repro_torch.configs import get_config
     from repro_torch.core.dqf import resolve_device
     from repro_torch.data.pipeline import DataConfig, make_source
+    from repro_torch.distributed.mesh import init_distributed, make_test_mesh
     from repro_torch.models import DecoderLM
     from repro_torch.training.train_step import (TrainConfig,
                                                  make_train_step,
@@ -69,6 +83,17 @@ def main(argv=None):
 
     dev = resolve_device(None if args.device == "cuda" else args.device,
                          what="launch.train")
+    mesh, rank = None, 0
+    if (data or 1) > 1 or dist.is_initialized() or "WORLD_SIZE" in \
+            os.environ:
+        dev = init_distributed(dev)
+        world = dist.get_world_size()
+        data = world if data is None else data
+        if data != world:
+            raise ValueError(f"--mesh {args.mesh} needs a world of {data} "
+                             f"ranks; the world has {world}")
+        mesh = make_test_mesh(data, 1)
+        rank = mesh.index("data")
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -80,11 +105,12 @@ def main(argv=None):
                        remat=not args.reduced)
     model = DecoderLM(cfg, seed=0, device=dev)
     state = train_state_init(model, tcfg)
-    step_fn = make_train_step(model, tcfg)
+    step_fn = make_train_step(model, tcfg, mesh=mesh)
 
     source = make_source(DataConfig(
         vocab_size=cfg.vocab_size, seq_len=args.seq, global_batch=args.batch,
-        kind=args.data, path=args.data_path))
+        kind=args.data, path=args.data_path,
+        num_hosts=data or 1, host_id=rank))
 
     start = 0
     ck = Checkpointer(args.ckpt_dir) if args.ckpt_dir else None
@@ -94,6 +120,7 @@ def main(argv=None):
         print(f"[train] resumed from step {start}")
 
     t0 = time.time()
+    losses = []
     for step in range(start, args.steps):
         batch = {k: torch.as_tensor(v, device=dev)
                  for k, v in source.batch(step).items()}
@@ -101,6 +128,7 @@ def main(argv=None):
             batch = {k: v.reshape(tcfg.microbatches, -1, *v.shape[1:])
                      for k, v in batch.items()}
         state, metrics = step_fn(state, batch)
+        losses.append(metrics["loss"])
         if step % args.log_every == 0 or step == args.steps - 1:
             loss = float(metrics["loss"])
             gn = float(metrics["grad_norm"])
@@ -113,6 +141,7 @@ def main(argv=None):
     if ck is not None:
         ck.save(args.steps, state, extra={"arch": args.arch}, block=True)
     print("[train] done")
+    return [float(v) for v in losses]
 
 
 if __name__ == "__main__":

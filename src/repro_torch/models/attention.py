@@ -27,8 +27,10 @@ keys and values are the media's projections (:func:`_cross_kv`), in the
 dtype JAX promotes the media and the weights to; a decode reads them from
 the layer's cache, filled by prefill.
 
-The sequence-sharded flash decode (``flash_mesh``) is not ported
-(ROADMAP.md, queue 1, the LLM substrate).
+The sequence-sharded flash decode (``flash_mesh``, :func:`_flash_decode`)
+splits a GQA ring cache over a mesh's model axis, one ``W / S`` block a
+rank (:func:`flash_cache_shard`), and combines the ranks' softmax
+statistics and outputs with two small ``all_reduce`` calls a layer.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ from .common import apply_rope, dense_init, rms_norm, rope_angles, zeros
 
 __all__ = ["NEG_INF", "make_pair_schedule", "chunked_attention", "KVCache",
            "init_gqa_params", "gqa_forward", "gqa_init_cache", "gqa_decode",
+           "flash_cache_shard",
            "MLACache", "init_mla_params", "mla_forward", "mla_init_cache",
            "mla_decode", "init_cross_params", "cross_forward",
            "cross_decode"]
@@ -231,16 +234,20 @@ def gqa_init_cache(cfg, batch: int, max_len: int, window: int, dtype,
 def gqa_decode(p, x1, cache: KVCache, pos: int, *, cfg, theta: float,
                window: int, flash_mesh=None):
     """One decode step at absolute position ``pos``: writes the new K/V
-    into the cache's slot ``pos % W`` in place and returns (out, cache)."""
-    if flash_mesh is not None:
-        raise NotImplementedError(
-            "flash decoding over a device mesh is not ported (ROADMAP.md, "
-            "queue 1, the LLM substrate)")
+    into the cache's slot ``pos % W`` in place and returns (out, cache).
+
+    ``flash_mesh``: the flash-decoding path over the mesh's model axis
+    (:func:`_flash_decode`); ``cache`` is then this rank's ``W / S``
+    slots (:func:`flash_cache_shard`)."""
     B = x1.shape[0]
     hd = cfg.resolved_head_dim
     pos = int(pos)
     positions = torch.full((1, 1), pos, dtype=torch.int32, device=x1.device)
     q, k, v = _gqa_qkv(p, x1, positions, cfg=cfg, theta=theta)
+    if flash_mesh is not None:
+        o, cache = _flash_decode(q, k, v, cache, pos, cfg=cfg,
+                                 window=window, mesh=flash_mesh)
+        return o.reshape(B, 1, -1) @ p["wo"], cache
     W = cache.k.shape[1]
     slot = pos % W
     cache.k[:, slot] = k[:, 0]
@@ -255,6 +262,90 @@ def gqa_decode(p, x1, cache: KVCache, pos: int, *, cfg, theta: float,
     o = _decode_attention(q, k_all, v_all, live[None].expand(B, W),
                           hd ** -0.5)
     return o.reshape(B, 1, -1) @ p["wo"], cache
+
+
+
+def _model_axis(mesh, model_axis: str) -> tuple[int, int]:
+    """(S, this rank's index) along the model axis (1, 0 without one)."""
+    if model_axis not in mesh.axis_names:
+        return 1, 0
+    return mesh.shape[model_axis], mesh.coordinate[model_axis]
+
+
+def flash_cache_shard(cache: KVCache, mesh,
+                      model_axis: str = "model") -> KVCache:
+    """This rank's slots of a whole ring cache for :func:`_flash_decode`:
+    slots ``[r·W/S, (r+1)·W/S)`` for model-axis index r of S.  ``W % S``
+    must be 0 (``ValueError``, as the reference's)."""
+    S, me = _model_axis(mesh, model_axis)
+    W = cache.k.shape[1]
+    if W % S:
+        raise ValueError(f"window {W} not divisible by model axis {S}")
+    sl = slice(me * (W // S), (me + 1) * (W // S))
+    return KVCache(cache.k[:, sl].clone(), cache.v[:, sl].clone(),
+                   cache.pos[sl].clone())
+
+
+def _flash_decode(q, k_new, v_new, cache: KVCache, pos: int, *, cfg,
+                  window: int, mesh, model_axis: str = "model"):
+    """Sequence-sharded decode attention (flash decoding on the model
+    axis), the reference's ``shard_map`` body over ``torch.distributed``.
+
+    ``cache`` holds this rank's ``Wl = W / S`` slots of the ring; the new
+    K/V go only to the rank that owns slot ``pos % W``, written in place.
+    Queries and weights are replicated.  Each rank scores its slots in
+    float32 and takes its max ``m`` and ``l = Σ exp(s − m)``; one
+    ``all_gather`` of (m, l) over the model group gives every rank the
+    global max ``m_g`` and sum ``l_g = Σ_r l_r · exp(m_r − m_g)``.  The
+    weights ``exp(s − m_g) / l_g`` are cast to the cache's dtype and
+    multiply v, and one ``all_reduce`` SUM of that (B, H, 1, hd) float32
+    product over the group gives ``o``: 2 collectives a layer, as the
+    reference's (a max, then the sums).  The reference instead casts the
+    unnormalised ``exp(s − m_g)`` and divides after its sum; in float32
+    the two agree to rounding, and normalising first makes a bf16 decode
+    round its weights as the default decode (:func:`_decode_attention`)
+    does.  A model axis of one rank makes no collective.  A rank whose
+    slots are all dead scores ``NEG_INF`` everywhere and adds zeros.
+    Returns (o (B, 1, H, hd) in q's dtype, cache)."""
+    import torch.distributed as dist
+
+    S, me = _model_axis(mesh, model_axis)
+    B, _, H, hd = q.shape
+    Wl = cache.k.shape[1]
+    W = Wl * S
+    slot = pos % W
+    if slot // Wl == me:
+        local = slot % Wl
+        cache.k[:, local] = k_new[:, 0]
+        cache.v[:, local] = v_new[:, 0]
+        cache.pos[local] = pos
+    live = (cache.pos >= 0) & (cache.pos <= pos)
+    if window:
+        live &= cache.pos > pos - window
+    groups = cfg.num_heads // cfg.num_kv_heads
+    k_all = torch.repeat_interleave(cache.k, groups, dim=2)  # (B, Wl, H, hd)
+    v_all = torch.repeat_interleave(cache.v, groups, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k_all.float()) \
+        * hd ** -0.5
+    s = torch.where(live[None, None, None, :], s, NEG_INF)
+    m = s.amax(dim=-1)                                   # (B, H, 1)
+    p_ = torch.exp(s - m[..., None])
+    l = p_.sum(dim=-1)                                   # (B, H, 1)
+    if S > 1:
+        stats = [torch.empty((2, *m.shape), dtype=m.dtype, device=m.device)
+                 for _ in range(S)]
+        dist.all_gather(stats, torch.stack([m, l]),
+                        group=mesh.group(model_axis))
+        every = torch.stack(stats)                       # (S, 2, B, H, 1)
+        m_g = every[:, 0].amax(dim=0)
+        l = (every[:, 1] * torch.exp(every[:, 0] - m_g)).sum(dim=0)
+        p_ = p_ * torch.exp(m - m_g)[..., None]
+    p_ = p_ / torch.clamp(l, min=1e-30)[..., None]
+    o = torch.einsum("bhqk,bkhd->bhqd", p_.to(v_all.dtype).float(),
+                     v_all.float())                      # (B, H, 1, hd)
+    if S > 1:
+        dist.all_reduce(o, group=mesh.group(model_axis))
+    return o.permute(0, 2, 1, 3).to(q.dtype), cache
 
 
 # ======================================================================= MLA

@@ -142,20 +142,22 @@ class Block(torch.nn.Module):
                   if cfg.moe is not None and kind == "dense" else cfg.d_ff)
             self.mlp = init_mlp_params(gen, d, ff, dtype, device)
 
-    def _ffn(self, x):
+    def _ffn(self, x, data_group=None):
         """The layer's second half: (x, aux (3,) = load balance, z,
-        dropped; zeros but for a MoE layer)."""
+        dropped; zeros but for a MoE layer, whose statistics are over
+        ``data_group``'s whole batch, :func:`~repro_torch.models.moe.
+        moe_forward`)."""
         zero = torch.zeros(3, dtype=torch.float32, device=x.device)
         if self.kind in XLSTM_KINDS:
             return x, zero
         h = rms_norm(x, self.ln2, self.cfg.norm_eps)
         if self.kind == "moe":
-            y, aux = moe_forward(self.moe, h, self.cfg)
+            y, aux = moe_forward(self.moe, h, self.cfg, group=data_group)
             return x + y, torch.stack(list(aux))
         return x + mlp_forward(self.mlp, h), zero
 
     def forward(self, x, *, chunks: tuple[int, int], want_cache: bool,
-                media=None):
+                media=None, data_group=None):
         """The layer over a full sequence: (x, aux, cache), the cache a
         decode continues from with ``want_cache`` (a ``KVCache`` or
         ``MLACache``; hybrid: (``KVCache``, ``SSMCache``); cross: the
@@ -194,12 +196,14 @@ class Block(torch.nn.Module):
                     cache = (cache, ssm_cache)
                 a = 0.5 * (a + s)
             x = x + a
-        x, aux = self._ffn(x)
+        x, aux = self._ffn(x, data_group)
         return x, aux, cache
 
-    def init_cache(self, batch: int, max_len: int):
+    def init_cache(self, batch: int, max_len: int, flash_mesh=None):
         """The layer's empty decode cache (a cross layer's: zero media
-        K/V of ``cfg.vision_tokens``, as the reference's)."""
+        K/V of ``cfg.vision_tokens``, as the reference's); with
+        ``flash_mesh`` a GQA ring holds this rank's slots only
+        (:func:`~repro_torch.models.attention.flash_cache_shard`)."""
         cfg, dev = self.cfg, self.ln1.device
         dtype = dtype_of(cfg)
         if self.kind == "mlstm":
@@ -215,11 +219,16 @@ class Block(torch.nn.Module):
             return attn.mla_init_cache(cfg, batch, max_len, dtype, dev)
         kv = attn.gqa_init_cache(cfg, batch, max_len, self.window, dtype,
                                  dev)
+        if flash_mesh is not None:
+            kv = attn.flash_cache_shard(kv, flash_mesh)
         if self.kind == "hybrid":
             return kv, ssm.mamba_init_cache(cfg, batch, dtype, dev)
         return kv
 
-    def decode(self, x1, cache, pos: int):
+    def decode(self, x1, cache, pos: int, flash_mesh=None):
+        """One decode step; ``flash_mesh`` reaches the GQA kinds (dense,
+        local, global, moe and hybrid), as the reference's
+        ``_block_decode``."""
         cfg = self.cfg
         h = rms_norm(x1, self.ln1, cfg.norm_eps)
         if self.kind == "mlstm":
@@ -231,7 +240,8 @@ class Block(torch.nn.Module):
         elif self.kind == "hybrid":
             kv, ssm_cache = cache
             a, kv = attn.gqa_decode(self.attn, h, kv, pos, cfg=cfg,
-                                    theta=self.theta, window=self.window)
+                                    theta=self.theta, window=self.window,
+                                    flash_mesh=flash_mesh)
             s, ssm_cache = ssm.mamba_decode(self.ssm, h, ssm_cache, cfg=cfg)
             a = 0.5 * (a + s)
             cache = (kv, ssm_cache)
@@ -239,7 +249,8 @@ class Block(torch.nn.Module):
             a, cache = attn.mla_decode(self.attn, h, cache, pos, cfg=cfg)
         else:
             a, cache = attn.gqa_decode(self.attn, h, cache, pos, cfg=cfg,
-                                       theta=self.theta, window=self.window)
+                                       theta=self.theta, window=self.window,
+                                       flash_mesh=flash_mesh)
         x1, _ = self._ffn(x1 + a)
         return x1, cache
 
@@ -286,7 +297,8 @@ class DecoderLM(torch.nn.Module):
 
     def forward(self, tokens=None, embeds=None, media=None, *,
                 want_caches: bool = False, logits_mode: str = "all",
-                want_aux: bool = False, remat: bool = False):
+                want_aux: bool = False, remat: bool = False,
+                data_group=None):
         """Full-sequence forward: float32 logits ``(B, S, V)`` (``(B, 1,
         V)`` with ``logits_mode="last"``); with ``want_aux`` then the
         layers' summed MoE aux terms ``(3,)`` (load balance, z, dropped
@@ -295,7 +307,10 @@ class DecoderLM(torch.nn.Module):
         T, d), the tokens a cross layer attends to, is used in its own
         dtype, as the reference uses it.  ``remat`` checkpoints each
         block (training: keep only each block's input, recompute its
-        activations in the backward pass); it takes no caches."""
+        activations in the backward pass); it takes no caches.
+        ``data_group``: the data-parallel group whose ranks' rows, in
+        rank order, make the batch; a MoE layer's capacity, drops and
+        load balance are then the whole batch's."""
         if remat and want_caches:
             raise ValueError("remat is for training and returns no caches")
         x = self._inputs(tokens, embeds)
@@ -308,10 +323,11 @@ class DecoderLM(torch.nn.Module):
             if remat:
                 x, aux, cache = checkpoint(
                     blk, x, chunks=chunks, want_cache=False, media=media,
-                    use_reentrant=False)
+                    data_group=data_group, use_reentrant=False)
             else:
                 x, aux, cache = blk(x, chunks=chunks,
-                                    want_cache=want_caches, media=media)
+                                    want_cache=want_caches, media=media,
+                                    data_group=data_group)
             aux_sum = aux_sum + aux
             caches.append(cache)
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
@@ -329,33 +345,42 @@ class DecoderLM(torch.nn.Module):
         return self.forward(tokens, embeds, media, want_caches=True,
                             logits_mode="last")
 
-    def init_decode_caches(self, batch: int, max_len: int) -> list:
-        """Empty decode caches, one a layer (:meth:`Block.init_cache`)."""
-        return [blk.init_cache(batch, max_len) for blk in self.blocks]
+    def init_decode_caches(self, batch: int, max_len: int,
+                           flash_mesh=None) -> list:
+        """Empty decode caches, one a layer (:meth:`Block.init_cache`);
+        with ``flash_mesh`` each GQA ring holds this rank's slots."""
+        return [blk.init_cache(batch, max_len, flash_mesh)
+                for blk in self.blocks]
 
-    def decode_step(self, token, caches: list, pos: int):
+    def decode_step(self, token, caches: list, pos: int, flash_mesh=None):
         """One serving step: ``token`` (B, 1) ids (or (B, 1, d) embeds for
         a model fed embeddings) at absolute position ``pos``.  Returns
         (float32 logits (B, 1, V), caches): attention caches are updated
-        in place, a recurrent layer's state replaced in the list."""
+        in place, a recurrent layer's state replaced in the list.
+
+        ``flash_mesh``: sequence-sharded flash decoding for the GQA layers
+        over the mesh's model axis; their caches are then this rank's
+        slots (``init_decode_caches(..., flash_mesh=)``)."""
         if self.cfg.embed_inputs:
             x = self._inputs(token, None)
         else:
             x = self._inputs(None, token)
         for i, blk in enumerate(self.blocks):
-            x, caches[i] = blk.decode(x, caches[i], pos)
+            x, caches[i] = blk.decode(x, caches[i], pos, flash_mesh)
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
         return unembed(x, self.head), caches
 
 
 def lm_loss(model: DecoderLM, tokens=None, embeds=None, labels=None,
             media=None, *, aux_weight: float = 0.01, z_weight: float = 1e-4,
-            remat: bool = False):
+            remat: bool = False, data_group=None):
     """The training loss: (total, metrics), total = the mean token NLL +
     ``aux_weight`` · load balance + ``z_weight`` · router z; metrics
     ``nll``, ``load_balance``, ``router_z`` and ``dropped_frac`` (0-d
-    float32 tensors), as the reference's ``lm_loss``."""
-    logits, aux = model(tokens, embeds, media, want_aux=True, remat=remat)
+    float32 tensors), as the reference's ``lm_loss``.  ``data_group``:
+    see :meth:`DecoderLM.forward`."""
+    logits, aux = model(tokens, embeds, media, want_aux=True, remat=remat,
+                        data_group=data_group)
     labels = torch.as_tensor(labels, device=logits.device)
     loss = softmax_cross_entropy(logits, labels)
     total = loss + aux_weight * aux[0] + z_weight * aux[1]

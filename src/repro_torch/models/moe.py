@@ -16,6 +16,12 @@ The expert products keep the reference's ``preferred_element_type=
 float32`` (:func:`_expert_mm`).  Expert weight stacks carry a leading
 expert axis ``(E, d, f)``.  Shared experts (always on) are a plain
 SwiGLU of width ``num_shared * d_expert``.
+
+Under data parallelism (``group``, the data-parallel process group) a
+rank holds only its rows of the batch, and the batch's rows are the
+ranks' rows in rank order.  The capacity, the tokens dropped and the load
+balance are then those of the whole batch, as the reference's SPMD step
+computes them over its global batch (:func:`moe_forward`).
 """
 
 from __future__ import annotations
@@ -130,13 +136,40 @@ def _quantize_rows(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return q, s
 
 
-def moe_forward(p, x: torch.Tensor, cfg) -> tuple[torch.Tensor, MoEAux]:
-    """x: (B, S, d) → (B, S, d), plus router aux losses."""
+def _every_rank(counts: torch.Tensor, group) -> torch.Tensor:
+    """``counts`` of every rank of ``group``, stacked in rank order."""
+    import torch.distributed as dist
+
+    out = [torch.empty_like(counts)
+           for _ in range(dist.get_world_size(group))]
+    dist.all_gather(out, counts, group=group)
+    return torch.stack(out)
+
+
+def moe_forward(p, x: torch.Tensor, cfg, group=None
+                ) -> tuple[torch.Tensor, MoEAux]:
+    """x: (B, S, d) → (B, S, d), plus router aux losses.
+
+    ``group``: the data-parallel group of D > 1 ranks whose rows, in rank
+    order, make the batch.  One ``all_gather`` of this rank's per-expert
+    counts gives the whole batch's: the capacity ``C`` is the whole
+    batch's, a (token, choice) keeps its slot when the ranks before this
+    one and the tokens before it on this rank took fewer than ``C`` of
+    its expert's, and the expert buffer holds ``C`` rows an expert.  The
+    load-balance term is ``D`` times this rank's share of the whole
+    batch's (its router mass over the whole batch's top-1 fractions), so
+    the data-parallel mean of the ranks' losses, and of their gradients,
+    is the whole batch's.  The z loss and the dropped fraction are means
+    over tokens, which that mean already makes whole."""
     m = cfg.moe
     B, S, d = x.shape
     T = B * S
     E, K = m.num_experts, m.experts_per_token
-    C = int(math.ceil(T * K / E * m.capacity_factor))
+    D = 1
+    if group is not None:
+        import torch.distributed as dist
+        D = dist.get_world_size(group)
+    C = int(math.ceil(T * D * K / E * m.capacity_factor))
     dev = x.device
     xt = x.reshape(T, d)
 
@@ -157,25 +190,35 @@ def moe_forward(p, x: torch.Tensor, cfg) -> tuple[torch.Tensor, MoEAux]:
     top_p, top_e = _top_k(probs, K)                          # (T, K)
     top_p = top_p / top_p.sum(dim=-1, keepdim=True)          # deepseek norm
 
+    flat_e = top_e.reshape(-1)                               # (T*K,)
+    counts = torch.zeros(E, dtype=flat_e.dtype, device=dev).index_add_(
+        0, flat_e, torch.ones_like(flat_e))
     # aux losses (Switch-style load balance + z-loss)
-    me = probs.mean(dim=0)                                   # (E,)
-    # the mean of one_hot(top_e[:, 0]) as a scatter (one_hot's range
-    # check would stop the host for the card)
-    ce = torch.zeros(E, device=dev).index_add_(
-        0, top_e[:, 0], torch.ones(T, device=dev)) / T
-    lb = E * torch.sum(me * ce)
+    if D == 1:
+        me = probs.mean(dim=0)                               # (E,)
+        # the mean of one_hot(top_e[:, 0]) as a scatter (one_hot's range
+        # check would stop the host for the card)
+        ce = torch.zeros(E, device=dev).index_add_(
+            0, top_e[:, 0], torch.ones(T, device=dev)) / T
+        lb = E * torch.sum(me * ce)
+        before = 0
+    else:
+        top1 = torch.zeros(E, dtype=flat_e.dtype, device=dev).index_add_(
+            0, top_e[:, 0], torch.ones_like(top_e[:, 0]))
+        every = _every_rank(torch.stack([counts, top1]), group)  # (D, 2, E)
+        me = probs.sum(dim=0) / (T * D)                      # this rank's
+        ce = every[:, 1].sum(dim=0).float() / (T * D)
+        lb = D * E * torch.sum(me * ce)
+        before = every[:dist.get_rank(group), 0].sum(dim=0)[flat_e]
     z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
 
     # ---- sort-based dispatch ------------------------------------------
-    flat_e = top_e.reshape(-1)                               # (T*K,)
     order = torch.sort(flat_e, stable=True).indices
     ranks = torch.empty_like(order)
     ranks[order] = torch.arange(T * K, device=dev)
-    counts = torch.zeros(E, dtype=flat_e.dtype, device=dev).index_add_(
-        0, flat_e, torch.ones_like(flat_e))
     starts = torch.cumsum(counts, dim=0) - counts
     pos = ranks - starts[flat_e]                             # slot in expert
-    keep = pos < C
+    keep = pos + before < C
     slot = torch.where(keep, flat_e * C + pos, E * C)        # overflow slot
 
     token_rep = xt.repeat_interleave(K, dim=0)               # (T*K, d)

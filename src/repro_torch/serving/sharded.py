@@ -10,8 +10,12 @@ stacked ``(S, n_seg+1, ·)`` tables through the hop's per-lane table base
 (:class:`~repro_torch.core.beam_search.LaneTable`).  On the card that is
 one ``fused_hop`` launch and one ``pool_merge`` launch a batch; on the
 CPU the composed beam loop (``fused=False``, as the reference) and the
-merge's plain version run.  Placement across cards, the reference's
-mesh, waits for a slice of the port that runs on more than one card.
+merge's plain version run.  Over a :class:`~repro_torch.distributed.mesh.Mesh`
+the segments lie on the model axis, one a rank, as the reference places
+them: each rank searches its segment's lanes for its data-axis slice of
+the queries, the per-segment top-k go round the model axis
+(``all_gather``) to the same merge, and the data-axis slices are
+gathered, so every rank returns the whole answer.
 
 Fault tolerance: :func:`merge_with_dropout` renormalizes the merge over
 the segments that responded — a lost host degrades recall by roughly its
@@ -31,7 +35,7 @@ from repro_torch.core.dqf import resolve_device
 from repro_torch.core.ssg import SSGParams, build_ssg
 from repro_torch.core.types import DQFConfig
 from repro_torch.kernels import ops as kops
-from repro_torch.sharding.merge import merge_topk
+from repro_torch.sharding.merge import gather_candidates, merge_topk
 
 __all__ = ["ShardedIndex", "build_sharded_index", "sharded_search",
            "merge_with_dropout"]
@@ -53,14 +57,18 @@ class ShardedIndex:
     def num_shards(self) -> int:
         return self.x_pad.shape[0]
 
-    def upload(self, device) -> tuple[torch.Tensor, ...]:
+    def upload(self, device, segment: int | None = None
+               ) -> tuple[torch.Tensor, ...]:
         """The stacked tables on ``device`` (x_pad, adj_pad, entries,
-        offsets), uploaded on the first call for that device and kept."""
+        offsets), uploaded on the first call for that device and kept;
+        with ``segment``, that segment's block alone, ``(1, ·)``."""
         dev = torch.device(device)
-        key = str(dev)
+        key = str(dev) if segment is None else f"{dev}:segment{segment}"
         if key not in self._tables:
+            sl = slice(None) if segment is None \
+                else slice(segment, segment + 1)
             self._tables[key] = tuple(
-                torch.as_tensor(np.ascontiguousarray(a), device=dev)
+                torch.as_tensor(np.ascontiguousarray(a[sl]), device=dev)
                 for a in (self.x_pad, self.adj_pad, self.entries,
                           self.offsets))
         return self._tables[key]
@@ -124,10 +132,10 @@ def _mesh_cards(mesh) -> int:
     return math.prod(dict(mesh.shape).values())
 
 
-def _stacked_search(tables, queries: torch.Tensor, *, pool_size: int, k: int,
-                    max_hops: int, fused: bool):
+def _segment_lanes(tables, queries: torch.Tensor, *, pool_size: int, k: int,
+                   max_hops: int, fused: bool):
     """Every segment's beam search as ``S·B`` stacked lanes, ids mapped
-    through the segments' global ids, merged: ``(B, k)`` ids and dists.
+    through the segments' global ids: ``(S, B, k)`` dists and ids.
 
     ``fused`` runs the expansion loop through the fused hop (one launch on
     the card); otherwise the composed loop.  Both give the same bits.
@@ -147,7 +155,42 @@ def _stacked_search(tables, queries: torch.Tensor, *, pool_size: int, k: int,
     bad = (ids >= n_seg) | (rows < 0)
     gids = torch.where(bad, -1, rows).to(torch.int32)
     dists = torch.where(bad, float("inf"), dists)
-    return merge_topk(dists.view(S, B, k), gids.view(S, B, k), k)
+    return dists.view(S, B, k), gids.view(S, B, k)
+
+
+def _stacked_search(tables, queries: torch.Tensor, **kw):
+    """:func:`_segment_lanes` merged: ``(B, k)`` ids and dists."""
+    dists, gids = _segment_lanes(tables, queries, **kw)
+    return merge_topk(dists, gids, kw["k"])
+
+
+def _mesh_search(index: ShardedIndex, q: torch.Tensor, mesh, *, cfg,
+                 model_axis: str, data_axis: str):
+    """The reference's ``shard_map`` search over a port mesh: segment r of
+    the model axis on rank r, queries split over the data axis (padded to
+    equal slices), the per-segment top-k gathered rank-major and merged
+    by one ``merge_topk`` (the stable merge of the segment-major
+    concatenation, as ``lax.top_k``), the slices gathered back."""
+    S = index.num_shards
+    if mesh.shape.get(model_axis) != S:
+        raise ValueError(f"{S} shards need model axis of size {S}")
+    D = mesh.size(data_axis)
+    B = q.shape[0]
+    Bl = -(-B // D)
+    if Bl * D != B:
+        q = torch.cat([q, q[-1:].expand(Bl * D - B, -1)])
+    di = mesh.index(data_axis)
+    dists, gids = _segment_lanes(
+        index.upload(q.device, mesh.coordinate[model_axis]),
+        q[di * Bl:(di + 1) * Bl], pool_size=cfg.full_pool, k=cfg.k,
+        max_hops=cfg.max_hops, fused=kops._device_type(q) == "cuda")
+    ids, dists = merge_topk(*gather_candidates(
+        dists[0], gids[0], mesh.group(model_axis), S), cfg.k)
+    if D > 1:
+        dists, ids = gather_candidates(dists, ids, mesh.group(data_axis), D)
+        ids, dists = ids.reshape(D * Bl, -1)[:B], dists.reshape(D * Bl,
+                                                                -1)[:B]
+    return ids, dists
 
 
 def sharded_search(index: ShardedIndex, queries, mesh=None, *,
@@ -155,21 +198,31 @@ def sharded_search(index: ShardedIndex, queries, mesh=None, *,
                    data_axis: str = "data", device=None):
     """Batched search over every segment: (B, k) global ids + dists, numpy.
 
-    ``mesh`` None (or a mesh of one device) searches the segments on one
-    card as stacked lanes; the axis names are the reference's and matter
-    only to a mesh, whose placement across cards is not ported.  The
-    device is the card unless ``device="cpu"`` is given; the stacked
-    tables are uploaded once per index and device
+    ``mesh`` None (or a stand-in of one device with only ``shape``)
+    searches the segments on one card as stacked lanes.  A
+    :class:`~repro_torch.distributed.mesh.Mesh` places segment r on rank r of
+    ``model_axis``, which must have S ranks (``ValueError``), and splits
+    the queries over ``data_axis`` (:func:`_mesh_search`); every rank of
+    the mesh calls it with the same queries and gets the whole answer.  A
+    mesh of more than one device without its process group raises
+    ``RuntimeError``.  The device is the card unless ``device="cpu"`` is
+    given; the tables are uploaded once per index and device
     (:meth:`ShardedIndex.upload`).
     """
-    if mesh is not None and _mesh_cards(mesh) > 1:
-        raise NotImplementedError(
-            f"sharded_search over a {_mesh_cards(mesh)}-device mesh "
-            f"(axes {model_axis!r}, {data_axis!r}): placement across cards "
-            "is not ported (ROADMAP.md, queue 1, 'Needs more than one "
-            "card'); pass mesh=None to search the segments on one card")
+    from repro_torch.distributed.mesh import Mesh
+
+    if mesh is not None and not isinstance(mesh, Mesh) \
+            and _mesh_cards(mesh) > 1:
+        raise RuntimeError(
+            f"sharded_search over a {_mesh_cards(mesh)}-device mesh needs "
+            "its process group: a repro_torch.distributed.mesh.Mesh, after "
+            "init_distributed")
     dev = resolve_device(device, what="sharded_search")
     q = torch.as_tensor(queries, dtype=torch.float32, device=dev)
+    if isinstance(mesh, Mesh):
+        ids, dists = _mesh_search(index, q, mesh, cfg=cfg,
+                                  model_axis=model_axis, data_axis=data_axis)
+        return ids.cpu().numpy(), dists.cpu().numpy()
     ids, dists = _stacked_search(
         index.upload(dev), q, pool_size=cfg.full_pool, k=cfg.k,
         max_hops=cfg.max_hops, fused=kops._device_type(q) == "cuda")

@@ -7,7 +7,8 @@ single-shard oracle, and takes writes (insert, delete, compact with the
 rebalance); ``ShardedEngine`` serves it as one continuous-batching wave
 (fixed or paged) with ``ShardHealth``'s quarantine under chaos.  See
 :mod:`repro_torch.sharding.sharded` and :mod:`repro_torch.sharding.engine`.
-Placement of the shards across cards waits for a multi-card slice.
+With a process group of S ranks, ``ShardConfig(use_mesh=...)`` places
+the shards one a rank and merges over ``torch.distributed``.
 """
 
 from .engine import ShardedEngine

@@ -109,6 +109,12 @@ class ShardedEngine:
                  obs: Optional[ObsConfig] = None,
                  engine_cfg: Optional[EngineConfig] = None, clock=None):
         sharded._require()
+        if sharded._mesh is not None:
+            raise NotImplementedError(
+                "ShardedEngine over shards placed one a rank (use_mesh) is "
+                "not ported: ticking over ranks is ROADMAP queue 1 item 2's "
+                "next step; ShardConfig(use_mesh=False) serves the stacked "
+                "tables on one device")
         if not sharded._stacked_ok:
             raise ValueError(
                 "ShardedEngine needs resident float32 shards — tiered or "

@@ -23,7 +23,7 @@ import torch
 
 from repro_torch.kernels import ops as kops
 
-__all__ = ["merge_topk", "merge_topk_host"]
+__all__ = ["merge_topk", "merge_topk_host", "gather_candidates"]
 
 
 def merge_topk(dists: torch.Tensor, gids: torch.Tensor, k: int):
@@ -61,3 +61,19 @@ def merge_topk_host(per_shard_ids, per_shard_dists, k: int):
     order = np.argsort(cat_d, axis=1, kind="stable")[:, :k]
     return (np.take_along_axis(cat_i, order, 1),
             np.take_along_axis(cat_d, order, 1))
+
+
+def gather_candidates(dists: torch.Tensor, gids: torch.Tensor, group,
+                      n: int):
+    """Every rank's ``(B, k)`` candidates stacked rank-major, ``(n, B,
+    k)`` dists and int32 ids, from one ``all_gather`` over ``group`` (of
+    ``n`` ranks) with both packed as int32 bits.  Rank-major is the
+    shard-major order :func:`merge_topk` breaks ties by."""
+    import torch.distributed as dist
+
+    mine = torch.stack([dists.to(torch.float32).view(torch.int32),
+                        gids.to(torch.int32)])
+    parts = [torch.empty_like(mine) for _ in range(n)]
+    dist.all_gather(parts, mine, group=group)
+    both = torch.stack(parts, dim=1)                  # (2, n, B, k)
+    return both[0].view(torch.float32), both[1]

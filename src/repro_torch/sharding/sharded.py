@@ -45,11 +45,20 @@ a shard's store epoch, and the stacked tables follow at the next search
 (``_sync_stacked`` re-uploads every shard).  :class:`~repro_torch.
 sharding.engine.ShardedEngine` serves the index, writes included.
 
-Not in this port yet: placement of the shards across cards
-(``use_mesh=True``), which needs more than one card.  The reference's
-legacy segment index runs on one card in
-:mod:`repro_torch.serving.sharded`.  Runs on the card unless
-``device="cpu"``.
+Placement over ranks (``ShardConfig.use_mesh``): with a process group of
+at least S ranks the shards are placed one a rank on a one-axis
+:class:`~repro_torch.distributed.mesh.Mesh` over ranks ``0 .. S-1`` (the
+reference takes the first S devices).  The host state stays replicated:
+every rank runs the same build, warm, fit and writes from the same seed,
+as every process of a multi-controller JAX job runs the same program.
+The device tables are partitioned: ``_sync_stacked`` uploads only this
+rank's ``(1, cap+1, ·)`` slice (and its hot tables).  ``search`` runs
+this rank's shard through the stacked path (the hot phase, then one
+``fused_hop`` launch a phase on the card), ``all_gather``s the ``(B,
+k)`` ids and distances over the mesh's group and runs the one
+``merge_topk`` on every rank, so every rank returns the oracle's answer.
+``ShardedEngine`` over a placed index is not ported.  Runs on the card
+unless ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -74,7 +83,7 @@ from repro_torch.core.types import INF_DIST, PAD_VALUE, DQFConfig, \
 from repro_torch.obs import MetricsRegistry
 from repro_torch.tenancy import DEFAULT_TENANT
 
-from .merge import merge_topk, merge_topk_host
+from .merge import gather_candidates, merge_topk, merge_topk_host
 from .types import ShardConfig
 
 __all__ = ["ShardedDQF"]
@@ -125,6 +134,7 @@ class ShardedDQF:
         self._stk_key = None
         self._stk_cap = 0
         self._hot_stk: dict = {}
+        self._mesh = None
 
     # ------------------------------------------------------------------ build
     @property
@@ -151,7 +161,7 @@ class ShardedDQF:
         ``num_shards > 1`` deals a seeded permutation round-robin — shard
         sizes differ by at most one row.
         """
-        self._check_placement()
+        self._mesh = self._make_mesh()
         x = np.ascontiguousarray(x, np.float32)
         n = x.shape[0]
         S = self.num_shards
@@ -208,7 +218,7 @@ class ShardedDQF:
         if len(arrays) != self.num_shards:
             raise ValueError(f"{len(arrays)} shards' arrays for "
                              f"num_shards={self.num_shards}")
-        self._check_placement()
+        self._mesh = self._make_mesh()
         self.shards = [
             _Shard(index=s, dqf=DQF.from_arrays(a, self._shard_cfg(s),
                                                 device=self.device))
@@ -236,20 +246,34 @@ class ShardedDQF:
         self._invalidate_stacked()
         return self
 
-    def _check_placement(self) -> None:
-        """``use_mesh=True`` asks for a card a shard, which is not ported:
-        with too few CUDA devices it raises as the reference's
-        ``_make_mesh`` does, else ``NotImplementedError``."""
+    def _make_mesh(self):
+        """One-axis shard mesh over the first S ranks when placement is
+        requested and possible: ``True`` needs a process group of at least
+        S ranks (``RuntimeError`` otherwise, as the reference's with too
+        few devices); ``"auto"`` places when there is one."""
         S = self.num_shards
-        if S == 1 or self.scfg.use_mesh is not True:
-            return
-        have = torch.cuda.device_count()
-        if have < S:
-            raise RuntimeError(f"use_mesh=True needs >= {S} CUDA devices, "
-                               f"have {have}")
-        raise NotImplementedError(
-            "placing shards across cards is not ported; use_mesh='auto' or "
-            "False keeps the stacked tables on this device")
+        if S == 1 or self.scfg.use_mesh is False:
+            return None
+        import torch.distributed as dist
+
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        if world < S:
+            if self.scfg.use_mesh is True:
+                raise RuntimeError(
+                    f"use_mesh=True needs >= {S} ranks, have {world} "
+                    "(start a process group: torchrun, or "
+                    "repro_torch.distributed.mesh.init_distributed)")
+            return None
+        from repro_torch.distributed.mesh import Mesh
+        return Mesh((S,), (self.scfg.axis,), ranks=range(S),
+                    device_type=self.device.type)
+
+    def _local_shards(self) -> list[int]:
+        """The shards whose device tables this rank holds: its own on the
+        mesh, else all."""
+        if self._mesh is not None and self._mesh.coordinate is not None:
+            return [self._mesh.coordinate[self.scfg.axis]]
+        return list(range(self.num_shards))
 
     # ------------------------------------------------------------- residency
     @property
@@ -276,20 +300,23 @@ class ShardedDQF:
         score ``_PAD_VALUE`` and are unreachable (their adjacency slots
         point at the common sentinel ``cap``), so each shard's search over
         the common-padded slice is bit-identical to its natively padded
-        one — results only name real rows and sentinels.
+        one — results only name real rows and sentinels.  On the shard
+        mesh only this rank's block is built and uploaded, ``(1, cap+1,
+        ·)``.
         """
         key = self._epoch_key()
         if self._stk is not None and self._stk_key == key:
             return self._stk
-        S = self.num_shards
+        mine = self._local_shards()
+        T = len(mine)
         cap = max(sh.dqf.store.capacity for sh in self.shards)
         d = self.shards[0].dqf.store.d
         R = max(sh.dqf.full.adj.shape[1] for sh in self.shards)
-        x = np.full((S, cap + 1, d), _PAD_VALUE, np.float32)
-        adj = np.full((S, cap + 1, R), cap, np.int32)
-        live = np.zeros((S, cap + 1), bool)
-        gid = np.full((S, cap + 1), -1, np.int32)
-        for s, sh in enumerate(self.shards):
+        x = np.full((T, cap + 1, d), _PAD_VALUE, np.float32)
+        adj = np.full((T, cap + 1, R), cap, np.int32)
+        live = np.zeros((T, cap + 1), bool)
+        gid = np.full((T, cap + 1), -1, np.int32)
+        for s, sh in enumerate(self.shards[i] for i in mine):
             st = sh.dqf.store
             n_s = st.n
             x[s, :n_s] = st.x
@@ -330,17 +357,21 @@ class ShardedDQF:
         hit = self._hot_stk.get(tenant)
         if hit is not None and hit[0] == key:
             return hit[1]
-        S, cap = self.num_shards, self._stk_cap
+        cap = self._stk_cap
         d = self.shards[0].dqf.store.d
         hots = [t.hot for t in states]
         H = max(h.size for h in hots)
         Rh = max(h.graph.adj.shape[1] for h in hots)
         E = max(h.graph.entries.shape[0] for h in hots)
-        xh = np.full((S, H + 1, d), _PAD_VALUE, np.float32)
-        adjh = np.full((S, H + 1, Rh), H, np.int32)
-        idsh = np.full((S, H + 1), cap, np.int32)
-        enth = np.full((S, E), H, np.int32)
-        for s, (sh, h) in enumerate(zip(self.shards, hots)):
+        mine = self._local_shards()         # the common pads stay global
+        T = len(mine)
+        xh = np.full((T, H + 1, d), _PAD_VALUE, np.float32)
+        adjh = np.full((T, H + 1, Rh), H, np.int32)
+        idsh = np.full((T, H + 1), cap, np.int32)
+        enth = np.full((T, E), H, np.int32)
+        hots = [hots[i] for i in mine]
+        for s, (sh, h) in enumerate(zip((self.shards[i] for i in mine),
+                                        hots)):
             hs = h.size
             xh[s, :hs] = sh.dqf.store.x[h.ids]
             a = h.graph.adj
@@ -356,9 +387,12 @@ class ShardedDQF:
     # ------------------------------------------------------------- search fn
     def _search_stacked(self, q: torch.Tensor, tenant: str):
         """Every shard's hot phase, seed and full phase as S·B lanes, then
-        the cross-shard merge: (ids (B, k) int32 ext ids, dists (B, k))."""
+        the cross-shard merge: (ids (B, k) int32 ext ids, dists (B, k)).
+        On the shard mesh this rank runs its own shard's B lanes and the
+        merge takes every rank's (B, k), gathered."""
         c = self.cfg
         S, B = self.num_shards, q.shape[0]
+        T = len(self._local_shards())
         stk = self._sync_stacked()
         xh, adjh, idsh, enth, sizes = self._hot_stacked(tenant)
         tree = self.tree.arrays if self.tree is not None else None
@@ -375,8 +409,8 @@ class ShardedDQF:
                 hot_mode=c.hot_mode, live_pad=stk["live_pad"][0], **kw)
             lane = torch.zeros(B, dtype=torch.long, device=q.device)
         else:
-            lane = torch.arange(S, device=q.device).repeat_interleave(B)
-            qq = q.repeat(S, 1)
+            lane = torch.arange(T, device=q.device).repeat_interleave(B)
+            qq = q.repeat(T, 1)
             if c.hot_mode == "graph":
                 hot_pool, _ = hot_phase_stacked(
                     xh, adjh, enth, None, lane, qq, pool_size=c.hot_pool,
@@ -384,16 +418,19 @@ class ShardedDQF:
             else:       # each shard's own hot rows, as its search scores
                 pools = [hot_phase_mxu(xh[s, :sizes[s]], q,
                                        pool_size=c.hot_pool)[0]
-                         for s in range(S)]
+                         for s in range(T)]
                 hot_pool = PoolState(*(torch.cat(f) for f in zip(*pools)))
             table = lambda name: bs.LaneTable(stk[name], lane)
             res, _ = search_from_hot(
                 table("x_pad"), table("adj_pad"), hot_pool, idsh[lane],
                 tree, qq, live_pad=table("live_pad"), **kw)
         g = bs.LaneTable(stk["gid_pad"], lane).rows(res.ids)   # global ext
-        dists = torch.where(g < 0, INF_DIST, res.dists)
-        return merge_topk(dists.reshape(S, B, c.k), g.reshape(S, B, c.k),
-                          c.k)
+        dists = torch.where(g < 0, INF_DIST, res.dists).reshape(T, B, c.k)
+        g = g.reshape(T, B, c.k)
+        if T < S:                       # placed: every rank's (B, k)
+            dists, g = gather_candidates(dists[0], g[0],
+                                         self._mesh.group(self.scfg.axis), S)
+        return merge_topk(dists, g, c.k)
 
     # ---------------------------------------------------------------- search
     def _tenant_name(self, tenant) -> str:

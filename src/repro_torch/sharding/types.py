@@ -16,15 +16,11 @@ class ShardConfig:
     single-shard deployment is bit-identical to a plain :class:`DQF`).
 
     ``use_mesh`` is where the stacked per-shard tables live.  ``"auto"``
-    and ``False`` keep them on the DQF's device: the shards are a batch
-    axis of one search.  ``True`` asks for one card a shard; placement
-    across cards is not ported, so it raises ``RuntimeError`` with fewer
-    CUDA devices than shards (as the reference does with too few devices)
-    and ``NotImplementedError`` otherwise.
-
-    ``use_mesh=True`` waits for a slice of the port that runs on more than
-    one card; the reference's legacy segment index runs on one card
-    (:mod:`repro_torch.serving.sharded`).
+    places the shards one a rank over the first S ranks of the process
+    group when it has at least S ranks, and otherwise keeps them on the
+    DQF's device as a batch axis of one search; ``True`` requires a group
+    of at least S ranks (``RuntimeError`` otherwise, as the reference with
+    too few devices); ``False`` keeps them on one device.
 
     Rebalancing (``rebalance*``) runs at the end of
     :meth:`~repro_torch.sharding.ShardedDQF.compact`: when the hottest

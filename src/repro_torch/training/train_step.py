@@ -15,6 +15,22 @@ gradient compression with error feedback, remat.
   ``jnp.round``.
 * **Remat**: each block under ``torch.utils.checkpoint`` (``TrainConfig.
   remat``, see :func:`repro_torch.models.lm.lm_loss`).
+* **Data parallelism** (``mesh=``): each rank computes its loss and
+  gradients on its ``global_batch / D`` rows (D the size of the mesh's
+  data axes, ``pod`` and ``data``).  The global batch is the ranks' rows
+  in rank order, microbatch by microbatch: global microbatch i is every
+  rank's microbatch i, as the reference's SPMD step splits a batch
+  sharded over its data axes.  A MoE layer takes its capacity, drops and
+  load balance over the whole microbatch (one ``all_gather`` of counts a
+  layer, :func:`repro_torch.models.moe.moe_forward`).  One
+  ``all_reduce`` SUM over the data group a step, of one flat float32
+  buffer (every gradient leaf, the loss and the metrics), divided by D,
+  then gives every rank the global batch's loss and gradients.
+  Compression then runs on that averaged gradient with a
+  replicated residual, as the reference's compiled step compresses the
+  global gradient; parameters and moments stay replicated.  At D = 1 the
+  all-reduce still runs, and the step equals the one-device step bit for
+  bit.
 
 The model's parameters are updated in place, so ``TrainState.model`` is
 the same module before and after a step.
@@ -84,7 +100,28 @@ def _compress(grads: dict, err: dict):
     return deq, new_err
 
 
-def make_train_step(model, tcfg: TrainConfig) -> Callable:
+def _all_reduce_mean(loss, metrics: dict, grads: dict, mesh):
+    """The data-parallel mean of a rank's loss, metrics and gradients:
+    one flat float32 buffer, one ``all_reduce`` SUM over the data group,
+    divided by its size.  The gradients come back float32."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.sharding import DATA_AXES
+
+    scalars = [loss, *metrics.values()]
+    flat = torch.cat([g.reshape(-1).float() for g in grads.values()]
+                     + [torch.stack([x.float() for x in scalars])])
+    dist.all_reduce(flat, group=mesh.group(DATA_AXES))
+    flat.div_(mesh.size(DATA_AXES))
+    out, off = {}, 0
+    for k, g in grads.items():
+        out[k] = flat[off:off + g.numel()].view(g.shape)
+        off += g.numel()
+    tail = flat[off:]
+    return tail[0], dict(zip(metrics, tail[1:])), out
+
+
+def make_train_step(model, tcfg: TrainConfig, *, mesh=None) -> Callable:
     """Returns ``train_step(state, batch) -> (state, metrics)``.
 
     ``batch`` maps ``tokens`` (or ``embeds``), ``labels`` and, for a model
@@ -94,21 +131,36 @@ def make_train_step(model, tcfg: TrainConfig) -> Callable:
     stops the host).  The step's two halves are ``train_step.grads(state,
     batch) -> (loss, metrics, grads)`` and ``train_step.update(state,
     loss, metrics, grads) -> (state, metrics)``.
+
+    With ``mesh`` (a :class:`repro_torch.distributed.mesh.Mesh`), ``batch`` is
+    this rank's rows and ``grads`` returns the data-parallel mean over
+    the mesh's data axes (:func:`_all_reduce_mean`).
     """
     schedule_fn = getattr(sched, tcfg.schedule)
     dev = next(model.parameters()).device
+    data_group = None
+    if mesh is not None:
+        from repro_torch.distributed.sharding import DATA_AXES
+        if mesh.size(DATA_AXES) > 1:
+            data_group = mesh.group(DATA_AXES)
 
     def loss_and_grads(params, mb):
         total, metrics = lm_loss(
             model, tokens=mb.get("tokens"), embeds=mb.get("embeds"),
             labels=mb["labels"], media=mb.get("media"),
             aux_weight=tcfg.aux_weight, z_weight=tcfg.z_weight,
-            remat=tcfg.remat)
+            remat=tcfg.remat, data_group=data_group)
         grads = torch.autograd.grad(total, list(params.values()))
         return (total.detach(), {k: v.detach() for k, v in metrics.items()},
                 dict(zip(params, grads)))
 
     def grads_of(state: TrainState, batch: dict):
+        loss, metrics, grads = local_grads(state, batch)
+        if mesh is not None:
+            return _all_reduce_mean(loss, metrics, grads, mesh)
+        return loss, metrics, grads
+
+    def local_grads(state: TrainState, batch: dict):
         params = dict(state.model.named_parameters())
         batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()
                  if v is not None}

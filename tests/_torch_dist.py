@@ -1,0 +1,473 @@
+"""Real ``torch.distributed`` worlds for the port's multi-rank tests.
+
+:func:`run_world` spawns ``world`` processes (``torch.multiprocessing``,
+spawn start), each joins a gloo group through a ``file://`` store under
+the test's temporary directory (no ports to clash between xdist workers),
+with a 120 s collective timeout and one torch thread, runs
+``fn(rank, world, *args)`` and saves its result with ``torch.save``.  The
+parent returns the ranks' results in rank order.  A rank that raises
+fails the run at once (the others are killed) with its traceback; a world
+still running at ``timeout`` is killed and fails its own test, so a hung
+rank never holds the suite.  No process group is ever made in the pytest
+process.
+
+The rank bodies below, and each test file's world (``decode_world``,
+``train_world``, ``index_world``), import the port only: no ``jax``, no
+``repro``.  Their inputs come from ``.npz`` files the tests write from
+seeded numpy.
+"""
+
+from __future__ import annotations
+
+import datetime
+import hashlib
+import importlib
+import time
+import traceback
+import uuid
+from pathlib import Path
+
+import numpy as np
+import torch
+
+__all__ = ["run_world", "save_tree", "load_tree"]
+
+PG_TIMEOUT_S = 120
+
+
+def _rank_main(rank, world, out, module, name, args):
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    try:
+        dist.init_process_group(
+            "gloo", init_method=f"file://{out}/store", rank=rank,
+            world_size=world,
+            timeout=datetime.timedelta(seconds=PG_TIMEOUT_S))
+        res = getattr(importlib.import_module(module), name)(
+            rank, world, *args)
+        torch.save(res, f"{out}/rank{rank}.pt")
+    except BaseException:
+        Path(out, f"rank{rank}.err").write_text(traceback.format_exc())
+        raise SystemExit(1)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def run_world(fn, world: int, tmp_path, *args, timeout: float = 240.0):
+    """``fn(rank, world, *args)`` on ``world`` gloo ranks; their results."""
+    out = Path(tmp_path) / f"{fn.__name__}_w{world}_{uuid.uuid4().hex[:8]}"
+    out.mkdir(parents=True)
+    ctx = torch.multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_rank_main, daemon=True,
+                         args=(r, world, str(out), fn.__module__,
+                               fn.__name__, args))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        codes = [p.exitcode for p in procs]
+        if all(c is not None for c in codes) or any(c for c in codes):
+            break
+        time.sleep(0.05)
+    hung = [r for r, p in enumerate(procs) if p.exitcode is None]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+        p.join()
+    errs = [Path(out, f"rank{r}.err") for r in range(world)]
+    msgs = [f"rank {r}:\n{e.read_text()}" for r, e in enumerate(errs)
+            if e.exists()]
+    if msgs or any(p.exitcode for p in procs):
+        raise AssertionError(f"{fn.__name__} at world {world} failed "
+                             f"(killed: {hung})\n" + "\n".join(msgs))
+    return [torch.load(out / f"rank{r}.pt", weights_only=False)
+            for r in range(world)]
+
+
+def save_tree(path, tree: dict) -> None:
+    """A nested dict of arrays as one ``.npz`` ('/'-joined keys)."""
+    flat = {}
+
+    def walk(node, prefix):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, f"{prefix}{k}/")
+            else:
+                flat[f"{prefix}{k}"] = np.asarray(v)
+    walk(tree, "")
+    np.savez(path, **flat)
+
+
+def load_tree(path) -> dict:
+    out: dict = {}
+    with np.load(path) as z:
+        for key in z.files:
+            node = out
+            *head, last = key.split("/")
+            for part in head:
+                node = node.setdefault(part, {})
+            node[last] = z[key]
+    return out
+
+
+def _digest(tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().view(-1).view(torch.uint8).numpy()
+                 .tobytes())
+    return h.hexdigest()
+
+
+# ===================================================== pipeline and decode
+def pipeline_world(rank, world, path):
+    """GPipe over a (world, 1) (pod, model) mesh on ``path``'s inputs."""
+    from repro_torch.distributed.pipeline import pipeline_forward
+    from repro_torch.distributed.mesh import Mesh
+
+    z = np.load(path)
+    mesh = Mesh((world, 1), ("pod", "model"))
+    Ws, bs, x = (torch.as_tensor(z[k]) for k in ("Ws", "bs", "x"))
+
+    def stage(params, h):
+        W, b = params
+        return torch.tanh(h @ W + b)
+
+    return pipeline_forward(stage, (Ws, bs), x, mesh, axis="pod").numpy()
+
+
+def placement_world(rank, world):
+    """``shard_tensor`` then ``gather_tensor`` over every spec form on a
+    (2, world/2) mesh, and the flattened data group's ranks."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.sharding import gather_tensor, shard_tensor
+    from repro_torch.distributed.mesh import Mesh, make_test_mesh
+
+    data = 2 if world % 2 == 0 else 1
+    mesh = make_test_mesh(data, world // data)
+    full = torch.arange(8 * 12 * 3, dtype=torch.float32).reshape(8, 12, 3)
+    out = {}
+    for spec in [(), ("data", None), (None, "model"), ("data", "model"),
+                 (("data", "model"), None), (None, None, None)]:
+        local = shard_tensor(full, spec, mesh)
+        out[str(spec)] = (tuple(local.shape),
+                          bool(torch.equal(gather_tensor(local, spec, mesh),
+                                           full)))
+    from repro_torch.sharding.merge import gather_candidates, merge_topk
+
+    tied = torch.ones(3, 4)                      # every rank's keys equal
+    ids = (rank * 100 + torch.arange(12)).view(3, 4).to(torch.int32)
+    merged = merge_topk(*gather_candidates(tied, ids, dist.group.WORLD,
+                                           world), 4)
+    out["tie_ids"] = merged[0].numpy()
+    pods = Mesh((2, 1, world // 2), ("pod", "data", "model"))
+    g = pods.group(("pod", "data"))
+    out["pod_data_ranks"] = dist.get_process_group_ranks(g)
+    out["coordinate"] = pods.coordinate
+    return out
+
+
+def flash_layer_world(rank, world, path):
+    """``_flash_decode`` on one GQA layer over a (1, world) mesh: every
+    case of ``path`` from its whole cache, each step's output, and the
+    ranks' cache blocks gathered whole at the end."""
+    from types import SimpleNamespace
+
+    from repro_torch.distributed.sharding import gather_tensor
+    from repro_torch.distributed.mesh import make_test_mesh
+    from repro_torch.models.attention import (KVCache, _flash_decode,
+                                              flash_cache_shard)
+
+    z = np.load(path)
+    mesh = make_test_mesh(1, world)
+    cfg = SimpleNamespace(num_heads=int(z["num_heads"]),
+                          num_kv_heads=int(z["num_kv_heads"]))
+    res = {}
+    for window in z["windows"].tolist():
+        t = lambda k: torch.as_tensor(z[f"{k}_{window}"])   # noqa: E731
+        cache = flash_cache_shard(KVCache(t("k"), t("v"), t("pos")), mesh)
+        outs = []
+        for i, pos in enumerate(z["steps"].tolist()):
+            o, cache = _flash_decode(t("q")[i], t("kn")[i], t("vn")[i],
+                                     cache, pos, cfg=cfg, window=window,
+                                     mesh=mesh)
+            outs.append(o.numpy())
+        whole = [gather_tensor(c, spec, mesh).numpy() for c, spec in
+                 zip(cache, ((None, "model"), (None, "model"), ("model",)))]
+        res[window] = (np.stack(outs), whole)
+    try:
+        bad = KVCache(torch.zeros(1, 7, 1, 2), torch.zeros(1, 7, 1, 2),
+                      torch.zeros(7, dtype=torch.int32))
+        flash_cache_shard(bad, make_test_mesh(1, world))
+        res["indivisible"] = None
+    except ValueError as e:
+        res["indivisible"] = str(e)
+    return res
+
+
+def flash_model_world(rank, world, params_path, tokens, max_len):
+    """The reduced Qwen3 decoding ``tokens`` (T, B, 1) with flash decoding
+    over a (1, world) mesh: each step's logits."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import lm_from_arrays
+    from repro_torch.distributed.mesh import make_test_mesh
+
+    cfg = get_config("qwen3-0.6b").reduced()
+    model = lm_from_arrays(load_tree(params_path), cfg, device="cpu")
+    mesh = make_test_mesh(1, world)
+    caches = model.init_decode_caches(tokens.shape[1], max_len,
+                                      flash_mesh=mesh)
+    out = []
+    with torch.no_grad():
+        for t in range(tokens.shape[0]):
+            logits, caches = model.decode_step(
+                torch.as_tensor(tokens[t]), caches, t, flash_mesh=mesh)
+            out.append(logits.numpy())
+    return np.stack(out)
+
+
+# ================================================================ training
+def _reduced_lm(params_path, arch="qwen3-0.6b"):
+    """The reduced ``arch`` (float32) on the reference's saved weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import lm_from_arrays
+
+    cfg = get_config(arch).reduced()
+    return lm_from_arrays(load_tree(params_path), cfg, device="cpu")
+
+
+def _local(batch: dict, rank: int, world: int, M: int) -> dict:
+    """This rank's rows ``rank::world`` (the data pipeline's host split),
+    with a leading microbatch axis when ``M > 1``."""
+    out = {k: torch.as_tensor(v[rank::world]) for k, v in batch.items()}
+    if M > 1:
+        out = {k: v.reshape(M, -1, *v.shape[1:]) for k, v in out.items()}
+    return out
+
+
+def dp_world(rank, world, params_path, batches, combos, ckpt_dir=None,
+             arch="qwen3-0.6b"):
+    """Data-parallel train steps of the reduced ``arch`` over a (world, 1)
+    mesh.
+
+    For each ``(microbatches, compress)`` of ``combos``, from the same
+    weights: every step's parameters before it, loss, metrics and
+    averaged gradients (rank 0; every rank's loss), and a digest of the
+    final parameters, moments and residual on every rank.  At world 1 each step
+    is also run by the one-device step on a twin and compared bit for
+    bit.  With ``ckpt_dir`` the last state is saved there (rank 0 writes).
+    """
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.distributed.mesh import make_test_mesh
+    from repro_torch.training.train_step import (TrainConfig,
+                                                 make_train_step,
+                                                 train_state_init)
+
+    mesh = make_test_mesh(world, 1)
+    res = {}
+    for M, compress in combos:
+        tcfg = TrainConfig(microbatches=M, peak_lr=1e-3, warmup_steps=2,
+                           total_steps=50, compress_grads=compress,
+                           remat=False)
+        model = _reduced_lm(params_path, arch)
+        state = train_state_init(model, tcfg)
+        step = make_train_step(model, tcfg, mesh=mesh)
+        if world == 1:
+            twin = _reduced_lm(params_path, arch)
+            tstate = train_state_init(twin, tcfg)
+            tstep = make_train_step(twin, tcfg)
+        rec = {"params": [], "loss": [], "metrics": [], "grads": [],
+               "same": []}
+        for b in batches:
+            if rank == 0:
+                rec["params"].append({k: p.detach().numpy().copy() for k, p
+                                      in model.named_parameters()})
+            loss, metrics, grads = step.grads(state, _local(b, rank, world,
+                                                            M))
+            rec["loss"].append(float(loss))
+            rec["metrics"].append({k: float(v) for k, v in metrics.items()})
+            if rank == 0:
+                rec["grads"].append({k: g.numpy().copy()
+                                     for k, g in grads.items()})
+            state, _ = step.update(state, loss, metrics, grads)
+            if world == 1:
+                tstate, tm = tstep(tstate, _local(b, 0, 1, M))
+                rec["same"].append(
+                    float(tm["loss"]) == rec["loss"][-1] and all(
+                        torch.equal(p, q) for p, q in
+                        zip(model.parameters(), twin.parameters())))
+        tensors = [*model.parameters(), *state.opt.m.values(),
+                   *state.opt.v.values(), state.opt.step]
+        if state.err is not None:
+            tensors += list(state.err.values())
+        rec["digest"] = _digest(tensors)
+        res[(M, compress)] = rec
+    if ckpt_dir is not None:
+        Checkpointer(ckpt_dir).save(
+            7, state, extra={"world": world}, block=True)
+    return res
+
+
+def learn_world(rank, world, params_path, batch):
+    """The reference's SPMD contract: 8 steps at lr 5e-3 on one batch."""
+    from repro_torch.distributed.mesh import make_test_mesh
+    from repro_torch.training.train_step import (TrainConfig,
+                                                 make_train_step,
+                                                 train_state_init)
+
+    tcfg = TrainConfig(microbatches=1, peak_lr=5e-3, warmup_steps=1,
+                       remat=False)
+    model = _reduced_lm(params_path)
+    state = train_state_init(model, tcfg)
+    step = make_train_step(model, tcfg, mesh=make_test_mesh(world, 1))
+    losses = []
+    for _ in range(8):
+        state, m = step(state, _local(batch, rank, world, 1))
+        losses.append(float(m["loss"]))
+    return losses
+
+
+def restore_world(rank, world, params_path, ckpt_dir):
+    """Every rank restores the latest checkpoint into a fresh state."""
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.convert import train_state_to_arrays
+    from repro_torch.training.train_step import TrainConfig, train_state_init
+
+    state = train_state_init(_reduced_lm(params_path),
+                             TrainConfig(compress_grads=True))
+    state, meta = Checkpointer(ckpt_dir).restore(state)
+    return meta["step"], train_state_to_arrays(state)
+
+
+def launcher_world(rank, world, ckpt_dir, argv):
+    """``launch.train.main`` over a (world, 1) mesh: a first run to step
+    3, then the same command to step 6, which resumes."""
+    from repro_torch.launch import train
+
+    first = train.main([*argv, "--steps", "3", "--ckpt-dir", ckpt_dir])
+    second = train.main([*argv, "--steps", "6", "--ckpt-dir", ckpt_dir])
+    return first, second
+
+
+# =================================================================== index
+def sharded_dqf_world(rank, world, path, cfg_kw):
+    """``ShardedDQF(use_mesh=True)`` at S = world over the reference's
+    saved shards, beside a one-card twin (``use_mesh=False``): searches,
+    the oracle's, through one insert and one delete; then the port's own
+    build at S = world on the mesh against its oracle."""
+    from repro_torch.core import DQFConfig
+    from repro_torch.sharding import ShardConfig, ShardedDQF, ShardedEngine
+
+    z = load_tree(path)
+    S = world
+    cfg = DQFConfig(**cfg_kw)
+    arrays = [z[f"shard{s}"] for s in range(S)]
+    owner = dict(zip(z["owner_ext"].tolist(), z["owner_shard"].tolist()))
+    sds = {mesh: ShardedDQF.from_arrays(
+        arrays, cfg, ShardConfig(num_shards=S, use_mesh=mesh), owner=owner,
+        device="cpu") for mesh in (True, False)}
+    q = z["q"]
+    out = {"rows": int(sds[True]._sync_stacked()["x_pad"].shape[0]),
+           "coordinate": sds[True]._mesh.coordinate}
+
+    def searches(tag):
+        for mesh, sd in sds.items():
+            r = sd.search(q, record=False)
+            out[(tag, mesh)] = (r.ids, r.dists)
+        o = sds[True].search_oracle(q)
+        out[(tag, "oracle")] = (o.ids, o.dists)
+
+    searches("before")
+    for sd in sds.values():
+        out["inserted"] = sd.insert(z["new_rows"])
+        sd.delete(z["delete_ids"])
+    searches("after")
+    try:
+        ShardedEngine(sds[True], wave_size=8, tick_hops=4)
+        out["engine"] = None
+    except NotImplementedError as e:
+        out["engine"] = str(e)
+    own = ShardedDQF(cfg, ShardConfig(num_shards=S, use_mesh=True),
+                     device="cpu").build(z["x"])
+    own.warm(q[:8])
+    a, b = own.search(q, record=False), own.search_oracle(q)
+    out["own"] = (a.ids, a.dists, b.ids, b.dists)
+    return out
+
+
+def segments_world(rank, world, cases, cfg_kw):
+    """``sharded_search`` over port meshes on the reference's segment
+    indexes: ``cases`` maps a (data, model) shape to an index's ``.npz``;
+    a model axis unequal to S raises."""
+    from repro_torch.core import DQFConfig
+    from repro_torch.distributed.mesh import make_test_mesh
+    from repro_torch.serving.sharded import ShardedIndex, sharded_search
+
+    cfg = DQFConfig(**cfg_kw)
+    out = {}
+    for shape, path in cases:
+        z = np.load(path)
+        index = ShardedIndex(x_pad=z["x_pad"], adj_pad=z["adj_pad"],
+                             entries=z["entries"], offsets=z["offsets"],
+                             n_total=int(z["n_total"]))
+        mesh = make_test_mesh(*shape)
+        out[shape] = sharded_search(index, z["q"], mesh, cfg=cfg,
+                                    device="cpu")
+        out[(shape, "odd")] = sharded_search(index, z["q"][:7], mesh,
+                                             cfg=cfg, device="cpu")
+        out[(shape, "keys")] = sorted(index._tables)
+        out[(shape, "one card")] = sharded_search(index, z["q"], cfg=cfg,
+                                                  device="cpu")
+        try:
+            sharded_search(index, z["q"], make_test_mesh(world, 1),
+                           cfg=cfg, device="cpu")
+            out[(shape, "model_axis")] = None
+        except ValueError as e:
+            out[(shape, "model_axis")] = str(e)
+    return out
+
+
+# ============================================== one world of each test file
+def decode_world(rank, world, d, qwen_path, tokens, max_len):
+    """``test_torch_dist_decode``: one layer's and the model's flash
+    decode, placement, and (world 2) the pipeline."""
+    res = {"layer": flash_layer_world(rank, world, f"{d}/layer.npz"),
+           "model": flash_model_world(rank, world, qwen_path, tokens,
+                                      max_len),
+           "placement": placement_world(rank, world)}
+    if world == 2:
+        res["pipe"] = pipeline_world(rank, world, f"{d}/pipe.npz")
+    return res
+
+
+def train_world(rank, world, qwen, batches, ckpt_dir, learn_batch, combos,
+                launch_argv, moe, moe_combos):
+    """``test_torch_dist_train``: DP steps (and, at worlds above 1, the
+    reduced DeepSeek-V2-Lite's from ``moe``); world 4 saves a checkpoint
+    and runs the learning contract; world 2 restores it and runs the
+    launcher."""
+    res = {"dp": dp_world(rank, world, qwen, batches, combos,
+                          ckpt_dir if world == 4 else None)}
+    if world > 1:
+        res["moe"] = dp_world(rank, world, moe, batches, moe_combos,
+                              arch="deepseek-v2-lite-16b")
+    if world == 4:
+        res["learn"] = learn_world(rank, world, qwen, learn_batch)
+    if world == 2:
+        res["restore"] = restore_world(rank, world, qwen, ckpt_dir)
+        res["launch"] = launcher_world(rank, world, f"{ckpt_dir}_launch",
+                                       [*launch_argv, "--mesh", "2x1"])
+    return res
+
+
+def index_world(rank, world, d, seg_cases, cfg_kw, seg_cfg_kw):
+    """``test_torch_dist_index``: the placed ShardedDQF at S = world and
+    (world 4) the segment search over meshes."""
+    res = {"dqf": sharded_dqf_world(rank, world, f"{d}/port{world}.npz",
+                                    cfg_kw)}
+    if world == 4:
+        res["seg"] = segments_world(rank, world, seg_cases, seg_cfg_kw)
+    return res

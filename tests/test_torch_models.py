@@ -317,14 +317,6 @@ def test_mla_decode_matches_reference(max_len):
         close(got, want)
 
 
-def test_flash_decode_is_refused():
-    cfg, _, _, tp = _gqa_world(True, 0)
-    cache = tattn.gqa_init_cache(cfg, 1, 8, 0, torch.float32, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tattn.gqa_decode(tp, torch.zeros(1, 1, cfg.d_model), cache, 0,
-                         cfg=cfg, theta=1.0, window=0, flash_mesh=object())
-
-
 # ------------------------------------------------------------- whole models
 def _lm_twins(arch):
     cfg = get_config(arch).reduced(**LMS[arch])

@@ -213,7 +213,10 @@ def test_port_imports_no_jax_and_nothing_of_repro():
             " repro_torch.training, repro_torch.training.train_step,"
             " repro_torch.data, repro_torch.data.pipeline,"
             " repro_torch.checkpoint, repro_torch.checkpoint.checkpointer,"
-            " repro_torch.launch.train, repro_torch.examples.train_lm;"
+            " repro_torch.launch.train, repro_torch.examples.train_lm,"
+            " repro_torch.launch.mesh, repro_torch.distributed,"
+            " repro_torch.distributed.sharding,"
+            " repro_torch.distributed.pipeline, repro_torch.distributed.mesh;"
             "from repro_torch.configs import get_config, ARCH_IDS;"
             "[get_config(a) for a in ARCH_IDS];"
             "bad = [m for m in sys.modules if m in ('jax', 'repro') or "

@@ -10,7 +10,8 @@ CPU devices, so it runs in a subprocess with
 same index arrays and its stacked one-card search returns the same ids,
 dists within rtol 1e-5; divergent lanes are named.  The remainder
 padding, the tiny-segment refusal, the cross-segment merge's tie order
-against ``lax.top_k`` and the mesh refusal are checked on the port.
+against ``lax.top_k`` and a mesh without its process group are checked
+on the port.
 """
 
 import os
@@ -206,10 +207,17 @@ class _Mesh:
 
 
 def test_mesh_over_cards_is_refused(reference):
+    """A (1, 4) mesh without its process group (no world here) is
+    refused; a mesh of one device searches on one card.  The mesh path
+    over real worlds is ``tests/test_torch_dist_index.py``."""
+    from repro_torch.launch.mesh import make_test_mesh
+
     index = reference_index(reference)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(RuntimeError, match="process group"):
         sharded_search(index, reference["q"], _Mesh(data=1, model=4),
                        cfg=CFG, device="cpu")
+    with pytest.raises(RuntimeError, match="init_distributed"):
+        make_test_mesh(1, 4)
     ids, _ = sharded_search(index, reference["q"], _Mesh(data=1, model=1),
                             cfg=CFG, device="cpu")
     np.testing.assert_array_equal(ids, reference["ids"])
