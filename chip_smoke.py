@@ -213,8 +213,9 @@ Phases, in order; any failure exits non-zero:
    13's S = 2 and 4 indexes, not rebuilt (a tenant "b" warmed on phase
    9's second Zipf stream; every Alg-2 trigger out of reach), phase 9's
    shapes (256 lanes, ``tick_hops=8``, paged ``page_cols=256``) and
-   traffic (4096 at once; 8 bursts of 512, 4 steps apart; two tenants,
-   2048 each, interleaved by 64).  Check 1: the fixed fused engine ≡ the
+   traffic on phase 4's first 2 batches (2048 at once; 4 bursts of 512, 4
+   steps apart; two tenants, 1024 each, interleaved by 64; 4096, 8 and
+   2048 before, cut for the script's time limit).  Check 1: the fixed fused engine ≡ the
    fixed composed one per query (ids, dists, hops bit for bit), equal
    ticks; check 2: the paged fused engine ≡ the fixed fused one in all
    three runs, the page pool empty after each; check 3: every fixed
@@ -389,8 +390,25 @@ Phases, in order; any failure exits non-zero:
    the mesh path on a (1, 1) mesh over phase 16's segment 0 (an S = 1
    ``ShardedIndex``, no build) against ``mesh=None`` on the same index,
    4 batches of 1024: ids and dists bit for bit, 1 ``fused_hop`` and 1
-   ``pool_merge`` launch a batch, ms a batch both ways.  The group is
-   destroyed at the end of the phase.
+   ``pool_merge`` launch a batch, ms a batch both ways.  E:
+   ``ShardedEngine`` over phase 13's S = 1 index (phase 4's arrays, no
+   build) placed on a one-rank shard mesh (``ShardConfig(use_mesh=
+   Mesh((1,), ("shard",)))``), against the unplaced engine over a twin of
+   it, on phase 9's first 2048 queries closed loop (wave 256, 8 hops a
+   tick): fixed fused, paged fused, and fixed under a chaos plan (shard 0
+   failing ticks 5-7: a quarantine and degraded results); every result's
+   ids, dists, hops and status bit for bit, the ticks equal, at most one
+   collective a tick, the three kernels launched, recall@10 of the
+   float32 paths at least 0.5; ms a tick both ways (host wall over the
+   run).  F: tensor parallelism at a model axis of one rank
+   (``shard_lm`` over ``make_test_mesh(1, 1)``: every collective still
+   runs, over a group of one) on a twin of phase 19's restored Qwen3-0.6B
+   against the plain model: one train step (4 x 256 tokens) and 32 decode
+   steps at B = 16 bit for bit, ms both ways (CUDA events); then a
+   checkpoint of the twin's first 4 layers (with the embedding; cut in
+   depth for the script's time, ~2 GB instead of ~6) written by the
+   ``Checkpointer`` and restored onto the same mesh bit for bit.  The
+   group is destroyed at the end of the phase.
 
 Recall guards against breakage, not a target: 0.5 for the float32 paths,
 half of phase 4's recall for the quantized ones, the d = 128 twin's less
@@ -407,6 +425,7 @@ device the script exits non-zero before any result.
 from __future__ import annotations
 
 import argparse
+import collections
 import copy
 import dataclasses
 import json
@@ -1329,7 +1348,7 @@ def phase_quant(ctx, mode, dev):
 
 # ------------------------------------------------------------------ phase 9
 def serve(eng, plan, counters, k, on_step=None,
-          occupancy="engine_occupancy_ratio"):
+          occupancy="engine_occupancy_ratio", statuses=("ok",)):
     """Drive ``eng`` through ``plan`` — a list of (tenant, queries,
     steps after submitting) — then drain it, one ``step()`` at a time,
     calling ``on_step(eng)`` after each.  Every counter in ``counters`` is
@@ -1362,7 +1381,7 @@ def serve(eng, plan, counters, k, on_step=None,
         split[ev["name"]] = split.get(ev["name"], 0.0) + ev["dur"] / 1e3
     res = [eng._results[r] for r in rids]
     ids = np.stack([r["ids"] for r in res])
-    if ids.shape != (len(rids), k) or any(r["status"] != "ok"
+    if ids.shape != (len(rids), k) or any(r["status"] not in statuses
                                           for r in res):
         raise SystemExit("serving output malformed (shape or status)")
     st = eng.stats
@@ -2433,6 +2452,8 @@ def _tier(ctx, dev, seed, saved, n_insert, n_delete, chaos_q, tmp):
 SHARD_COUNTS = (1, 2, 4)
 DEAD_SHARD = 2          # check 4 at S = 4: shard 2 lost
 ENGINE_SHARDS = (2, 4)  # phase 14 serves phase 13's indexes at these S
+ENGINE_TRAFFIC = 2048   # phase 14's closed loop (4096 before: cut to the
+                        # script's time limit)
 SHARD_FIT = 1024        # of phase 4's 2048 fit queries (cut from all of
                         # them to keep the script inside its limit)
 
@@ -3106,20 +3127,22 @@ def phase_sharded_engine(ctx, dev, kept, runs, seed):
     names = ("fused_hop", "fused_hop_paged", "pool_merge")
     obs = ObsConfig(timeline=True)
     k = ctx["cfg"].k
-    queries, gt = np.concatenate(ctx["batches"]), ctx["gt"]
+    n_q = ENGINE_TRAFFIC
+    queries = np.concatenate(ctx["batches"])[:n_q]
+    gt = ctx["gt"][:n_q]
     qb = ZipfWorkload(ctx["x"], seed=seed + 1)
-    b_warm, b_q = qb.sample(4096), qb.sample(2048)
+    b_warm, b_q = qb.sample(4096), qb.sample(n_q // 2)
     b_gt = ground_truth(ctx["x"], b_q, 10, device=dev)
     closed = [("default", queries, 0)]
     bursts = [("default", queries[i:i + 512], 4)
-              for i in range(0, 4096, 512)]
+              for i in range(0, n_q, 512)]
     mixed = []
-    for i in range(0, 2048, 64):
+    for i in range(0, n_q // 2, 64):
         mixed += [("default", queries[i:i + 64], 0),
                   ("b", b_q[i:i + 64], 0)]
     mixed_gt = np.concatenate([np.concatenate([gt[i:i + 64],
                                                b_gt[i:i + 64]])
-                               for i in range(0, 2048, 64)])
+                               for i in range(0, n_q // 2, 64)])
 
     def make(sd, paged, **kw):
         return ShardedEngine(sd, wave_size=256, tick_hops=8, paged=paged,
@@ -3178,7 +3201,7 @@ def phase_sharded_engine(ctx, dev, kept, runs, seed):
         since0 = [sh.dqf.tenants.default.counter.since_rebuild
                   for sh in sd.shards]
         fixed, fs = run(make(sd, False), closed, gt,
-                        f"S={S} closed loop, 4096 at once, fixed fused")
+                        f"S={S} closed loop, {n_q} at once, fixed fused")
         since = [sh.dqf.tenants.default.counter.since_rebuild - b
                  for sh, b in zip(sd.shards, since0)]
         if since != [len(queries)] * S:
@@ -3203,8 +3226,9 @@ def phase_sharded_engine(ctx, dev, kept, runs, seed):
         compare_serving(fixed, paged, f"S={S} check 2: paged vs fixed",
                         (fs["ticks"], ps["ticks"]))
         for title, plan, want_gt in (
-                ("open loop, 8 bursts of 512, 4 steps apart", bursts, gt),
-                ("two tenants, 2048 each, interleaved by 64", mixed,
+                (f"open loop, {len(bursts)} bursts of 512, 4 steps apart",
+                 bursts, gt),
+                (f"two tenants, {n_q // 2} each, interleaved by 64", mixed,
                  mixed_gt)):
             a, sa = run(make(sd, False), plan, want_gt,
                         f"S={S} {title}, fixed fused")
@@ -5202,10 +5226,263 @@ def _segment_mesh_check(dev, segments, batches, mesh):
                 mesh_ms=mesh_ms, one_ms=one_ms)
 
 
-def phase_distributed(dev, seed, trained, segments, batches):
+ENGINE_QUERIES = 2048            # phase 20 E's traffic (phase 9's first 2)
+ENGINE_RECALL = 0.5              # phase 20 E's guard, the float32 paths'
+
+TP_DECODE_STEPS = 32             # phase 20 F's decode steps at B = 16
+TP_CKPT_LAYERS = 4               # phase 20 F's checkpoint, cut in depth
+
+
+def _placed_twins(dev, arrays, cfg, mesh):
+    """Phase 13's S = 1 index carried twice from its arrays: placed on
+    ``mesh`` (one shard a rank, a world of one) and on one device."""
+    from repro_torch.sharding import ShardConfig, ShardedDQF
+
+    out = {}
+    for placed in (True, False):
+        sd = ShardedDQF.from_arrays(
+            [{k: np.array(v) for k, v in arrays.items()}], cfg,
+            ShardConfig(num_shards=1, use_mesh=mesh if placed else False),
+            device=dev)
+        _trigger_out_of_reach(sd)
+        out[placed] = sd
+    return out
+
+
+def _placed_engine_check(dev, engine, batches):
+    """20 E: ``ShardedEngine`` over the placed index against the unplaced
+    engine over its twin, phase 9's closed loop of 2048 queries, fixed
+    fused, paged and fixed under a chaos plan: every result bit for bit
+    with its status, the ticks equal, at most one collective a tick,
+    recall@10 of the float32 path at least 0.5."""
+    from repro_torch.chaos import FaultPlan, install_chaos
+    from repro_torch.core.recall import recall_at_k
+    from repro_torch.distributed.mesh import Mesh
+    from repro_torch.kernels.fused_hop import (fused_hop_cuda,
+                                               fused_hop_paged_cuda)
+    from repro_torch.kernels.topk_merge import pool_merge_cuda
+    from repro_torch.obs import ObsConfig
+    from repro_torch.serving.status import EngineConfig
+    from repro_torch.sharding import ShardedEngine
+
+    counters = [fused_hop_cuda, fused_hop_paged_cuda, pool_merge_cuda]
+    names = ("fused_hop", "fused_hop_paged", "pool_merge")
+    mesh = Mesh((1,), ("shard",), device_type=dev.type)
+    t0 = time.perf_counter()
+    twins = _placed_twins(dev, engine["arrays"], engine["cfg"], mesh)
+    _sync(dev)
+    log(f"  E: phase 13's S = 1 index carried twice (placed on a "
+        f"one-rank shard mesh, and unplaced) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    q = np.concatenate(batches)[:ENGINE_QUERIES]
+    gt = engine["gt"][:ENGINE_QUERIES]
+    k = engine["cfg"].k
+    plan = FaultPlan(seed=0, shard_fail_ticks={0: frozenset({5, 6, 7})})
+    cases = (("fixed fused", dict(paged=False), None),
+             ("paged fused", dict(paged=True), None),
+             ("fixed fused, chaos", dict(paged=False), plan))
+    out = {}
+    for what, kw, chaos in cases:
+        runs = {}
+        for placed in (True, False):
+            eng = ShardedEngine(
+                twins[placed], wave_size=256, tick_hops=8, page_cols=256,
+                obs=ObsConfig(timeline=True), engine_cfg=EngineConfig(
+                    quarantine_after=2, recover_after=2), **kw)
+            if chaos is not None:
+                install_chaos(eng, dataclasses.replace(chaos))
+            c0 = eng.collectives
+            _, res, launches, summ = serve(
+                eng, [("default", q, 0)], counters, k,
+                occupancy="sharded_engine_occupancy_ratio",
+                statuses=("ok",) if chaos is None else ("ok", "degraded"))
+            runs[placed] = dict(
+                res=res, launches=dict(zip(names, launches)),
+                ticks=summ["ticks"],       # less the submit's broadcast
+                collectives=eng.collectives - c0 - (1 if placed else 0),
+                ms_tick=summ["wall_s"] * 1e3 / max(summ["ticks"], 1),
+                recall=recall_at_k(np.stack([r["ids"] for r in res]), gt),
+                statuses=collections.Counter(r["status"] for r in res),
+                quarantines=eng.health.quarantines)
+            del eng
+        a, b = runs[True], runs[False]
+        compare_serving(a["res"], b["res"], f"E: {what}: placed vs "
+                        "unplaced", (a["ticks"], b["ticks"]))
+        same_status = [x["status"] for x in a["res"]] == \
+            [x["status"] for x in b["res"]]
+        log(f"  E: {what}: statuses equal {same_status} "
+            f"({dict(a['statuses'])}); {a['collectives']} collectives in "
+            f"{a['ticks']} ticks (unplaced {b['collectives']}); launches "
+            f"placed {a['launches']}, unplaced {b['launches']}; ms a tick "
+            f"placed {a['ms_tick']:.3f}, unplaced {b['ms_tick']:.3f} (host "
+            f"wall over the run); recall@10 {a['recall']:.4f}; "
+            f"quarantines {a['quarantines']}")
+        if not same_status:
+            raise RuntimeError(f"phase 20 E: {what}: statuses differ")
+        if a["launches"] != b["launches"] or (dev.type == "cuda" and not (
+                a["launches"]["pool_merge"] > 0 and a["launches"][
+                    "fused_hop_paged" if kw["paged"] else "fused_hop"] > 0)):
+            raise RuntimeError(f"phase 20 E: {what}: launches placed "
+                               f"{a['launches']}, unplaced {b['launches']}")
+        if not 0 < a["collectives"] <= a["ticks"] + 1:
+            raise RuntimeError(f"phase 20 E: {what}: {a['collectives']} "
+                               f"collectives in {a['ticks']} ticks")
+        if chaos is None and a["recall"] < ENGINE_RECALL:
+            raise RuntimeError(f"phase 20 E: {what}: recall@10 "
+                               f"{a['recall']:.4f} < {ENGINE_RECALL}")
+        if chaos is not None and not (a["quarantines"] >= 1 and
+                                      a["statuses"]["degraded"] > 0):
+            raise RuntimeError("phase 20 E: the chaos plan did not bite")
+        out[what] = {key: a[key] for key in ("launches", "ticks",
+                                             "collectives", "ms_tick",
+                                             "recall")}
+        out[what]["unplaced_ms_tick"] = b["ms_tick"]
+    del twins
+    return out
+
+
+def _tp_state(state, model, dev):
+    """A ``TrainState`` over ``model`` with a copy of ``state``'s moments
+    and step (no residual)."""
+    from repro_torch.optim.adamw import AdamWState
+    from repro_torch.training import TrainState
+
+    for p in model.parameters():
+        p.requires_grad_(True)
+    opt = state.opt
+    return TrainState(model, AdamWState(
+        opt.step.clone(), {k: t.clone() for k, t in opt.m.items()},
+        {k: t.clone() for k, t in opt.v.items()}), None)
+
+
+def _tp_checkpoint(dev, model, state, mesh):
+    """20 F's checkpoint: ``model``'s first ``TP_CKPT_LAYERS`` layers (and
+    its embedding and final norm, their moments and step) cut over the
+    mesh, saved by the ``Checkpointer`` and restored into a fresh state
+    cut over the same mesh: every leaf bit for bit."""
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.distributed.tensor_parallel import shard_lm
+    from repro_torch.models import DecoderLM
+    from repro_torch.optim.adamw import AdamWState
+    from repro_torch.training import TrainConfig, TrainState
+    from repro_torch.training.train_step import train_state_init
+
+    cfg = dataclasses.replace(model.cfg, num_layers=TP_CKPT_LAYERS)
+    cut = DecoderLM(cfg, seed=None, device=dev)
+    src = dict(model.named_parameters())
+    names = [n for n, _ in cut.named_parameters()]
+    with torch.no_grad():
+        for n, p in cut.named_parameters():
+            p.copy_(src[n])
+    shard_lm(cut, mesh)
+    opt = state.opt
+    saved = TrainState(cut, AdamWState(
+        opt.step.clone(), {n: opt.m[n].clone() for n in names},
+        {n: opt.v[n].clone() for n in names}), None)
+    fresh = DecoderLM(cfg, seed=None, device=dev)
+    shard_lm(fresh, mesh)
+    fresh = train_state_init(fresh, TrainConfig(), mesh=mesh)
+    with tempfile.TemporaryDirectory(prefix="phase20f_") as tmp:
+        ck = Checkpointer(tmp)
+        t0 = time.perf_counter()
+        ck.save(1, saved, block=True)
+        t1 = time.perf_counter()
+        fresh, meta = Checkpointer(tmp).restore(fresh)
+        _sync(dev)
+        t2 = time.perf_counter()
+    pairs = [(p, dict(fresh.model.named_parameters())[n])
+             for n, p in cut.named_parameters()]
+    pairs += [(saved.opt.m[n], fresh.opt.m[n]) for n in names]
+    pairs += [(saved.opt.v[n], fresh.opt.v[n]) for n in names]
+    pairs.append((saved.opt.step, fresh.opt.step))
+    same = all(_same_bits(a, b) for a, b in pairs)
+    log(f"  F: checkpoint of {TP_CKPT_LAYERS} layers ({ck.last_bytes} "
+        f"bytes) written in {t1 - t0:.2f} s, restored onto the same mesh in "
+        f"{t2 - t1:.2f} s: {len(pairs)} leaves bit for bit {same}")
+    if not same or meta["step"] != 1:
+        raise RuntimeError("phase 20 F: the restored checkpoint differs")
+    return dict(ckpt_bytes=ck.last_bytes, save_s=t1 - t0, restore_s=t2 - t1)
+
+
+def _tp_check(dev, seed, state, tcfg, mesh):
+    """20 F: tensor parallelism at a model axis of one rank on phase 19's
+    restored Qwen3-0.6B against the plain model on a twin: one train
+    step (4 x 256 tokens) and 32 decode steps at B = 16 bit for bit, then
+    a checkpoint restored onto the same mesh."""
+    from repro_torch.data.pipeline import DataConfig, make_source
+    from repro_torch.distributed.tensor_parallel import shard_lm
+    from repro_torch.training import make_train_step
+
+    model = state.model
+    twin = _clone_model(model, dev)
+    tp = shard_lm(twin, mesh)
+    tstate = _tp_state(state, twin, dev)
+    tcfg = dataclasses.replace(tcfg, microbatches=1)
+    one = make_train_step(model, tcfg)
+    split = make_train_step(twin, tcfg, mesh=mesh)
+    b = {k: torch.as_tensor(v, device=dev) for k, v in make_source(
+        DataConfig(vocab_size=model.cfg.vocab_size, seq_len=256,
+                   global_batch=4, seed=seed + 21)).batch(0).items()}
+    ms = {}
+    for name, fn, st in (("plain", one, state), ("tp", split, tstate)):
+        _sync(dev)
+        a = _mark(dev)
+        st, m = fn(st, b)
+        e = _mark(dev)
+        _sync(dev)
+        ms[name] = _ms_between(a, e, dev)
+        if name == "plain":
+            state, loss_plain = st, m["loss"]
+        else:
+            tstate, loss_tp = st, m["loss"]
+    same_loss = _same_bits(loss_plain, loss_tp)
+    same = all(_same_bits(p, q) for p, q in zip(model.parameters(),
+                                                twin.parameters()))
+    gen = np.random.default_rng(seed + 21)
+    tokens = torch.as_tensor(gen.integers(0, model.cfg.vocab_size, (
+        TP_DECODE_STEPS, 16, 1)).astype(np.int64), device=dev)
+    logits, dec_ms = {}, {}
+    for name, m_, kw in (("plain", model, {}), ("tp", twin,
+                                                {"mesh": mesh})):
+        with torch.no_grad():           # warm both paths before the clock
+            warm = m_.init_decode_caches(16, 2 * TP_DECODE_STEPS, **kw)
+            for t in range(2):
+                m_.decode_step(tokens[t], warm, t, **kw)
+            del warm
+            caches = m_.init_decode_caches(16, 2 * TP_DECODE_STEPS, **kw)
+            out = []
+            a = _mark(dev)
+            for t in range(TP_DECODE_STEPS):
+                lg, caches = m_.decode_step(tokens[t], caches, t, **kw)
+                out.append(lg)
+            e = _mark(dev)
+            _sync(dev)
+        dec_ms[name] = _ms_between(a, e, dev) / TP_DECODE_STEPS
+        logits[name] = torch.stack(out)
+        del caches
+    same_dec = _same_bits(logits["plain"], logits["tp"])
+    log(f"  F: {model.cfg.name} cut over a (1, 1) mesh ({tp}): one train "
+        f"step (4 x 256 tokens) loss bit for bit {same_loss}, every "
+        f"parameter after it bit for bit {same}; ms the step plain "
+        f"{ms['plain']:.3f}, tensor-parallel {ms['tp']:.3f} (its first "
+        f"call); "
+        f"{TP_DECODE_STEPS} decode steps at B = 16 bit for bit {same_dec}, "
+        f"ms a step plain {dec_ms['plain']:.3f}, tensor-parallel "
+        f"{dec_ms['tp']:.3f} (CUDA events)")
+    if not (same_loss and same and same_dec):
+        raise RuntimeError("phase 20 F: tensor parallelism at one rank "
+                           "differs from the plain path")
+    del logits
+    ck = _tp_checkpoint(dev, twin, tstate, mesh)
+    del twin, tstate
+    return dict(step_ms=ms, decode_ms=dec_ms, **ck), state
+
+
+def phase_distributed(dev, seed, trained, segments, batches, engine):
     """Phase 20 (module docstring): the multi-rank code at world 1 over
     NCCL.  ``trained`` is phase 19's result (its restored state),
-    ``segments`` phase 16's summary (its segment 0)."""
+    ``segments`` phase 16's summary (its segment 0), ``engine`` phase
+    13's S = 1 arrays with phase 4's config and ground truth."""
     import torch.distributed as dist
 
     from repro_torch.distributed.mesh import init_distributed, make_test_mesh
@@ -5236,9 +5513,16 @@ def phase_distributed(dev, seed, trained, segments, batches):
         t = time.perf_counter()
         seg = _segment_mesh_check(dev, segments, batches, mesh)
         log(f"  (D: {time.perf_counter() - t:.1f} s)")
+        t = time.perf_counter()
+        eng = _placed_engine_check(dev, engine, batches)
+        log(f"  (E: {time.perf_counter() - t:.1f} s)")
+        t = time.perf_counter()
+        tp, _ = _tp_check(dev, seed, trained["state"], trained["tcfg"],
+                          make_test_mesh(1, 1))
+        log(f"  (F: {time.perf_counter() - t:.1f} s)")
     finally:
         dist.destroy_process_group()
-    return dict(flash=flash, dp=dp, segments=seg)
+    return dict(flash=flash, dp=dp, segments=seg, engine=eng, tp=tp)
 
 
 def main() -> int:
@@ -5358,6 +5642,7 @@ def main() -> int:
           "chaos)")
     t12 = time.perf_counter()
     f32_arrays = {k: v.copy() for k, v in saved["f32"].items()}
+    engine_arrays = {k: v.copy() for k, v in f32_arrays.items()}  # 20 E
     tier = phase_tier(ctx, dev, args.seed, saved)
     del saved
     by_name["fused_topk_l2"]["tier"] = {"launches":
@@ -5399,7 +5684,8 @@ def main() -> int:
         e["sharded_engine"] = {
             "launches": {S: o["launches"][engine][counter]
                          for S, o in served.items()},
-            "launches_note": f"the {engine} engine's closed loop of 4096 "
+            "launches_note": f"the {engine} engine's closed loop of "
+                             f"{ENGINE_TRAFFIC} "
                              "queries (every tick one launch"
                              + (", and one a refill's hot phase)"
                                 if counter == "fused_hop" else ")"),
@@ -5450,13 +5736,28 @@ def main() -> int:
 
     phase("phase 20: the multi-rank code at world 1 over NCCL (flash "
           "decoding at full width, data-parallel steps, the segment search "
-          "on a mesh)")
+          "on a mesh, the engine over a placed index, tensor parallelism)")
     t20 = time.perf_counter()
-    dist_out = phase_distributed(dev, args.seed, trained, seg_summary,
-                                 ctx["batches"])
-    del trained, seg_summary
+    dist_out = phase_distributed(
+        dev, args.seed, trained, seg_summary, ctx["batches"],
+        dict(arrays=engine_arrays, cfg=ctx["cfg"], gt=ctx["gt"]))
+    del trained, seg_summary, engine_arrays
     seg = dist_out["segments"]
     by_name = {e["name"]: e for e in entries}
+    for name, counter, case in (
+            ("fused_hop (f32)", "fused_hop", "fixed fused"),
+            ("fused_hop_paged", "fused_hop_paged", "paged fused"),
+            ("pool_merge", "pool_merge", "fixed fused")):
+        run = dist_out["engine"][case]
+        by_name[name]["placed_engine"] = {
+            "launches": run["launches"][counter],
+            "launches_note": "phase 20 E: ShardedEngine over phase 13's "
+                             "S = 1 index placed on a one-rank mesh, "
+                             f"{ENGINE_QUERIES} queries closed loop, "
+                             f"{case}",
+            "ms_a_tick": run["ms_tick"],
+            "unplaced_ms_a_tick": run["unplaced_ms_tick"],
+            "collectives": run["collectives"], "ticks": run["ticks"]}
     for name, key in (("fused_hop (f32, segment index)", "hop_launches"),
                       ("pool_merge (segment merge)", "merge_launches")):
         by_name[name]["distributed"] = {

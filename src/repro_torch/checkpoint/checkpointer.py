@@ -26,7 +26,12 @@ parallelism keeps the state replicated) every rank calls ``save`` and
 meet at a barrier, rank 0 alone writes, and a blocking save ends at a
 second barrier, after the directory is published; every rank restores
 from the same files, so a checkpoint written by a world of 4 restores
-onto a world of 2 bit for bit.
+onto a world of 2 bit for bit.  A sharded state (tensor parallelism over
+the model axis, ZeRO-1 moments over the data axes) is first gathered
+whole on every rank (:func:`repro_torch.distributed.tensor_parallel.
+whole_state`), so rank 0 writes whole tensors under the reference's keys
+and a checkpoint does not depend on the mesh; ``restore`` cuts each
+whole leaf into the blocks of the mesh it runs on.
 """
 
 from __future__ import annotations
@@ -86,6 +91,10 @@ class Checkpointer:
         """Snapshot (device→host now, IO async); over a process group
         rank 0 writes after a barrier (see the module docstring)."""
         self.wait()                         # one in-flight save at a time
+        from repro_torch.distributed import tensor_parallel as tpar
+
+        t0 = time.perf_counter()
+        whole = tpar.whole_state(state) if tpar.is_sharded(state) else None
         dist = _group()
         if dist is not None:
             dist.barrier()
@@ -93,13 +102,13 @@ class Checkpointer:
                 if block:
                     dist.barrier()
                 return
-        t0 = time.perf_counter()
-        host = train_state_to_arrays(state)
+        host = train_state_to_arrays(state, whole)
         meta = {"step": step, "time": time.time(),
                 "dtypes": {k: str(ts[0].dtype).removeprefix("torch.")
                            for k, (ts, _) in
-                           train_state_leaves(state).items()},
+                           train_state_leaves(state, whole).items()},
                 **(extra or {})}
+        del whole
         self.last_blocked_s = time.perf_counter() - t0
         self.last_bytes = sum(a.nbytes for a in host.values())
 

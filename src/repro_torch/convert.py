@@ -150,29 +150,45 @@ def lm_to_arrays(src, cfg=None) -> dict:
     return tree
 
 
-def train_state_leaves(state) -> dict[str, tuple[list, bool]]:
-    """A port ``TrainState``'s tensors under the reference checkpoint's
-    flat keys: key → (tensors, one a layer when stacked)."""
-    params = dict(state.model.named_parameters())
+def _state_layout(state) -> dict:
+    """A ``TrainState``'s checkpoint keys: key → (kind, parameter names
+    in stack order, stacked); kind ``param``, ``m``, ``v``, ``err`` or
+    ``step``."""
+    params = [n for n, _ in state.model.named_parameters()]
     layout = _lm_layout(state.model.cfg, params)
-    groups = [(".params", params), (".opt.m", state.opt.m),
-              (".opt.v", state.opt.v)]
+    kinds = [(".params", "param"), (".opt.m", "m"), (".opt.v", "v")]
     if state.err is not None:
-        groups.append((".err", state.err))
-    out = {}
-    for prefix, tensors in groups:
-        for path, (names, stacked) in layout.items():
-            out[prefix + _keystr(path)] = ([tensors[n] for n in names],
-                                           stacked)
-    out[".opt.step"] = ([state.opt.step], False)
+        kinds.append((".err", "err"))
+    out = {prefix + _keystr(path): (kind, names, stacked)
+           for prefix, kind in kinds
+           for path, (names, stacked) in layout.items()}
+    out[".opt.step"] = ("step", None, False)
     return out
 
 
-def train_state_to_arrays(state) -> dict[str, np.ndarray]:
+def _state_tensors(state) -> dict:
+    return {"param": dict(state.model.named_parameters()),
+            "m": state.opt.m, "v": state.opt.v, "err": state.err}
+
+
+def train_state_leaves(state, whole: dict | None = None
+                       ) -> dict[str, tuple[list, bool]]:
+    """A port ``TrainState``'s tensors under the reference checkpoint's
+    flat keys: key → (tensors, one a layer when stacked).  ``whole``
+    (``{kind: {name: tensor}}``, :func:`repro_torch.distributed.
+    tensor_parallel.whole_state`) stands for a sharded state's tensors."""
+    tensors = whole if whole is not None else _state_tensors(state)
+    return {key: (([state.opt.step], False) if kind == "step" else
+                  ([tensors[kind][n] for n in names], stacked))
+            for key, (kind, names, stacked) in _state_layout(state).items()}
+
+
+def train_state_to_arrays(state, whole: dict | None = None
+                          ) -> dict[str, np.ndarray]:
     """The flat arrays a checkpoint holds (:func:`train_state_leaves`'
     keys), copied to the host; bfloat16 leaves as their 16 bits."""
     return {k: _host_array(ts, stacked)
-            for k, (ts, stacked) in train_state_leaves(state).items()}
+            for k, (ts, stacked) in train_state_leaves(state, whole).items()}
 
 
 def _shape_of(flat, key: str) -> tuple:
@@ -190,20 +206,44 @@ def load_train_state_(state, flat):
     """Copy a flat checkpoint mapping into ``state`` in place (params,
     ``m``, ``v``, step and, if ``state`` carries one, the error residual),
     every key and shape checked before anything is written; each leaf is
-    cast to its tensor's dtype.  Returns ``state``."""
-    leaves = train_state_leaves(state)
-    for key, (ts, stacked) in leaves.items():
+    cast to its tensor's dtype.  A sharded state (tensor parallelism or
+    ZeRO-1) takes this rank's block of each whole leaf.  Returns
+    ``state``."""
+    from repro_torch.distributed import tensor_parallel as tpar
+
+    sharded = tpar.is_sharded(state)
+    local = _state_tensors(state)
+    layout = _state_layout(state)
+
+    def whole_shape(kind, name):
+        t = local[kind][name]
+        return (tpar.whole_shape(state, name, kind, t) if sharded
+                else tuple(t.shape))
+
+    for key, (kind, names, stacked) in layout.items():
         if key not in flat:
             raise KeyError(f"checkpoint missing {key}")
-        want = (len(ts), *ts[0].shape) if stacked else tuple(ts[0].shape)
+        if kind == "step":
+            want = tuple(state.opt.step.shape)
+        else:
+            one = whole_shape(kind, names[0])
+            want = (len(names), *one) if stacked else one
         got = _shape_of(flat, key)
         if got != want:
             raise ValueError(f"{key}: checkpoint shape {got} != {want}")
     with torch.no_grad():
-        for key, (ts, stacked) in leaves.items():
+        for key, (kind, names, stacked) in layout.items():
+            if kind == "step":
+                state.opt.step.copy_(_tensor(flat[key],
+                                             state.opt.step.dtype))
+                continue
+            ts = [local[kind][n] for n in names]
             src = _tensor(flat[key], ts[0].dtype)
-            for j, t in enumerate(ts):
-                t.copy_(src[j] if stacked else src)
+            for j, (n, t) in enumerate(zip(names, ts)):
+                leaf = src[j] if stacked else src
+                if sharded:
+                    leaf = tpar.local_block(state, n, kind, leaf)
+                t.copy_(leaf)
     return state
 
 

@@ -24,8 +24,16 @@ the checkpoints.
 
   torchrun --nproc-per-node 4 -m repro_torch.launch.train --mesh 4x1 ...
 
-A model axis above 1 (``--mesh DxM``, M > 1) raises
-``NotImplementedError``: it needs tensor parallelism.
+Tensor parallelism: ``--mesh DxM`` with M > 1 trains a config of the
+dense, local and global kinds over a world of D·M ranks, the model cut
+over the model axis (:func:`repro_torch.distributed.tensor_parallel.
+shard_lm`); ranks with the same data index read the same rows.  Any
+mesh places AdamW's moments by ZeRO-1 over the data axis.  Another
+config at M > 1 raises ``NotImplementedError`` (the next slice), and a
+mesh that is not the world's size raises ``ValueError`` before any
+process group is made.
+
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train --mesh 2x2 ...
 """
 
 from __future__ import annotations
@@ -33,10 +41,6 @@ from __future__ import annotations
 import argparse
 import os
 import time
-
-TENSOR_PARALLEL = ("a model axis above 1 needs tensor parallelism, "
-                   "ROADMAP queue 1 item 2's next step; the port trains "
-                   "data-parallel only (--mesh Dx1)")
 
 
 def main(argv=None):
@@ -55,18 +59,12 @@ def main(argv=None):
                                                             "file"))
     ap.add_argument("--data-path", default=None)
     ap.add_argument("--mesh", default="",
-                    help="(data)x(model); the model axis must be 1")
+                    help="(data)x(model), their product the world's size")
     ap.add_argument("--compress-grads", action="store_true")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda",
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
-
-    data = None
-    if args.mesh:
-        data, m = (int(v) for v in args.mesh.split("x"))
-        if m > 1:
-            raise NotImplementedError(f"--mesh {args.mesh}: {TENSOR_PARALLEL}")
 
     import torch
     import torch.distributed as dist
@@ -76,27 +74,36 @@ def main(argv=None):
     from repro_torch.core.dqf import resolve_device
     from repro_torch.data.pipeline import DataConfig, make_source
     from repro_torch.distributed.mesh import init_distributed, make_test_mesh
+    from repro_torch.distributed.tensor_parallel import (check_kinds,
+                                                         shard_lm)
     from repro_torch.models import DecoderLM
     from repro_torch.training.train_step import (TrainConfig,
                                                  make_train_step,
                                                  train_state_init)
 
-    dev = resolve_device(None if args.device == "cuda" else args.device,
-                         what="launch.train")
-    mesh, rank = None, 0
-    if (data or 1) > 1 or dist.is_initialized() or "WORLD_SIZE" in \
-            os.environ:
-        dev = init_distributed(dev)
-        world = dist.get_world_size()
-        data = world if data is None else data
-        if data != world:
-            raise ValueError(f"--mesh {args.mesh} needs a world of {data} "
-                             f"ranks; the world has {world}")
-        mesh = make_test_mesh(data, 1)
-        rank = mesh.index("data")
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    data, model_axis = None, 1
+    if args.mesh:
+        data, model_axis = (int(v) for v in args.mesh.split("x"))
+        check_kinds(cfg, model_axis)
+        world = (dist.get_world_size() if dist.is_initialized() else
+                 int(os.environ.get("WORLD_SIZE", "1")))
+        if data * model_axis != world:
+            raise ValueError(f"--mesh {args.mesh} needs a world of "
+                             f"{data * model_axis} ranks; the world has "
+                             f"{world}")
+
+    dev = resolve_device(None if args.device == "cuda" else args.device,
+                         what="launch.train")
+    mesh, rank = None, 0
+    if (data or 1) * model_axis > 1 or dist.is_initialized() or \
+            "WORLD_SIZE" in os.environ:
+        dev = init_distributed(dev)
+        data = dist.get_world_size() if data is None else data
+        mesh = make_test_mesh(data, model_axis)
+        rank = mesh.index("data")
 
     tcfg = TrainConfig(microbatches=args.microbatches, peak_lr=args.lr,
                        warmup_steps=max(args.steps // 20, 5),
@@ -104,7 +111,9 @@ def main(argv=None):
                        compress_grads=args.compress_grads,
                        remat=not args.reduced)
     model = DecoderLM(cfg, seed=0, device=dev)
-    state = train_state_init(model, tcfg)
+    if model_axis > 1:
+        shard_lm(model, mesh)
+    state = train_state_init(model, tcfg, mesh=mesh)
     step_fn = make_train_step(model, tcfg, mesh=mesh)
 
     source = make_source(DataConfig(

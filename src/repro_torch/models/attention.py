@@ -31,6 +31,16 @@ The sequence-sharded flash decode (``flash_mesh``, :func:`_flash_decode`)
 splits a GQA ring cache over a mesh's model axis, one ``W / S`` block a
 rank (:func:`flash_cache_shard`), and combines the ranks' softmax
 statistics and outputs with two small ``all_reduce`` calls a layer.
+
+Tensor parallelism (``tp`` = (:class:`~repro_torch.distributed.
+tensor_parallel.TensorParallel`, :class:`~repro_torch.distributed.
+tensor_parallel.HeadSplit`)) splits a GQA layer by whole heads: ``wq``,
+``wk`` and ``wv`` are this rank's heads' columns, QK-norm and RoPE act on
+those heads, ``wo`` is row-parallel with one ``all_reduce`` a layer, and
+the decode ring cache holds this rank's kv heads.  Where the kv heads do
+not divide over the model axis, ``wk`` and ``wv`` are replicated: every
+rank projects every kv head and keeps those its query heads read.  Flash
+decoding and tensor parallelism on the same model axis are refused.
 """
 
 from __future__ import annotations
@@ -178,52 +188,84 @@ def init_gqa_params(gen, cfg, dtype, device) -> torch.nn.ParameterDict:
     return torch.nn.ParameterDict(p)
 
 
-def _gqa_qkv(p, x, positions, *, cfg, theta):
+def _gqa_qkv(p, x, positions, *, cfg, theta, tp=None):
     """Projections, per-head QK-RMSNorm (when the config has it), then
-    RoPE on q and k."""
+    RoPE on q and k; with ``tp`` this rank's heads (module docstring)."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = (x @ p["wq"]).reshape(B, S, cfg.num_heads, hd)
-    k = (x @ p["wk"]).reshape(B, S, cfg.num_kv_heads, hd)
-    v = (x @ p["wv"]).reshape(B, S, cfg.num_kv_heads, hd)
+    if tp is None:
+        q = (x @ p["wq"]).reshape(B, S, cfg.num_heads, hd)
+        k = (x @ p["wk"]).reshape(B, S, cfg.num_kv_heads, hd)
+        v = (x @ p["wv"]).reshape(B, S, cfg.num_kv_heads, hd)
+        if cfg.qk_norm:
+            q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+            k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+        sin, cos = rope_angles(positions, hd, theta)
+        return apply_rope(q, sin, cos), apply_rope(k, sin, cos), v
+    ctx, hs = tp
+    xc = ctx.copy(x)
+    q = (xc @ p["wq"]).reshape(B, S, hs.hq, hd)
+    if hs.kv_split:
+        k = (xc @ p["wk"]).reshape(B, S, hs.hkv, hd)
+        v = (xc @ p["wv"]).reshape(B, S, hs.hkv, hd)
+    else:       # whole on every rank; the gradient summed after the pick
+        k = (x @ p["wk"]).reshape(B, S, cfg.num_kv_heads, hd)
+        v = (x @ p["wv"]).reshape(B, S, cfg.num_kv_heads, hd)
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+        q = rms_norm(q, ctx.copy(p["q_norm"]), cfg.norm_eps)
+        k = rms_norm(k, ctx.copy(p["k_norm"]) if hs.kv_split
+                     else p["k_norm"], cfg.norm_eps)
     sin, cos = rope_angles(positions, hd, theta)
-    return apply_rope(q, sin, cos), apply_rope(k, sin, cos), v
+    q, k = apply_rope(q, sin, cos), apply_rope(k, sin, cos)
+    if not hs.kv_split:
+        held = slice(hs.kv_lo, hs.kv_lo + hs.hkv)
+        k, v = ctx.copy(k)[:, :, held], ctx.copy(v)[:, :, held]
+    return q, k, v
+
+
+def _expand_kv(t: torch.Tensor, groups: int, tp=None) -> torch.Tensor:
+    """A kv tensor (B, ·, Hkv, hd) spread over its query heads: each kv
+    head repeated ``groups`` times, or (replicated kv under ``tp``) each
+    local query head's held kv head."""
+    if tp is None or tp[1].kv_split:
+        return torch.repeat_interleave(t, groups, dim=2)
+    return t.index_select(2, tp[1].kv_map)
 
 
 def gqa_forward(p, x, *, cfg, theta: float, window: int,
                 chunk_q: int = 1024, chunk_k: int = 1024,
-                return_kv: bool = False):
-    """Prefill GQA over the full sequence."""
+                return_kv: bool = False, tp=None):
+    """Prefill GQA over the full sequence (``tp``: module docstring)."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
-    n_kv = cfg.num_kv_heads
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
-    q, k, v = _gqa_qkv(p, x, positions, cfg=cfg, theta=theta)
-    groups = cfg.num_heads // n_kv
+    q, k, v = _gqa_qkv(p, x, positions, cfg=cfg, theta=theta, tp=tp)
+    n_kv = k.shape[2]
+    groups = cfg.num_heads // cfg.num_kv_heads
     kv_raw = torch.cat([k.reshape(B, S, -1), v.reshape(B, S, -1)], dim=-1)
 
     def expand(kvc, j):
         ck = kvc.shape[1]
         kk = kvc[..., : n_kv * hd].reshape(B, ck, n_kv, hd)
         vv = kvc[..., n_kv * hd:].reshape(B, ck, n_kv, hd)
-        return (torch.repeat_interleave(kk, groups, dim=2),
-                torch.repeat_interleave(vv, groups, dim=2))
+        return _expand_kv(kk, groups, tp), _expand_kv(vv, groups, tp)
 
     out = chunked_attention(q, kv_raw, expand, chunk_q=chunk_q,
                             chunk_k=chunk_k, causal=True, window=window)
     out = out.reshape(B, S, -1) @ p["wo"]
+    if tp is not None:
+        out = tp[0].reduce(out)
     if return_kv:
         return out, (k, v)
     return out
 
 
 def gqa_init_cache(cfg, batch: int, max_len: int, window: int, dtype,
-                   device) -> KVCache:
+                   device, kv_heads: Optional[int] = None) -> KVCache:
+    """An empty ring cache of ``kv_heads`` heads (the config's unless
+    given: this rank's under tensor parallelism)."""
     W = min(window, max_len) if window else max_len
-    shape = (batch, W, cfg.num_kv_heads, cfg.resolved_head_dim)
+    shape = (batch, W, kv_heads or cfg.num_kv_heads, cfg.resolved_head_dim)
     return KVCache(
         k=torch.zeros(shape, dtype=dtype, device=device),
         v=torch.zeros(shape, dtype=dtype, device=device),
@@ -232,18 +274,22 @@ def gqa_init_cache(cfg, batch: int, max_len: int, window: int, dtype,
 
 
 def gqa_decode(p, x1, cache: KVCache, pos: int, *, cfg, theta: float,
-               window: int, flash_mesh=None):
+               window: int, flash_mesh=None, tp=None):
     """One decode step at absolute position ``pos``: writes the new K/V
     into the cache's slot ``pos % W`` in place and returns (out, cache).
 
     ``flash_mesh``: the flash-decoding path over the mesh's model axis
     (:func:`_flash_decode`); ``cache`` is then this rank's ``W / S``
-    slots (:func:`flash_cache_shard`)."""
+    slots (:func:`flash_cache_shard`).  ``tp``: this rank's heads, the
+    cache holding its kv heads (module docstring)."""
     B = x1.shape[0]
     hd = cfg.resolved_head_dim
     pos = int(pos)
+    if tp is not None and flash_mesh is not None:
+        raise ValueError("flash decoding and tensor parallelism on the "
+                         "same model axis are not combined")
     positions = torch.full((1, 1), pos, dtype=torch.int32, device=x1.device)
-    q, k, v = _gqa_qkv(p, x1, positions, cfg=cfg, theta=theta)
+    q, k, v = _gqa_qkv(p, x1, positions, cfg=cfg, theta=theta, tp=tp)
     if flash_mesh is not None:
         o, cache = _flash_decode(q, k, v, cache, pos, cfg=cfg,
                                  window=window, mesh=flash_mesh)
@@ -257,11 +303,12 @@ def gqa_decode(p, x1, cache: KVCache, pos: int, *, cfg, theta: float,
     if window:
         live &= cache.pos > pos - window
     groups = cfg.num_heads // cfg.num_kv_heads
-    k_all = torch.repeat_interleave(cache.k, groups, dim=2)
-    v_all = torch.repeat_interleave(cache.v, groups, dim=2)
+    k_all = _expand_kv(cache.k, groups, tp)
+    v_all = _expand_kv(cache.v, groups, tp)
     o = _decode_attention(q, k_all, v_all, live[None].expand(B, W),
                           hd ** -0.5)
-    return o.reshape(B, 1, -1) @ p["wo"], cache
+    o = o.reshape(B, 1, -1) @ p["wo"]
+    return (o if tp is None else tp[0].reduce(o)), cache
 
 
 

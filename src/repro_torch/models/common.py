@@ -8,6 +8,16 @@ Conventions kept from it:
 * parameters live in ``cfg.dtype`` (bf16 in production); math that needs
   it (norms, softmax, rope, the vocab logits) runs in float32.
 
+Under tensor parallelism (``tp``, a
+:class:`~repro_torch.distributed.tensor_parallel.TensorParallel` whose
+vocabulary tables are split by rows over the model axis) :func:`embed`
+looks up the rows this rank holds and sums over the model group,
+:func:`unembed` returns this rank's vocabulary slice of the logits, and
+:func:`softmax_cross_entropy` reduces the max, the sum of exponentials
+and the label's logit over the group, so no rank holds ``(B, S, V)``
+whole while training.  At a model axis of one rank each is the plain
+expression bit for bit, its gradient included.
+
 The init draws truncated normals at the reference's standard deviations
 from a ``torch.Generator``; the values differ from JAX's draws, so weights
 that must match the reference are carried by
@@ -99,29 +109,81 @@ def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor
 
 
 def embed(table: torch.Tensor, tokens: torch.Tensor,
-          scale: float = 1.0) -> torch.Tensor:
-    out = table[tokens]
+          scale: float = 1.0, tp=None) -> torch.Tensor:
+    if tp is None:
+        out = table[tokens]
+    else:                   # this rank's rows, then the sum over ranks
+        V = table.shape[0]
+        local = tokens - tp.index * V
+        mine = (local >= 0) & (local < V)
+        out = table[local.clamp(0, V - 1)]
+        out = tp.reduce(torch.where(mine[..., None], out,
+                                    torch.zeros((), dtype=out.dtype,
+                                                device=out.device)))
     if scale != 1.0:
         out = (out.float() * scale).to(out.dtype)
     return out
 
 
-def unembed(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+def unembed(x: torch.Tensor, table: torch.Tensor, tp=None) -> torch.Tensor:
     """Vocab logits in float32 (the reference's ``preferred_element_type``):
     a bf16 operand is widened first, which is exact, so the products and
-    their sum are float32 and never rounded to the operands' dtype."""
+    their sum are float32 and never rounded to the operands' dtype.  With
+    ``tp`` the logits of this rank's vocabulary slice."""
+    if tp is not None:
+        x = tp.copy(x)
     return x.float() @ table.float().T
 
 
+class _VocabParallelNLL(torch.autograd.Function):
+    """Each token's NLL from this rank's vocabulary slice of the logits:
+    ``torch.logsumexp``'s expression with its max and sum of exponentials
+    reduced over the model group, less the label's logit, which only its
+    owner holds; the backward is autograd's of the plain expression,
+    ``g · exp(x − lse)`` less ``g`` at the label."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, tp):
+        import torch.distributed as dist
+
+        x = logits.float()
+        V = x.shape[-1]
+        m = torch.amax(x, dim=-1, keepdim=True)
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=tp.group)
+        m.masked_fill_(m.abs() == float("inf"), 0)
+        s = torch.sum(torch.exp(x - m), dim=-1)
+        local = labels.long() - tp.index * V
+        mine = (local >= 0) & (local < V)
+        idx = local.clamp(0, V - 1)[..., None]
+        ll = torch.where(mine, torch.gather(x, -1, idx)[..., 0], 0.0)
+        both = torch.stack([s, ll])
+        dist.all_reduce(both, group=tp.group)
+        lse = torch.log(both[0]) + m[..., 0]
+        ctx.save_for_backward(x, lse, idx, mine)
+        return lse - both[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        x, lse, idx, mine = ctx.saved_tensors
+        grad = g[..., None] * torch.exp(x - lse[..., None])
+        grad.scatter_add_(-1, idx, torch.where(mine, -g, 0.0)[..., None])
+        return grad, None, None
+
+
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                          mask: torch.Tensor | None = None) -> torch.Tensor:
+                          mask: torch.Tensor | None = None,
+                          tp=None) -> torch.Tensor:
     """Mean token NLL; logits (..., V) float32, labels (...) integer ids:
     a float32 ``logsumexp`` less the gathered logit, then the mean (or
-    the mean over ``mask``), as the reference's expression."""
-    logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    nll = lse - ll
+    the mean over ``mask``), as the reference's expression.  With ``tp``
+    ``logits`` are this rank's vocabulary slice (:func:`unembed`)."""
+    if tp is not None:
+        nll = _VocabParallelNLL.apply(logits, labels, tp)
+    else:
+        logits = logits.float()
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+        nll = lse - ll
     if mask is not None:
         mask = mask.float()
         return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)

@@ -31,6 +31,17 @@ As the reference's, an xLSTM layer's prefill returns no cache (its
 ``_block_forward`` returns None for them): an xLSTM sequence is decoded
 from :meth:`DecoderLM.init_decode_caches`, one token a step.
 
+Tensor parallelism: :func:`repro_torch.distributed.tensor_parallel.
+shard_lm` cuts a model's parameters into this rank's blocks over a mesh's
+model axis and wires its dense, local and global layers (attention by
+whole heads, the MLP column- then row-parallel) and its vocabulary tables
+(rows); ``forward``, ``init_decode_caches``, ``decode_step`` and
+:func:`lm_loss` then run the split, and take that mesh (``mesh=``, which
+must be the one the model was sharded over).  ``forward`` and
+``decode_step`` return the logits gathered along the vocabulary;
+:func:`lm_loss` keeps each rank's slice and reduces its cross-entropy
+over the model group.
+
 The model runs on the card unless ``device="cpu"`` is given; its weights
 are drawn from ``seed`` by a ``torch.Generator`` on that device.
 """
@@ -118,6 +129,10 @@ class Block(torch.nn.Module):
         self.kind = kind
         self.cfg = cfg
         self.theta, self.window = _kind_attn_mode(cfg, kind)
+        # tensor parallelism (``shard_lm``): (TensorParallel, HeadSplit)
+        # for the attention, the TensorParallel for the MLP; None = whole
+        self.tp_attn = None
+        self.tp_mlp = None
         d = cfg.d_model
         self.ln1 = zeros((d,), dtype, device)
         if kind == "mlstm":
@@ -154,7 +169,7 @@ class Block(torch.nn.Module):
         if self.kind == "moe":
             y, aux = moe_forward(self.moe, h, self.cfg, group=data_group)
             return x + y, torch.stack(list(aux))
-        return x + mlp_forward(self.mlp, h), zero
+        return x + mlp_forward(self.mlp, h, tp=self.tp_mlp), zero
 
     def forward(self, x, *, chunks: tuple[int, int], want_cache: bool,
                 media=None, data_group=None):
@@ -184,7 +199,7 @@ class Block(torch.nn.Module):
             else:
                 a = attn.gqa_forward(self.attn, h, cfg=cfg,
                                      theta=self.theta, window=self.window,
-                                     **kw)
+                                     tp=self.tp_attn, **kw)
             if want_cache:
                 a, kv = a
                 cache = _cache_from_kv(cfg, kv, self.window, x.shape[1])
@@ -217,8 +232,9 @@ class Block(torch.nn.Module):
                          for _ in range(2))
         if cfg.mla_enabled:
             return attn.mla_init_cache(cfg, batch, max_len, dtype, dev)
-        kv = attn.gqa_init_cache(cfg, batch, max_len, self.window, dtype,
-                                 dev)
+        kv = attn.gqa_init_cache(
+            cfg, batch, max_len, self.window, dtype, dev,
+            self.tp_attn[1].hkv if self.tp_attn is not None else None)
         if flash_mesh is not None:
             kv = attn.flash_cache_shard(kv, flash_mesh)
         if self.kind == "hybrid":
@@ -250,7 +266,8 @@ class Block(torch.nn.Module):
         else:
             a, cache = attn.gqa_decode(self.attn, h, cache, pos, cfg=cfg,
                                        theta=self.theta, window=self.window,
-                                       flash_mesh=flash_mesh)
+                                       flash_mesh=flash_mesh,
+                                       tp=self.tp_attn)
         x1, _ = self._ffn(x1 + a)
         return x1, cache
 
@@ -283,22 +300,44 @@ class DecoderLM(torch.nn.Module):
         self.blocks = torch.nn.ModuleList(
             Block(kind, cfg, gen, dtype, dev) for kind in cfg.layer_kinds)
         self.embed_scale = d ** 0.5 if cfg.name.startswith("gemma") else 1.0
+        self.tp = None          # TensorParallel once shard_lm has run
 
     @property
     def head(self) -> torch.Tensor:
         return self.lm_head if self.lm_head is not None else self.embed
+
+    def _vocab_tp(self):
+        """The TensorParallel when the vocabulary tables are split."""
+        return self.tp if self.tp is not None and self.tp.vocab else None
+
+    def _check_mesh(self, mesh, flash_mesh=None) -> None:
+        if mesh is not None and (self.tp is None or self.tp.mesh is not mesh):
+            raise ValueError("the model is not sharded over this mesh: "
+                             "repro_torch.distributed.tensor_parallel."
+                             "shard_lm(model, mesh) first")
+        if self.tp is not None and flash_mesh is not None:
+            raise ValueError("flash decoding and tensor parallelism on the "
+                             "same model axis are not combined")
 
     def _inputs(self, tokens, embeds) -> torch.Tensor:
         if embeds is not None:
             return torch.as_tensor(embeds, device=self.device).to(
                 dtype_of(self.cfg))
         tokens = torch.as_tensor(tokens, device=self.device).long()
-        return embed(self.embed, tokens, self.embed_scale)
+        return embed(self.embed, tokens, self.embed_scale,
+                     tp=self._vocab_tp())
+
+    def _logits(self, x) -> torch.Tensor:
+        """Float32 logits over the whole vocabulary (gathered from the
+        ranks' slices under tensor parallelism)."""
+        vt = self._vocab_tp()
+        logits = unembed(x, self.head, vt)
+        return logits if vt is None else vt.gather_vocab(logits)
 
     def forward(self, tokens=None, embeds=None, media=None, *,
                 want_caches: bool = False, logits_mode: str = "all",
                 want_aux: bool = False, remat: bool = False,
-                data_group=None):
+                data_group=None, mesh=None):
         """Full-sequence forward: float32 logits ``(B, S, V)`` (``(B, 1,
         V)`` with ``logits_mode="last"``); with ``want_aux`` then the
         layers' summed MoE aux terms ``(3,)`` (load balance, z, dropped
@@ -310,7 +349,23 @@ class DecoderLM(torch.nn.Module):
         activations in the backward pass); it takes no caches.
         ``data_group``: the data-parallel group whose ranks' rows, in
         rank order, make the batch; a MoE layer's capacity, drops and
-        load balance are then the whole batch's."""
+        load balance are then the whole batch's.  ``mesh``: the mesh the
+        model is sharded over (module docstring)."""
+        self._check_mesh(mesh)
+        x, aux_sum, caches = self._hidden(tokens, embeds, media,
+                                          want_caches, logits_mode, remat,
+                                          data_group)
+        out = (self._logits(x),)
+        if want_aux:
+            out += (aux_sum,)
+        if want_caches:
+            out += (caches,)
+        return out if len(out) > 1 else out[0]
+
+    def _hidden(self, tokens, embeds, media, want_caches, logits_mode,
+                remat, data_group):
+        """The final-normed hidden states (the last position's with
+        ``logits_mode="last"``), the summed aux terms and the caches."""
         if remat and want_caches:
             raise ValueError("remat is for training and returns no caches")
         x = self._inputs(tokens, embeds)
@@ -333,12 +388,7 @@ class DecoderLM(torch.nn.Module):
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
         if logits_mode == "last":
             x = x[:, -1:]
-        out = (unembed(x, self.head),)
-        if want_aux:
-            out += (aux_sum,)
-        if want_caches:
-            out += (caches,)
-        return out if len(out) > 1 else out[0]
+        return x, aux_sum, caches
 
     def prefill(self, tokens=None, embeds=None, media=None):
         """Full forward, per-layer caches and last-position logits."""
@@ -346,13 +396,16 @@ class DecoderLM(torch.nn.Module):
                             logits_mode="last")
 
     def init_decode_caches(self, batch: int, max_len: int,
-                           flash_mesh=None) -> list:
+                           flash_mesh=None, mesh=None) -> list:
         """Empty decode caches, one a layer (:meth:`Block.init_cache`);
-        with ``flash_mesh`` each GQA ring holds this rank's slots."""
+        with ``flash_mesh`` each GQA ring holds this rank's slots, on a
+        sharded model this rank's kv heads."""
+        self._check_mesh(mesh, flash_mesh)
         return [blk.init_cache(batch, max_len, flash_mesh)
                 for blk in self.blocks]
 
-    def decode_step(self, token, caches: list, pos: int, flash_mesh=None):
+    def decode_step(self, token, caches: list, pos: int, flash_mesh=None,
+                    mesh=None):
         """One serving step: ``token`` (B, 1) ids (or (B, 1, d) embeds for
         a model fed embeddings) at absolute position ``pos``.  Returns
         (float32 logits (B, 1, V), caches): attention caches are updated
@@ -360,7 +413,9 @@ class DecoderLM(torch.nn.Module):
 
         ``flash_mesh``: sequence-sharded flash decoding for the GQA layers
         over the mesh's model axis; their caches are then this rank's
-        slots (``init_decode_caches(..., flash_mesh=)``)."""
+        slots (``init_decode_caches(..., flash_mesh=)``).  ``mesh``: the
+        mesh a sharded model is split over; its logits come gathered."""
+        self._check_mesh(mesh, flash_mesh)
         if self.cfg.embed_inputs:
             x = self._inputs(token, None)
         else:
@@ -368,21 +423,26 @@ class DecoderLM(torch.nn.Module):
         for i, blk in enumerate(self.blocks):
             x, caches[i] = blk.decode(x, caches[i], pos, flash_mesh)
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
-        return unembed(x, self.head), caches
+        return self._logits(x), caches
 
 
 def lm_loss(model: DecoderLM, tokens=None, embeds=None, labels=None,
             media=None, *, aux_weight: float = 0.01, z_weight: float = 1e-4,
-            remat: bool = False, data_group=None):
+            remat: bool = False, data_group=None, mesh=None):
     """The training loss: (total, metrics), total = the mean token NLL +
     ``aux_weight`` · load balance + ``z_weight`` · router z; metrics
     ``nll``, ``load_balance``, ``router_z`` and ``dropped_frac`` (0-d
     float32 tensors), as the reference's ``lm_loss``.  ``data_group``:
-    see :meth:`DecoderLM.forward`."""
-    logits, aux = model(tokens, embeds, media, want_aux=True, remat=remat,
-                        data_group=data_group)
+    see :meth:`DecoderLM.forward`.  On a sharded model (``mesh``) each
+    rank keeps its vocabulary slice of the logits and the cross-entropy
+    is reduced over the model group."""
+    model._check_mesh(mesh)
+    x, aux, _ = model._hidden(tokens, embeds, media, False, "all", remat,
+                              data_group)
+    vt = model._vocab_tp()
+    logits = unembed(x, model.head, vt)
     labels = torch.as_tensor(labels, device=logits.device)
-    loss = softmax_cross_entropy(logits, labels)
+    loss = softmax_cross_entropy(logits, labels, tp=vt)
     total = loss + aux_weight * aux[0] + z_weight * aux[1]
     metrics = {"nll": loss, "load_balance": aux[0], "router_z": aux[1],
                "dropped_frac": aux[2]}

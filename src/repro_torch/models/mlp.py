@@ -1,4 +1,5 @@
-"""Gated (SwiGLU) feed-forward block, the dense FFN of every arch."""
+"""Gated (SwiGLU) feed-forward block, the dense FFN of every arch
+(column- then row-parallel under tensor parallelism)."""
 
 from __future__ import annotations
 
@@ -18,8 +19,15 @@ def init_mlp_params(gen, d_model: int, d_ff: int, dtype, device
     })
 
 
-def mlp_forward(p, x: torch.Tensor) -> torch.Tensor:
+def mlp_forward(p, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """The SwiGLU MLP; with ``tp`` (a :class:`~repro_torch.distributed.
+    tensor_parallel.TensorParallel`) ``w_gate``/``w_up`` are this rank's
+    columns and ``w_down`` its rows, and the output is summed over the
+    model group (one ``all_reduce``)."""
+    if tp is not None:
+        x = tp.copy(x)
     g = x @ p["w_gate"]
     u = x @ p["w_up"]
     h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
-    return h @ p["w_down"]
+    y = h @ p["w_down"]
+    return y if tp is None else tp.reduce(y)

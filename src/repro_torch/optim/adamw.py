@@ -17,6 +17,15 @@ The global norm sums the leaves' squares in the order of the mapping it is
 given (the port's parameter order, layer by layer), not in the order JAX
 flattens the reference's stacked tree (sorted keys); the two agree to
 roundoff, not to the bit.
+
+Over a mesh: under tensor parallelism (``tp``) a leaf split over the
+model axis contributes the sum of its blocks' squares over the model
+group (one ``all_reduce`` of every leaf's square sum, replicated leaves
+counted once); with ZeRO-1 (``AdamWState.zero``, a
+:class:`~repro_torch.distributed.tensor_parallel.Zero1`) each data rank
+holds its block of a leaf's moments, updates that block of the
+parameter and gathers the parameter whole over the data group.  AdamW is
+elementwise, so the split step equals the unsplit one bit for bit.
 """
 
 from __future__ import annotations
@@ -43,21 +52,37 @@ class AdamWState(NamedTuple):
     step: torch.Tensor    # 0-d int32
     m: dict
     v: dict
+    zero: object = None   # a Zero1: the moments are this data rank's blocks
 
 
-def adamw_init(params: Mapping[str, torch.Tensor]) -> AdamWState:
-    def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+def adamw_init(params: Mapping[str, torch.Tensor], zero=None) -> AdamWState:
+    """Zero moments (with ``zero``, each leaf's block on this data rank)
+    and step 0."""
+    def zeros(k, p):
+        shape = p.shape if zero is None else zero.cut(p, k).shape
+        return torch.zeros(shape, dtype=torch.float32, device=p.device)
 
     dev = next(iter(params.values())).device
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
-                      m={k: zeros(p) for k, p in params.items()},
-                      v={k: zeros(p) for k, p in params.items()})
+                      m={k: zeros(k, p) for k, p in params.items()},
+                      v={k: zeros(k, p) for k, p in params.items()},
+                      zero=zero)
 
 
-def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in tree.values()))
+def global_norm(tree: Mapping[str, torch.Tensor], tp=None) -> torch.Tensor:
+    """The L2 norm of every leaf; with ``tp`` the leaves split over the
+    model axis summed over its group (module docstring)."""
+    sq = [torch.sum(torch.square(g.float())) for g in tree.values()]
+    if tp is not None:
+        import torch.distributed as dist
+
+        split = torch.tensor([tp.sharded(k) for k in tree],
+                             device=sq[0].device)
+        every = torch.stack(sq)
+        part = torch.where(split, every, 0.0)
+        dist.all_reduce(part, group=tp.group)
+        sq = list(torch.where(split, part, every).unbind())
+    return torch.sqrt(sum(sq))
 
 
 def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -74,19 +99,27 @@ def clip_by_global_norm(grads: Mapping[str, torch.Tensor], max_norm: float):
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, params: Mapping[str, torch.Tensor],
                  grads: Mapping[str, torch.Tensor], state: AdamWState,
-                 lr: torch.Tensor):
+                 lr: torch.Tensor, tp=None):
     """Returns (params, new_state, metrics); ``params``, ``state.m`` and
     ``state.v`` are updated in place (the state's step is a new tensor).
     The clipped float32 gradient of a leaf is formed inside its update,
-    so no float32 copy of all gradients is held at once."""
-    norm = global_norm(grads)
+    so no float32 copy of all gradients is held at once.  ``tp``: the
+    model's :class:`~repro_torch.distributed.tensor_parallel.
+    TensorParallel` (the norm); ``state.zero``: ZeRO-1 (module
+    docstring)."""
+    norm = global_norm(grads, tp)
     scale = _clip_scale(norm, cfg.clip_norm)
     step = state.step + 1
     t = step.float()
     bc1 = 1.0 - cfg.b1 ** t
     bc2 = 1.0 - cfg.b2 ** t
+    zero = state.zero
     for name, p in params.items():
-        g = grads[name].float() * scale
+        whole = p
+        if zero is not None:        # this data rank's block (a view)
+            p = zero.cut(p, name)
+        g = (grads[name].float() if zero is None
+             else zero.cut(grads[name], name).float()) * scale
         m, v = state.m[name], state.v[name]
         m.copy_(cfg.b1 * m + (1.0 - cfg.b1) * g)
         v.copy_(cfg.b2 * v + (1.0 - cfg.b2) * torch.square(g))
@@ -96,5 +129,18 @@ def adamw_update(cfg: AdamWConfig, params: Mapping[str, torch.Tensor],
         p32 = p.float()
         delta = delta + cfg.weight_decay * p32
         p.copy_((p32 - lr * delta).to(p.dtype))
+        if zero is not None and name in zero.dims:
+            _gather_zero(whole, zero, name)
     metrics = {"grad_norm": norm, "lr": lr}
-    return params, AdamWState(step, state.m, state.v), metrics
+    return params, AdamWState(step, state.m, state.v, zero), metrics
+
+
+def _gather_zero(p: torch.Tensor, zero, name: str) -> None:
+    """Every data rank's updated block of ``p`` gathered into it."""
+    import torch.distributed as dist
+
+    d = zero.dims[name]
+    mine = zero.cut(p, name).contiguous()
+    parts = [torch.empty_like(mine) for _ in range(zero.size)]
+    dist.all_gather(parts, mine, group=zero.group())
+    p.copy_(torch.cat(parts, dim=d))

@@ -60,6 +60,26 @@ which re-pads the wave state); compaction requires a drained wave, and
 with ``auto_compact`` the engine drains and runs
 :meth:`ShardedDQF.compact` itself, rebalance included.
 
+Placed shards (``ShardConfig.use_mesh``, one shard a rank): each rank
+holds the wave state of its own shard only, T = 1 block of W lanes (the
+unplaced engine's T = S), and advances it with one ``fused_hop`` (or
+``fused_hop_paged``) launch at table base 0.  Each rank maps its ``(W,
+L)`` pool to global ids with its own liveness and ``shard_merge`` mask,
+and ONE ``all_gather`` a tick (:func:`~repro_torch.sharding.merge.
+gather_packed`) brings every rank's pool, lane flags and hop counts, and
+rank 0's clock, rank-major; every rank then runs the one ``merge_topk``
+and holds the same ``(W, k)``.  The host state (queue, admission,
+tenants, ``PagePool``, ``ShardHealth``, counters, writes) is replicated:
+every rank takes the same decisions in the same order, so every clock
+read that decides anything is one shared value, rank 0's (riding the
+tick's gather, else one broadcast: in ``submit`` and in a refill outside
+a tick), and a failed, stalled or quarantined shard's rank still takes
+part in every collective, its rows masked out of the merge.  The results
+equal the unplaced engine's over the same shards bit for bit.  An
+:class:`~repro_torch.serving.status.AdmissionController` reads each
+rank's own timings; attach one to a placed engine only with a shared
+monitor.
+
 Tiered or quantized shards are refused up front: serve those through
 :meth:`ShardedDQF.search`.  The engine runs on ``sharded.device``.
 """
@@ -67,6 +87,7 @@ Tiered or quantized shards are refused up front: serve those through
 from __future__ import annotations
 
 import collections
+import contextlib
 import time
 from typing import Optional
 
@@ -90,7 +111,7 @@ from repro_torch.serving.status import EngineConfig, QueryStatus, shed_victim
 from repro_torch.tenancy import DEFAULT_TENANT
 
 from .health import ShardHealth
-from .merge import merge_topk
+from .merge import gather_packed, merge_topk
 from .sharded import ShardedDQF
 
 __all__ = ["ShardedEngine"]
@@ -109,12 +130,6 @@ class ShardedEngine:
                  obs: Optional[ObsConfig] = None,
                  engine_cfg: Optional[EngineConfig] = None, clock=None):
         sharded._require()
-        if sharded._mesh is not None:
-            raise NotImplementedError(
-                "ShardedEngine over shards placed one a rank (use_mesh) is "
-                "not ported: ticking over ranks is ROADMAP queue 1 item 2's "
-                "next step; ShardConfig(use_mesh=False) serves the stacked "
-                "tables on one device")
         if not sharded._stacked_ok:
             raise ValueError(
                 "ShardedEngine needs resident float32 shards — tiered or "
@@ -123,6 +138,17 @@ class ShardedEngine:
         self.cfg = sharded.cfg
         self.device = sharded.device
         self.S = sharded.num_shards
+        mesh = sharded._mesh
+        if mesh is not None and mesh.coordinate is None:
+            raise RuntimeError("this rank holds no shard of the placed "
+                               "index; serve it from the mesh's ranks")
+        # the shards whose lanes this process ticks: its own when placed
+        self._mine = sharded._local_shards()
+        self.T = len(self._mine)
+        self._group = (mesh.group(sharded.scfg.axis) if mesh is not None
+                       else None)
+        self.collectives = 0            # placed: all_gathers + broadcasts
+        self._tick_time = None          # placed: this tick's shared clock
         self.wave = wave_size
         self.tick_hops = tick_hops
         self.auto_compact = auto_compact
@@ -197,13 +223,50 @@ class ShardedEngine:
 
     # ------------------------------------------------------------ lane maps
     def _lane_shard(self, width: int) -> torch.Tensor:
-        """(S·width,) int64 shard of each stacked lane (shard-major)."""
-        return torch.arange(self.S, device=self.device).repeat_interleave(
+        """(T·width,) int64 block of each stacked lane (block-major) in
+        this process's stacked tables (T = S unplaced, 1 placed)."""
+        return torch.arange(self.T, device=self.device).repeat_interleave(
             width)
 
     def _mask_lanes(self, mask: np.ndarray, width: int) -> torch.Tensor:
-        """(S·width,) bool: a per-shard mask spread over stacked lanes."""
-        return torch.as_tensor(np.repeat(mask, width), device=self.device)
+        """(T·width,) bool: a per-shard mask spread over this process's
+        stacked lanes."""
+        return torch.as_tensor(np.repeat(mask[self._mine], width),
+                               device=self.device)
+
+    # ------------------------------------------------------ the shared clock
+    def _broadcast_clock(self) -> float:
+        """Rank 0's clock reading on every rank (one broadcast)."""
+        import torch.distributed as dist
+
+        t = torch.tensor([self._clock()], dtype=torch.float64,
+                         device=self.device)
+        dist.broadcast(t, group=self._group,
+                       src=dist.get_global_rank(self._group, 0))
+        self.collectives += 1
+        return float(t[0])
+
+    def _now(self) -> float:
+        """The clock every decision reads: the local clock unplaced; placed,
+        this tick's shared reading, else a broadcast of rank 0's."""
+        if self._group is None:
+            return self._clock()
+        if self._tick_time is None:
+            return self._broadcast_clock()
+        return self._tick_time
+
+    @contextlib.contextmanager
+    def _instant(self):
+        """Placed: the clock reads inside share one value, rank 0's, from
+        one broadcast (none when a tick's gather already brought it)."""
+        if self._group is None or self._tick_time is not None:
+            yield
+            return
+        self._tick_time = self._broadcast_clock()
+        try:
+            yield
+        finally:
+            self._tick_time = None
 
     # ----------------------------------------------------------------- ticks
     def _hop(self, beam: bs.BeamState, evals, queries, hot_first, hot_ratio,
@@ -240,10 +303,14 @@ class ShardedEngine:
         run = composed_tick(cfg, self._tree, self.tick_hops, expand)
         return run(beam, evals, hot_first, hot_ratio)
 
-    def _merge(self, ids, dists, lane_shard, merge_m: np.ndarray, width: int):
-        """Cross-shard merge of S·width stacked pools into ``(width, k)``
+    def _merge(self, ids, dists, lane_shard, merge_m: np.ndarray, width: int,
+               active, hops):
+        """Cross-shard merge of the stacked pools into ``(width, k)``
         global results: the gid gather, the stacked-liveness filter and
-        the ``shard_merge`` mask, then one :func:`merge_topk`."""
+        the ``shard_merge`` mask, then one :func:`merge_topk`.  Returns the
+        merged ids and dists and every shard's ``(S, width)`` lane flags
+        and hops; placed, those come with the pools from the other ranks
+        in one ``all_gather``, which also brings rank 0's clock."""
         g = bs.LaneTable(self._stk["gid_pad"], lane_shard).rows(ids)
         bad = (g < 0) | ~bs.LaneTable(self._stk["live_pad"],
                                       lane_shard).rows(ids)
@@ -252,12 +319,25 @@ class ShardedEngine:
         d = torch.where(bad, INF_DIST, dists)
         g = torch.where(bad, -1, g)
         L = ids.shape[1]
-        return merge_topk(d.reshape(self.S, width, L),
-                          g.reshape(self.S, width, L), self.cfg.k)
+        if self._group is None:
+            ids, dists = merge_topk(d.reshape(self.S, width, L),
+                                    g.reshape(self.S, width, L), self.cfg.k)
+            return (ids, dists, active.reshape(self.S, width),
+                    hops.reshape(self.S, width))
+        clock = torch.tensor([self._clock()], dtype=torch.float64,
+                             device=self.device)
+        d, g, active, hops, clock = gather_packed(
+            [d, g.to(torch.int32), active, hops.to(torch.int32), clock],
+            self._group, self.S)
+        self.collectives += 1
+        self._tick_time = float(clock[0, 0])
+        ids, dists = merge_topk(d, g, self.cfg.k)
+        return ids, dists, active, hops
 
     def _tick_fixed_fn(self, live_m: np.ndarray, merge_m: np.ndarray):
         """One fixed tick over the whole wave: hop, freeze quarantined
-        shards, merge.  Returns the merged ``(W, k)`` ids and dists."""
+        shards, merge.  Returns every shard's active flags and hops ``(S,
+        W)`` and the merged ``(W, k)`` ids and dists."""
         tl = self.timeline
         W = self.wave
         with tl.span("tick.hop", hops=self.tick_hops, shards=self.S):
@@ -271,22 +351,23 @@ class ShardedEngine:
                 _device_sync(self.device)
         self._state, self._evals = state, evals
         with tl.span("tick.merge", shards=self.S):
-            out = self._merge(state.pool.ids, state.pool.dists, self._lanes,
-                              merge_m, W)
+            m_ids, m_dists, act, hops = self._merge(
+                state.pool.ids, state.pool.dists, self._lanes, merge_m, W,
+                state.active, state.stats.hops)
             if tl.enabled:
                 _device_sync(self.device)
-        return out
+        return act, hops, m_ids, m_dists
 
     def _tick_paged_fn(self, rows: torch.Tensor, pt: torch.Tensor,
                        live_m: np.ndarray, merge_m: np.ndarray):
-        """One paged tick over the gathered bucket ``rows`` (S·Bk slot
-        rows, shard-major) with the shard-offset page table ``pt``:
-        gather, hop, scatter in place, freeze, merge.  Returns the
-        bucket's active flags and hops ``(S, Bk)`` and its merged ids and
-        dists ``(Bk, k)``."""
+        """One paged tick over the gathered bucket ``rows`` (T·Bk slot
+        rows, block-major) with the block-offset page table ``pt``:
+        gather, hop, scatter in place, freeze, merge.  Returns every
+        shard's bucket active flags and hops ``(S, Bk)`` and the merged
+        ids and dists ``(Bk, k)``."""
         tl = self.timeline
-        S, W = self.S, self.wave
-        Bk = rows.shape[0] // S
+        S, T, W = self.S, self.T, self.wave
+        Bk = rows.shape[0] // T
         lane_shard = self._lane_shard(Bk)
         ps = self._state
         with tl.span("tick.hop", hops=self.tick_hops, shards=S, bucket=Bk):
@@ -295,21 +376,21 @@ class ShardedEngine:
                                     wv.hot_first, wv.hot_ratio, lane_shard,
                                     pt)
             pg.scatter_wave(ps, rows, beam, evals)
-            ps.active.view(S, W + 1)[:, W] = False     # scratch lanes idle
+            ps.active.view(T, W + 1)[:, W] = False     # scratch lanes idle
             act = beam.active
             if not live_m.all():        # quarantined shards freeze
-                ps.active.view(S, W + 1).logical_and_(
-                    torch.as_tensor(live_m, device=self.device)[:, None])
+                ps.active.view(T, W + 1).logical_and_(torch.as_tensor(
+                    live_m[self._mine], device=self.device)[:, None])
                 act = act & self._mask_lanes(live_m, Bk)
             if tl.enabled:
                 _device_sync(self.device)
         with tl.span("tick.merge", shards=S):
-            m_ids, m_dists = self._merge(beam.pool.ids, beam.pool.dists,
-                                         lane_shard, merge_m, Bk)
+            m_ids, m_dists, act, hops = self._merge(
+                beam.pool.ids, beam.pool.dists, lane_shard, merge_m, Bk,
+                act, beam.stats.hops)
             if tl.enabled:
                 _device_sync(self.device)
-        return (act.reshape(S, Bk), beam.stats.hops.reshape(S, Bk),
-                m_ids, m_dists)
+        return act, hops, m_ids, m_dists
 
     # ---------------------------------------------------------------- public
     def submit(self, queries: np.ndarray, *, tenant: str = DEFAULT_TENANT,
@@ -334,7 +415,8 @@ class ShardedEngine:
                 f"queries must be (B, {self._d}), got {queries.shape}")
         if deadline_ms is None:
             deadline_ms = self.engine_cfg.default_deadline_ms
-        now = self._clock()
+        with self._instant():
+            now = self._now()
         deadline = now + deadline_ms / 1e3 if deadline_ms is not None \
             else None
         ids = []
@@ -505,8 +587,9 @@ class ShardedEngine:
         self._state = st._replace(pool=st.pool._replace(ids=ids), seen=grown)
 
     def _grow_paged(self, old_cap: int, new_cap: int) -> None:
-        """Re-page live lanes on every shard after common-cap growth."""
-        pool, S, pc = self.pagepool, self.S, self.page_cols
+        """Re-page live lanes on every local shard after common-cap
+        growth."""
+        pool, S, pc = self.pagepool, self.T, self.page_cols
         live = pool.live_lanes()
         offs = lambda n_pages: torch.arange(
             S, device=self.device)[:, None, None] * n_pages
@@ -534,8 +617,8 @@ class ShardedEngine:
             seen_pages=pages)
 
     def _zero_state(self) -> bs.BeamState:
-        """All-lanes-idle stacked wave state, (S·W, ·)."""
-        B, L, n, dev = self.S * self.wave, self.cfg.full_pool, self._cap, \
+        """All-lanes-idle stacked wave state, (T·W, ·)."""
+        B, L, n, dev = self.T * self.wave, self.cfg.full_pool, self._cap, \
             self.device
         z = lambda dtype: torch.zeros((B,), dtype=dtype, device=dev)
         pool = PoolState(
@@ -552,11 +635,11 @@ class ShardedEngine:
         return bs.BeamState(pool, seen, stats, z(torch.bool))
 
     def _zero_paged(self) -> pg.PagedState:
-        """All-idle paged state: S sets of ``W+1`` slot rows, one after
-        another, and S page pools in one ``(S n_pages, page_cols)``."""
+        """All-idle paged state: T sets of ``W+1`` slot rows, one after
+        another, and T page pools in one ``(T n_pages, page_cols)``."""
         return pg.zero_paged_state(
-            self.S * (self.wave + 1) - 1, self.cfg.full_pool, self._d,
-            self.S * self.pagepool.n_pages, self.page_cols, self._cap,
+            self.T * (self.wave + 1) - 1, self.cfg.full_pool, self._d,
+            self.T * self.pagepool.n_pages, self.page_cols, self._cap,
             device=self.device)
 
     def _reset_state(self) -> None:
@@ -568,7 +651,7 @@ class ShardedEngine:
             self._state = self._zero_paged()
             return
         W, d, dev = self.wave, self._d, self.device
-        SW = self.S * W
+        SW = self.T * W
         self._lanes = self._lane_shard(W)
         self._q_stk = torch.zeros((SW, d), dtype=torch.float32, device=dev)
         self._hot_first = torch.zeros((SW,), dtype=torch.float32,
@@ -584,8 +667,9 @@ class ShardedEngine:
         self._refill()
 
     def _hot_stacks(self):
-        """Common-padded ``(S, T, H+1, …)`` registry hot stacks (cached),
-        with each (shard, tenant slot)'s hot row count.
+        """Common-padded ``(S, T, H+1, …)`` registry hot stacks of this
+        process's shards (cached), with each (shard, tenant slot)'s hot
+        row count.
 
         Each shard's :meth:`TenantRegistry.stacked` tables are re-padded
         to shared T/H/R/E; sentinel remaps (native ``H_s`` → common ``H``)
@@ -593,13 +677,13 @@ class ShardedEngine:
         native-shape runs.  Rebuilt only when a shard's stack or the
         common capacity changes.
         """
-        stks = [sh.dqf.tenants.stacked(sh.dqf.store)
-                for sh in self.sharded.shards]
-        key = tuple(sh.dqf.tenants._stack_key
-                    for sh in self.sharded.shards) + (self._cap,)
+        shards = [self.sharded.shards[s] for s in self._mine]
+        stks = [sh.dqf.tenants.stacked(sh.dqf.store) for sh in shards]
+        key = tuple(sh.dqf.tenants._stack_key for sh in shards) + (
+            self._cap,)
         if key == self._hot_key:
             return self._hot_stk
-        S, d, dev = self.S, self._d, self.device
+        S, d, dev = self.T, self._d, self.device
         T = max(s.x.shape[0] for s in stks)
         H = max(s.x.shape[1] - 1 for s in stks)
         R = max(s.adj.shape[2] for s in stks)
@@ -626,9 +710,9 @@ class ShardedEngine:
         return self._hot_stk
 
     def _seed(self, queries: np.ndarray, tidx: np.ndarray):
-        """Hot phase + full-state seed of m admitted queries on every
-        shard: ``queries`` (m, d), ``tidx`` (S, m) tenant slots.  Returns
-        the seeded stacked state (S·m lanes, shard-major) and its hot
+        """Hot phase + full-state seed of m admitted queries on every local
+        shard: ``queries`` (m, d), ``tidx`` (T, m) tenant slots.  Returns
+        the seeded stacked state (T·m lanes, block-major) and its hot
         features."""
         cfg = self.cfg
         S, m = tidx.shape
@@ -675,7 +759,7 @@ class ShardedEngine:
         tenant) and expired ones terminate at once."""
         reg0 = self.sharded.shards[0].dqf.tenants
         reqs = []
-        now = self._clock()
+        now = self._now()
         while self.queue and len(reqs) < free:
             r = self.queue.popleft()
             name, gen = r[3], r[4]
@@ -695,9 +779,9 @@ class ShardedEngine:
         return reqs
 
     def _tenant_slots(self, reqs: list) -> np.ndarray:
-        """(S, m) each request's tenant slot on every shard."""
-        return np.asarray([[sh.dqf.tenants.slot_of(r[3]) for r in reqs]
-                           for sh in self.sharded.shards], np.int64)
+        """(T, m) each request's tenant slot on every local shard."""
+        return np.asarray([[self.sharded.shards[s].dqf.tenants.slot_of(r[3])
+                            for r in reqs] for s in self._mine], np.int64)
 
     def _admit_meta(self, lanes, reqs: list, t_seed: float) -> None:
         for lane, r in zip(lanes, reqs):
@@ -721,7 +805,7 @@ class ShardedEngine:
             # injected denial: requeue in arrival order, retry next tick
             self.queue.extendleft(reversed(reqs))
             return
-        S, W, pool = self.S, self.wave, self.pagepool
+        S, W, pool = self.T, self.wave, self.pagepool
         seeded, hf, q = self._seed_fn(np.stack([r[1] for r in reqs]),
                                       self._tenant_slots(reqs))
         rows = (np.arange(S)[:, None] * (W + 1) + lanes[None]).reshape(-1)
@@ -734,7 +818,7 @@ class ShardedEngine:
                       torch.ones((S * m,), dtype=torch.bool,
                                  device=self.device),
                       page_cols=self.page_cols)
-        self._admit_meta(lanes, reqs, self._clock())
+        self._admit_meta(lanes, reqs, self._now())
 
     def _trace_begin(self, rid: int, tenant: str):
         """Trace skeleton for a sampled admission (None when unsampled):
@@ -748,14 +832,20 @@ class ShardedEngine:
     def _refill(self):
         """Seed free lanes from the queue: the hot phase and seed of the
         refilled lanes on every shard, spliced into the wave state in
-        place (occupied lanes are never touched)."""
-        if self.paged:
-            return self._refill_paged()
+        place (occupied lanes are never touched).  Placed, its clock reads
+        are one shared value."""
+        with self._instant():
+            if self.paged:
+                self._refill_paged()
+            else:
+                self._refill_fixed()
+
+    def _refill_fixed(self):
         free = [i for i, m in enumerate(self._lane_meta) if m is None]
         reqs = self._pop_requests(len(free))
         if not reqs:
             return
-        S, W, m = self.S, self.wave, len(reqs)
+        S, W, m = self.T, self.wave, len(reqs)
         lanes = np.asarray(free[:m])
         seeded, hf, q = self._seed_fn(np.stack([r[1] for r in reqs]),
                                       self._tenant_slots(reqs))
@@ -767,7 +857,7 @@ class ShardedEngine:
         self._hot_first[rows] = hf.first
         self._hot_ratio[rows] = hf.first_div_kth
         self._evals[rows] = 0
-        self._admit_meta(lanes, reqs, self._clock())
+        self._admit_meta(lanes, reqs, self._now())
 
     def _terminal_result(self, tenant: str, status: QueryStatus) -> dict:
         """Empty result for a request that never reached a lane
@@ -809,25 +899,33 @@ class ShardedEngine:
 
     def _tick(self):
         self._maybe_refresh()
-        if self.paged:
-            return self._tick_paged()
+        try:
+            if self.paged:
+                self._tick_paged()
+            else:
+                self._tick_fixed()
+        finally:
+            self._tick_time = None
+        if self.sentinel is not None:
+            self.sentinel.on_tick()
+
+    def _tick_fixed(self):
         tl = self.timeline
         W = self.wave
         with tl.span("tick", tick=self.stats.ticks):
             live_m, merge_m = self._shard_masks()
-            m_ids, m_dists = self._tick_fn(live_m, merge_m)
+            act, hops_t, m_ids, m_dists = self._tick_fn(live_m, merge_m)
             state = self._state
             self.stats.ticks += 1
-            active = state.active.reshape(self.S, W).cpu().numpy()
-            lane_live = active.any(axis=0)
-            now = self._clock()
+            lane_live = act.cpu().numpy().any(axis=0)   # every shard's
+            now = self._now()
             # per-query deadlines: lanes past deadline are force-expired
             # and retire this tick with their current best-k
             expired = [lane for lane, meta in enumerate(self._lane_meta)
                        if meta is not None and lane_live[lane]
                        and meta[5] is not None and now >= meta[5]]
             if expired:
-                state.active.view(self.S, W)[
+                state.active.view(self.T, W)[
                     :, torch.as_tensor(expired, device=self.device)] = False
                 lane_live[expired] = False
                 for lane in expired:
@@ -836,33 +934,31 @@ class ShardedEngine:
                         if meta is not None and not lane_live[lane]]
             if retiring:
                 with tl.span("tick.retire", retiring=len(retiring)):
-                    hops = state.stats.hops.reshape(self.S, W).cpu().numpy()
                     self._retire(retiring, retiring, m_ids.cpu().numpy(),
-                                 m_dists.cpu().numpy(), hops, now)
+                                 m_dists.cpu().numpy(),
+                                 hops_t.cpu().numpy(), now)
             self._after_retire()
-        if self.sentinel is not None:
-            self.sentinel.on_tick()
 
     def _tick_paged(self):
         """One bucketed tick over the live lanes (paged mode)."""
         tl = self.timeline
-        S, W = self.S, self.wave
+        T, W = self.T, self.wave
         with tl.span("tick", tick=self.stats.ticks):
             lanes_np, pt_np, n_live = self.pagepool.live_bucket(
                 self.min_bucket)
             if n_live:
                 live_m, merge_m = self._shard_masks()
                 n_pages = self.pagepool.n_pages
-                rows = (np.arange(S)[:, None] * (W + 1)
+                rows = (np.arange(T)[:, None] * (W + 1)
                         + lanes_np[None]).reshape(-1)
-                pt = (pt_np[None] + np.arange(S)[:, None, None]
-                      * n_pages).reshape(S * len(lanes_np), -1)
+                pt = (pt_np[None] + np.arange(T)[:, None, None]
+                      * n_pages).reshape(T * len(lanes_np), -1)
                 put = lambda a: torch.as_tensor(a, device=self.device)
                 act, hops_b, m_ids, m_dists = self._tick_fn(
                     put(rows), put(pt.astype(np.int32)), live_m, merge_m)
                 self.stats.ticks += 1
                 lane_live = act.cpu().numpy().any(axis=0)   # (Bk,)
-                now = self._clock()
+                now = self._now()
                 meta = [self._lane_meta[int(lane)]
                         for lane in lanes_np[:n_live]]
                 # deadline force-expiry over live bucket rows
@@ -871,7 +967,7 @@ class ShardedEngine:
                            and now >= meta[j][5]]
                 if expired:
                     x = lanes_np[expired]
-                    self._state.active.view(S, W + 1)[
+                    self._state.active.view(T, W + 1)[
                         :, torch.as_tensor(x, device=self.device)] = False
                     lane_live[expired] = False
                     for lane in x:
@@ -889,8 +985,6 @@ class ShardedEngine:
             else:
                 self.stats.ticks += 1
             self._after_retire()
-        if self.sentinel is not None:
-            self.sentinel.on_tick()
 
     def _retire(self, lanes: list, cols: list, m_ids: np.ndarray,
                 m_dists: np.ndarray, hops_all: np.ndarray, now: float):

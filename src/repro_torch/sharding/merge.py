@@ -23,7 +23,8 @@ import torch
 
 from repro_torch.kernels import ops as kops
 
-__all__ = ["merge_topk", "merge_topk_host", "gather_candidates"]
+__all__ = ["merge_topk", "merge_topk_host", "gather_candidates",
+           "gather_packed"]
 
 
 def merge_topk(dists: torch.Tensor, gids: torch.Tensor, k: int):
@@ -63,17 +64,58 @@ def merge_topk_host(per_shard_ids, per_shard_dists, k: int):
             np.take_along_axis(cat_d, order, 1))
 
 
+_BY_BITS = (torch.float32, torch.int32, torch.float64, torch.int64)
+
+
+def _int32_view(t: torch.Tensor) -> torch.Tensor:
+    """``t`` flat as int32 words: 4-byte and 8-byte dtypes by their bits,
+    bool and the narrower integers widened."""
+    t = t.contiguous()
+    if t.dtype in _BY_BITS:
+        return t.view(torch.int32).reshape(-1)
+    return t.to(torch.int32).reshape(-1)
+
+
+def _from_int32(words: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`_int32_view` for an ``(n, words)`` block."""
+    words = words.contiguous()
+    n = words.shape[0]
+    if like.dtype in _BY_BITS:
+        out = words.view(like.dtype)
+    elif like.dtype == torch.bool:
+        out = words != 0
+    else:
+        out = words.to(like.dtype)
+    return out.reshape(n, *like.shape)
+
+
+def gather_packed(tensors, group, n: int) -> list:
+    """Every rank's ``tensors`` from ONE ``all_gather`` over ``group`` (of
+    ``n`` ranks): each tensor is packed into one int32 buffer by its bits
+    (bool and small integers widened), and comes back stacked rank-major,
+    ``(n, *shape)`` in its own dtype.  Every rank must pass tensors of the
+    same shapes and dtypes."""
+    import torch.distributed as dist
+
+    words = [_int32_view(t) for t in tensors]
+    flat = torch.cat(words)
+    parts = [torch.empty_like(flat) for _ in range(n)]
+    dist.all_gather(parts, flat, group=group)
+    both = torch.stack(parts)                         # (n, total)
+    out, off = [], 0
+    for w, t in zip(words, tensors):
+        out.append(_from_int32(both[:, off:off + w.numel()], t))
+        off += w.numel()
+    return out
+
+
 def gather_candidates(dists: torch.Tensor, gids: torch.Tensor, group,
                       n: int):
     """Every rank's ``(B, k)`` candidates stacked rank-major, ``(n, B,
-    k)`` dists and int32 ids, from one ``all_gather`` over ``group`` (of
-    ``n`` ranks) with both packed as int32 bits.  Rank-major is the
-    shard-major order :func:`merge_topk` breaks ties by."""
-    import torch.distributed as dist
-
-    mine = torch.stack([dists.to(torch.float32).view(torch.int32),
-                        gids.to(torch.int32)])
-    parts = [torch.empty_like(mine) for _ in range(n)]
-    dist.all_gather(parts, mine, group=group)
-    both = torch.stack(parts, dim=1)                  # (2, n, B, k)
-    return both[0].view(torch.float32), both[1]
+    k)`` float32 dists and int32 ids, from one ``all_gather`` over
+    ``group`` (of ``n`` ranks) with both packed as int32 bits
+    (:func:`gather_packed`).  Rank-major is the shard-major order
+    :func:`merge_topk` breaks ties by."""
+    d, g = gather_packed([dists.to(torch.float32), gids.to(torch.int32)],
+                         group, n)
+    return d, g

@@ -57,7 +57,11 @@ this rank's shard through the stacked path (the hot phase, then one
 ``fused_hop`` launch a phase on the card), ``all_gather``s the ``(B,
 k)`` ids and distances over the mesh's group and runs the one
 ``merge_topk`` on every rank, so every rank returns the oracle's answer.
-``ShardedEngine`` over a placed index is not ported.  Runs on the card
+A :class:`~repro_torch.distributed.mesh.Mesh` given as ``use_mesh`` is
+the placement itself, at any S (one included: the reference places
+nothing at S = 1, but a world of one rank, as on one card, reaches the
+placed code only so).  :class:`~repro_torch.sharding.engine.
+ShardedEngine` serves a placed index one shard a rank.  Runs on the card
 unless ``device="cpu"``.
 """
 
@@ -250,9 +254,19 @@ class ShardedDQF:
         """One-axis shard mesh over the first S ranks when placement is
         requested and possible: ``True`` needs a process group of at least
         S ranks (``RuntimeError`` otherwise, as the reference's with too
-        few devices); ``"auto"`` places when there is one."""
+        few devices); ``"auto"`` places when there is one.  A ``Mesh``
+        given as ``use_mesh`` is taken as it is, at any S: its
+        ``scfg.axis`` must hold S ranks."""
         S = self.num_shards
-        if S == 1 or self.scfg.use_mesh is False:
+        um = self.scfg.use_mesh
+        if not isinstance(um, (bool, str)):
+            if self.scfg.axis not in um.shape or \
+                    um.shape[self.scfg.axis] != S:
+                raise ValueError(f"use_mesh: a mesh with axis "
+                                 f"{self.scfg.axis!r} of {S} ranks needed, "
+                                 f"got {um}")
+            return um
+        if S == 1 or um is False:
             return None
         import torch.distributed as dist
 

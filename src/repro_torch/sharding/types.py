@@ -20,7 +20,11 @@ class ShardConfig:
     group when it has at least S ranks, and otherwise keeps them on the
     DQF's device as a batch axis of one search; ``True`` requires a group
     of at least S ranks (``RuntimeError`` otherwise, as the reference with
-    too few devices); ``False`` keeps them on one device.
+    too few devices); ``False`` keeps them on one device; a
+    :class:`~repro_torch.distributed.mesh.Mesh` with an ``axis`` of S
+    ranks is the placement itself, at any S (one included, where the
+    reference never places: a world of one rank reaches the placed path
+    only so).
 
     Rebalancing (``rebalance*``) runs at the end of
     :meth:`~repro_torch.sharding.ShardedDQF.compact`: when the hottest
@@ -31,7 +35,7 @@ class ShardConfig:
     num_shards: int = 1
     seed: int = 0                    # partition permutation seed
     axis: str = "shard"              # mesh axis name
-    use_mesh: object = "auto"        # "auto" | True | False
+    use_mesh: object = "auto"        # "auto" | True | False | a Mesh
     rebalance: bool = True
     rebalance_imbalance: float = 2.0
     rebalance_max_rows: int = 64

@@ -31,6 +31,18 @@ gradient compression with error feedback, remat.
   global gradient; parameters and moments stay replicated.  At D = 1 the
   all-reduce still runs, and the step equals the one-device step bit for
   bit.
+* **Tensor parallelism** (a model cut by :func:`repro_torch.distributed.
+  tensor_parallel.shard_lm` over the mesh's model axis): each rank's
+  gradients are its parameters' blocks; the data-parallel all-reduce
+  stays over the data group, the global norm sums a split leaf's squares
+  over the model group (replicated leaves once), and the int8 scale of a
+  split leaf is the whole leaf's max (one ``all_reduce`` MAX over the
+  model group), so the compressed step is the one-device step's.
+* **ZeRO-1** (``train_state_init(..., mesh=)`` with more than one data
+  rank): the moments are split over the data axes
+  (:class:`~repro_torch.distributed.tensor_parallel.Zero1`) and each rank
+  updates its block of each parameter, then gathers it whole
+  (:func:`repro_torch.optim.adamw.adamw_update`).
 
 The model's parameters are updated in place, so ``TrainState.model`` is
 the same module before and after a step.
@@ -71,30 +83,48 @@ class TrainState(NamedTuple):
     err: Optional[dict]              # error-feedback residual (compression)
 
 
-def train_state_init(model, tcfg: TrainConfig) -> TrainState:
+def train_state_init(model, tcfg: TrainConfig, mesh=None) -> TrainState:
     """A fresh state over ``model``: its parameters made trainable
     (serving keeps them frozen), zero moments, step 0 and, with
-    compression, a zero float32 residual a parameter."""
+    compression, a zero float32 residual a parameter.  With ``mesh`` of
+    more than one data rank the moments are ZeRO-1 blocks
+    (:func:`repro_torch.distributed.tensor_parallel.zero1_plan`)."""
     params = dict(model.named_parameters())
     for p in params.values():
         p.requires_grad_(True)
     err = ({k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
             for k, p in params.items()} if tcfg.compress_grads else None)
-    return TrainState(model=model, opt=adamw_init(params), err=err)
+    zero = None
+    if mesh is not None:
+        from repro_torch.distributed.tensor_parallel import zero1_plan
+        zero = zero1_plan(model, mesh)
+    return TrainState(model=model, opt=adamw_init(params, zero), err=err)
 
 
-def _quantize_int8(g: torch.Tensor):
-    scale = torch.max(torch.abs(g)) / 127.0 + 1e-12
+def _quantize_int8(g: torch.Tensor, amax=None):
+    if amax is None:
+        amax = torch.max(torch.abs(g))
+    scale = amax / 127.0 + 1e-12
     q = torch.clamp(torch.round(g / scale), -127, 127).to(torch.int8)
     return q, scale
 
 
-def _compress(grads: dict, err: dict):
-    """int8 quantization with error feedback; returns (deq grads, new err)."""
+def _compress(grads: dict, err: dict, tp=None):
+    """int8 quantization with error feedback; returns (deq grads, new err).
+    With ``tp`` each leaf's scale is its whole max over the model group:
+    every leaf's max of this rank's block, one ``all_reduce`` MAX."""
+    amax = [None] * len(grads)
+    if tp is not None:
+        import torch.distributed as dist
+
+        every = torch.stack([torch.max(torch.abs(g.float() + err[k]))
+                             for k, g in grads.items()])
+        dist.all_reduce(every, op=dist.ReduceOp.MAX, group=tp.group)
+        amax = every.unbind()
     deq, new_err = {}, {}
-    for k, g in grads.items():
+    for (k, g), a in zip(grads.items(), amax):
         g = g.float() + err[k]
-        q, scale = _quantize_int8(g)
+        q, scale = _quantize_int8(g, a)
         deq[k] = q.float() * scale
         new_err[k] = g - deq[k]
     return deq, new_err
@@ -134,10 +164,14 @@ def make_train_step(model, tcfg: TrainConfig, *, mesh=None) -> Callable:
 
     With ``mesh`` (a :class:`repro_torch.distributed.mesh.Mesh`), ``batch`` is
     this rank's rows and ``grads`` returns the data-parallel mean over
-    the mesh's data axes (:func:`_all_reduce_mean`).
+    the mesh's data axes (:func:`_all_reduce_mean`).  A model sharded by
+    ``shard_lm`` trains over its own mesh when ``mesh`` is None.
     """
     schedule_fn = getattr(sched, tcfg.schedule)
     dev = next(model.parameters()).device
+    tp = getattr(model, "tp", None)
+    if mesh is None and tp is not None:
+        mesh = tp.mesh
     data_group = None
     if mesh is not None:
         from repro_torch.distributed.sharding import DATA_AXES
@@ -189,13 +223,13 @@ def make_train_step(model, tcfg: TrainConfig, *, mesh=None) -> Callable:
     def update(state: TrainState, loss, metrics: dict, grads: dict):
         err = state.err
         if tcfg.compress_grads:
-            grads, err = _compress(grads, err)
+            grads, err = _compress(grads, err, tp)
         lr = schedule_fn(state.opt.step, peak_lr=tcfg.peak_lr,
                          warmup_steps=tcfg.warmup_steps,
                          total_steps=tcfg.total_steps)
         _, opt, opt_metrics = adamw_update(
             tcfg.adamw, dict(state.model.named_parameters()), grads,
-            state.opt, lr)
+            state.opt, lr, tp)
         metrics = {**metrics, **opt_metrics, "loss": loss}
         return TrainState(state.model, opt, err), metrics
 

@@ -12,9 +12,9 @@ rank never holds the suite.  No process group is ever made in the pytest
 process.
 
 The rank bodies below, and each test file's world (``decode_world``,
-``train_world``, ``index_world``), import the port only: no ``jax``, no
-``repro``.  Their inputs come from ``.npz`` files the tests write from
-seeded numpy.
+``train_world``, ``index_world``, ``engine_world``, ``tp_world``), import
+the port only: no ``jax``, no ``repro``.  Their inputs come from ``.npz``
+files the tests write from seeded numpy.
 """
 
 from __future__ import annotations
@@ -356,8 +356,9 @@ def launcher_world(rank, world, ckpt_dir, argv):
 def sharded_dqf_world(rank, world, path, cfg_kw):
     """``ShardedDQF(use_mesh=True)`` at S = world over the reference's
     saved shards, beside a one-card twin (``use_mesh=False``): searches,
-    the oracle's, through one insert and one delete; then the port's own
-    build at S = world on the mesh against its oracle."""
+    the oracle's, through one insert and one delete, then both served
+    through ``ShardedEngine``; then the port's own build at S = world on
+    the mesh against its oracle."""
     from repro_torch.core import DQFConfig
     from repro_torch.sharding import ShardConfig, ShardedDQF, ShardedEngine
 
@@ -385,11 +386,13 @@ def sharded_dqf_world(rank, world, path, cfg_kw):
         out["inserted"] = sd.insert(z["new_rows"])
         sd.delete(z["delete_ids"])
     searches("after")
-    try:
-        ShardedEngine(sds[True], wave_size=8, tick_hops=4)
-        out["engine"] = None
-    except NotImplementedError as e:
-        out["engine"] = str(e)
+    for mesh, sd in sds.items():
+        eng = ShardedEngine(sd, wave_size=8, tick_hops=4)
+        rids = eng.submit(q)
+        res = eng.run_until_drained()["results"]
+        out[("engine", mesh)] = (np.stack([res[r]["ids"] for r in rids]),
+                                 np.stack([res[r]["dists"] for r in rids]),
+                                 eng.stats.ticks, eng.stats.completed)
     own = ShardedDQF(cfg, ShardConfig(num_shards=S, use_mesh=True),
                      device="cpu").build(z["x"])
     own.warm(q[:8])
@@ -430,6 +433,360 @@ def segments_world(rank, world, cases, cfg_kw):
     return out
 
 
+# ================================================================== engine
+class StepClock:
+    """A clock the caller moves (``t``), read by this rank at ``t`` plus
+    its own ``offset``: ranks whose clocks disagree."""
+
+    def __init__(self, offset: float = 0.0):
+        self.t = 0.0
+        self.offset = offset
+
+    def __call__(self) -> float:
+        return self.t + self.offset
+
+
+def _engine_run(eng, plan, *, on_step=None, clock=None, dt=0.0):
+    """Serve ``plan`` (tenant, queries, steps after submitting) one
+    ``step()`` at a time and drain; ``on_step(eng, i)`` after step i, and
+    ``clock.t`` moved by ``dt`` before each step.  Returns the results in
+    submission order, the ticks, and the collectives made while ticking
+    (all of them less one broadcast a ``submit``)."""
+    rids, steps = [], [0]
+    c0 = eng.collectives
+
+    def step():
+        if clock is not None:
+            clock.t += dt
+        eng.step()
+        if on_step is not None:
+            on_step(eng, steps[0])
+        steps[0] += 1
+
+    submits = 0
+    for tenant, q, n in plan:
+        rids += eng.submit(q, tenant=tenant)
+        submits += 1
+        for _ in range(n):
+            step()
+    while eng.queue or eng._any_live():
+        step()
+    res = [eng._results[r] for r in rids]
+    keys = ("ids", "dists", "hops", "status", "degraded",
+            "shards_responding", "tenant")
+    return ([{k: r[k] for k in keys} for r in res], eng.stats.ticks,
+            eng.collectives - c0 - (submits if eng._group is not None
+                                    else 0))
+
+
+def _counters(sd) -> list:
+    """Every shard's tenants' counts and Alg-2 clocks, and the owner map."""
+    return [{t.name: (t.counter.counts[:sh.dqf.store.n].copy(),
+                      t.counter.since_rebuild) for t in sh.dqf.tenants}
+            for sh in sd.shards] + [dict(sorted(sd._owner.items()))]
+
+
+def engine_world(rank, world, path, cfg_kw):
+    """The placed ``ShardedEngine`` at S = world and a one-process twin
+    (``use_mesh=False``) over the same saved shards, case by case: each
+    case's results, ticks, counters and collectives, both ways."""
+    import dataclasses
+
+    from repro_torch.chaos import FaultPlan, install_chaos
+    from repro_torch.core import DQFConfig
+    from repro_torch.serving.status import EngineConfig
+    from repro_torch.sharding import ShardConfig, ShardedDQF, ShardedEngine
+
+    z = load_tree(path)
+    S = world
+    base = DQFConfig(**cfg_kw)
+    owner = dict(zip(z["owner_ext"].tolist(), z["owner_shard"].tolist()))
+    q, qa, hot = z["q"], z["qa"], z["hot_q"]
+
+    def index(placed, cfg):
+        arrays = [{k: np.array(v) for k, v in z[f"shard{s}"].items()}
+                  for s in range(S)]
+        return ShardedDQF.from_arrays(
+            arrays, cfg, ShardConfig(num_shards=S, use_mesh=placed),
+            owner=dict(owner), device="cpu")
+
+    two = [("default", q[:16], 1), ("a", qa[:12], 2), ("default", q[16:],
+                                                       0)]
+    chaos = FaultPlan(seed=3, shard_fail_ticks={1: frozenset(range(2, 6))},
+                      shard_stall_ticks={0: frozenset({3, 7})})
+    cases = {
+        "fixed fused": (dict(fused=True), {}, two),
+        "fixed composed": (dict(fused=False), {}, two),
+        "paged": (dict(fused=True), dict(paged=True, page_cols=128), two),
+        "chaos fixed": (dict(fused=True), dict(chaos=chaos), two),
+        "chaos paged": (dict(fused=True),
+                        dict(chaos=chaos, paged=True, page_cols=128), two),
+        "churn": (dict(fused=True), dict(churn=True),
+                  [("default", hot, 2), ("default", q, 1)]),
+        "churn paged": (dict(fused=True),
+                        dict(churn=True, paged=True, page_cols=128),
+                        [("default", hot, 2), ("default", q, 1)]),
+        "deadline": (dict(fused=True), dict(deadline=True),
+                     [("default", q, 0)]),
+    }
+    out = {}
+    for name, (cfg_over, kw, plan) in cases.items():
+        cfg = dataclasses.replace(base, **cfg_over)
+        res = {}
+        for placed in (True, False):
+            sd = index(placed, cfg)
+            opts = dict(kw)
+            chaos_plan = opts.pop("chaos", None)
+            churn = opts.pop("churn", False)
+            deadline = opts.pop("deadline", False)
+            clock, on_step, dt = None, None, 0.0
+            ekw = dict(wave_size=8, tick_hops=4, **opts)
+            if chaos_plan is not None:
+                ekw["engine_cfg"] = EngineConfig(quarantine_after=2,
+                                                 recover_after=2)
+            if deadline:
+                clock = StepClock(rank * 0.003 if placed else 0.0)
+                ekw.update(tick_hops=2, clock=clock,
+                           engine_cfg=EngineConfig(default_deadline_ms=10.0))
+                dt = 0.004
+            if churn:
+                ekw.update(auto_compact=True, compact_ratio=0.005)
+
+                def on_step(eng, i, new=z["new_rows"], dead=z["delete_ids"],
+                            donor=z["donor_ext"]):
+                    if i == 1:       # writes, and traffic pinned to shard 0
+                        sd = eng.sharded
+                        sd.insert(new)
+                        sd.delete(dead)
+                        for _ in range(5):
+                            sd.record(np.tile(donor, (20, 1)))
+                        sd.rebuild_hot()
+            eng = ShardedEngine(sd, **ekw)
+            if chaos_plan is not None:
+                install_chaos(eng, dataclasses.replace(chaos_plan))
+            results, ticks, coll = _engine_run(eng, plan, on_step=on_step,
+                                               clock=clock, dt=dt)
+            res[placed] = {
+                "results": results, "ticks": ticks, "collectives": coll,
+                "counters": _counters(sd),
+                "compactions": eng.stats.compactions,
+                "rebalanced": sd.scrape().get(
+                    "shard_rebalanced_rows_total", 0.0),
+                "quarantines": eng.health.quarantines,
+                "rows": int(eng._stk["x_pad"].shape[0]),
+                "lanes": (int(eng._state.active.shape[0])
+                          if eng._state is not None else None)}
+        out[name] = res
+    # one rank's own clock against the shared one, at the deadline case's
+    # submission and ticks: the deadline falls between the ranks' readings
+    out["offset"] = rank * 0.003
+    return out
+
+
+# ====================================================== tensor parallelism
+TP_ARCHS = {"qwen3-0.6b": {}, "gemma3-4b": dict(num_layers=6, window_size=16),
+            "glm4-9b": {}}
+
+
+def _tp_model(path, arch, mesh, over=None):
+    """The reduced ``arch`` (float32) on ``path``'s reference weights, cut
+    over ``mesh``'s model axis: (model, its TensorParallel)."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import lm_from_arrays
+    from repro_torch.distributed.tensor_parallel import shard_lm
+
+    over = TP_ARCHS.get(arch, {}) if over is None else over
+    cfg = get_config(arch).reduced(**over)
+    model = lm_from_arrays(load_tree(path), cfg, device="cpu")
+    return model, shard_lm(model, mesh)
+
+
+def tp_model_world(rank, world, d, shapes, tokens, labels, steps, max_len):
+    """Each config of :data:`TP_ARCHS` on each mesh of ``shapes``: the
+    prefill logits, the loss and every gradient leaf (gathered whole),
+    ``steps`` decode steps' logits, the leaves replicated against the
+    rules, the cache's kv heads, the round trip of ``gather_lm`` and the
+    refusal of flash decoding on the same axis."""
+    from repro_torch.convert import lm_to_arrays
+    from repro_torch.distributed.mesh import make_test_mesh
+    from repro_torch.distributed.sharding import gather_tensor
+    from repro_torch.distributed.tensor_parallel import gather_lm
+    from repro_torch.models.lm import lm_loss
+
+    out = {}
+    tok = torch.as_tensor(tokens)
+    for shape in shapes:
+        mesh = make_test_mesh(*shape)
+        for arch in TP_ARCHS:
+            model, tp = _tp_model(f"{d}/{arch}.npz", arch, mesh)
+            whole = load_tree(f"{d}/{arch}.npz")
+            r = {"replicated": list(tp.replicated)}
+            with torch.no_grad():
+                r["logits"] = model(tok, mesh=mesh).numpy()
+                caches = model.init_decode_caches(tok.shape[0], max_len,
+                                                  mesh=mesh)
+                r["kv_heads"] = int(caches[0].k.shape[2])
+                dec = []
+                for t in range(steps):
+                    lg, caches = model.decode_step(tok[:, t:t + 1], caches,
+                                                   t, mesh=mesh)
+                    dec.append(lg.numpy())
+                r["decode"] = np.stack(dec)
+            for p in model.parameters():
+                p.requires_grad_(True)
+            loss, _ = lm_loss(model, tok, labels=labels, mesh=mesh)
+            grads = torch.autograd.grad(loss, list(model.parameters()))
+            r["loss"] = float(loss.detach())
+            names = [n for n, _ in model.named_parameters()]
+            r["grads"] = {n: gather_tensor(g, tp.specs[n], mesh).numpy()
+                          for n, g in zip(names, grads)}
+            try:
+                model.init_decode_caches(tok.shape[0], max_len, mesh=mesh,
+                                         flash_mesh=mesh)
+                r["flash"] = None
+            except ValueError as e:
+                r["flash"] = str(e)
+            back = lm_to_arrays(gather_lm(model), model.cfg)
+            r["round_trip"] = all(
+                np.array_equal(a, b) for a, b in zip(
+                    _flat_leaves(back), _flat_leaves(whole)))
+            out[(shape, arch)] = r
+    return out
+
+
+def _flat_leaves(tree) -> list:
+    return [v for k in sorted(tree) for v in
+            (_flat_leaves(tree[k]) if isinstance(tree[k], dict)
+             else [np.asarray(tree[k])])]
+
+
+def tp_train_world(rank, world, qwen, mesh_shape, batches, learn_batch,
+                   ckpt_dir, launch_argv, launch_dir):
+    """Over a ``mesh_shape`` mesh: the reduced Qwen3's train steps with
+    ZeRO-1, without and with int8 compression (each step's loss and the
+    parameters whole after the last), the moments' ZeRO dims, a
+    checkpoint of the compressed state (``ckpt_dir``), the learning
+    contract, and the launcher."""
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.distributed.mesh import make_test_mesh
+    from repro_torch.distributed.tensor_parallel import gather_lm
+    from repro_torch.training.train_step import (TrainConfig,
+                                                 make_train_step,
+                                                 train_state_init)
+
+    mesh = make_test_mesh(*mesh_shape)
+    D, di = mesh_shape[0], mesh.index("data")
+    out = {"traj": {}}
+    for compress in (False, True):
+        tcfg = TrainConfig(microbatches=1, peak_lr=1e-3, warmup_steps=2,
+                           total_steps=50, compress_grads=compress,
+                           remat=False)
+        model, _ = _tp_model(qwen, "qwen3-0.6b", mesh)
+        state = train_state_init(model, tcfg, mesh=mesh)
+        step = make_train_step(model, tcfg, mesh=mesh)
+        losses = []
+        for b in batches:
+            state, m = step(state, _local(b, di, D, 1))
+            losses.append(float(m["loss"]))
+        out["traj"][compress] = (losses, {
+            n: t.numpy() for n, t in gather_lm(model).items()})
+    out["zero"] = (dict(state.opt.zero.dims) if state.opt.zero is not None
+                   else None)
+    out["moments"] = {n: tuple(t.shape) for n, t in state.opt.m.items()}
+    Checkpointer(ckpt_dir).save(len(batches), state, block=True)
+    # the reference's SPMD contract: 8 steps at lr 5e-3 on one batch
+    lcfg = TrainConfig(microbatches=1, peak_lr=5e-3, warmup_steps=1,
+                       remat=False)
+    model, _ = _tp_model(qwen, "qwen3-0.6b", mesh)
+    state = train_state_init(model, lcfg, mesh=mesh)
+    step = make_train_step(model, lcfg, mesh=mesh)
+    learn = []
+    for _ in range(8):
+        state, m = step(state, _local(learn_batch, di, D, 1))
+        learn.append(float(m["loss"]))
+    out["learn"] = learn
+    out["launch"] = launcher_world(rank, world, launch_dir, [
+        *launch_argv, "--mesh", f"{mesh_shape[0]}x{mesh_shape[1]}"])
+    return out
+
+
+def zero_world(rank, world, qwen, batches):
+    """Data-parallel steps over a (world, 1) mesh with ZeRO-1 moments and
+    without, from the same weights: the parameters after each step and
+    the moments gathered whole, both ways (bit for bit expected)."""
+    from repro_torch.convert import lm_from_arrays
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.mesh import make_test_mesh
+    from repro_torch.distributed.tensor_parallel import Zero1
+    from repro_torch.distributed.sharding import gather_tensor
+    from repro_torch.training.train_step import (TrainConfig,
+                                                 make_train_step,
+                                                 train_state_init)
+
+    mesh = make_test_mesh(world, 1)
+    tcfg = TrainConfig(microbatches=1, peak_lr=1e-3, warmup_steps=2,
+                       total_steps=50, compress_grads=True, remat=False)
+    res = {}
+    for zero in (True, False):
+        model = lm_from_arrays(load_tree(qwen),
+                               get_config("qwen3-0.6b").reduced(), "cpu")
+        state = train_state_init(model, tcfg, mesh=mesh if zero else None)
+        step = make_train_step(model, tcfg, mesh=mesh)
+        params = []
+        for b in batches:
+            state, _ = step(state, _local(b, rank, world, 1))
+            params.append([p.detach().clone() for p in model.parameters()])
+        z = state.opt.zero
+        m = {n: (gather_tensor(t, z.spec(n, (), t.dim()), mesh)
+                 if isinstance(z, Zero1) else t)
+             for n, t in state.opt.m.items()}
+        res[zero] = (params, m, z is not None and bool(z.dims))
+    a, b = res[True], res[False]
+    return {"zero_used": a[2],
+            "params": all(torch.equal(x, y) for s, t in zip(a[0], b[0])
+                          for x, y in zip(s, t)),
+            "moments": all(torch.equal(a[1][n], b[1][n]) for n in a[1])}
+
+
+def tp_restore_world(rank, world, qwen, ckpt_dir):
+    """The reduced Qwen3 cut over a (1, world) mesh restores a checkpoint
+    (written on another mesh); its state gathered whole, as arrays."""
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.convert import train_state_to_arrays
+    from repro_torch.distributed.mesh import make_test_mesh
+    from repro_torch.distributed.tensor_parallel import whole_state
+    from repro_torch.training.train_step import TrainConfig, train_state_init
+
+    mesh = make_test_mesh(1, world)
+    model, _ = _tp_model(qwen, "qwen3-0.6b", mesh)
+    state = train_state_init(model, TrainConfig(compress_grads=True),
+                             mesh=mesh)
+    state, meta = Checkpointer(ckpt_dir).restore(state)
+    return meta["step"], train_state_to_arrays(state, whole_state(state))
+
+
+def tp_refusals(rank, world, archs):
+    """``shard_lm`` on a (1, world) mesh of each reduced config of
+    ``archs``: the error's text (None when it shards)."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.mesh import make_test_mesh
+    from repro_torch.distributed.tensor_parallel import shard_lm
+    from repro_torch.models import DecoderLM
+
+    mesh = make_test_mesh(1, world)
+    out = {}
+    for arch in archs:      # the vision config keeps its cross layer
+        over = dict(num_layers=5) if arch == "llama-3.2-vision-11b" else {}
+        model = DecoderLM(get_config(arch).reduced(**over), seed=0,
+                          device="cpu")
+        try:
+            shard_lm(model, mesh)
+            out[arch] = None
+        except NotImplementedError as e:
+            out[arch] = str(e)
+    return out
+
+
 # ============================================== one world of each test file
 def decode_world(rank, world, d, qwen_path, tokens, max_len):
     """``test_torch_dist_decode``: one layer's and the model's flash
@@ -460,6 +817,31 @@ def train_world(rank, world, qwen, batches, ckpt_dir, learn_batch, combos,
         res["restore"] = restore_world(rank, world, qwen, ckpt_dir)
         res["launch"] = launcher_world(rank, world, f"{ckpt_dir}_launch",
                                        [*launch_argv, "--mesh", "2x1"])
+    return res
+
+
+def tp_world(rank, world, d, tokens, labels, steps, max_len, batches,
+             learn_batch, launch_argv):
+    """``test_torch_dist_tp``: the models on the world's meshes ((1, 2) at
+    world 2; (2, 2) and (1, 4) at world 4); world 4 trains at (2, 2) and
+    writes ``d``/ckpt, which world 2 restores at (1, 2); world 2 also
+    checks ZeRO-1 against whole moments at (2, 1) and the refusals."""
+    shapes = [(1, 2)] if world == 2 else [(2, 2), (1, 4)]
+    res = {"models": tp_model_world(rank, world, d, shapes, tokens, labels,
+                                    steps, max_len)}
+    qwen = f"{d}/qwen3-0.6b.npz"
+    if world == 4:
+        res["train"] = tp_train_world(rank, world, qwen, (2, 2), batches,
+                                      learn_batch, f"{d}/ckpt", launch_argv,
+                                      f"{d}/launch22")
+    else:
+        res["zero"] = zero_world(rank, world, qwen, batches)
+        res["restore"] = tp_restore_world(rank, world, qwen, f"{d}/ckpt")
+        res["launch"] = launcher_world(rank, world, f"{d}/launch12",
+                                       [*launch_argv, "--mesh", "1x2"])
+        res["refused"] = tp_refusals(rank, world, (
+            "deepseek-moe-16b", "xlstm-1.3b", "hymba-1.5b",
+            "deepseek-v2-lite-16b", "llama-3.2-vision-11b"))
     return res
 
 

@@ -15,8 +15,13 @@ reference's segment arrays through port meshes.
 Contracts: placed ≡ one-card stacked ≡ ``search_oracle``, ids and dists
 bit for bit, before and after the writes; ids equal to the reference's
 and dists within rtol 1e-5 (XLA's and torch's float sums); recall above
-0.85; every rank holds only its shard's table; the engine over placed
-shards refuses; the port's own build placed ≡ its oracle.  The segment
+0.85; every rank holds only its shard's table; the port's own build
+placed ≡ its oracle.  After the writes the reference serves the 32
+queries through its ``ShardedEngine`` over the placed index (wave 8, 4
+hops a tick), as ``test_sharded_dqf_mesh_parity_8dev`` does; the port's
+placed engine equals its one-card engine bit for bit and the reference's
+ids, dists within rtol 1e-5, with the ticks equal and recall within 0.1
+of the search's.  The segment
 search over both meshes equals the one-card stacked search bit for bit
 and the reference's ids, dists within rtol 1e-5, recall above 0.9; a
 batch that does not divide the data axis is padded, a model axis unequal
@@ -48,7 +53,7 @@ REFERENCE = textwrap.dedent("""
     from repro.core import DQFConfig
     from repro.core.ssg import SSGParams
     from repro.serving.sharded import build_sharded_index, sharded_search
-    from repro.sharding import ShardConfig, ShardedDQF
+    from repro.sharding import ShardConfig, ShardedDQF, ShardedEngine
     d = sys.argv[1]
     rng = np.random.default_rng(0)
     x = rng.standard_normal((1200, 16)).astype(np.float32)
@@ -70,11 +75,17 @@ REFERENCE = textwrap.dedent("""
         ins = sd.insert(new)
         sd.delete(dele)
         b = sd.search(q, record=False)
+        eng = ShardedEngine(sd, wave_size=8, tick_hops=4)
+        rids = eng.submit(q)
+        res = eng.run_until_drained()["results"]
         np.savez(f"{d}/s{S}.npz", x=x, q=q, new_rows=new, delete_ids=dele,
                  before_ids=np.asarray(a.ids),
                  before_dists=np.asarray(a.dists),
                  after_ids=np.asarray(b.ids), after_dists=np.asarray(b.dists),
-                 inserted=np.asarray(ins), devices=n_dev, owner=owner)
+                 inserted=np.asarray(ins), devices=n_dev, owner=owner,
+                 engine_ids=np.stack([res[r]["ids"] for r in rids]),
+                 engine_dists=np.stack([res[r]["dists"] for r in rids]),
+                 engine_ticks=eng.stats.ticks)
     rng = np.random.default_rng(0)
     x = rng.standard_normal((2000, 16)).astype(np.float32)
     q = x[rng.choice(2000, 64, replace=False)] + \\
@@ -163,9 +174,26 @@ def test_placed_own_build_equals_its_oracle(worlds, S):
         np.testing.assert_array_equal(a_d, b_d)
 
 
-def test_engine_over_placed_shards_is_refused(worlds):
-    for res in worlds[2] + worlds[4]:
-        assert "ROADMAP queue 1 item 2" in res["dqf"]["engine"]
+def test_engine_over_placed_shards_is_refused(reference, worlds):
+    """The placed index's engine, refused until the engine ticked over
+    ranks: now its parity with the one-card engine and the reference's
+    placed engine."""
+    _, ref = reference
+    for S in (2, 4):
+        z = ref[S]
+        gt = ground_truth(z["x"], z["q"], 5)
+        for res in worlds[S]:
+            ids, dists, ticks, done = res["dqf"][("engine", True)]
+            one = res["dqf"][("engine", False)]
+            np.testing.assert_array_equal(ids, one[0])
+            np.testing.assert_array_equal(dists.view(np.int32),
+                                          one[1].view(np.int32))
+            assert ticks == one[2] == int(z["engine_ticks"])
+            assert done == 32
+            np.testing.assert_array_equal(ids, z["engine_ids"])
+            np.testing.assert_allclose(dists, z["engine_dists"], rtol=1e-5)
+            assert recall_at_k(ids, gt) > recall_at_k(
+                res["dqf"][("after", True)][0], gt) - 0.1
 
 
 @pytest.mark.parametrize("shape", SHAPES)

@@ -216,7 +216,10 @@ def test_port_imports_no_jax_and_nothing_of_repro():
             " repro_torch.launch.train, repro_torch.examples.train_lm,"
             " repro_torch.launch.mesh, repro_torch.distributed,"
             " repro_torch.distributed.sharding,"
-            " repro_torch.distributed.pipeline, repro_torch.distributed.mesh;"
+            " repro_torch.distributed.pipeline, repro_torch.distributed.mesh,"
+            " repro_torch.distributed.tensor_parallel,"
+            " repro_torch.sharding.merge, repro_torch.sharding.sharded,"
+            " repro_torch.models.common, repro_torch.models.mlp;"
             "from repro_torch.configs import get_config, ARCH_IDS;"
             "[get_config(a) for a in ARCH_IDS];"
             "bad = [m for m in sys.modules if m in ('jax', 'repro') or "

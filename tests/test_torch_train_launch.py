@@ -51,16 +51,26 @@ def test_train_resumes_from_checkpoint(tmp_path):
     assert time.perf_counter() - t0 < 60
 
 
-@pytest.mark.parametrize("argv,env", [(["--mesh", "1x4"], {})])
+@pytest.mark.parametrize("argv,env", [
+    (["--mesh", "1x2", "--arch", "deepseek-moe-16b"], {})])
 def test_multi_device_is_refused(monkeypatch, argv, env):
-    """A model axis above 1 needs tensor parallelism, which is not ported
-    (data parallelism over ``--mesh Dx1`` is
+    """What a mesh still refuses: a model axis above 1 on a config outside
+    the dense, local and global kinds (the next slice's tensor
+    parallelism), and a mesh larger than the world, before any process
+    group is made (tensor parallelism over ``--mesh DxM`` is
+    ``tests/test_torch_dist_tp.py``, data parallelism over ``--mesh Dx1``
     ``tests/test_torch_dist_train.py``)."""
+    import torch.distributed as dist
+
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     with pytest.raises(NotImplementedError, match="queue 1 item 2"):
         launch.main(["--device", "cpu", "--reduced", "--steps", "1",
                      *argv])
+    with pytest.raises(ValueError, match="needs a world of 4 ranks"):
+        launch.main(["--device", "cpu", "--reduced", "--steps", "1",
+                     "--mesh", "1x4"])
+    assert not dist.is_initialized()
 
 
 def test_one_by_one_mesh_runs(capsys):
