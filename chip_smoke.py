@@ -407,7 +407,19 @@ Phases, in order; any failure exits non-zero:
    steps at B = 16 bit for bit, ms both ways (CUDA events); then a
    checkpoint of the twin's first 4 layers (with the embedding; cut in
    depth for the script's time, ~2 GB instead of ~6) written by the
-   ``Checkpointer`` and restored onto the same mesh bit for bit.  The
+   ``Checkpointer`` and restored onto the same mesh bit for bit.  G:
+   tensor parallelism of the other kinds at a model axis of one rank, at
+   full width, weights drawn from ``--seed`` (bf16): DeepSeek-V2-Lite cut
+   to 3 layers (the dense layer 0 and two MoE layers: MLA of latent rank
+   512, 64 routed experts top-6 and 2 shared, expert parallelism) and
+   Llama-3.2-Vision-11B cut to 2 (``cross_attn_every=2``: one
+   self-attention and one cross layer, gates opened to 0.5, seeded media
+   of (B, 1601, 4096)), each with a twin cut by ``shard_lm``: two train
+   steps (4 x 256 tokens each) with the losses and every parameter after
+   them, a prefill of 16 x 64 and 16 decode steps at B = 16, each bit for
+   bit against the plain model; ms the second step and a decode step both
+   ways (warmed), the collectives of one split decode step, G's peak
+   device memory and seconds.  The
    group is destroyed at the end of the phase.
 
 Recall guards against breakage, not a target: 0.5 for the float32 paths,
@@ -5231,6 +5243,16 @@ ENGINE_RECALL = 0.5              # phase 20 E's guard, the float32 paths'
 
 TP_DECODE_STEPS = 32             # phase 20 F's decode steps at B = 16
 TP_CKPT_LAYERS = 4               # phase 20 F's checkpoint, cut in depth
+# phase 20 G: the other kinds at full width, cut in depth for the time
+# limit: DeepSeek-V2-Lite's dense layer 0 and two MoE layers (MLA, 64
+# routed experts top-6, 2 shared), Llama-3.2-Vision's one self-attention
+# and one cross layer
+TP_KINDS_DEPTHS = {"deepseek-v2-lite-16b": dict(num_layers=3),
+                   "llama-3.2-vision-11b": dict(num_layers=2,
+                                                cross_attn_every=2)}
+TP_KINDS_STEPS = 2               # phase 20 G's train steps (the 2nd timed)
+TP_KINDS_DECODE = 16             # phase 20 G's decode steps at B = 16
+TP_KINDS_PROMPT = 64             # phase 20 G's prefill, 16 x 64 tokens
 
 
 def _placed_twins(dev, arrays, cfg, mesh):
@@ -5478,6 +5500,190 @@ def _tp_check(dev, seed, state, tcfg, mesh):
     return dict(step_ms=ms, decode_ms=dec_ms, **ck), state
 
 
+class _CollectiveCount:
+    """Counts the ``torch.distributed`` collectives called inside a
+    ``with`` block (the module's functions are looked up at each call)."""
+
+    NAMES = ("all_reduce", "all_gather", "all_gather_into_tensor",
+             "broadcast", "reduce_scatter_tensor")
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self.n, self._saved = 0, {}
+        for name in self.NAMES:
+            fn = getattr(dist, name, None)
+            if fn is None:
+                continue
+            self._saved[name] = fn
+
+            def counted(*a, _fn=fn, **k):
+                self.n += 1
+                return _fn(*a, **k)
+            setattr(dist, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        for name, fn in self._saved.items():
+            setattr(dist, name, fn)
+
+
+def _tp_kind_check(dev, seed, cfg, mesh):
+    """One model of 20 G: ``cfg`` drawn from ``seed`` (cross gates opened)
+    and a twin cut over ``mesh`` (``shard_lm``): ``TP_KINDS_STEPS`` train
+    steps (4 x 256 tokens each, seeded media for a cross model), a
+    prefill of 16 x ``TP_KINDS_PROMPT`` and ``TP_KINDS_DECODE`` decode
+    steps at B = 16 from empty caches (a cross layer's from the prefill),
+    each bit for bit against the plain model; ms the last train step and
+    a decode step (both warmed) both ways, and the collectives of one
+    split decode step."""
+    from repro_torch.data.pipeline import DataConfig, make_source
+    from repro_torch.distributed.tensor_parallel import shard_lm
+    from repro_torch.models import DecoderLM
+    from repro_torch.training import TrainConfig, make_train_step
+    from repro_torch.training.train_step import train_state_init
+
+    t0 = time.perf_counter()
+    model = DecoderLM(cfg, seed=seed, device=dev)
+    open_cross_gates(model)
+    twin = _clone_model(model, dev)
+    tp = shard_lm(twin, mesh)
+    n_params = sum(p.numel() for p in model.parameters())
+    _sync(dev)
+    made_s = time.perf_counter() - t0
+    dtype = model.embed.dtype
+    gen = torch.Generator(device=dev).manual_seed(seed + 23)
+
+    def media(B):
+        if not cfg.cross_attn_every:
+            return None
+        return torch.randn((B, cfg.vision_tokens, cfg.d_model),
+                           generator=gen, device=dev).to(dtype)
+
+    tcfg = TrainConfig(microbatches=1, remat=False, peak_lr=1e-3,
+                       warmup_steps=0)
+    src = make_source(DataConfig(vocab_size=cfg.vocab_size, seq_len=256,
+                                 global_batch=4, seed=seed + 23))
+    batches = [{k: torch.as_tensor(v, device=dev) for k, v in
+                src.batch(i).items()} for i in range(TP_KINDS_STEPS)]
+    m = media(4)
+    for b in batches:
+        if m is not None:
+            b["media"] = m
+    before = model.final_norm.detach().clone()
+    step_ms, loss = {}, {}
+    for name, mdl, kw in (("plain", model, {}), ("tp", twin,
+                                                 {"mesh": mesh})):
+        state = train_state_init(mdl, tcfg, **kw)
+        step = make_train_step(mdl, tcfg, **kw)
+        loss[name] = []
+        for b in batches:
+            _sync(dev)
+            a = _mark(dev)
+            state, metrics = step(state, b)
+            e = _mark(dev)
+            _sync(dev)
+            loss[name].append(metrics["loss"])
+        step_ms[name] = _ms_between(a, e, dev)
+        del state, step
+        for p in mdl.parameters():
+            p.requires_grad_(False)
+    same_loss = all(_same_bits(a, b) for a, b in zip(loss["plain"],
+                                                     loss["tp"]))
+    same = all(_same_bits(p, q) for p, q in zip(model.parameters(),
+                                                twin.parameters()))
+    moved = not _same_bits(before, model.final_norm)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    prompt = torch.randint(0, cfg.vocab_size, (16, TP_KINDS_PROMPT),
+                           generator=gen, device=dev)
+    m = media(16)
+    tokens = torch.randint(0, cfg.vocab_size, (TP_KINDS_DECODE, 16, 1),
+                           generator=gen, device=dev)
+    pre_logits, logits, dec_ms, calls = {}, {}, {}, 0
+    for name, mdl, kw in (("plain", model, {}), ("tp", twin,
+                                                 {"mesh": mesh})):
+        with torch.no_grad():
+            pre_logits[name], pre = mdl.prefill(prompt, media=m, **kw)
+
+            def empty():
+                caches = mdl.init_decode_caches(16, 2 * TP_KINDS_DECODE,
+                                                **kw)
+                return [p if blk.kind == "cross" else c
+                        for blk, c, p in zip(mdl.blocks, caches, pre)]
+            warm = empty()              # warm both paths before the clock
+            mdl.decode_step(tokens[0], warm, 0, **kw)
+            with _CollectiveCount() as count:
+                mdl.decode_step(tokens[1], warm, 1, **kw)
+            if name == "tp":
+                calls = count.n
+            del warm
+            caches = empty()
+            out = []
+            a = _mark(dev)
+            for t in range(TP_KINDS_DECODE):
+                lg, caches = mdl.decode_step(tokens[t], caches, t, **kw)
+                out.append(lg)
+            e = _mark(dev)
+            _sync(dev)
+        dec_ms[name] = _ms_between(a, e, dev) / TP_KINDS_DECODE
+        logits[name] = torch.stack(out)
+        del caches, pre
+    same_pre = _same_bits(pre_logits["plain"], pre_logits["tp"])
+    same_dec = _same_bits(logits["plain"], logits["tp"])
+    finite = _all_finite([pre_logits["tp"], logits["tp"]])
+    kinds = ", ".join(cfg.layer_kinds)
+    log(f"  G: {cfg.name}, d_model {cfg.d_model}, {cfg.num_layers} layers "
+        f"({kinds}), {cfg.dtype}, {n_params} parameters, drawn with its "
+        f"twin cut over a (1, 1) mesh ({tp}) in {made_s:.2f} s"
+        + (f"; media (B, {cfg.vision_tokens}, {cfg.d_model}), cross gates "
+           f"{CROSS_GATE}" if cfg.cross_attn_every else ""))
+    log(f"     {TP_KINDS_STEPS} train steps (4 x 256 tokens each): losses "
+        f"bit for bit {same_loss}, every parameter after them bit for bit "
+        f"{same} (moved {moved}); ms the last step plain "
+        f"{step_ms['plain']:.3f}, tensor-parallel {step_ms['tp']:.3f} (CUDA "
+        f"events)")
+    log(f"     prefill of 16 x {TP_KINDS_PROMPT} bit for bit {same_pre}; "
+        f"{TP_KINDS_DECODE} decode steps at B = 16 bit for bit {same_dec}, "
+        f"ms a step plain {dec_ms['plain']:.3f}, tensor-parallel "
+        f"{dec_ms['tp']:.3f} (warmed, CUDA events); {calls} collectives "
+        f"in a tensor-parallel decode step; finite {finite}")
+    if not (same_loss and same and moved and same_pre and same_dec
+            and finite):
+        raise RuntimeError(f"phase 20 G: {cfg.name} at a model axis of one "
+                           f"rank differs from the plain model")
+    del model, twin, logits, pre_logits
+    return dict(params=n_params, step_ms=step_ms, decode_ms=dec_ms,
+                collectives=calls)
+
+
+def _tp_kinds_check(dev, seed, mesh, cfgs=None):
+    """20 G: ``_tp_kind_check`` on each config of ``TP_KINDS_DEPTHS`` at
+    full width (or of ``cfgs``); G's peak device memory and seconds."""
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    if cfgs is None:
+        cfgs = [dataclasses.replace(get_config(arch), **over)
+                for arch, over in TP_KINDS_DEPTHS.items()]
+    out = {}
+    for cfg in cfgs:
+        out[cfg.name] = _tp_kind_check(dev, seed, cfg, mesh)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    peak = (torch.cuda.max_memory_allocated() / 2 ** 30
+            if dev.type == "cuda" else float("nan"))
+    secs = time.perf_counter() - t0
+    log(f"  G: peak device memory {peak:.2f} GiB, {secs:.1f} s")
+    return dict(models=out, peak_gib=peak, seconds=secs)
+
+
 def phase_distributed(dev, seed, trained, segments, batches, engine):
     """Phase 20 (module docstring): the multi-rank code at world 1 over
     NCCL.  ``trained`` is phase 19's result (its restored state),
@@ -5520,9 +5726,11 @@ def phase_distributed(dev, seed, trained, segments, batches, engine):
         tp, _ = _tp_check(dev, seed, trained["state"], trained["tcfg"],
                           make_test_mesh(1, 1))
         log(f"  (F: {time.perf_counter() - t:.1f} s)")
+        kinds = _tp_kinds_check(dev, seed, make_test_mesh(1, 1))
     finally:
         dist.destroy_process_group()
-    return dict(flash=flash, dp=dp, segments=seg, engine=eng, tp=tp)
+    return dict(flash=flash, dp=dp, segments=seg, engine=eng, tp=tp,
+                tp_kinds=kinds)
 
 
 def main() -> int:
@@ -5736,7 +5944,9 @@ def main() -> int:
 
     phase("phase 20: the multi-rank code at world 1 over NCCL (flash "
           "decoding at full width, data-parallel steps, the segment search "
-          "on a mesh, the engine over a placed index, tensor parallelism)")
+          "on a mesh, the engine over a placed index, tensor parallelism: "
+          "the dense kinds, then MoE with expert parallelism, MLA and "
+          "cross-attention)")
     t20 = time.perf_counter()
     dist_out = phase_distributed(
         dev, args.seed, trained, seg_summary, ctx["batches"],

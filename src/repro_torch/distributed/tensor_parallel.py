@@ -1,11 +1,16 @@
-"""Tensor parallelism over a mesh's model axis for the dense decoders.
+"""Tensor parallelism over a mesh's model axis for the attention and
+MoE decoders.
 
 The reference trains and serves with ``param_shardings`` over a ``(data,
 model)`` mesh and lets GSPMD partition the one-device program; this
 module does by hand what that partitioning computes, Megatron-style, for
-the block kinds ``dense``, ``local`` and ``global`` (GQA attention and the
-SwiGLU MLP): so a sharded model computes the one-device model's function,
-to the rounding of its partial sums.
+the block kinds ``dense``, ``local``, ``global``, ``moe`` and ``cross``
+(GQA, MLA and cross-attention, the SwiGLU MLP, the MoE with expert
+parallelism): so a sharded model computes the one-device model's
+function, to the rounding of its partial sums.  A layer makes one
+``all_reduce`` for its attention and one for its MLP or MoE (the routed
+experts' float32 partial combine and the shared experts' partial output
+summed together).
 
 * The collectives under autograd: :func:`copy_to_model` (identity
   forward, ``all_reduce`` of the gradient over the model group backward)
@@ -15,16 +20,21 @@ to the rounding of its partial sums.
   this rank's slice of the gradient backward).  A replicated parameter
   used inside a split region (QK-norm's scales, a replicated ``wk``)
   passes through :func:`copy_to_model`, so its gradient is whole on every
-  rank.
+  rank; so do the outputs of MLA's replicated ``w_dkv`` and ``kv_norm``
+  and a MoE layer's combine weights, which feed only this rank's heads
+  or experts.  What every rank computes whole and uses whole (the MoE
+  router, its aux losses) is not summed.
 * :func:`shard_lm` cuts a one-device ``DecoderLM``'s parameters in place
   into this rank's blocks by
   :func:`repro_torch.distributed.sharding.param_specs` (the reference's
   rules on the reference's paths), one spec a layer's leaf (the layer
   stack's axis dropped).  Where a rule would cut inside an attention
   head, the leaf is replicated over the model axis instead (glm4-9b's 2
-  kv heads at M = 4: ``wk``'s 256 columns divide by 4, its heads do not);
-  a vocabulary table the rules would cut along ``d_model`` is replicated
-  too.  :attr:`TensorParallel.replicated` lists those leaves.
+  kv heads at M = 4: ``wk``'s 256 columns divide by 4, its heads do not),
+  and a MoE layer whose routed experts or shared width do not divide is
+  replicated whole; a vocabulary table the rules would cut along
+  ``d_model`` is replicated too.  :attr:`TensorParallel.replicated` lists
+  those leaves.
   :func:`gather_lm` is the inverse: every parameter whole.
 * :class:`Zero1`: AdamW's moments split over the data axes on each
   leaf's largest dim the model axis leaves free (``zero1_specs``' choice,
@@ -35,11 +45,10 @@ to the rounding of its partial sums.
   cuts a whole checkpoint leaf into this rank's block, so a checkpoint
   does not depend on the mesh it was written on.
 
-Other block kinds (MoE with expert parallelism, MLA, hybrid, xLSTM and
-cross) over a model axis above 1 raise ``NotImplementedError``: they are
-the next slice.  At a model axis of one rank every collective still runs
-(over a group of one) and the sharded model equals the plain one bit for
-bit.
+The hybrid and xLSTM kinds over a model axis above 1 raise
+``NotImplementedError``: they are the next slice.  At a model axis of
+one rank every collective still runs (over a group of one) and the
+sharded model equals the plain one bit for bit.
 """
 
 from __future__ import annotations
@@ -57,11 +66,11 @@ __all__ = ["TP_KINDS", "NEXT_SLICE", "TensorParallel", "HeadSplit",
            "zero1_plan",
            "is_sharded", "whole_state", "whole_shape", "local_block"]
 
-TP_KINDS = ("dense", "local", "global")
+TP_KINDS = ("dense", "local", "global", "moe", "cross")
 NEXT_SLICE = ("tensor parallelism over a model axis above 1 covers the "
-              "dense, local and global GQA kinds; the MoE kind (expert "
-              "parallelism), MLA, hybrid, xLSTM and cross are the next "
-              "slice, ROADMAP queue 1 item 2")
+              "dense, local, global, MoE (expert parallelism; GQA or MLA "
+              "attention) and cross kinds; hybrid and xLSTM (mlstm, slstm) "
+              "are the next slice, ROADMAP queue 1 items 1.3 and 1.4")
 
 
 def _dist():
@@ -199,10 +208,9 @@ def check_kinds(cfg, size: int) -> None:
     """``NotImplementedError`` for a config with kinds outside
     :data:`TP_KINDS` at a model axis of ``size`` above 1."""
     bad = sorted({k for k in cfg.layer_kinds if k not in TP_KINDS})
-    if size > 1 and (bad or cfg.mla_enabled):
-        what = ", ".join(bad + (["mla"] if cfg.mla_enabled else []))
-        raise NotImplementedError(f"{cfg.name}: {what} at a model axis of "
-                                  f"{size}: {NEXT_SLICE}")
+    if size > 1 and bad:
+        raise NotImplementedError(f"{cfg.name}: {', '.join(bad)} at a model "
+                                  f"axis of {size}: {NEXT_SLICE}")
 
 
 def _plan(model, mesh) -> tuple[dict, list, bool]:
@@ -216,6 +224,9 @@ def _plan(model, mesh) -> tuple[dict, list, bool]:
     params = dict(model.named_parameters())
     heads_ok = cfg.num_heads % size == 0
     kv_ok = heads_ok and cfg.num_kv_heads % size == 0
+    moe = cfg.moe
+    moe_ok = moe is not None and moe.num_experts % size == 0 and \
+        (moe.num_shared * moe.d_expert) % size == 0
     specs, replicated, vocab = {}, [], True
     for path, (names, stacked) in _lm_layout(cfg, params).items():
         spec = ref[_keystr(path)]
@@ -225,10 +236,13 @@ def _plan(model, mesh) -> tuple[dict, list, bool]:
         if path[0] in ("embed", "lm_head"):
             rep = spec != ("model", None)
             vocab = vocab and not rep
-        elif path[-2:-1] == ("attn",) and leaf in ("wq", "wo"):
+        elif path[-2:-1] == ("attn",) and leaf in ("wq", "wo", "w_uk",
+                                                   "w_uv"):
             rep = not heads_ok
         elif path[-2:-1] == ("attn",) and leaf in ("wk", "wv"):
             rep = not kv_ok
+        elif path[2:3] == ("moe",):     # the experts, shared and routed
+            rep = not moe_ok
         if rep:
             if MODEL_AXIS in spec:
                 replicated += names
@@ -262,10 +276,11 @@ def shard_lm(model, mesh) -> TensorParallel:
             p.data = local.clone()
     heads = head_split(cfg, size, tp.index, model.device)
     for i, blk in enumerate(model.blocks):
-        if blk.kind in TP_KINDS and not cfg.mla_enabled:
-            blk.tp_attn = (tp, heads) if heads is not None else None
-            blk.tp_mlp = tp if MODEL_AXIS in specs.get(
-                f"blocks.{i}.mlp.w_down", ()) else None
+        if blk.kind not in TP_KINDS:
+            continue
+        blk.tp_attn = (tp, heads) if heads is not None else None
+        ffn = "moe.w_down" if blk.kind == "moe" else "mlp.w_down"
+        blk.tp_ffn = tp if MODEL_AXIS in specs[f"blocks.{i}.{ffn}"] else None
     model.tp = tp
     return tp
 

@@ -25,11 +25,12 @@ the checkpoints.
   torchrun --nproc-per-node 4 -m repro_torch.launch.train --mesh 4x1 ...
 
 Tensor parallelism: ``--mesh DxM`` with M > 1 trains a config of the
-dense, local and global kinds over a world of D·M ranks, the model cut
-over the model axis (:func:`repro_torch.distributed.tensor_parallel.
-shard_lm`); ranks with the same data index read the same rows.  Any
-mesh places AdamW's moments by ZeRO-1 over the data axis.  Another
-config at M > 1 raises ``NotImplementedError`` (the next slice), and a
+dense, local, global, MoE (expert parallelism; GQA or MLA attention) and
+cross kinds over a world of D·M ranks, the model cut over the model axis
+(:func:`repro_torch.distributed.tensor_parallel.shard_lm`); ranks with
+the same data index read the same rows.  Any mesh places AdamW's moments
+by ZeRO-1 over the data axis.  A config with hybrid or xLSTM layers at
+M > 1 raises ``NotImplementedError`` (the next slice), and a
 mesh that is not the world's size raises ``ValueError`` before any
 process group is made.
 

@@ -39,7 +39,13 @@ tensor_parallel.HeadSplit`)) splits a GQA layer by whole heads: ``wq``,
 those heads, ``wo`` is row-parallel with one ``all_reduce`` a layer, and
 the decode ring cache holds this rank's kv heads.  Where the kv heads do
 not divide over the model axis, ``wk`` and ``wv`` are replicated: every
-rank projects every kv head and keeps those its query heads read.  Flash
+rank projects every kv head and keeps those its query heads read.  MLA
+splits the same way by its query heads (``wq``, ``w_uk``, ``w_uv``, and
+``wo``'s rows): ``w_dkv`` and ``kv_norm`` are replicated, the latent and
+the RoPE key they make pass through ``copy_to_model``, and the latent
+cache stays whole on every rank.  Cross-attention splits its text
+queries and the media's K/V by whole heads as GQA does, its cache holds this
+rank's kv heads, and its tanh gate acts after the ``all_reduce``.  Flash
 decoding and tensor parallelism on the same model axis are refused.
 """
 
@@ -421,11 +427,19 @@ def init_mla_params(gen, cfg, dtype, device) -> torch.nn.ParameterDict:
     })
 
 
-def _mla_q(p, x, positions, cfg):
+def _mla_heads(cfg, tp) -> int:
+    """The query heads an MLA layer computes here (this rank's under
+    ``tp``)."""
+    return cfg.num_heads if tp is None else tp[1].hq
+
+
+def _mla_q(p, x, positions, cfg, tp=None):
     m = cfg.mla
     B, S, _ = x.shape
     qd = m.qk_nope_head_dim + m.qk_rope_head_dim
-    q = (x @ p["wq"]).reshape(B, S, cfg.num_heads, qd)
+    if tp is not None:
+        x = tp[0].copy(x)
+    q = (x @ p["wq"]).reshape(B, S, _mla_heads(cfg, tp), qd)
     q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
     sin, cos = rope_angles(positions, m.qk_rope_head_dim, cfg.rope_theta)
     return q_nope, apply_rope(q_rope, sin, cos)
@@ -442,16 +456,19 @@ def _mla_compress(p, x, positions, cfg):
 
 
 def mla_forward(p, x, *, cfg, chunk_q: int = 1024, chunk_k: int = 1024,
-                return_kv: bool = False):
-    """Train/prefill MLA; k/v expanded chunk-locally from the latent."""
+                return_kv: bool = False, tp=None):
+    """Train/prefill MLA; k/v expanded chunk-locally from the latent
+    (``tp``: this rank's heads, module docstring)."""
     m = cfg.mla
     B, S, _ = x.shape
-    H = cfg.num_heads
+    H = _mla_heads(cfg, tp)
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
-    q_nope, q_rope = _mla_q(p, x, positions, cfg)
+    q_nope, q_rope = _mla_q(p, x, positions, cfg, tp)
     q = torch.cat([q_nope, q_rope], dim=-1)
     c, k_rope = _mla_compress(p, x, positions, cfg)
     kv_raw = torch.cat([c, k_rope], dim=-1)
+    if tp is not None:      # whole on every rank, read by this rank's heads
+        kv_raw = tp[0].copy(kv_raw)
 
     def expand(kvc, j):
         ck = kvc.shape[1]
@@ -467,6 +484,8 @@ def mla_forward(p, x, *, cfg, chunk_q: int = 1024, chunk_k: int = 1024,
                             chunk_k=chunk_k, causal=True,
                             out_dim=m.v_head_dim, scale=dk ** -0.5)
     out = out.reshape(B, S, -1) @ p["wo"]
+    if tp is not None:
+        out = tp[0].reduce(out)
     if return_kv:
         return out, (c, k_rope)
     return out
@@ -484,16 +503,17 @@ def mla_init_cache(cfg, batch: int, max_len: int, dtype, device
     )
 
 
-def mla_decode(p, x1, cache: MLACache, pos: int, *, cfg):
+def mla_decode(p, x1, cache: MLACache, pos: int, *, cfg, tp=None):
     """Decode with weight absorption — scores live in the latent space.
     Writes the new latent and rope key into slot ``pos % W`` in place and
-    returns (out, cache)."""
+    returns (out, cache); ``tp``: this rank's heads over the whole
+    cache."""
     m = cfg.mla
     B = x1.shape[0]
-    H = cfg.num_heads
+    H = _mla_heads(cfg, tp)
     pos = int(pos)
     positions = torch.full((1, 1), pos, dtype=torch.int32, device=x1.device)
-    q_nope, q_rope = _mla_q(p, x1, positions, cfg)
+    q_nope, q_rope = _mla_q(p, x1, positions, cfg, tp)
     c1, kr1 = _mla_compress(p, x1, positions, cfg)
     W = cache.c_kv.shape[1]
     slot = pos % W
@@ -518,7 +538,8 @@ def mla_decode(p, x1, cache: MLACache, pos: int, *, cfg):
     w_uv = p["w_uv"].reshape(m.kv_lora_rank, H, m.v_head_dim)
     o = torch.einsum("bqhr,rhv->bqhv", o_lat.to(x1.dtype).float(),
                      w_uv.float()).to(x1.dtype)
-    return o.reshape(B, 1, -1) @ p["wo"], cache
+    o = o.reshape(B, 1, -1) @ p["wo"]
+    return (o if tp is None else tp[0].reduce(o)), cache
 
 
 # ============================================================ cross-attention
@@ -535,17 +556,26 @@ def init_cross_params(gen, cfg, dtype, device) -> torch.nn.ParameterDict:
     })
 
 
-def _cross_kv(p, media, cfg):
+def _cross_kv(p, media, cfg, tp=None):
     """The media's keys (normed) and values, (B, T, Hkv, hd) each, in the
     dtype JAX gives ``media @ w`` (float32 media against bf16 weights:
-    float32)."""
+    float32); under ``tp`` this rank's kv heads, as :func:`_gqa_qkv`
+    makes them."""
     B, T, _ = media.shape
     hd = cfg.resolved_head_dim
     dt = torch.promote_types(media.dtype, p["wk"].dtype)
     media = media.to(dt)
-    k = (media @ p["wk"].to(dt)).reshape(B, T, cfg.num_kv_heads, hd)
-    v = (media @ p["wv"].to(dt)).reshape(B, T, cfg.num_kv_heads, hd)
-    k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    k_norm = p["k_norm"]
+    split = tp is not None and tp[1].kv_split
+    if split:
+        media, k_norm = tp[0].copy(media), tp[0].copy(k_norm)
+    n_kv = tp[1].hkv if split else cfg.num_kv_heads
+    k = (media @ p["wk"].to(dt)).reshape(B, T, n_kv, hd)
+    v = (media @ p["wv"].to(dt)).reshape(B, T, n_kv, hd)
+    k = rms_norm(k, k_norm, cfg.norm_eps)
+    if tp is not None and not split:
+        held = slice(tp[1].kv_lo, tp[1].kv_lo + tp[1].hkv)
+        k, v = tp[0].copy(k)[:, :, held], tp[0].copy(v)[:, :, held]
     return k, v
 
 
@@ -553,16 +583,33 @@ def _cross_gate(p, out):
     return torch.tanh(p["gate"].float()).to(out.dtype)
 
 
-def cross_forward(p, x, media, *, cfg, chunk_q: int = 1024):
+def _cross_q(p, x, cfg, tp):
+    """The text queries (normed), this rank's heads under ``tp``."""
+    B, S, _ = x.shape
+    q_norm = p["q_norm"]
+    if tp is not None:
+        x, q_norm = tp[0].copy(x), tp[0].copy(q_norm)
+    heads = cfg.num_heads if tp is None else tp[1].hq
+    q = (x @ p["wq"]).reshape(B, S, heads, cfg.resolved_head_dim)
+    return rms_norm(q, q_norm, cfg.norm_eps)
+
+
+def _cross_out(p, o, tp):
+    """``wo`` (row-parallel under ``tp``, summed), then the gate."""
+    out = o @ p["wo"]
+    if tp is not None:
+        out = tp[0].reduce(out)
+    return out * _cross_gate(p, out)
+
+
+def cross_forward(p, x, media, *, cfg, chunk_q: int = 1024, tp=None):
     """Text queries attend to the media tokens — no rope, gated."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
-    n_kv = cfg.num_kv_heads
-    q = (x @ p["wq"]).reshape(B, S, cfg.num_heads, hd)
-    q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-    k, v = _cross_kv(p, media, cfg)
-    T = k.shape[1]
-    groups = cfg.num_heads // n_kv
+    q = _cross_q(p, x, cfg, tp)
+    k, v = _cross_kv(p, media, cfg, tp)
+    T, n_kv = k.shape[1], k.shape[2]
+    groups = cfg.num_heads // cfg.num_kv_heads
     # pad the media tokens to a chunk multiple; kv_valid_len masks the tail
     ck = min(1024, 1 << (T - 1).bit_length())
     Tp = -(-T // ck) * ck
@@ -573,27 +620,24 @@ def cross_forward(p, x, media, *, cfg, chunk_q: int = 1024):
         cc = kvc.shape[1]
         kk = kvc[..., : n_kv * hd].reshape(B, cc, n_kv, hd)
         vv = kvc[..., n_kv * hd:].reshape(B, cc, n_kv, hd)
-        return (torch.repeat_interleave(kk, groups, dim=2),
-                torch.repeat_interleave(vv, groups, dim=2))
+        return _expand_kv(kk, groups, tp), _expand_kv(vv, groups, tp)
 
     out = chunked_attention(q, kv_raw, expand, chunk_q=min(chunk_q, S),
                             chunk_k=ck, causal=False, window=0,
                             kv_valid_len=T)
-    out = out.reshape(B, S, -1) @ p["wo"]
-    return out * _cross_gate(p, out)
+    return _cross_out(p, out.reshape(B, S, -1), tp)
 
 
-def cross_decode(p, x1, k_cache, v_cache, *, cfg):
-    """Decode: the media's K/V come from prefill; nothing is written."""
+def cross_decode(p, x1, k_cache, v_cache, *, cfg, tp=None):
+    """Decode: the media's K/V come from prefill; nothing is written
+    (``tp``: the caches hold this rank's kv heads)."""
     B = x1.shape[0]
     hd = cfg.resolved_head_dim
-    q = (x1 @ p["wq"]).reshape(B, 1, cfg.num_heads, hd)
-    q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+    q = _cross_q(p, x1, cfg, tp)
     groups = cfg.num_heads // cfg.num_kv_heads
-    k_all = torch.repeat_interleave(k_cache, groups, dim=2)
-    v_all = torch.repeat_interleave(v_cache, groups, dim=2)
+    k_all = _expand_kv(k_cache, groups, tp)
+    v_all = _expand_kv(v_cache, groups, tp)
     live = torch.ones((B, k_all.shape[1]), dtype=torch.bool,
                       device=x1.device)
     o = _decode_attention(q, k_all, v_all, live, hd ** -0.5)
-    out = o.reshape(B, 1, -1) @ p["wo"]
-    return out * _cross_gate(p, out)
+    return _cross_out(p, o.reshape(B, 1, -1), tp)

@@ -33,11 +33,13 @@ from :meth:`DecoderLM.init_decode_caches`, one token a step.
 
 Tensor parallelism: :func:`repro_torch.distributed.tensor_parallel.
 shard_lm` cuts a model's parameters into this rank's blocks over a mesh's
-model axis and wires its dense, local and global layers (attention by
-whole heads, the MLP column- then row-parallel) and its vocabulary tables
-(rows); ``forward``, ``init_decode_caches``, ``decode_step`` and
-:func:`lm_loss` then run the split, and take that mesh (``mesh=``, which
-must be the one the model was sharded over).  ``forward`` and
+model axis and wires its dense, local, global, MoE and cross layers
+(GQA, MLA and cross-attention by whole heads, the MLP and the shared
+experts column- then row-parallel, the routed experts a block of them a
+rank) and its vocabulary tables (rows); ``forward``, ``prefill``,
+``init_decode_caches``, ``decode_step`` and :func:`lm_loss` then run the
+split, and take that mesh (``mesh=``, which must be the one the model was
+sharded over).  ``forward`` and
 ``decode_step`` return the logits gathered along the vocabulary;
 :func:`lm_loss` keeps each rank's slice and reduces its cross-entropy
 over the model group.
@@ -130,9 +132,10 @@ class Block(torch.nn.Module):
         self.cfg = cfg
         self.theta, self.window = _kind_attn_mode(cfg, kind)
         # tensor parallelism (``shard_lm``): (TensorParallel, HeadSplit)
-        # for the attention, the TensorParallel for the MLP; None = whole
+        # for the attention, the TensorParallel for the MLP or the MoE
+        # (expert parallelism); None = whole
         self.tp_attn = None
-        self.tp_mlp = None
+        self.tp_ffn = None
         d = cfg.d_model
         self.ln1 = zeros((d,), dtype, device)
         if kind == "mlstm":
@@ -167,9 +170,10 @@ class Block(torch.nn.Module):
             return x, zero
         h = rms_norm(x, self.ln2, self.cfg.norm_eps)
         if self.kind == "moe":
-            y, aux = moe_forward(self.moe, h, self.cfg, group=data_group)
+            y, aux = moe_forward(self.moe, h, self.cfg, group=data_group,
+                                 tp=self.tp_ffn)
             return x + y, torch.stack(list(aux))
-        return x + mlp_forward(self.mlp, h, tp=self.tp_mlp), zero
+        return x + mlp_forward(self.mlp, h, tp=self.tp_ffn), zero
 
     def forward(self, x, *, chunks: tuple[int, int], want_cache: bool,
                 media=None, data_group=None):
@@ -188,18 +192,18 @@ class Block(torch.nn.Module):
             if media is None:
                 raise ValueError(f"{cfg.name}: a cross layer needs media")
             x = x + attn.cross_forward(self.attn, h, media, cfg=cfg,
-                                       chunk_q=chunks[0])
+                                       chunk_q=chunks[0], tp=self.tp_attn)
             if want_cache:
-                cache = attn._cross_kv(self.attn, media, cfg)
+                cache = attn._cross_kv(self.attn, media, cfg, self.tp_attn)
         else:
             kw = dict(chunk_q=chunks[0], chunk_k=chunks[1],
-                      return_kv=want_cache)
+                      return_kv=want_cache, tp=self.tp_attn)
             if cfg.mla_enabled:
                 a = attn.mla_forward(self.attn, h, cfg=cfg, **kw)
             else:
                 a = attn.gqa_forward(self.attn, h, cfg=cfg,
                                      theta=self.theta, window=self.window,
-                                     tp=self.tp_attn, **kw)
+                                     **kw)
             if want_cache:
                 a, kv = a
                 cache = _cache_from_kv(cfg, kv, self.window, x.shape[1])
@@ -218,23 +222,26 @@ class Block(torch.nn.Module):
         """The layer's empty decode cache (a cross layer's: zero media
         K/V of ``cfg.vision_tokens``, as the reference's); with
         ``flash_mesh`` a GQA ring holds this rank's slots only
-        (:func:`~repro_torch.models.attention.flash_cache_shard`)."""
+        (:func:`~repro_torch.models.attention.flash_cache_shard`), under
+        tensor parallelism a GQA or cross cache this rank's kv heads (an
+        MLA cache stays whole)."""
         cfg, dev = self.cfg, self.ln1.device
         dtype = dtype_of(cfg)
         if self.kind == "mlstm":
             return xl.mlstm_init_cache(cfg, batch, dev)
         if self.kind == "slstm":
             return xl.slstm_init_cache(cfg, batch, dev)
+        kv_heads = (self.tp_attn[1].hkv if self.tp_attn is not None
+                    else None)
         if self.kind == "cross":
-            shape = (batch, cfg.vision_tokens, cfg.num_kv_heads,
+            shape = (batch, cfg.vision_tokens, kv_heads or cfg.num_kv_heads,
                      cfg.resolved_head_dim)
             return tuple(torch.zeros(shape, dtype=dtype, device=dev)
                          for _ in range(2))
         if cfg.mla_enabled:
             return attn.mla_init_cache(cfg, batch, max_len, dtype, dev)
-        kv = attn.gqa_init_cache(
-            cfg, batch, max_len, self.window, dtype, dev,
-            self.tp_attn[1].hkv if self.tp_attn is not None else None)
+        kv = attn.gqa_init_cache(cfg, batch, max_len, self.window, dtype,
+                                 dev, kv_heads)
         if flash_mesh is not None:
             kv = attn.flash_cache_shard(kv, flash_mesh)
         if self.kind == "hybrid":
@@ -252,7 +259,8 @@ class Block(torch.nn.Module):
         elif self.kind == "slstm":
             a, cache = xl.slstm_decode(self.mix, h, cache, cfg=cfg)
         elif self.kind == "cross":
-            a = attn.cross_decode(self.attn, h, *cache, cfg=cfg)
+            a = attn.cross_decode(self.attn, h, *cache, cfg=cfg,
+                                  tp=self.tp_attn)
         elif self.kind == "hybrid":
             kv, ssm_cache = cache
             a, kv = attn.gqa_decode(self.attn, h, kv, pos, cfg=cfg,
@@ -262,7 +270,8 @@ class Block(torch.nn.Module):
             a = 0.5 * (a + s)
             cache = (kv, ssm_cache)
         elif cfg.mla_enabled:
-            a, cache = attn.mla_decode(self.attn, h, cache, pos, cfg=cfg)
+            a, cache = attn.mla_decode(self.attn, h, cache, pos, cfg=cfg,
+                                       tp=self.tp_attn)
         else:
             a, cache = attn.gqa_decode(self.attn, h, cache, pos, cfg=cfg,
                                        theta=self.theta, window=self.window,
@@ -390,10 +399,11 @@ class DecoderLM(torch.nn.Module):
             x = x[:, -1:]
         return x, aux_sum, caches
 
-    def prefill(self, tokens=None, embeds=None, media=None):
-        """Full forward, per-layer caches and last-position logits."""
+    def prefill(self, tokens=None, embeds=None, media=None, mesh=None):
+        """Full forward, per-layer caches and last-position logits
+        (``mesh``: as :meth:`forward`'s)."""
         return self.forward(tokens, embeds, media, want_caches=True,
-                            logits_mode="last")
+                            logits_mode="last", mesh=mesh)
 
     def init_decode_caches(self, batch: int, max_len: int,
                            flash_mesh=None, mesh=None) -> list:

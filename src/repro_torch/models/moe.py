@@ -22,6 +22,14 @@ rank holds only its rows of the batch, and the batch's rows are the
 ranks' rows in rank order.  The capacity, the tokens dropped and the load
 balance are then those of the whole batch, as the reference's SPMD step
 computes them over its global batch (:func:`moe_forward`).
+
+Under expert parallelism (``tp``, a :class:`~repro_torch.distributed.
+tensor_parallel.TensorParallel`) a model rank holds the experts ``[r·E/M,
+(r+1)·E/M)`` and its columns (rows) of the shared experts' ``w_gate`` and
+``w_up`` (``w_down``).  Routing runs whole on every model rank, which all
+see the same tokens; only this rank's experts fill its ``(E/M, C, d)``
+buffer, and the ranks' float32 partial combines and partial shared
+outputs are summed in one ``all_reduce`` before the cast.
 """
 
 from __future__ import annotations
@@ -146,7 +154,7 @@ def _every_rank(counts: torch.Tensor, group) -> torch.Tensor:
     return torch.stack(out)
 
 
-def moe_forward(p, x: torch.Tensor, cfg, group=None
+def moe_forward(p, x: torch.Tensor, cfg, group=None, tp=None
                 ) -> tuple[torch.Tensor, MoEAux]:
     """x: (B, S, d) → (B, S, d), plus router aux losses.
 
@@ -160,7 +168,13 @@ def moe_forward(p, x: torch.Tensor, cfg, group=None
     batch's (its router mass over the whole batch's top-1 fractions), so
     the data-parallel mean of the ranks' losses, and of their gradients,
     is the whole batch's.  The z loss and the dropped fraction are means
-    over tokens, which that mean already makes whole."""
+    over tokens, which that mean already makes whole.
+
+    ``tp``: expert parallelism over a model axis (module docstring).  The
+    experts' and the shared path's input and the combine weights pass
+    through ``copy_to_model``, since each rank's share of their gradient
+    is partial; the router's logits and the aux terms are whole on every
+    rank, and their gradient is not summed."""
     m = cfg.moe
     B, S, d = x.shape
     T = B * S
@@ -172,6 +186,12 @@ def moe_forward(p, x: torch.Tensor, cfg, group=None
     C = int(math.ceil(T * D * K / E * m.capacity_factor))
     dev = x.device
     xt = x.reshape(T, d)
+    # the experts' input: one node, so the split's gradient sums (the
+    # experts' and the shared path's, then the router's) are the plain
+    # model's at a model axis of one rank
+    xe = xt.view_as(xt) if tp is None else tp.copy(xt)
+    El = p["w_gate"].shape[0]                    # this rank's experts
+    e0 = 0 if tp is None else tp.index * El
 
     # ---- router (f32) -------------------------------------------------
     logits = xt.float() @ p["router"].float()                # (T, E)
@@ -219,45 +239,54 @@ def moe_forward(p, x: torch.Tensor, cfg, group=None
     starts = torch.cumsum(counts, dim=0) - counts
     pos = ranks - starts[flat_e]                             # slot in expert
     keep = pos + before < C
-    slot = torch.where(keep, flat_e * C + pos, E * C)        # overflow slot
+    local = flat_e - e0                                      # expert here
+    mine = keep & (local >= 0) & (local < El)
+    slot = torch.where(mine, local * C + pos, El * C)        # overflow slot
 
-    token_rep = xt.repeat_interleave(K, dim=0)               # (T*K, d)
+    token_rep = xe.repeat_interleave(K, dim=0)               # (T*K, d)
     if m.quantize_dispatch:
         # int8 transport with one float32 scale a row, dequantized on the
         # expert side
         tok_q, s_in = _quantize_rows(token_rep)
-        buf_q = torch.zeros((E * C + 1, d), dtype=torch.int8, device=dev)
+        buf_q = torch.zeros((El * C + 1, d), dtype=torch.int8, device=dev)
         buf_q[slot] = tok_q
-        buf_s = torch.zeros((E * C + 1,), dtype=torch.float32, device=dev)
+        buf_s = torch.zeros((El * C + 1,), dtype=torch.float32, device=dev)
         buf_s[slot] = s_in
-        buf = (buf_q[:E * C].float() * buf_s[:E * C, None]).to(
-            x.dtype).reshape(E, C, d)
+        buf = (buf_q[:El * C].float() * buf_s[:El * C, None]).to(
+            x.dtype).reshape(El, C, d)
     else:
-        buf = torch.zeros((E * C + 1, d), dtype=x.dtype, device=dev)
+        buf = torch.zeros((El * C + 1, d), dtype=x.dtype, device=dev)
         buf[slot] = token_rep
-        buf = buf[:E * C].reshape(E, C, d)
+        buf = buf[:El * C].reshape(El, C, d)
 
-    # ---- expert FFN (batched over E) ----------------------------------
-    g = _expert_mm(buf, p["w_gate"])                         # (E, C, f)
+    # ---- expert FFN (batched over this rank's experts) ----------------
+    g = _expert_mm(buf, p["w_gate"])                         # (El, C, f)
     u = _expert_mm(buf, p["w_up"])
     h = (torch.nn.functional.silu(g) * u).to(x.dtype)
-    out_buf = _expert_mm(h, p["w_down"])                     # (E, C, d)
+    out_buf = _expert_mm(h, p["w_down"])                     # (El, C, d)
 
     # ---- combine -------------------------------------------------------
     zero_row = torch.zeros((1, d), dtype=torch.float32, device=dev)
     if m.quantize_dispatch:
-        ob_q, s_out = _quantize_rows(out_buf.reshape(E * C, d))
+        ob_q, s_out = _quantize_rows(out_buf.reshape(El * C, d))
         out_q = torch.cat([ob_q, zero_row.to(torch.int8)])
         out_s = torch.cat([s_out, zero_row[0, :1]])
         gathered = (out_q[slot].float() * out_s[slot, None]).reshape(T, K, d)
     else:
-        out_flat = torch.cat([out_buf.reshape(E * C, d), zero_row])
+        out_flat = torch.cat([out_buf.reshape(El * C, d), zero_row])
         gathered = out_flat[slot].reshape(T, K, d)           # dropped → 0
     w = (top_p * keep.reshape(T, K)).float()
-    out = torch.einsum("tkd,tk->td", gathered, w).to(x.dtype)
-
-    if m.num_shared:
-        out = out + mlp_forward(p["shared"], xt)
+    if tp is not None:
+        w = tp.copy(w)
+    out = torch.einsum("tkd,tk->td", gathered, w)            # float32
+    shared = mlp_forward(p["shared"], xe) if m.num_shared else None
+    if tp is not None:       # one sum of both partials, then the casts
+        parts = [out] + ([shared.float()] if shared is not None else [])
+        out, *rest = tp.reduce(torch.cat(parts, dim=-1)).split(d, dim=-1)
+        shared = rest[0].to(x.dtype) if rest else None
+    out = out.to(x.dtype)
+    if shared is not None:
+        out = out + shared
 
     aux = MoEAux(load_balance_loss=lb, router_z_loss=z,
                  dropped_fraction=1.0 - keep.float().mean())

@@ -584,29 +584,86 @@ def engine_world(rank, world, path, cfg_kw):
 
 
 # ====================================================== tensor parallelism
+# The reduced configs the TP worlds cut, by case: the arch (before a "+"),
+# its ``reduced`` overrides, and (key "moe") overrides of its MoE config.
+# The vision config keeps its cross layer (every 5th); "+int8" sends the
+# MoE dispatch in int8, "+routed" limits routing to 2 of 4 expert groups
+# at a capacity that drops tokens.
 TP_ARCHS = {"qwen3-0.6b": {}, "gemma3-4b": dict(num_layers=6, window_size=16),
-            "glm4-9b": {}}
+            "glm4-9b": {}, "deepseek-moe-16b": {}, "deepseek-v2-lite-16b": {},
+            "llama-3.2-vision-11b": dict(num_layers=5),
+            "deepseek-moe-16b+int8": dict(moe=dict(quantize_dispatch=True)),
+            "deepseek-v2-lite-16b+routed": dict(moe=dict(
+                route_groups=2, num_groups=4, capacity_factor=0.5))}
+TP_MOE = tuple(c for c in TP_ARCHS if c.startswith("deepseek"))
+TP_TRAIN_MOE = "deepseek-v2-lite-16b"   # ZeRO-1, the checkpoint, launcher
 
 
-def _tp_model(path, arch, mesh, over=None):
-    """The reduced ``arch`` (float32) on ``path``'s reference weights, cut
-    over ``mesh``'s model axis: (model, its TensorParallel)."""
+def tp_config(get_config, case: str):
+    """The reduced config of ``case`` from a package's ``get_config`` (the
+    port's or the reference's)."""
+    import dataclasses
+
+    over = dict(TP_ARCHS[case])
+    moe = over.pop("moe", None)
+    cfg = get_config(case.split("+")[0]).reduced(**over)
+    if moe:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                               **moe))
+    return cfg
+
+
+def _tp_model(path, case, mesh=None):
+    """``case``'s reduced config (float32) on ``path``'s reference weights,
+    cut over ``mesh``'s model axis: (model, its TensorParallel; None
+    without ``mesh``)."""
     from repro_torch.configs import get_config
     from repro_torch.convert import lm_from_arrays
     from repro_torch.distributed.tensor_parallel import shard_lm
 
-    over = TP_ARCHS.get(arch, {}) if over is None else over
-    cfg = get_config(arch).reduced(**over)
-    model = lm_from_arrays(load_tree(path), cfg, device="cpu")
-    return model, shard_lm(model, mesh)
+    model = lm_from_arrays(load_tree(path), tp_config(get_config, case),
+                           device="cpu")
+    return model, (shard_lm(model, mesh) if mesh is not None else None)
 
 
-def tp_model_world(rank, world, d, shapes, tokens, labels, steps, max_len):
-    """Each config of :data:`TP_ARCHS` on each mesh of ``shapes``: the
-    prefill logits, the loss and every gradient leaf (gathered whole),
-    ``steps`` decode steps' logits, the leaves replicated against the
-    rules, the cache's kv heads, the round trip of ``gather_lm`` and the
-    refusal of flash decoding on the same axis."""
+def media_kw(model, media) -> dict:
+    """``media=`` for a model with cross layers, else nothing."""
+    return ({"media": torch.as_tensor(media)} if model.cfg.cross_attn_every
+            else {})
+
+
+def decode_caches(model, tokens, media, max_len, mesh=None) -> list:
+    """Empty decode caches, a cross layer's holding the media K/V of the
+    prefill of ``tokens`` (a zero K/V would make the layer add nothing)."""
+    caches = model.init_decode_caches(tokens.shape[0], max_len, mesh=mesh)
+    kw = media_kw(model, media)
+    if kw:
+        _, pre = model.prefill(tokens, **kw)
+        caches = [p if blk.kind == "cross" else c
+                  for blk, c, p in zip(model.blocks, caches, pre)]
+    return caches
+
+
+def _cache_widths(model, caches) -> dict:
+    """The kv heads of every GQA and cross cache, the latent width of
+    every MLA cache: ``{"kv_heads": [...], "latent": [...]}``."""
+    out = {"kv_heads": set(), "latent": set()}
+    for blk, c in zip(model.blocks, caches):
+        if hasattr(c, "c_kv"):
+            out["latent"].add(int(c.c_kv.shape[-1]))
+        else:
+            k = c.k if hasattr(c, "k") else c[0]
+            out["kv_heads"].add(int(k.shape[2]))
+    return {k: sorted(v) for k, v in out.items()}
+
+
+def tp_model_world(rank, world, d, shapes, tokens, labels, media, steps,
+                   max_len):
+    """Each case of :data:`TP_ARCHS` on each mesh of ``shapes``: the
+    prefill logits, the loss and its metrics, every gradient leaf
+    (gathered whole), ``steps`` decode steps' logits, the leaves
+    replicated against the rules, the caches' widths, the round trip of
+    ``gather_lm`` and the refusal of flash decoding on the same axis."""
     from repro_torch.convert import lm_to_arrays
     from repro_torch.distributed.mesh import make_test_mesh
     from repro_torch.distributed.sharding import gather_tensor
@@ -617,15 +674,15 @@ def tp_model_world(rank, world, d, shapes, tokens, labels, steps, max_len):
     tok = torch.as_tensor(tokens)
     for shape in shapes:
         mesh = make_test_mesh(*shape)
-        for arch in TP_ARCHS:
-            model, tp = _tp_model(f"{d}/{arch}.npz", arch, mesh)
-            whole = load_tree(f"{d}/{arch}.npz")
+        for case in TP_ARCHS:
+            model, tp = _tp_model(f"{d}/{case}.npz", case, mesh)
+            whole = load_tree(f"{d}/{case}.npz")
+            kw = media_kw(model, media)
             r = {"replicated": list(tp.replicated)}
             with torch.no_grad():
-                r["logits"] = model(tok, mesh=mesh).numpy()
-                caches = model.init_decode_caches(tok.shape[0], max_len,
-                                                  mesh=mesh)
-                r["kv_heads"] = int(caches[0].k.shape[2])
+                r["logits"] = model(tok, mesh=mesh, **kw).numpy()
+                caches = decode_caches(model, tok, media, max_len, mesh)
+                r.update(_cache_widths(model, caches))
                 dec = []
                 for t in range(steps):
                     lg, caches = model.decode_step(tok[:, t:t + 1], caches,
@@ -634,9 +691,11 @@ def tp_model_world(rank, world, d, shapes, tokens, labels, steps, max_len):
                 r["decode"] = np.stack(dec)
             for p in model.parameters():
                 p.requires_grad_(True)
-            loss, _ = lm_loss(model, tok, labels=labels, mesh=mesh)
+            loss, metrics = lm_loss(model, tok, labels=labels, mesh=mesh,
+                                    **kw)
             grads = torch.autograd.grad(loss, list(model.parameters()))
             r["loss"] = float(loss.detach())
+            r["metrics"] = {k: float(v) for k, v in metrics.items()}
             names = [n for n, _ in model.named_parameters()]
             r["grads"] = {n: gather_tensor(g, tp.specs[n], mesh).numpy()
                           for n, g in zip(names, grads)}
@@ -650,7 +709,74 @@ def tp_model_world(rank, world, d, shapes, tokens, labels, steps, max_len):
             r["round_trip"] = all(
                 np.array_equal(a, b) for a, b in zip(
                     _flat_leaves(back), _flat_leaves(whole)))
-            out[(shape, arch)] = r
+            out[(shape, case)] = r
+    return out
+
+
+def tp_one_rank_world(rank, world, d, tokens, labels, media, steps,
+                      max_len):
+    """Each case cut over a (world, 1) mesh, a model axis of one rank,
+    against the plain model on the same rank and inputs: whether the
+    logits, the loss, every gradient leaf and ``steps`` decode steps are
+    equal bit for bit (the names of the leaves that are not)."""
+    from repro_torch.distributed.mesh import make_test_mesh
+    from repro_torch.models.lm import lm_loss
+
+    mesh = make_test_mesh(world, 1)
+    tok = torch.as_tensor(tokens)
+    out = {}
+    for case in TP_ARCHS:
+        res = []
+        for m in (None, mesh):
+            model, _ = _tp_model(f"{d}/{case}.npz", case, m)
+            kw = media_kw(model, media)
+            with torch.no_grad():
+                logits = model(tok, mesh=m, **kw)
+                caches = decode_caches(model, tok, media, max_len, m)
+                dec = torch.stack([model.decode_step(
+                    tok[:, t:t + 1], caches, t, mesh=m)[0]
+                    for t in range(steps)])
+            for p in model.parameters():
+                p.requires_grad_(True)
+            loss, _ = lm_loss(model, tok, labels=labels, mesh=m, **kw)
+            grads = torch.autograd.grad(loss, list(model.parameters()))
+            res.append((logits, loss.detach(), dec, dict(zip(
+                [n for n, _ in model.named_parameters()], grads))))
+        (l0, s0, d0, g0), (l1, s1, d1, g1) = res
+        out[case] = {"logits": torch.equal(l0, l1),
+                     "loss": torch.equal(s0, s1),
+                     "decode": torch.equal(d0, d1),
+                     "grads": [n for n in g0 if not torch.equal(g0[n],
+                                                                g1[n])]}
+    return out
+
+
+def tp_data_group_world(rank, world, d, tokens, labels):
+    """Each MoE case over a (2, 2) mesh: the data-parallel mean of the
+    loss, its metrics and the gradients (gathered whole over the model
+    axis) of this data rank's rows, the MoE statistics taken over the
+    data group (``make_train_step(...).grads``)."""
+    from repro_torch.distributed.mesh import make_test_mesh
+    from repro_torch.distributed.sharding import gather_tensor
+    from repro_torch.training.train_step import (TrainConfig, TrainState,
+                                                 make_train_step)
+
+    mesh = make_test_mesh(2, 2)
+    di = mesh.index("data")
+    out = {}
+    for case in TP_MOE:
+        model, tp = _tp_model(f"{d}/{case}.npz", case, mesh)
+        for p in model.parameters():
+            p.requires_grad_(True)
+        step = make_train_step(model, TrainConfig(microbatches=1,
+                                                  remat=False), mesh=mesh)
+        loss, metrics, grads = step.grads(
+            TrainState(model, None, None),
+            _local({"tokens": tokens, "labels": labels}, di, 2, 1))
+        out[case] = {"loss": float(loss),
+                     "metrics": {k: float(v) for k, v in metrics.items()},
+                     "grads": {n: gather_tensor(g, tp.specs[n], mesh).numpy()
+                               for n, g in grads.items()}}
     return out
 
 
@@ -660,40 +786,65 @@ def _flat_leaves(tree) -> list:
              else [np.asarray(tree[k])])]
 
 
-def tp_train_world(rank, world, qwen, mesh_shape, batches, learn_batch,
-                   ckpt_dir, launch_argv, launch_dir):
+def _trajectory(path, case, mesh, batches, tcfg):
+    """``case`` cut over ``mesh`` trained on this data rank's rows of
+    ``batches``: (the state, each step's loss, the parameters whole
+    after the last)."""
+    from repro_torch.distributed.tensor_parallel import gather_lm
+    from repro_torch.training.train_step import (make_train_step,
+                                                 train_state_init)
+
+    D, di = mesh.size("data"), mesh.index("data")
+    model, _ = _tp_model(path, case, mesh)
+    state = train_state_init(model, tcfg, mesh=mesh)
+    step = make_train_step(model, tcfg, mesh=mesh)
+    losses = []
+    for b in batches:
+        state, m = step(state, _local(b, di, D, 1))
+        losses.append(float(m["loss"]))
+    return state, losses, {n: t.numpy() for n, t in gather_lm(model).items()}
+
+
+def tp_train_world(rank, world, d, mesh_shape, batches, learn_batch,
+                   launch_argv):
     """Over a ``mesh_shape`` mesh: the reduced Qwen3's train steps with
     ZeRO-1, without and with int8 compression (each step's loss and the
     parameters whole after the last), the moments' ZeRO dims, a
-    checkpoint of the compressed state (``ckpt_dir``), the learning
-    contract, and the launcher."""
+    checkpoint of the compressed state (``d``/ckpt), the reduced
+    :data:`TP_TRAIN_MOE`'s steps without compression and its checkpoint
+    (``d``/ckpt_moe), the learning contract, and the launcher
+    (``d``/launch22)."""
+    import dataclasses
+
     from repro_torch.checkpoint.checkpointer import Checkpointer
     from repro_torch.distributed.mesh import make_test_mesh
-    from repro_torch.distributed.tensor_parallel import gather_lm
     from repro_torch.training.train_step import (TrainConfig,
                                                  make_train_step,
                                                  train_state_init)
 
     mesh = make_test_mesh(*mesh_shape)
     D, di = mesh_shape[0], mesh.index("data")
+    qwen = f"{d}/qwen3-0.6b.npz"
     out = {"traj": {}}
     for compress in (False, True):
         tcfg = TrainConfig(microbatches=1, peak_lr=1e-3, warmup_steps=2,
                            total_steps=50, compress_grads=compress,
                            remat=False)
-        model, _ = _tp_model(qwen, "qwen3-0.6b", mesh)
-        state = train_state_init(model, tcfg, mesh=mesh)
-        step = make_train_step(model, tcfg, mesh=mesh)
-        losses = []
-        for b in batches:
-            state, m = step(state, _local(b, di, D, 1))
-            losses.append(float(m["loss"]))
-        out["traj"][compress] = (losses, {
-            n: t.numpy() for n, t in gather_lm(model).items()})
+        state, losses, params = _trajectory(qwen, "qwen3-0.6b", mesh,
+                                            batches, tcfg)
+        out["traj"][compress] = (losses, params)
     out["zero"] = (dict(state.opt.zero.dims) if state.opt.zero is not None
                    else None)
     out["moments"] = {n: tuple(t.shape) for n, t in state.opt.m.items()}
-    Checkpointer(ckpt_dir).save(len(batches), state, block=True)
+    Checkpointer(f"{d}/ckpt").save(len(batches), state, block=True)
+    state, losses, params = _trajectory(
+        f"{d}/{TP_TRAIN_MOE}.npz", TP_TRAIN_MOE, mesh, batches,
+        dataclasses.replace(tcfg, compress_grads=False))
+    out["moe"] = {"losses": losses, "params": params,
+                  "zero": dict(state.opt.zero.dims),
+                  "moments": {n: tuple(t.shape)
+                              for n, t in state.opt.m.items()}}
+    Checkpointer(f"{d}/ckpt_moe").save(len(batches), state, block=True)
     # the reference's SPMD contract: 8 steps at lr 5e-3 on one batch
     lcfg = TrainConfig(microbatches=1, peak_lr=5e-3, warmup_steps=1,
                        remat=False)
@@ -705,7 +856,7 @@ def tp_train_world(rank, world, qwen, mesh_shape, batches, learn_batch,
         state, m = step(state, _local(learn_batch, di, D, 1))
         learn.append(float(m["loss"]))
     out["learn"] = learn
-    out["launch"] = launcher_world(rank, world, launch_dir, [
+    out["launch"] = launcher_world(rank, world, f"{d}/launch22", [
         *launch_argv, "--mesh", f"{mesh_shape[0]}x{mesh_shape[1]}"])
     return out
 
@@ -748,9 +899,10 @@ def zero_world(rank, world, qwen, batches):
             "moments": all(torch.equal(a[1][n], b[1][n]) for n in a[1])}
 
 
-def tp_restore_world(rank, world, qwen, ckpt_dir):
-    """The reduced Qwen3 cut over a (1, world) mesh restores a checkpoint
-    (written on another mesh); its state gathered whole, as arrays."""
+def tp_restore_world(rank, world, path, case, ckpt_dir, compress):
+    """The reduced ``case`` cut over a (1, world) mesh restores a
+    checkpoint (written on another mesh); its state gathered whole, as
+    arrays."""
     from repro_torch.checkpoint.checkpointer import Checkpointer
     from repro_torch.convert import train_state_to_arrays
     from repro_torch.distributed.mesh import make_test_mesh
@@ -758,8 +910,8 @@ def tp_restore_world(rank, world, qwen, ckpt_dir):
     from repro_torch.training.train_step import TrainConfig, train_state_init
 
     mesh = make_test_mesh(1, world)
-    model, _ = _tp_model(qwen, "qwen3-0.6b", mesh)
-    state = train_state_init(model, TrainConfig(compress_grads=True),
+    model, _ = _tp_model(path, case, mesh)
+    state = train_state_init(model, TrainConfig(compress_grads=compress),
                              mesh=mesh)
     state, meta = Checkpointer(ckpt_dir).restore(state)
     return meta["step"], train_state_to_arrays(state, whole_state(state))
@@ -820,25 +972,37 @@ def train_world(rank, world, qwen, batches, ckpt_dir, learn_batch, combos,
     return res
 
 
-def tp_world(rank, world, d, tokens, labels, steps, max_len, batches,
-             learn_batch, launch_argv):
+def tp_world(rank, world, d, tokens, labels, media, steps, max_len,
+             batches, learn_batch, launch_argv):
     """``test_torch_dist_tp``: the models on the world's meshes ((1, 2) at
-    world 2; (2, 2) and (1, 4) at world 4); world 4 trains at (2, 2) and
-    writes ``d``/ckpt, which world 2 restores at (1, 2); world 2 also
-    checks ZeRO-1 against whole moments at (2, 1) and the refusals."""
+    world 2; (2, 2) and (1, 4) at world 4); world 4 also takes the MoE
+    statistics over the data group at (2, 2), trains at (2, 2) and writes
+    ``d``/ckpt and ``d``/ckpt_moe, which world 2 restores at (1, 2);
+    world 2 also checks a model axis of one rank bit for bit, ZeRO-1
+    against whole moments at (2, 1), the refusals and the launcher."""
     shapes = [(1, 2)] if world == 2 else [(2, 2), (1, 4)]
     res = {"models": tp_model_world(rank, world, d, shapes, tokens, labels,
-                                    steps, max_len)}
+                                    media, steps, max_len)}
     qwen = f"{d}/qwen3-0.6b.npz"
     if world == 4:
-        res["train"] = tp_train_world(rank, world, qwen, (2, 2), batches,
-                                      learn_batch, f"{d}/ckpt", launch_argv,
-                                      f"{d}/launch22")
+        res["data_group"] = tp_data_group_world(rank, world, d, tokens,
+                                                labels)
+        res["train"] = tp_train_world(rank, world, d, (2, 2), batches,
+                                      learn_batch, launch_argv)
     else:
+        res["one_rank"] = tp_one_rank_world(rank, world, d, tokens, labels,
+                                            media, steps, max_len)
         res["zero"] = zero_world(rank, world, qwen, batches)
-        res["restore"] = tp_restore_world(rank, world, qwen, f"{d}/ckpt")
+        res["restore"] = tp_restore_world(rank, world, qwen, "qwen3-0.6b",
+                                          f"{d}/ckpt", True)
+        res["restore_moe"] = tp_restore_world(
+            rank, world, f"{d}/{TP_TRAIN_MOE}.npz", TP_TRAIN_MOE,
+            f"{d}/ckpt_moe", False)
         res["launch"] = launcher_world(rank, world, f"{d}/launch12",
                                        [*launch_argv, "--mesh", "1x2"])
+        res["launch_moe"] = launcher_world(
+            rank, world, f"{d}/launch12_moe",
+            [*launch_argv, "--arch", TP_TRAIN_MOE, "--mesh", "1x2"])
         res["refused"] = tp_refusals(rank, world, (
             "deepseek-moe-16b", "xlstm-1.3b", "hymba-1.5b",
             "deepseek-v2-lite-16b", "llama-3.2-vision-11b"))

@@ -166,3 +166,42 @@ def test_shard_tensor_on_a_one_rank_mesh_is_the_whole():
     assert np.array_equal(
         shd.gather_tensor(full, ("data", "model"), mesh).numpy(),
         full.numpy())
+
+
+@pytest.mark.parametrize("M", [2, 4])
+def test_tp_plan_replicates_a_moe_layer_that_does_not_divide(M):
+    """``shard_lm``'s plan on a reduced deepseek-moe-16b with 6 routed
+    experts: at M = 2 the routed experts split on their expert axis and
+    the shared experts by columns; at M = 4 the rules already leave the 6
+    experts whole, and the port replicates the layer's shared experts
+    with them (one expert computed on one rank), listing the shared
+    leaves beside the GQA layers' 2 kv heads."""
+    import dataclasses
+
+    from repro_torch.distributed.tensor_parallel import _plan
+
+    cfg = get_config("deepseek-moe-16b").reduced()
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                           num_experts=6))
+    model = DecoderLM(cfg, seed=None, device="meta")
+    mesh = FakeMesh(("data", "model"), (1, M))
+    mesh.size = lambda axes: M if axes == "model" else 1
+    specs, replicated, vocab = _plan(model, mesh)
+    moe = [i for i, k in enumerate(cfg.layer_kinds) if k == "moe"]
+    assert vocab and moe
+    if M == 2:
+        assert replicated == []
+        for i in moe:
+            assert specs[f"blocks.{i}.moe.w_gate"] == ("model", None, None)
+            assert specs[f"blocks.{i}.moe.shared.w_gate"] == (None, "model")
+            assert specs[f"blocks.{i}.moe.shared.w_down"] == ("model", None)
+        return
+    want = [f"blocks.{i}.attn.{w}" for i in range(cfg.num_layers)
+            for w in ("wk", "wv")]
+    want += [f"blocks.{i}.moe.shared.{w}" for i in moe
+             for w in ("w_gate", "w_up", "w_down")]
+    assert sorted(replicated) == sorted(want)
+    for i in moe:
+        for w in ("w_gate", "w_up", "w_down", "router", "shared.w_gate",
+                  "shared.w_up", "shared.w_down"):
+            assert specs[f"blocks.{i}.moe.{w}"] == (), w

@@ -3,13 +3,19 @@ worlds of 2 and 4 ranks, against the reference's and the port's
 one-device models.
 
 The reduced qwen3-0.6b (dense, tied head), gemma3-4b (local and global
-layers, 6 layers, window 16) and glm4-9b (untied head) start from the
-reference's weights (``jlm.init_params``, carried by
+layers, 6 layers, window 16), glm4-9b (untied head), deepseek-moe-16b
+(GQA and a MoE of 8 routed and 2 shared experts), deepseek-v2-lite-16b
+(MLA and the MoE) and llama-3.2-vision-11b (5 layers, the last a cross
+layer, fed seeded media, its gate opened to 0.5: a zero gate passes any
+parity), and two MoE variants (``tests/_torch_dist.py::TP_ARCHS``:
+int8 dispatch; grouped routing at a capacity that drops tokens), start
+from the reference's weights (``jlm.init_params``, carried by
 ``repro_torch.convert.lm_from_arrays``), in float32.  The ranks
 (``tests/_torch_dist.py::tp_world``) cut them over meshes (1, 2) (world
 2), (2, 2) and (1, 4) (world 4) with ``shard_lm``.  At M = 4 the kv heads
 (2 in every reduced config) do not divide, so ``wk`` and ``wv`` are
-replicated; the test lists those leaves.
+replicated (the cross layer's too); the test lists those leaves.  MLA's
+latent cache stays whole on every rank.
 
 Contracts, against JAX's one-device ``lm`` and the port's one-device
 ``DecoderLM`` on the same weights:
@@ -18,7 +24,18 @@ Contracts, against JAX's one-device ``lm`` and the port's one-device
   max |g|;
 * 8 decode steps from empty caches: argmax equal, |Δ| within 1e-5 of max
   |logits|;
-* ``gather_lm`` returns the weights the ranks were cut from, bit for bit.
+* ``gather_lm`` returns the weights the ranks were cut from, bit for bit;
+* the MoE's dropped fraction equal to the one-device model's, and at
+  (2, 2) with the statistics over the data group (the data-parallel mean
+  of the ranks' rows against the one-device global batch) the loss and
+  gradients as above and the aux terms within 1e-6 (relative);
+* at a model axis of one rank ((2, 1), world 2) every case equals the
+  plain model bit for bit: logits, loss, every gradient leaf, decode.
+With int8 dispatch a partial sum's last bits move an element across an
+int8 rounding boundary, one quantum (1/127) of its row's max, which the
+next layers carry: that case holds the logits within 1/127 of max
+|logits|, the loss and the aux terms within 1e-3 (relative), the
+gradients within 2e-2 of max |g|, the decode's argmax equal.
 Training at (2, 2): 5 steps with ZeRO-1, without and with int8
 compression, on the ranks' rows of a global batch of 8, against the
 port's one-device steps on that batch: each loss within 1e-5 (relative);
@@ -26,15 +43,21 @@ without compression every parameter within 1e-3 of the largest update its
 leaf took in the 5 steps; with it, where the partial sums' last bits move
 an element across an int8 rounding boundary and Adam turns one quantum
 into a step of ~lr, within 0.25 of that update, and at most 10% of a
-leaf's elements past 1e-3 of it.  The loss falls by 0.2
+leaf's elements past 1e-3 of it.  The reduced
+deepseek-v2-lite-16b trains the same 5 steps at (2, 2) without
+compression, held as the compressed run (an embedding element whose
+gradient nearly cancels takes another Adam step, as under data
+parallelism alone).  The loss falls by 0.2
 over 8 steps at lr 5e-3 (the contract of the reference's
 ``test_spmd_train_step_runs``).  ZeRO-1 moments over a (2, 1) mesh equal
-whole moments bit for bit, parameters included.  The checkpoint written at
-(2, 2) restores at (1, 2) and at world 1 bit for bit.  ``launch.train
---mesh 1x2`` and ``2x2`` train and resume, losses within 1e-5 of a
-one-process run.  The MoE, MLA, hybrid, xLSTM and cross configs at M = 2
-raise ``NotImplementedError`` naming the next slice, and flash decoding
-on the model axis of a sharded model raises ``ValueError``.
+whole moments bit for bit, parameters included.  The checkpoints written at
+(2, 2) (Qwen3's, int8, and the MoE's) restore at (1, 2) and at world 1
+bit for bit.  ``launch.train --mesh 1x2`` and ``2x2`` train and resume,
+losses within 1e-5 of a one-process run, the reduced
+deepseek-v2-lite-16b too at ``1x2``.  The hybrid and xLSTM configs at
+M = 2 raise ``NotImplementedError`` naming the next slice (the MoE, MLA
+and cross configs shard), and flash decoding on the model axis of a
+sharded model raises ``ValueError``.
 """
 
 import numpy as np
@@ -66,19 +89,45 @@ LOGIT_REL, LOSS_REL, GRAD_REL = 1e-5, 1e-6, 1e-4
 TRAIN_LOSS_REL = 1e-5
 TRAIN_STEP_REL = 1e-3       # of the largest update a leaf took
 INT8_STEP_REL, INT8_FLIPS = 0.25, 0.1
+# int8 dispatch: a partial sum's last bits can move an element across an
+# int8 rounding boundary, one quantum (1/127) of its row's max
+INT8_QUANTUM = 1 / 127
+INT8_LOSS_REL, INT8_GRAD_REL = 1e-3, 2e-2
 STEPS, BATCH = 5, 8
 LAUNCH = ["--device", "cpu", "--reduced", "--batch", "4", "--seq", "16",
           "--lr", "1e-3", "--ckpt-every", "3", "--log-every", "1"]
-REFUSED = ("deepseek-moe-16b", "xlstm-1.3b", "hymba-1.5b",
-           "deepseek-v2-lite-16b", "llama-3.2-vision-11b")
+MOE = td.TP_MOE
+CROSS_GATE = 0.5
+AUX_REL = 1e-6
+REFUSED = ("xlstm-1.3b", "hymba-1.5b")
+SHARDS = ("deepseek-moe-16b", "deepseek-v2-lite-16b", "llama-3.2-vision-11b")
 
 
-def _one_device(model, tokens, labels):
-    """The port's one-device logits, loss, gradients (by name) and decode
-    logits."""
+
+
+def _is_int8(case: str) -> bool:
+    return "+int8" in case
+
+
+def _logit_rel(case: str) -> float:
+    """The logits' bound: ``LOGIT_REL``, or for int8 dispatch one int8
+    quantum of a row's max (module docstring)."""
+    return INT8_QUANTUM if _is_int8(case) else LOGIT_REL
+
+
+def _media(cfg, rng):
+    return (rng.standard_normal((B, cfg.vision_tokens, cfg.d_model))
+            .astype(np.float32) if cfg.vision_tokens else None)
+
+
+def _one_device(model, tokens, labels, media):
+    """The port's one-device logits, loss and its metrics, gradients (by
+    name) and decode logits."""
+    kw = td.media_kw(model, media)
     with torch.no_grad():
-        logits = model(torch.as_tensor(tokens)).numpy()
-        caches = model.init_decode_caches(B, MAX_LEN)
+        logits = model(torch.as_tensor(tokens), **kw).numpy()
+        caches = td.decode_caches(model, torch.as_tensor(tokens), media,
+                                  MAX_LEN)
         dec = []
         for t in range(DECODE):
             lg, caches = model.decode_step(torch.as_tensor(
@@ -86,12 +135,42 @@ def _one_device(model, tokens, labels):
             dec.append(lg.numpy())
     for p in model.parameters():
         p.requires_grad_(True)
-    loss, _ = lm_loss(model, tokens, labels=labels)
+    loss, metrics = lm_loss(model, tokens, labels=labels, **kw)
     grads = torch.autograd.grad(loss, list(model.parameters()))
     return {"logits": logits, "loss": float(loss.detach()),
+            "metrics": {k: float(v) for k, v in metrics.items()},
             "grads": {n: g.numpy() for (n, _), g in
                       zip(model.named_parameters(), grads)},
             "decode": np.stack(dec)}
+
+
+def _jax_loss(params, jcfg, tokens, labels, media):
+    kw = {} if media is None else {"media": jnp.asarray(media)}
+    (loss, metrics), grads = jax.jit(jax.value_and_grad(
+        lambda p, t, lab: jlm.lm_loss(p, jcfg, tokens=t, labels=lab, **kw),
+        has_aux=True))(params, tokens, labels)
+    return {"loss": float(loss),
+            "metrics": {k: float(v) for k, v in metrics.items()},
+            "grads": _paths(jax.tree.map(np.asarray, grads))}
+
+
+def _jax_one_device(params, jcfg, tokens, labels, media):
+    """JAX's one-device logits, loss, metrics, gradients (tree paths) and
+    decode logits, the cross layers' media K/V from the prefill."""
+    kw = {} if media is None else {"media": jnp.asarray(media)}
+    logits, _, pre = jax.jit(lambda p, t: jlm.forward(
+        p, jcfg, tokens=t, want_caches=True, **kw))(params, tokens)
+    step = jax.jit(lambda p, t, c, pos: jlm.decode_step(p, jcfg, t, c, pos))
+    caches = jlm.init_decode_caches(jcfg, B, MAX_LEN)
+    if "cross" in pre:
+        caches["cross"] = pre["cross"]
+    dec = []
+    for t in range(DECODE):
+        lg, caches = step(params, jnp.asarray(tokens[:, t:t + 1]), caches,
+                          jnp.int32(t))
+        dec.append(np.asarray(lg))
+    return {"logits": np.asarray(logits), "decode": np.stack(dec),
+            **_jax_loss(params, jcfg, tokens, labels, media)}
 
 
 def _global(batch: dict, D: int) -> dict:
@@ -101,43 +180,58 @@ def _global(batch: dict, D: int) -> dict:
             for k, v in batch.items()}
 
 
+def _trajectory(path, cfg, batches, tcfg):
+    """The port's one-device steps on the global batches: (losses, the
+    parameters before, after)."""
+    model = lm_from_arrays(td.load_tree(path), cfg, "cpu")
+    state = train_state_init(model, tcfg)
+    step = make_train_step(model, tcfg)
+    init = {n: p.detach().numpy().copy()
+            for n, p in model.named_parameters()}
+    losses = []
+    for b in batches:
+        state, m = step(state, _global(b, 2))
+        losses.append(float(m["loss"]))
+    return losses, init, {n: p.detach().numpy()
+                          for n, p in model.named_parameters()}
+
+
 @pytest.fixture(scope="module")
 def setup(tmp_path_factory):
-    """The reference's weights saved for the ranks, and each config's
-    one-device results from JAX and from the port; the global batches,
-    the learning batch, and the port's one-device trajectory."""
+    """The reference's weights saved for the ranks (the cross gate
+    opened), the media, and each case's one-device results from JAX and
+    from the port (a MoE case's also on the global batch of the data
+    ranks' rows); the global batches, the learning batch, and the port's
+    one-device trajectories."""
     d = tmp_path_factory.mktemp("dist_tp")
     rng = np.random.default_rng(0)
     tokens = rng.integers(0, 512, (B, S)).astype(np.int32)
     labels = rng.integers(0, 512, (B, S)).astype(np.int32)
+    media = _media(get_config("llama-3.2-vision-11b").reduced(),
+                   np.random.default_rng(3))
+    glob = _global({"tokens": tokens, "labels": labels}, 2)
     ref = {}
-    for arch, over in ARCHS.items():
-        jcfg = j_get_config(arch).reduced(**over)
+    for case in ARCHS:
+        jcfg = td.tp_config(j_get_config, case)
         params = jlm.init_params(jcfg, jax.random.PRNGKey(0))
+        if "cross" in params["blocks"]:
+            attn = params["blocks"]["cross"]["attn"]
+            attn["gate"] = jnp.full_like(attn["gate"], CROSS_GATE)
         host = jax.tree.map(np.asarray, params)
-        td.save_tree(d / f"{arch}.npz", host)
-        logits = jax.jit(lambda p, t, c=jcfg: jlm.forward(
-            p, c, tokens=t)[0])(params, tokens)
-        (loss, _), grads = jax.jit(jax.value_and_grad(
-            lambda p, t, lab, c=jcfg: jlm.lm_loss(p, c, tokens=t,
-                                                  labels=lab),
-            has_aux=True))(params, tokens, labels)
-        step = jax.jit(lambda p, t, c, pos, k=jcfg: jlm.decode_step(
-            p, k, t, c, pos))
-        caches = jlm.init_decode_caches(jcfg, B, MAX_LEN)
-        dec = []
-        for t in range(DECODE):
-            lg, caches = step(params, jnp.asarray(tokens[:, t:t + 1]),
-                              caches, jnp.int32(t))
-            dec.append(np.asarray(lg))
-        cfg = get_config(arch).reduced(**over)
-        ref[arch] = {
+        td.save_tree(d / f"{case}.npz", host)
+        cfg = td.tp_config(get_config, case)
+        m = media if cfg.vision_tokens else None
+        ref[case] = {
             "cfg": cfg,
-            "jax": {"logits": np.asarray(logits), "loss": float(loss),
-                    "grads": _paths(jax.tree.map(np.asarray, grads)),
-                    "decode": np.stack(dec)},
+            "jax": _jax_one_device(params, jcfg, tokens, labels, m),
             "port": _one_device(lm_from_arrays(host, cfg, "cpu"), tokens,
-                                labels)}
+                                labels, m)}
+        if case in MOE:
+            ref[case]["global"] = {
+                "jax": _jax_loss(params, jcfg, glob["tokens"],
+                                 glob["labels"], None),
+                "port": _one_device(lm_from_arrays(host, cfg, "cpu"),
+                                    glob["tokens"], glob["labels"], None)}
     src = tpipe.make_source(tpipe.DataConfig(vocab_size=512, seq_len=16,
                                              global_batch=BATCH))
     batches = [src.batch(s) for s in range(STEPS)]
@@ -145,36 +239,30 @@ def setup(tmp_path_factory):
         0, 512, (8, 32)).astype(np.int32)}
     learn["labels"] = np.random.default_rng(6).integers(
         0, 512, (8, 32)).astype(np.int32)
-    # the port's one-device trajectories on the global batches
     traj = {}
     for compress in (False, True):
         tcfg = TrainConfig(microbatches=1, peak_lr=1e-3, warmup_steps=2,
                            total_steps=50, compress_grads=compress,
                            remat=False)
-        model = lm_from_arrays(td.load_tree(d / "qwen3-0.6b.npz"),
-                               ref["qwen3-0.6b"]["cfg"], "cpu")
-        state = train_state_init(model, tcfg)
-        step = make_train_step(model, tcfg)
-        init = {n: p.detach().numpy().copy()
-                for n, p in model.named_parameters()}
-        losses = []
-        for b in batches:
-            state, m = step(state, _global(b, 2))
-            losses.append(float(m["loss"]))
-        traj[compress] = (losses, init, {
-            n: p.detach().numpy() for n, p in model.named_parameters()})
-    return d, tokens, labels, ref, batches, learn, traj
+        traj[compress] = _trajectory(d / "qwen3-0.6b.npz",
+                                     ref["qwen3-0.6b"]["cfg"], batches, tcfg)
+        if not compress:
+            traj["moe"] = _trajectory(d / f"{td.TP_TRAIN_MOE}.npz",
+                                      ref[td.TP_TRAIN_MOE]["cfg"], batches,
+                                      tcfg)
+    return d, tokens, labels, ref, batches, learn, traj, media
 
 
 @pytest.fixture(scope="module")
 def worlds(setup, tmp_path_factory):
-    d, tokens, labels, _, batches, learn, _ = setup
+    d, tokens, labels, _, batches, learn, _, media = setup
     out = {}
-    for world in (4, 2):             # 4 writes the checkpoint 2 restores
+    for world in (4, 2):             # 4 writes the checkpoints 2 restores
         out[world] = td.run_world(td.tp_world, world,
                                   tmp_path_factory.mktemp(f"tp{world}"),
-                                  str(d), tokens, labels, DECODE, MAX_LEN,
-                                  batches, learn, LAUNCH, timeout=600)
+                                  str(d), tokens, labels, media, DECODE,
+                                  MAX_LEN, batches, learn, LAUNCH,
+                                  timeout=900)
     return out
 
 
@@ -193,13 +281,25 @@ def _rel(got, want) -> float:
     return float(np.max(np.abs(got - want)) / np.max(np.abs(want)))
 
 
+def _grads_close(got: dict, wants: tuple, bound: float, only=None):
+    """Every gradient leaf (tree paths; those ``only`` picks) within
+    ``bound`` of its max |g| against each of ``wants``."""
+    for want in wants:
+        assert sorted(got) == sorted(want)
+        for path, w in want.items():
+            if only is not None and not only(path):
+                continue
+            err = float(np.max(np.abs(got[path] - w)))
+            assert err <= bound * float(np.max(np.abs(w))), (path, err)
+
+
 @pytest.mark.parametrize("arch", list(ARCHS))
 @pytest.mark.parametrize("shape", SHAPES)
 def test_tp_prefill_matches_one_device(setup, worlds, shape, arch):
     ref = setup[3][arch]
     for r in _models(worlds, shape, arch):
         for want in (ref["jax"]["logits"], ref["port"]["logits"]):
-            assert _rel(r["logits"], want) <= LOGIT_REL
+            assert _rel(r["logits"], want) <= _logit_rel(arch)
         np.testing.assert_array_equal(r["logits"], _models(
             worlds, shape, arch)[0]["logits"])
 
@@ -209,18 +309,14 @@ def test_tp_prefill_matches_one_device(setup, worlds, shape, arch):
 def test_tp_loss_and_grads_match_one_device(setup, worlds, shape, arch):
     ref = setup[3][arch]
     cfg = ref["cfg"]
-    want_jax = ref["jax"]["grads"]
-    want_port = _tree_paths(ref["port"]["grads"], cfg)
+    loss_rel = INT8_LOSS_REL if _is_int8(arch) else LOSS_REL
+    grad_rel = INT8_GRAD_REL if _is_int8(arch) else GRAD_REL
     for r in _models(worlds, shape, arch):
         for want in (ref["jax"]["loss"], ref["port"]["loss"]):
-            assert abs(r["loss"] - want) <= LOSS_REL * abs(want)
-        got = _tree_paths(r["grads"], cfg)
-        assert sorted(got) == sorted(want_jax) == sorted(want_port)
-        for want in (want_jax, want_port):
-            for path, w in want.items():
-                err = float(np.max(np.abs(got[path] - w)))
-                assert err <= GRAD_REL * float(np.max(np.abs(w))), \
-                    (path, err)
+            assert abs(r["loss"] - want) <= loss_rel * abs(want)
+        _grads_close(_tree_paths(r["grads"], cfg), (
+            ref["jax"]["grads"], _tree_paths(ref["port"]["grads"], cfg)),
+            grad_rel)
 
 
 @pytest.mark.parametrize("arch", list(ARCHS))
@@ -231,49 +327,157 @@ def test_tp_decode_matches_one_device(setup, worlds, shape, arch):
         for want in (ref["jax"]["decode"], ref["port"]["decode"]):
             np.testing.assert_array_equal(r["decode"].argmax(-1),
                                           want.argmax(-1))
-            assert _rel(r["decode"], want) <= LOGIT_REL
+            assert _rel(r["decode"], want) <= _logit_rel(arch)
+
+
+@pytest.mark.parametrize("arch", MOE)
+@pytest.mark.parametrize("shape", SHAPES)
+def test_tp_moe_router_gradient_is_whole(setup, worlds, shape, arch):
+    """The routers' gradients within 1e-4 of their max |g|: a rank's
+    share alone (its experts' combine weights) or one summed over the
+    model axis (the aux terms' whole gradient M times) is far outside."""
+    ref = setup[3][arch]
+    cfg = ref["cfg"]
+    bound = INT8_GRAD_REL if _is_int8(arch) else GRAD_REL
+    for r in _models(worlds, shape, arch):
+        _grads_close(_tree_paths(r["grads"], cfg), (
+            ref["jax"]["grads"], _tree_paths(ref["port"]["grads"], cfg)),
+            bound, only=lambda path: path[-1] == "router")
+
+
+@pytest.mark.parametrize("arch", MOE)
+@pytest.mark.parametrize("shape", SHAPES)
+def test_tp_moe_statistics_match_one_device(setup, worlds, shape, arch):
+    """The layers' summed dropped fraction equal to the port's one-device
+    model's and JAX's, the aux terms within 1e-6 (relative; with int8
+    dispatch, whose quanta reach the next layer's router, the loss's
+    bound)."""
+    ref = setup[3][arch]
+    aux_rel = INT8_LOSS_REL if _is_int8(arch) else AUX_REL
+    for r in _models(worlds, shape, arch):
+        got = r["metrics"]
+        assert got["dropped_frac"] == ref["port"]["metrics"]["dropped_frac"]
+        for want in (ref["jax"]["metrics"], ref["port"]["metrics"]):
+            assert abs(got["dropped_frac"] - want["dropped_frac"]) <= \
+                AUX_REL * abs(want["dropped_frac"])
+            for k in ("load_balance", "router_z"):
+                assert abs(got[k] - want[k]) <= aux_rel * abs(want[k]), k
+    if arch.endswith("+routed"):
+        assert ref["port"]["metrics"]["dropped_frac"] > 0
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_tp_moe_statistics_over_the_data_group(setup, worlds, arch):
+    """At (2, 2) each data rank holds half the rows and the MoE's
+    capacity, drops and load balance are taken over the data group: the
+    data-parallel mean of the loss, the metrics and the gradients equals
+    the one-device model's on the global batch."""
+    ref = setup[3][arch]["global"]
+    cfg = setup[3][arch]["cfg"]
+    bound = INT8_GRAD_REL if _is_int8(arch) else GRAD_REL
+    loss_rel = INT8_LOSS_REL if _is_int8(arch) else LOSS_REL
+    aux_rel = INT8_LOSS_REL if _is_int8(arch) else AUX_REL
+    for r in worlds[4]:
+        got = r["data_group"][arch]
+        for want in (ref["jax"], ref["port"]):
+            assert abs(got["loss"] - want["loss"]) <= loss_rel * \
+                abs(want["loss"])
+            for k in ("load_balance", "router_z", "dropped_frac"):
+                w = want["metrics"][k]
+                assert abs(got["metrics"][k] - w) <= aux_rel * abs(w), k
+        assert got["metrics"]["dropped_frac"] == \
+            ref["port"]["metrics"]["dropped_frac"]
+        _grads_close(_tree_paths(got["grads"], cfg), (
+            ref["jax"]["grads"], _tree_paths(ref["port"]["grads"], cfg)),
+            bound)
+
+
+@pytest.mark.parametrize("arch", list(ARCHS))
+def test_tp_model_axis_of_one_is_bit_for_bit(worlds, arch):
+    for r in worlds[2]:
+        got = r["one_rank"][arch]
+        assert got["logits"] and got["loss"] and got["decode"]
+        assert got["grads"] == []
+
+
+def _replicated_want(cfg, M: int) -> list:
+    """The leaves a model axis of ``M`` replicates against the rules: at
+    M = 4 the 2 kv heads of every GQA and cross layer (MLA has none)."""
+    if M == 2:
+        return []
+    return [f"blocks.{i}.attn.{w}" for i in range(cfg.num_layers)
+            for w in ("wk", "wv") if not cfg.mla_enabled]
 
 
 def test_head_split_leaves_replicated(setup, worlds):
     """Where a rule would cut inside a head, the leaf is replicated: every
     reduced config's 2 kv heads at M = 4 (glm4-9b's 2 kv heads at full
-    width too), nothing at M = 2; the caches hold each rank's kv heads;
-    the cut weights gather back whole bit for bit."""
+    width too), nothing at M = 2; the GQA and cross caches hold each
+    rank's kv heads, an MLA cache its whole latent; the cut weights
+    gather back whole bit for bit."""
     for shape in SHAPES:
         M = shape[1]
         for arch in ARCHS:
-            L = setup[3][arch]["cfg"].num_layers
-            want = ([] if M == 2 else
-                    [f"blocks.{i}.attn.{w}" for i in range(L)
-                     for w in ("wk", "wv")])
+            cfg = setup[3][arch]["cfg"]
             for r in _models(worlds, shape, arch):
-                assert sorted(r["replicated"]) == sorted(want)
-                assert r["kv_heads"] == 1
+                assert sorted(r["replicated"]) == sorted(
+                    _replicated_want(cfg, M))
+                if cfg.mla_enabled:
+                    assert r["kv_heads"] == []
+                    assert r["latent"] == [cfg.mla.kv_lora_rank]
+                else:
+                    assert r["kv_heads"] == [1] and r["latent"] == []
                 assert r["round_trip"]
+
+
+def _trajectory_close(got_losses, got, want, amplified=False):
+    """Each loss within ``TRAIN_LOSS_REL``; every parameter within
+    ``TRAIN_STEP_REL`` of the largest update its leaf took, or, where Adam
+    amplifies a last-bit difference into a step of ~lr (``amplified``),
+    within ``INT8_STEP_REL`` of it and at most ``INT8_FLIPS`` of a leaf's
+    elements past ``TRAIN_STEP_REL``."""
+    losses, init, params = want
+    np.testing.assert_allclose(got_losses, losses, rtol=TRAIN_LOSS_REL)
+    for n, w in params.items():
+        diff = np.abs(got[n] - w)
+        moved = float(np.max(np.abs(w - init[n])))
+        if not amplified:
+            assert diff.max() <= TRAIN_STEP_REL * moved, n
+        else:
+            assert diff.max() <= INT8_STEP_REL * moved, n
+            assert (diff > TRAIN_STEP_REL * moved).mean() <= INT8_FLIPS, n
 
 
 def test_tp_training_trajectory_matches_one_device(setup, worlds):
     for r in worlds[4]:
         t = r["train"]
         for compress in (False, True):
-            losses, init, params = setup[6][compress]
             got_losses, got = t["traj"][compress]
-            np.testing.assert_allclose(got_losses, losses,
-                                       rtol=TRAIN_LOSS_REL)
+            _trajectory_close(got_losses, got, setup[6][compress], compress)
             assert got_losses == worlds[4][0]["train"]["traj"][compress][0]
-            for n, want in params.items():
-                diff = np.abs(got[n] - want)
-                moved = float(np.max(np.abs(want - init[n])))
-                if not compress:
-                    assert diff.max() <= TRAIN_STEP_REL * moved, n
-                else:
-                    assert diff.max() <= INT8_STEP_REL * moved, n
-                    assert (diff > TRAIN_STEP_REL * moved).mean() \
-                        <= INT8_FLIPS, n
         # ZeRO-1 at (2, 2): the embedding's rows are split over the model
         # axis, so its moments' columns are split over the data axis
         assert t["zero"]["embed"] == 1
         assert t["moments"]["embed"] == (512 // 2, 128 // 2)
+
+
+def test_tp_moe_training_trajectory_matches_one_device(setup, worlds):
+    """The reduced DeepSeek-V2-Lite's 5 ZeRO-1 steps at (2, 2): the routed
+    experts split on their expert axis, their moments on d_model over the
+    data axis.  Its embedding takes few tokens' gradients, and an element
+    whose gradient nearly cancels turns the partial sums' last bits into
+    a different Adam step (data parallelism alone at (2, 1) does so too),
+    so the parameters are held as the int8 trajectory's."""
+    cfg = setup[3][td.TP_TRAIN_MOE]["cfg"]
+    E, d, f = cfg.moe.num_experts, cfg.d_model, cfg.moe.d_expert
+    for r in worlds[4]:
+        t = r["train"]["moe"]
+        _trajectory_close(t["losses"], t["params"], setup[6]["moe"],
+                          amplified=True)
+        assert t["losses"] == worlds[4][0]["train"]["moe"]["losses"]
+        assert t["zero"]["blocks.1.moe.w_gate"] == 1
+        assert t["moments"]["blocks.1.moe.w_gate"] == (E // 2, d // 2, f)
+        assert t["moments"]["blocks.1.moe.w_down"] == (E // 2, f, d // 2)
 
 
 def test_zero1_is_bit_for_bit_with_whole_moments(worlds):
@@ -288,42 +492,59 @@ def test_tp_learns_as_the_reference_spmd_step(worlds):
     assert losses[0][-1] < losses[0][0] - 0.2, losses[0]
 
 
-def test_checkpoint_from_2x2_restores_at_1x2_and_world_one(setup, worlds):
+def _restores(setup, worlds, case, ckpt, key, compress):
+    """The checkpoint ``ckpt`` written at (2, 2) restored at (1, 2) (the
+    world's ``key``) and at world 1, each bit for bit with the file."""
     d = setup[0]
-    with np.load(d / "ckpt" / f"step_{STEPS}" / "arrays.npz") as z:
+    with np.load(d / ckpt / f"step_{STEPS}" / "arrays.npz") as z:
         saved = {k: z[k] for k in z.files}
-    for step, arrays in (r["restore"] for r in worlds[2]):
+    for step, arrays in (r[key] for r in worlds[2]):
         assert step == STEPS
         assert sorted(arrays) == sorted(saved)
         for k, v in saved.items():
             assert arrays[k].dtype == v.dtype
             np.testing.assert_array_equal(arrays[k], v, err_msg=k)
-    cfg = setup[3]["qwen3-0.6b"]["cfg"]
+    cfg = setup[3][case]["cfg"]
     state = train_state_init(lm_from_arrays(
-        td.load_tree(d / "qwen3-0.6b.npz"), cfg, "cpu"),
-        TrainConfig(compress_grads=True))
-    state, meta = Checkpointer(str(d / "ckpt")).restore(state)
+        td.load_tree(d / f"{case}.npz"), cfg, "cpu"),
+        TrainConfig(compress_grads=compress))
+    state, meta = Checkpointer(str(d / ckpt)).restore(state)
     one = train_state_to_arrays(state)
     assert meta["step"] == STEPS and sorted(one) == sorted(saved)
     for k, v in saved.items():
         np.testing.assert_array_equal(one[k], v, err_msg=k)
 
 
-@pytest.mark.parametrize("mesh", ["1x2", "2x2"])
+def test_checkpoint_from_2x2_restores_at_1x2_and_world_one(setup, worlds):
+    _restores(setup, worlds, "qwen3-0.6b", "ckpt", "restore", True)
+
+
+def test_moe_checkpoint_from_2x2_restores_at_1x2_and_world_one(setup,
+                                                                worlds):
+    _restores(setup, worlds, td.TP_TRAIN_MOE, "ckpt_moe", "restore_moe",
+              False)
+
+
+@pytest.mark.parametrize("mesh,arch", [
+    pytest.param("1x2", None, id="1x2"), pytest.param("2x2", None, id="2x2"),
+    pytest.param("1x2", td.TP_TRAIN_MOE, id=f"1x2-{td.TP_TRAIN_MOE}")])
 def test_launcher_trains_and_resumes_over_a_model_axis(setup, worlds, mesh,
-                                                       tmp_path):
+                                                       arch, tmp_path):
     d = setup[0]
+    argv = [*LAUNCH, *(["--arch", arch] if arch else [])]
     ckpt = str(tmp_path / "one")
-    first = launch.main([*LAUNCH, "--steps", "3", "--ckpt-dir", ckpt])
-    second = launch.main([*LAUNCH, "--steps", "6", "--ckpt-dir", ckpt])
+    first = launch.main([*argv, "--steps", "3", "--ckpt-dir", ckpt])
+    second = launch.main([*argv, "--steps", "6", "--ckpt-dir", ckpt])
     world = 2 if mesh == "1x2" else 4
+    key = "launch_moe" if arch else "launch"
     for r in worlds[world]:
-        a, b = r["launch"] if world == 2 else r["train"]["launch"]
+        a, b = r[key] if world == 2 else r["train"]["launch"]
         assert len(a) == len(b) == 3
         np.testing.assert_allclose(a, first, rtol=1e-5)
         np.testing.assert_allclose(b, second, rtol=1e-5)
-    steps = sorted(p.name for p in (d / ("launch12" if world == 2
-                                         else "launch22")).iterdir())
+    out = ("launch22" if world == 4 else
+           "launch12_moe" if arch else "launch12")
+    steps = sorted(p.name for p in (d / out).iterdir())
     assert steps == ["step_3", "step_6"]
 
 
@@ -335,8 +556,13 @@ def test_tp_with_flash_decoding_is_refused(worlds):
 
 
 def test_other_kinds_refused_at_model_axis_two(worlds):
+    """The hybrid and xLSTM configs refuse a model axis of 2, naming the
+    next slice; the MoE, MLA and cross configs shard."""
     for r in worlds[2]:
-        assert sorted(r["refused"]) == sorted(REFUSED)
-        for arch, msg in r["refused"].items():
+        assert sorted(r["refused"]) == sorted(REFUSED + SHARDS)
+        for arch in SHARDS:
+            assert r["refused"][arch] is None, arch
+        for arch in REFUSED:
+            msg = r["refused"][arch]
             assert msg is not None and "next slice" in msg, arch
-            assert "queue 1 item 2" in msg, arch
+            assert "queue 1 items 1.3 and 1.4" in msg, arch

@@ -4,7 +4,7 @@
 contract of the reference's ``tests/test_launcher_resume.py`` (run 10 of
 20 steps, rerun the same command with the full horizon: it resumes from
 step 10, logs no step below 10 and writes ``step_20``); a model axis
-above 1 is refused; the example's presets are the reference's and its
+above 1 on the hybrid and xLSTM kinds is refused; the example's presets are the reference's and its
 demo trains.
 """
 
@@ -52,11 +52,11 @@ def test_train_resumes_from_checkpoint(tmp_path):
 
 
 @pytest.mark.parametrize("argv,env", [
-    (["--mesh", "1x2", "--arch", "deepseek-moe-16b"], {})])
+    (["--mesh", "1x2", "--arch", "hymba-1.5b"], {})])
 def test_multi_device_is_refused(monkeypatch, argv, env):
-    """What a mesh still refuses: a model axis above 1 on a config outside
-    the dense, local and global kinds (the next slice's tensor
-    parallelism), and a mesh larger than the world, before any process
+    """What a mesh still refuses: a model axis above 1 on a config with
+    hybrid or xLSTM layers (the next slice's tensor parallelism), and a
+    mesh larger than the world, before any process
     group is made (tensor parallelism over ``--mesh DxM`` is
     ``tests/test_torch_dist_tp.py``, data parallelism over ``--mesh Dx1``
     ``tests/test_torch_dist_train.py``)."""
@@ -64,7 +64,8 @@ def test_multi_device_is_refused(monkeypatch, argv, env):
 
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
+    with pytest.raises(NotImplementedError,
+                       match="queue 1 items 1.3 and 1.4"):
         launch.main(["--device", "cpu", "--reduced", "--steps", "1",
                      *argv])
     with pytest.raises(ValueError, match="needs a world of 4 ranks"):
