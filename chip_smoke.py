@@ -414,7 +414,10 @@ Phases, in order; any failure exits non-zero:
    512, 64 routed experts top-6 and 2 shared, expert parallelism) and
    Llama-3.2-Vision-11B cut to 2 (``cross_attn_every=2``: one
    self-attention and one cross layer, gates opened to 0.5, seeded media
-   of (B, 1601, 4096)), each with a twin cut by ``shard_lm``: two train
+   of (B, 1601, 4096)), xLSTM-1.3B cut to 8 layers (7 mLSTM and 1 sLSTM,
+   its own schedule) and Hymba-1.5B cut to 2 (25 heads, 5 kv heads, the
+   Mamba branch as 25 heads of 128 channels), each with a twin cut by
+   ``shard_lm``: two train
    steps (4 x 256 tokens each) with the losses and every parameter after
    them, a prefill of 16 x 64 and 16 decode steps at B = 16, each bit for
    bit against the plain model; ms the second step and a decode step both
@@ -5246,10 +5249,14 @@ TP_CKPT_LAYERS = 4               # phase 20 F's checkpoint, cut in depth
 # phase 20 G: the other kinds at full width, cut in depth for the time
 # limit: DeepSeek-V2-Lite's dense layer 0 and two MoE layers (MLA, 64
 # routed experts top-6, 2 shared), Llama-3.2-Vision's one self-attention
-# and one cross layer
+# and one cross layer, xLSTM-1.3B's first 8 layers (its own schedule: 7
+# mLSTM and 1 sLSTM), Hymba-1.5B's first 2 hybrid layers (25 heads, 5 kv
+# heads)
 TP_KINDS_DEPTHS = {"deepseek-v2-lite-16b": dict(num_layers=3),
                    "llama-3.2-vision-11b": dict(num_layers=2,
-                                                cross_attn_every=2)}
+                                                cross_attn_every=2),
+                   "xlstm-1.3b": dict(num_layers=8),
+                   "hymba-1.5b": dict(num_layers=2)}
 TP_KINDS_STEPS = 2               # phase 20 G's train steps (the 2nd timed)
 TP_KINDS_DECODE = 16             # phase 20 G's decode steps at B = 16
 TP_KINDS_PROMPT = 64             # phase 20 G's prefill, 16 x 64 tokens
@@ -5945,8 +5952,8 @@ def main() -> int:
     phase("phase 20: the multi-rank code at world 1 over NCCL (flash "
           "decoding at full width, data-parallel steps, the segment search "
           "on a mesh, the engine over a placed index, tensor parallelism: "
-          "the dense kinds, then MoE with expert parallelism, MLA and "
-          "cross-attention)")
+          "the dense kinds, then MoE with expert parallelism, MLA, "
+          "cross-attention, the hybrid and xLSTM kinds)")
     t20 = time.perf_counter()
     dist_out = phase_distributed(
         dev, args.seed, trained, seg_summary, ctx["batches"],

@@ -27,7 +27,11 @@ the specs ``{path: spec}``.
 A mesh is anything with ``axis_names`` and ``shape`` (a dict of axis
 sizes): a :class:`repro_torch.distributed.mesh.Mesh` or a stand-in.
 :func:`shard_tensor` and :func:`gather_tensor` move one tensor between
-its whole and this rank's block of a spec on a ``Mesh``.
+its whole and this rank's block of a spec on a ``Mesh``; a leaf that puts
+several roles side by side on its model-cut dim (``ssm.w_in``'s [x |
+gate], mLSTM's ``w_up`` [value | gate], sLSTM's ``w_gates`` [i f z o])
+is cut role by role (``parts``), a departure from the reference's
+contiguous cut that keeps each of a rank's channels beside its gate.
 """
 
 from __future__ import annotations
@@ -270,27 +274,45 @@ def _dim_axes(entry) -> tuple:
         (entry,) if isinstance(entry, str) else tuple(entry)
 
 
-def shard_tensor(full: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+def _roles(dim: int, entry, parts: int) -> int:
+    """How many roles lie side by side on ``dim``: ``parts`` on the dim
+    cut over the model axis, else one."""
+    return parts if MODEL_AXIS in _dim_axes(entry) else 1
+
+
+def shard_tensor(full: torch.Tensor, spec: tuple, mesh,
+                 parts: int = 1) -> torch.Tensor:
     """This rank's block of ``full`` under ``spec`` on ``mesh``: each dim
     with axes is cut into as many equal blocks as the axes have ranks,
-    and the block at this rank's row-major index along them is kept."""
+    and the block at this rank's row-major index along them is kept.
+
+    ``parts``: the dim cut over the model axis holds that many equal
+    roles side by side (``[x | gate]``, ``[i f z o]``); each role is cut
+    into blocks and this rank keeps its block of every role, in role
+    order, so a rank's channels of each role stay together."""
     out = full
     for dim, entry in enumerate(spec):
         axes = _dim_axes(entry)
         n = mesh.size(axes) if axes else 1
         if n == 1:
             continue
-        if out.shape[dim] % n:
+        k = _roles(dim, entry, parts)
+        if out.shape[dim] % (n * k):
             raise ValueError(f"dim {dim} of {tuple(full.shape)} does not "
-                             f"divide over {axes} ({n} ranks)")
-        out = out.chunk(n, dim)[mesh.index(axes)]
+                             f"divide into {k} roles over {axes} ({n} "
+                             f"ranks)")
+        i = mesh.index(axes)
+        out = out.unflatten(dim, (k, -1)).chunk(n, dim + 1)[i] \
+            .flatten(dim, dim + 1)
     return out.contiguous()
 
 
-def gather_tensor(local: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
-    """The whole tensor from every rank's block under ``spec``: one
-    ``all_gather`` a sharded dim over the group of its axes (collective
-    on every rank of the mesh)."""
+def gather_tensor(local: torch.Tensor, spec: tuple, mesh,
+                  parts: int = 1) -> torch.Tensor:
+    """The whole tensor from every rank's block under ``spec`` (and
+    ``parts``, as :func:`shard_tensor`'s): one ``all_gather`` a sharded
+    dim over the group of its axes (collective on every rank of the
+    mesh)."""
     import torch.distributed as dist
 
     out = local.contiguous()
@@ -299,7 +321,9 @@ def gather_tensor(local: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
         n = mesh.size(axes) if axes else 1
         if n == 1:
             continue
-        parts = [torch.empty_like(out) for _ in range(n)]
-        dist.all_gather(parts, out, group=mesh.group(axes))
-        out = torch.cat(parts, dim)
+        blocks = [torch.empty_like(out) for _ in range(n)]
+        dist.all_gather(blocks, out, group=mesh.group(axes))
+        k = _roles(dim, entry, parts)
+        out = torch.cat([b.unflatten(dim, (k, -1)) for b in blocks],
+                        dim + 1).flatten(dim, dim + 1)
     return out

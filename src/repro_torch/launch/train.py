@@ -24,15 +24,12 @@ the checkpoints.
 
   torchrun --nproc-per-node 4 -m repro_torch.launch.train --mesh 4x1 ...
 
-Tensor parallelism: ``--mesh DxM`` with M > 1 trains a config of the
-dense, local, global, MoE (expert parallelism; GQA or MLA attention) and
-cross kinds over a world of D·M ranks, the model cut over the model axis
+Tensor parallelism: ``--mesh DxM`` with M > 1 trains any config over a
+world of D·M ranks, the model cut over the model axis
 (:func:`repro_torch.distributed.tensor_parallel.shard_lm`); ranks with
 the same data index read the same rows.  Any mesh places AdamW's moments
-by ZeRO-1 over the data axis.  A config with hybrid or xLSTM layers at
-M > 1 raises ``NotImplementedError`` (the next slice), and a
-mesh that is not the world's size raises ``ValueError`` before any
-process group is made.
+by ZeRO-1 over the data axis.  A mesh that is not the world's size raises
+``ValueError`` before any process group is made.
 
   torchrun --nproc-per-node 4 -m repro_torch.launch.train --mesh 2x2 ...
 """
@@ -75,8 +72,7 @@ def main(argv=None):
     from repro_torch.core.dqf import resolve_device
     from repro_torch.data.pipeline import DataConfig, make_source
     from repro_torch.distributed.mesh import init_distributed, make_test_mesh
-    from repro_torch.distributed.tensor_parallel import (check_kinds,
-                                                         shard_lm)
+    from repro_torch.distributed.tensor_parallel import shard_lm
     from repro_torch.models import DecoderLM
     from repro_torch.training.train_step import (TrainConfig,
                                                  make_train_step,
@@ -88,7 +84,6 @@ def main(argv=None):
     data, model_axis = None, 1
     if args.mesh:
         data, model_axis = (int(v) for v in args.mesh.split("x"))
-        check_kinds(cfg, model_axis)
         world = (dist.get_world_size() if dist.is_initialized() else
                  int(os.environ.get("WORLD_SIZE", "1")))
         if data * model_axis != world:

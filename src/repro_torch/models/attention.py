@@ -194,9 +194,11 @@ def init_gqa_params(gen, cfg, dtype, device) -> torch.nn.ParameterDict:
     return torch.nn.ParameterDict(p)
 
 
-def _gqa_qkv(p, x, positions, *, cfg, theta, tp=None):
+def _gqa_qkv(p, x, positions, *, cfg, theta, tp=None, copied=False):
     """Projections, per-head QK-RMSNorm (when the config has it), then
-    RoPE on q and k; with ``tp`` this rank's heads (module docstring)."""
+    RoPE on q and k; with ``tp`` this rank's heads (module docstring),
+    ``copied``: x has passed through ``copy_to_model`` already (a hybrid
+    layer's input, shared with its Mamba branch; kv heads split)."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     if tp is None:
@@ -209,7 +211,7 @@ def _gqa_qkv(p, x, positions, *, cfg, theta, tp=None):
         sin, cos = rope_angles(positions, hd, theta)
         return apply_rope(q, sin, cos), apply_rope(k, sin, cos), v
     ctx, hs = tp
-    xc = ctx.copy(x)
+    xc = x if copied else ctx.copy(x)
     q = (xc @ p["wq"]).reshape(B, S, hs.hq, hd)
     if hs.kv_split:
         k = (xc @ p["wk"]).reshape(B, S, hs.hkv, hd)
@@ -240,12 +242,14 @@ def _expand_kv(t: torch.Tensor, groups: int, tp=None) -> torch.Tensor:
 
 def gqa_forward(p, x, *, cfg, theta: float, window: int,
                 chunk_q: int = 1024, chunk_k: int = 1024,
-                return_kv: bool = False, tp=None):
-    """Prefill GQA over the full sequence (``tp``: module docstring)."""
+                return_kv: bool = False, tp=None, copied: bool = False):
+    """Prefill GQA over the full sequence (``tp``: module docstring;
+    ``copied``: :func:`_gqa_qkv`'s)."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
-    q, k, v = _gqa_qkv(p, x, positions, cfg=cfg, theta=theta, tp=tp)
+    q, k, v = _gqa_qkv(p, x, positions, cfg=cfg, theta=theta, tp=tp,
+                       copied=copied)
     n_kv = k.shape[2]
     groups = cfg.num_heads // cfg.num_kv_heads
     kv_raw = torch.cat([k.reshape(B, S, -1), v.reshape(B, S, -1)], dim=-1)

@@ -15,7 +15,9 @@ looks up the rows this rank holds and sums over the model group,
 :func:`unembed` returns this rank's vocabulary slice of the logits, and
 :func:`softmax_cross_entropy` reduces the max, the sum of exponentials
 and the label's logit over the group, so no rank holds ``(B, S, V)``
-whole while training.  At a model axis of one rank each is the plain
+whole while training; :func:`rms_norm` over a norm cut by channels (the
+Mamba branch's and mLSTM's ``out_norm``) sums the ranks' means of
+squares over the group.  At a model axis of one rank each is the plain
 expression bit for bit, its gradient included.
 
 The init draws truncated normals at the reference's standard deviations
@@ -74,11 +76,18 @@ def dense_init(gen, d_in: int, d_out: int, dtype, device
     return kernel_init(gen, (d_in, d_out), dtype, device)
 
 
-def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float, tp=None
              ) -> torch.Tensor:
+    """RMSNorm over the last dim; with ``tp`` that dim is this rank's
+    channels of a norm cut over the model axis (``weight`` its block):
+    the ranks' means of squares are summed over the model group and
+    divided by its size, then pass through ``copy_to_model`` (the sum
+    feeds only this rank's channels)."""
     dt = x.dtype
     x = x.float()
     var = torch.mean(x * x, dim=-1, keepdim=True)
+    if tp is not None:
+        var = tp.copy(tp.reduce(var)) / tp.size
     x = x * torch.rsqrt(var + eps)
     return (x * (1.0 + weight.float())).to(dt)
 

@@ -33,13 +33,13 @@ from :meth:`DecoderLM.init_decode_caches`, one token a step.
 
 Tensor parallelism: :func:`repro_torch.distributed.tensor_parallel.
 shard_lm` cuts a model's parameters into this rank's blocks over a mesh's
-model axis and wires its dense, local, global, MoE and cross layers
-(GQA, MLA and cross-attention by whole heads, the MLP and the shared
-experts column- then row-parallel, the routed experts a block of them a
-rank) and its vocabulary tables (rows); ``forward``, ``prefill``,
-``init_decode_caches``, ``decode_step`` and :func:`lm_loss` then run the
-split, and take that mesh (``mesh=``, which must be the one the model was
-sharded over).  ``forward`` and
+model axis and wires every layer (GQA, MLA and cross-attention by whole
+heads, the MLP and the shared experts column- then row-parallel, the
+routed experts a block of them a rank, the Mamba branch by channels and
+the xLSTM blocks by heads) and its vocabulary tables (rows);
+``forward``, ``prefill``, ``init_decode_caches``, ``decode_step`` and
+:func:`lm_loss` then run the split, and take that mesh (``mesh=``, which
+must be the one the model was sharded over).  ``forward`` and
 ``decode_step`` return the logits gathered along the vocabulary;
 :func:`lm_loss` keeps each rank's slice and reduces its cross-entropy
 over the model group.
@@ -132,9 +132,11 @@ class Block(torch.nn.Module):
         self.cfg = cfg
         self.theta, self.window = _kind_attn_mode(cfg, kind)
         # tensor parallelism (``shard_lm``): (TensorParallel, HeadSplit)
-        # for the attention, the TensorParallel for the MLP or the MoE
-        # (expert parallelism); None = whole
+        # for the attention, the TensorParallel for the Mamba branch or
+        # the xLSTM block (``tp_mix``) and for the MLP, the MoE (expert
+        # parallelism) or sLSTM's MLP (``tp_ffn``); None = whole
         self.tp_attn = None
+        self.tp_mix = None
         self.tp_ffn = None
         d = cfg.d_model
         self.ln1 = zeros((d,), dtype, device)
@@ -159,6 +161,15 @@ class Block(torch.nn.Module):
             ff = (cfg.dense_layer_ff
                   if cfg.moe is not None and kind == "dense" else cfg.d_ff)
             self.mlp = init_mlp_params(gen, d, ff, dtype, device)
+
+    def _shared_copy(self) -> bool:
+        """Whether a hybrid layer's two branches read one
+        ``copy_to_model`` of their input in training: both split, the
+        attention's kv heads too (replicated kv heads read the input
+        uncopied).  One copy sums the input's gradient once, in the plain
+        layer's order at one rank."""
+        return (self.kind == "hybrid" and self.tp_mix is not None
+                and self.tp_attn is not None and self.tp_attn[1].kv_split)
 
     def _ffn(self, x, data_group=None):
         """The layer's second half: (x, aux (3,) = load balance, z,
@@ -185,9 +196,10 @@ class Block(torch.nn.Module):
         h = rms_norm(x, self.ln1, cfg.norm_eps)
         cache = None
         if self.kind == "mlstm":
-            x = x + xl.mlstm_forward(self.mix, h, cfg=cfg)
+            x = x + xl.mlstm_forward(self.mix, h, cfg=cfg, tp=self.tp_mix)
         elif self.kind == "slstm":
-            x = x + xl.slstm_forward(self.mix, h, cfg=cfg)
+            x = x + xl.slstm_forward(self.mix, h, cfg=cfg, tp=self.tp_mix,
+                                     tp_ff=self.tp_ffn)
         elif self.kind == "cross":
             if media is None:
                 raise ValueError(f"{cfg.name}: a cross layer needs media")
@@ -196,6 +208,9 @@ class Block(torch.nn.Module):
             if want_cache:
                 cache = attn._cross_kv(self.attn, media, cfg, self.tp_attn)
         else:
+            copied = self._shared_copy()
+            if copied:
+                h = self.tp_mix.copy(h)
             kw = dict(chunk_q=chunks[0], chunk_k=chunks[1],
                       return_kv=want_cache, tp=self.tp_attn)
             if cfg.mla_enabled:
@@ -203,13 +218,14 @@ class Block(torch.nn.Module):
             else:
                 a = attn.gqa_forward(self.attn, h, cfg=cfg,
                                      theta=self.theta, window=self.window,
-                                     **kw)
+                                     copied=copied, **kw)
             if want_cache:
                 a, kv = a
                 cache = _cache_from_kv(cfg, kv, self.window, x.shape[1])
             if self.kind == "hybrid":
                 s = ssm.mamba_forward(self.ssm, h, cfg=cfg,
-                                      return_state=want_cache)
+                                      return_state=want_cache,
+                                      tp=self.tp_mix, copied=copied)
                 if want_cache:
                     s, ssm_cache = s
                     cache = (cache, ssm_cache)
@@ -224,13 +240,14 @@ class Block(torch.nn.Module):
         ``flash_mesh`` a GQA ring holds this rank's slots only
         (:func:`~repro_torch.models.attention.flash_cache_shard`), under
         tensor parallelism a GQA or cross cache this rank's kv heads (an
-        MLA cache stays whole)."""
+        MLA cache stays whole), an SSM cache this rank's channels and
+        sub-heads, an xLSTM cache this rank's heads."""
         cfg, dev = self.cfg, self.ln1.device
         dtype = dtype_of(cfg)
         if self.kind == "mlstm":
-            return xl.mlstm_init_cache(cfg, batch, dev)
+            return xl.mlstm_init_cache(cfg, batch, dev, self.tp_mix)
         if self.kind == "slstm":
-            return xl.slstm_init_cache(cfg, batch, dev)
+            return xl.slstm_init_cache(cfg, batch, dev, self.tp_mix)
         kv_heads = (self.tp_attn[1].hkv if self.tp_attn is not None
                     else None)
         if self.kind == "cross":
@@ -245,7 +262,8 @@ class Block(torch.nn.Module):
         if flash_mesh is not None:
             kv = attn.flash_cache_shard(kv, flash_mesh)
         if self.kind == "hybrid":
-            return kv, ssm.mamba_init_cache(cfg, batch, dtype, dev)
+            return kv, ssm.mamba_init_cache(cfg, batch, dtype, dev,
+                                            self.tp_mix)
         return kv
 
     def decode(self, x1, cache, pos: int, flash_mesh=None):
@@ -255,9 +273,11 @@ class Block(torch.nn.Module):
         cfg = self.cfg
         h = rms_norm(x1, self.ln1, cfg.norm_eps)
         if self.kind == "mlstm":
-            a, cache = xl.mlstm_decode(self.mix, h, cache, cfg=cfg)
+            a, cache = xl.mlstm_decode(self.mix, h, cache, cfg=cfg,
+                                       tp=self.tp_mix)
         elif self.kind == "slstm":
-            a, cache = xl.slstm_decode(self.mix, h, cache, cfg=cfg)
+            a, cache = xl.slstm_decode(self.mix, h, cache, cfg=cfg,
+                                       tp=self.tp_mix, tp_ff=self.tp_ffn)
         elif self.kind == "cross":
             a = attn.cross_decode(self.attn, h, *cache, cfg=cfg,
                                   tp=self.tp_attn)
@@ -265,8 +285,9 @@ class Block(torch.nn.Module):
             kv, ssm_cache = cache
             a, kv = attn.gqa_decode(self.attn, h, kv, pos, cfg=cfg,
                                     theta=self.theta, window=self.window,
-                                    flash_mesh=flash_mesh)
-            s, ssm_cache = ssm.mamba_decode(self.ssm, h, ssm_cache, cfg=cfg)
+                                    flash_mesh=flash_mesh, tp=self.tp_attn)
+            s, ssm_cache = ssm.mamba_decode(self.ssm, h, ssm_cache, cfg=cfg,
+                                            tp=self.tp_mix)
             a = 0.5 * (a + s)
             cache = (kv, ssm_cache)
         elif cfg.mla_enabled:
@@ -341,7 +362,7 @@ class DecoderLM(torch.nn.Module):
         ranks' slices under tensor parallelism)."""
         vt = self._vocab_tp()
         logits = unembed(x, self.head, vt)
-        return logits if vt is None else vt.gather_vocab(logits)
+        return logits if vt is None else vt.gather(logits)
 
     def forward(self, tokens=None, embeds=None, media=None, *,
                 want_caches: bool = False, logits_mode: str = "all",

@@ -10,11 +10,28 @@ Python loop over the chunks (the reference's ``lax.scan``).  Per-head
 (:mod:`repro_torch.models.xlstm`).  The reference's einsums accumulate
 in float32 (``preferred_element_type``) and JAX widens a bf16 operand
 met by a float32 one; torch's einsum refuses mixed dtypes, so the
-operands are widened first, which is exact.
+operands are widened first, which is exact.  The intra-chunk decay is
+masked before its ``exp`` as well as after: the forward is the
+reference's bit for bit, and the gradient stays finite where the
+reference's turns NaN (a chunk whose summed log decay passes ~88, as
+Hymba's at 256 tokens: ``where``'s masked branch passes 0 · inf back).
+
+Tensor parallelism (``tp``, a :class:`~repro_torch.distributed.
+tensor_parallel.TensorParallel`) splits the Mamba branch by channels, as
+the reference's rules cut it: ``w_in`` by columns, role by role (this
+rank's x channels and their gates), the depthwise ``conv`` by channels
+(it runs locally), ``w_bc`` and ``w_dt`` by rows (their partial B, C and
+dt summed in one ``all_reduce``), ``out_norm`` by channels (its mean of
+squares summed over the group) and ``w_out`` by rows (one
+``all_reduce``).  ``dt_bias``, ``a_log`` and ``d_skip`` are replicated.
+A rank's channels need not hold whole heads (Hymba's 25 heads at M = 2
+or 4): it runs the SSD over sub-heads (:func:`_sub_heads`), and its
+:class:`SSMCache` holds its channels and sub-heads.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -51,9 +68,13 @@ def ssd_chunked(x, dt, log_a, Bm, Cm, *, chunk: int,
         bk, ck = Bm[:, k0:k0 + c].float(), Cm[:, k0:k0 + c].float()
         cum = torch.cumsum(lak, dim=1)           # (B,c,H) Σ log a up to t
         total = cum[:, -1]                       # (B,H)
-        # intra-chunk: L[t,s] = exp(cum_t - cum_s) (C_t · B_s), s <= t
+        # intra-chunk: L[t,s] = exp(cum_t - cum_s) (C_t · B_s), s <= t;
+        # the decay is masked before its exp too: above the diagonal it
+        # grows with the chunk (exp overflows past ~88), and where's
+        # masked branch would pass 0 · inf = NaN back into the gradient
         scores = torch.einsum("bthn,bshn->bhts", ck, bk)
         decay = (cum[:, :, None, :] - cum[:, None, :, :]).permute(0, 3, 1, 2)
+        decay = torch.where(causal, decay, 0.0)
         L = torch.where(causal, scores * torch.exp(decay), 0.0)
         xdt = xk.float() * dtk[..., None]                    # (B,c,H,P)
         y_intra = torch.einsum("bhts,bshp->bthp", L, xdt)
@@ -124,72 +145,122 @@ def _causal_conv(x, w, prev=None):
             xp[:, -(W - 1):] if W > 1 else pad)
 
 
-def _mamba_core_inputs(p, u, cfg):
-    """Shared projections: u (B,S,inner) → (x, dt, log_a, B, C, P)."""
+def _sub_heads(cfg, tp, device):
+    """The SSD heads this rank runs: (P′, heads).  Without ``tp`` or at a
+    model axis of one rank, the config's heads of P channels (``heads``
+    None).  Else this rank's ``inner / M`` channels as sub-heads of P′ =
+    gcd(P, inner / M) channels, and ``heads`` (inner / M / P′,) the head
+    each sub-head belongs to: a head's channels are independent in the
+    SSD recurrence, so a sub-head carrying its head's dt, log a, B, C and
+    skip computes its channels of the head's output (25 heads of 128
+    channels at M = 2 are 25 sub-heads of 64 a rank)."""
+    inner = cfg.ssm.expand * cfg.d_model
+    P = inner // cfg.num_heads
+    if tp is None or tp.size == 1:
+        return P, None
+    n = inner // tp.size
+    Ps = math.gcd(P, n)
+    first = tp.index * n + torch.arange(0, n, Ps, device=device)
+    return Ps, first // P
+
+
+def _mamba_core_inputs(p, u, cfg, tp=None):
+    """Shared projections: u (B,S,inner) → (x, dt, log_a, B, C, skip),
+    x (B,S,H,P) and skip (H,).  With ``tp`` u is this rank's channels and
+    ``w_bc``/``w_dt`` its rows: the partial B, C and dt are summed over
+    the model group in one float32 ``all_reduce`` and cast once, and the
+    heads are this rank's sub-heads (:func:`_sub_heads`)."""
     H, N = cfg.num_heads, cfg.ssm.state_dim
-    B_, S, inner = u.shape
-    P = inner // H
+    B_, S, _ = u.shape
     bc = u @ p["w_bc"]
+    dt_raw = u @ p["w_dt"]
+    dt_bias, a_log, d_skip = p["dt_bias"], p["a_log"], p["d_skip"]
+    if tp is not None:      # whole, read by this rank's sub-heads
+        bc, dt_raw = tp.sum_parts(bc, dt_raw)
+        dt_bias, a_log, d_skip = (tp.copy(t) for t in (dt_bias, a_log,
+                                                       d_skip))
     Bm = bc[..., : H * N].reshape(B_, S, H, N).float()
     Cm = bc[..., H * N:].reshape(B_, S, H, N).float()
     # u @ w_dt in the model's dtype, widened after the product
-    dt = F.softplus((u @ p["w_dt"]).float() + p["dt_bias"])    # (B,S,H)
-    log_a = -torch.exp(p["a_log"])[None, None] * dt           # ≤ 0
-    xh = u.reshape(B_, S, H, P)
-    return xh, dt, log_a, Bm, Cm, P
+    dt = F.softplus(dt_raw.float() + dt_bias)                  # (B,S,H)
+    log_a = -torch.exp(a_log)[None, None] * dt                # ≤ 0
+    P, heads = _sub_heads(cfg, tp, u.device)
+    if heads is not None:
+        dt, log_a, Bm, Cm = (t.index_select(2, heads)
+                             for t in (dt, log_a, Bm, Cm))
+        d_skip = d_skip.index_select(0, heads)
+    xh = u.reshape(B_, S, -1, P)
+    return xh, dt, log_a, Bm, Cm, d_skip
 
 
-def _mamba_out(p, y, gate, cfg):
-    """Norm, the SiLU gate and the output projection of (B,S,inner)."""
-    y = rms_norm(y, p["out_norm"], cfg.norm_eps)
+def _mamba_out(p, y, gate, cfg, tp=None):
+    """Norm, the SiLU gate and the output projection of (B,S,inner)
+    (this rank's channels and ``w_out``'s rows under ``tp``, summed over
+    the model group)."""
+    y = rms_norm(y, p["out_norm"], cfg.norm_eps, tp)
     y = y * F.silu(gate.float()).to(y.dtype)
-    return y @ p["w_out"]
+    y = y @ p["w_out"]
+    return y if tp is None else tp.reduce(y)
 
 
-def mamba_forward(p, x, *, cfg, chunk: int = 0, return_state: bool = False):
-    """(B,S,d) → (B,S,d) Mamba mixing (prefill); with ``return_state``
-    also the :class:`SSMCache` a decode continues from."""
-    s = cfg.ssm
-    chunk = chunk or s.chunk
-    B_, S, d = x.shape
-    inner = s.expand * d
+def _mamba_in(p, x, tp, copied=False):
+    """The input projection: (u, gate), this rank's channels of each
+    under ``tp`` (``w_in`` cut role by role; ``copied``: x has passed
+    through ``copy_to_model`` already, shared with the layer's
+    attention)."""
+    if tp is not None and not copied:
+        x = tp.copy(x)
     ug = x @ p["w_in"]
-    u, gate = ug[..., :inner], ug[..., inner:]
+    inner = ug.shape[-1] // 2
+    return ug[..., :inner], ug[..., inner:]
+
+
+def mamba_forward(p, x, *, cfg, chunk: int = 0, return_state: bool = False,
+                  tp=None, copied: bool = False):
+    """(B,S,d) → (B,S,d) Mamba mixing (prefill); with ``return_state``
+    also the :class:`SSMCache` a decode continues from.  ``tp``: the
+    split over the model axis (module docstring); ``copied``:
+    :func:`_mamba_in`'s."""
+    chunk = chunk or cfg.ssm.chunk
+    B_, S, d = x.shape
+    u, gate = _mamba_in(p, x, tp, copied)
     u, conv_tail = _causal_conv(u, p["conv"])
-    xh, dt, log_a, Bm, Cm, P = _mamba_core_inputs(p, u, cfg)
+    xh, dt, log_a, Bm, Cm, d_skip = _mamba_core_inputs(p, u, cfg, tp)
     y, h_fin = ssd_chunked(xh, dt, log_a, Bm, Cm, chunk=chunk,
                            return_state=True)
     y = y + xh.float().to(y.dtype) \
-        * p["d_skip"].to(y.dtype)[None, None, :, None]
-    out = _mamba_out(p, y.reshape(B_, S, inner), gate, cfg)
+        * d_skip.to(y.dtype)[None, None, :, None]
+    out = _mamba_out(p, y.reshape(B_, S, -1), gate, cfg, tp)
     if return_state:
         return out, SSMCache(conv=conv_tail, state=h_fin)
     return out
 
 
-def mamba_init_cache(cfg, batch: int, dtype, device) -> SSMCache:
+def mamba_init_cache(cfg, batch: int, dtype, device, tp=None) -> SSMCache:
+    """An empty state: the whole branch's, or (``tp``) this rank's
+    channels and sub-heads."""
     s = cfg.ssm
     inner = s.expand * cfg.d_model
-    H, N = cfg.num_heads, s.state_dim
+    P, _ = _sub_heads(cfg, tp, device)
+    if tp is not None:
+        inner //= tp.size
     return SSMCache(
         conv=torch.zeros((batch, s.conv_width - 1, inner), dtype=dtype,
                          device=device),
-        state=torch.zeros((batch, H, N, inner // H), dtype=torch.float32,
-                          device=device),
+        state=torch.zeros((batch, inner // P, s.state_dim, P),
+                          dtype=torch.float32, device=device),
     )
 
 
-def mamba_decode(p, x1, cache: SSMCache, *, cfg):
+def mamba_decode(p, x1, cache: SSMCache, *, cfg, tp=None):
     """One-token step. x1 (B,1,d) → ((B,1,d), the next :class:`SSMCache`)."""
-    B_, _, d = x1.shape
-    inner = cfg.ssm.expand * d
-    ug = x1 @ p["w_in"]
-    u, gate = ug[..., :inner], ug[..., inner:]
+    B_ = x1.shape[0]
+    u, gate = _mamba_in(p, x1, tp)
     u, conv_new = _causal_conv(u, p["conv"], prev=cache.conv)
-    xh, dt, log_a, Bm, Cm, P = _mamba_core_inputs(p, u, cfg)
+    xh, dt, log_a, Bm, Cm, d_skip = _mamba_core_inputs(p, u, cfg, tp)
     y1, h_new = ssd_decode_step(
         cache.state, xh[:, 0], dt[:, 0], log_a[:, 0], Bm[:, 0], Cm[:, 0])
     y1 = y1 + xh[:, 0].float().to(y1.dtype) \
-        * p["d_skip"].to(y1.dtype)[None, :, None]
-    out = _mamba_out(p, y1.reshape(B_, 1, inner), gate, cfg)
+        * d_skip.to(y1.dtype)[None, :, None]
+    out = _mamba_out(p, y1.reshape(B_, 1, -1), gate, cfg, tp)
     return out, SSMCache(conv=conv_new, state=h_new)

@@ -16,6 +16,22 @@ The up/down projections live inside the blocks (``d_ff = 0``): mLSTM
 up-projects 2× (value path + output gate); sLSTM is followed by a 4/3
 GELU MLP, the tanh form (``jax.nn.gelu``'s default).  The gate weights
 ``w_if`` and both ``f_bias`` stay float32 whatever the model's dtype.
+
+Tensor parallelism (``tp``, a :class:`~repro_torch.distributed.
+tensor_parallel.TensorParallel`) splits both blocks by whole heads.
+mLSTM: ``w_up`` by columns, role by role (this rank's value channels
+and their gates); u is gathered whole (one ``all_gather``) and ``w_q``,
+``w_k``, ``w_v`` and ``w_if`` (role by role, [i | f]) are cut by this
+rank's heads' columns, so every dot product is whole; ``out_norm`` is cut
+by channels (its mean of squares summed over the group) and ``w_down``
+by rows (one ``all_reduce``); :class:`MLSTMCache` holds this rank's
+heads.  sLSTM: ``w_gates`` by columns, role by role ([i f z o] of this
+rank's heads), ``r_gates`` and ``f_bias`` replicated and read by this
+rank's heads, so the time loop makes no collective; after it h is
+gathered whole (one ``all_gather``) for the norm, the residual and the
+GELU MLP, whose ``w_ff1`` columns and ``w_ff2`` rows are split (one
+``all_reduce``, ``tp_ff``) where its width divides;
+:class:`SLSTMCache` holds this rank's channels and its heads' ``m``.
 """
 
 from __future__ import annotations
@@ -60,16 +76,35 @@ def init_mlstm_params(gen, cfg, dtype, device) -> torch.nn.ParameterDict:
     })
 
 
-def _mlstm_qkvg(p, u, cfg):
-    B, S, inner = u.shape
+def _mlstm_up(p, x, tp):
+    """The up-projection: (u, gate), this rank's channels of each under
+    ``tp`` (``w_up`` cut role by role)."""
+    if tp is not None:
+        x = tp.copy(x)
+    ug = x @ p["w_up"]
+    inner = ug.shape[-1] // 2
+    return ug[..., :inner], ug[..., inner:]
+
+
+def _mlstm_qkvg(p, u, cfg, tp=None):
+    """q, k, v (B,S,H,P), the input gate and log forget gate (B,S,H);
+    with ``tp`` this rank's heads, from u gathered whole (module
+    docstring)."""
+    B, S, _ = u.shape
     H = cfg.num_heads
-    P = inner // H
+    P = 2 * cfg.d_model // H
+    f_bias = p["f_bias"]
+    if tp is not None:
+        # u whole on every rank, read by this rank's heads only
+        u = tp.copy(tp.gather(u))
+        H //= tp.size
+        f_bias = tp.copy(f_bias)[tp.index * H:(tp.index + 1) * H]
     q = (u @ p["w_q"]).reshape(B, S, H, P)
     k = (u @ p["w_k"]).reshape(B, S, H, P) * (P ** -0.5)
     v = (u @ p["w_v"]).reshape(B, S, H, P)
     gates = u.float() @ p["w_if"]                        # (B,S,2H) f32
     i_raw, f_raw = gates[..., :H], gates[..., H:]
-    log_f = F.logsigmoid(f_raw + p["f_bias"])            # ≤ 0 decay
+    log_f = F.logsigmoid(f_raw + f_bias)                 # ≤ 0 decay
     i_gate = torch.exp(F.logsigmoid(i_raw))              # bounded input gate
     return q, k, v, i_gate, log_f
 
@@ -81,46 +116,47 @@ def _mlstm_read(y_aug):
     return (y.float() / denom).to(y.dtype)
 
 
-def _mlstm_out(p, h, gate, cfg):
-    h = rms_norm(h, p["out_norm"], cfg.norm_eps)
+def _mlstm_out(p, h, gate, cfg, tp=None):
+    h = rms_norm(h, p["out_norm"], cfg.norm_eps, tp)
     h = h * F.silu(gate.float()).to(h.dtype)
-    return h @ p["w_down"]
+    h = h @ p["w_down"]
+    return h if tp is None else tp.reduce(h)
 
 
 def _v_aug(v):
     return torch.cat([v, torch.ones_like(v[..., :1])], dim=-1)
 
 
-def mlstm_forward(p, x, *, cfg, chunk: int = 0):
+def mlstm_forward(p, x, *, cfg, chunk: int = 0, tp=None):
     chunk = chunk or (cfg.ssm.chunk if cfg.ssm else 256)
     B, S, d = x.shape
-    inner = 2 * d
-    ug = x @ p["w_up"]
-    u, gate = ug[..., :inner], ug[..., inner:]
-    q, k, v, i_gate, log_f = _mlstm_qkvg(p, u, cfg)
+    u, gate = _mlstm_up(p, x, tp)
+    q, k, v, i_gate, log_f = _mlstm_qkvg(p, u, cfg, tp)
     # SSD mapping: x=v_aug, dt=i, log_a=log_f, B=k, C=q
     y_aug = ssd_chunked(_v_aug(v), i_gate, log_f, k, q, chunk=chunk)
-    return _mlstm_out(p, _mlstm_read(y_aug).reshape(B, S, inner), gate, cfg)
+    return _mlstm_out(p, _mlstm_read(y_aug).reshape(B, S, -1), gate, cfg,
+                      tp)
 
 
-def mlstm_init_cache(cfg, batch: int, device) -> MLSTMCache:
+def mlstm_init_cache(cfg, batch: int, device, tp=None) -> MLSTMCache:
+    """An empty memory: every head's, or (``tp``) this rank's."""
     H = cfg.num_heads
     P = 2 * cfg.d_model // H
+    if tp is not None:
+        H //= tp.size
     return MLSTMCache(state=torch.zeros((batch, H, P, P + 1),
                                         dtype=torch.float32, device=device))
 
 
-def mlstm_decode(p, x1, cache: MLSTMCache, *, cfg):
-    B, _, d = x1.shape
-    inner = 2 * d
-    ug = x1 @ p["w_up"]
-    u, gate = ug[..., :inner], ug[..., inner:]
-    q, k, v, i_gate, log_f = _mlstm_qkvg(p, u, cfg)
+def mlstm_decode(p, x1, cache: MLSTMCache, *, cfg, tp=None):
+    B = x1.shape[0]
+    u, gate = _mlstm_up(p, x1, tp)
+    q, k, v, i_gate, log_f = _mlstm_qkvg(p, u, cfg, tp)
     y_aug, state = ssd_decode_step(
         cache.state, _v_aug(v)[:, 0], i_gate[:, 0], log_f[:, 0], k[:, 0],
         q[:, 0])
-    h = _mlstm_read(y_aug).reshape(B, 1, inner)
-    return _mlstm_out(p, h, gate, cfg), MLSTMCache(state=state)
+    h = _mlstm_read(y_aug).reshape(B, 1, -1)
+    return _mlstm_out(p, h, gate, cfg, tp), MLSTMCache(state=state)
 
 
 # ==================================================================== sLSTM
@@ -147,17 +183,31 @@ def init_slstm_params(gen, cfg, dtype, device) -> torch.nn.ParameterDict:
     })
 
 
-def _slstm_step(p, cfg, carry, xg):
+def _slstm_local(p, x, tp):
+    """The sLSTM's input and recurrent weights for this rank: (x for
+    ``w_gates``, ``r_gates``, ``f_bias``), under ``tp`` the blocks of its
+    heads, the replicated leaves through ``copy_to_model``."""
+    r_gates, f_bias = p["r_gates"], p["f_bias"]
+    if tp is None:
+        return x, r_gates, f_bias
+    H = r_gates.shape[1] // tp.size
+    d = f_bias.shape[0] // tp.size
+    i = tp.index
+    return (tp.copy(x), tp.copy(r_gates)[:, i * H:(i + 1) * H],
+            tp.copy(f_bias)[i * d:(i + 1) * d])
+
+
+def _slstm_step(r_gates, f_bias, carry, xg):
     """One timestep. xg: (B, 4d) precomputed input contribution."""
     h, c, n, m = carry
     B, d = h.shape
-    H = cfg.num_heads
+    H = m.shape[-1]
     dh = d // H
     rec = torch.einsum("bhd,ghde->bghe", h.reshape(B, H, dh),
-                       p["r_gates"].float())                 # (B,4,H,dh)
+                       r_gates.float())                      # (B,4,H,dh)
     g = xg.float() + rec.reshape(B, 4 * d)
     gi, gf, gz, go = g.chunk(4, dim=-1)
-    gf = gf + p["f_bias"]
+    gf = gf + f_bias
     # stabilised exponential gating (per-head max state)
     log_f = F.logsigmoid(gf)
     m_prev = torch.repeat_interleave(m, dh, dim=-1)          # (B, d)
@@ -173,36 +223,52 @@ def _slstm_step(p, cfg, carry, xg):
     return SLSTMCache(h_new, c_new, n_new, m_head)
 
 
-def _slstm_out(p, h, dtype, cfg):
-    """Norm and the post-block GELU (tanh form) MLP of the hidden states."""
+def _slstm_out(p, h, dtype, cfg, tp_ff=None):
+    """Norm and the post-block GELU (tanh form) MLP of the hidden states
+    (``tp_ff``: ``w_ff1``'s columns and ``w_ff2``'s rows, summed)."""
     h = rms_norm(h, p["out_norm"], cfg.norm_eps)
-    ff = F.gelu((h @ p["w_ff1"]).float(), approximate="tanh").to(dtype)
-    return h + ff @ p["w_ff2"]
+    hf = h if tp_ff is None else tp_ff.copy(h)
+    ff = F.gelu((hf @ p["w_ff1"]).float(), approximate="tanh").to(dtype)
+    ff = ff @ p["w_ff2"]
+    return h + (ff if tp_ff is None else tp_ff.reduce(ff))
 
 
-def slstm_forward(p, x, *, cfg):
+def slstm_forward(p, x, *, cfg, tp=None, tp_ff=None):
+    """(B,S,d) → (B,S,d); ``tp``: this rank's heads (module docstring),
+    ``tp_ff``: the MLP split."""
     B, S, d = x.shape
-    xg = x @ p["w_gates"]                                    # (B,S,4d)
-    carry = slstm_init_cache(cfg, B, x.device)
+    xin, r_gates, f_bias = _slstm_local(p, x, tp)
+    xg = xin @ p["w_gates"]                                  # (B,S,4d)
+    carry = slstm_init_cache(cfg, B, x.device, tp)
     hs = []
     for t in range(S):
-        carry = _slstm_step(p, cfg, carry, xg[:, t])
+        carry = _slstm_step(r_gates, f_bias, carry, xg[:, t])
         hs.append(carry.h)
     h = torch.stack(hs, dim=1).to(x.dtype)                   # (B,S,d)
-    return _slstm_out(p, h, x.dtype, cfg)
+    if tp is not None:
+        h = tp.gather(h)
+    return _slstm_out(p, h, x.dtype, cfg, tp_ff)
 
 
-def slstm_init_cache(cfg, batch: int, device) -> SLSTMCache:
-    d = cfg.d_model
+def slstm_init_cache(cfg, batch: int, device, tp=None) -> SLSTMCache:
+    """An empty state: every channel's, or (``tp``) this rank's channels
+    and its heads' stabilisers."""
+    d, H = cfg.d_model, cfg.num_heads
+    if tp is not None:
+        d, H = d // tp.size, H // tp.size
 
     def z():
         return torch.zeros((batch, d), dtype=torch.float32, device=device)
 
     return SLSTMCache(h=z(), c=z(), n=z(), m=torch.full(
-        (batch, cfg.num_heads), -1e30, dtype=torch.float32, device=device))
+        (batch, H), -1e30, dtype=torch.float32, device=device))
 
 
-def slstm_decode(p, x1, cache: SLSTMCache, *, cfg):
-    xg = (x1 @ p["w_gates"])[:, 0]
-    carry = _slstm_step(p, cfg, cache, xg)
-    return _slstm_out(p, carry.h[:, None].to(x1.dtype), x1.dtype, cfg), carry
+def slstm_decode(p, x1, cache: SLSTMCache, *, cfg, tp=None, tp_ff=None):
+    xin, r_gates, f_bias = _slstm_local(p, x1, tp)
+    xg = (xin @ p["w_gates"])[:, 0]
+    carry = _slstm_step(r_gates, f_bias, cache, xg)
+    h = carry.h[:, None].to(x1.dtype)
+    if tp is not None:
+        h = tp.gather(h)
+    return _slstm_out(p, h, x1.dtype, cfg, tp_ff), carry

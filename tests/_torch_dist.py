@@ -588,15 +588,27 @@ def engine_world(rank, world, path, cfg_kw):
 # its ``reduced`` overrides, and (key "moe") overrides of its MoE config.
 # The vision config keeps its cross layer (every 5th); "+int8" sends the
 # MoE dispatch in int8, "+routed" limits routing to 2 of 4 expert groups
-# at a capacity that drops tokens.
+# at a capacity that drops tokens.  The reduced hymba-1.5b's 4 heads
+# divide, so its attention splits; "+odd" has 5 heads of 64 Mamba
+# channels (inner 320), which straddle the ranks at M = 2 and 4 as the
+# full width's 25 do, and its attention is replicated.  xlstm-1.3b takes
+# an sLSTM layer every 2nd (the plain reduced config has none); its
+# sLSTM MLP (170 wide) splits at M = 2 and stays whole at M = 4, as the
+# full width's 2730.
 TP_ARCHS = {"qwen3-0.6b": {}, "gemma3-4b": dict(num_layers=6, window_size=16),
             "glm4-9b": {}, "deepseek-moe-16b": {}, "deepseek-v2-lite-16b": {},
             "llama-3.2-vision-11b": dict(num_layers=5),
             "deepseek-moe-16b+int8": dict(moe=dict(quantize_dispatch=True)),
             "deepseek-v2-lite-16b+routed": dict(moe=dict(
-                route_groups=2, num_groups=4, capacity_factor=0.5))}
+                route_groups=2, num_groups=4, capacity_factor=0.5)),
+            "hymba-1.5b": {},
+            "hymba-1.5b+odd": dict(d_model=160, num_heads=5, num_kv_heads=1,
+                                   head_dim=32),
+            "xlstm-1.3b": dict(xlstm_slstm_every=2)}
 TP_MOE = tuple(c for c in TP_ARCHS if c.startswith("deepseek"))
 TP_TRAIN_MOE = "deepseek-v2-lite-16b"   # ZeRO-1, the checkpoint, launcher
+TP_XLSTM = "xlstm-1.3b"                 # its ZeRO-1 steps and checkpoint
+TP_LAUNCH_ARCHS = (TP_TRAIN_MOE, "hymba-1.5b", "xlstm-1.3b")   # at 1x2
 
 
 def tp_config(get_config, case: str):
@@ -645,10 +657,23 @@ def decode_caches(model, tokens, media, max_len, mesh=None) -> list:
 
 
 def _cache_widths(model, caches) -> dict:
-    """The kv heads of every GQA and cross cache, the latent width of
-    every MLA cache: ``{"kv_heads": [...], "latent": [...]}``."""
-    out = {"kv_heads": set(), "latent": set()}
+    """What this rank's caches hold: the kv heads of every GQA, cross and
+    hybrid attention cache, the latent width of every MLA cache, a hybrid
+    layer's SSM (conv channels, sub-heads, N, P′), an mLSTM memory's
+    heads and an sLSTM state's (channels, heads), each a sorted list."""
+    out = {k: set() for k in ("kv_heads", "latent", "ssm", "mlstm",
+                              "slstm")}
     for blk, c in zip(model.blocks, caches):
+        if blk.kind == "mlstm":
+            out["mlstm"].add(int(c.state.shape[1]))
+            continue
+        if blk.kind == "slstm":
+            out["slstm"].add((int(c.h.shape[1]), int(c.m.shape[1])))
+            continue
+        if blk.kind == "hybrid":
+            c, s = c
+            out["ssm"].add((int(s.conv.shape[-1]),
+                            *(int(n) for n in s.state.shape[1:])))
         if hasattr(c, "c_kv"):
             out["latent"].add(int(c.c_kv.shape[-1]))
         else:
@@ -666,7 +691,6 @@ def tp_model_world(rank, world, d, shapes, tokens, labels, media, steps,
     ``gather_lm`` and the refusal of flash decoding on the same axis."""
     from repro_torch.convert import lm_to_arrays
     from repro_torch.distributed.mesh import make_test_mesh
-    from repro_torch.distributed.sharding import gather_tensor
     from repro_torch.distributed.tensor_parallel import gather_lm
     from repro_torch.models.lm import lm_loss
 
@@ -697,7 +721,7 @@ def tp_model_world(rank, world, d, shapes, tokens, labels, media, steps,
             r["loss"] = float(loss.detach())
             r["metrics"] = {k: float(v) for k, v in metrics.items()}
             names = [n for n, _ in model.named_parameters()]
-            r["grads"] = {n: gather_tensor(g, tp.specs[n], mesh).numpy()
+            r["grads"] = {n: tp.whole(n, g).numpy()
                           for n, g in zip(names, grads)}
             try:
                 model.init_decode_caches(tok.shape[0], max_len, mesh=mesh,
@@ -757,7 +781,6 @@ def tp_data_group_world(rank, world, d, tokens, labels):
     axis) of this data rank's rows, the MoE statistics taken over the
     data group (``make_train_step(...).grads``)."""
     from repro_torch.distributed.mesh import make_test_mesh
-    from repro_torch.distributed.sharding import gather_tensor
     from repro_torch.training.train_step import (TrainConfig, TrainState,
                                                  make_train_step)
 
@@ -775,7 +798,7 @@ def tp_data_group_world(rank, world, d, tokens, labels):
             _local({"tokens": tokens, "labels": labels}, di, 2, 1))
         out[case] = {"loss": float(loss),
                      "metrics": {k: float(v) for k, v in metrics.items()},
-                     "grads": {n: gather_tensor(g, tp.specs[n], mesh).numpy()
+                     "grads": {n: tp.whole(n, g).numpy()
                                for n, g in grads.items()}}
     return out
 
@@ -811,9 +834,9 @@ def tp_train_world(rank, world, d, mesh_shape, batches, learn_batch,
     ZeRO-1, without and with int8 compression (each step's loss and the
     parameters whole after the last), the moments' ZeRO dims, a
     checkpoint of the compressed state (``d``/ckpt), the reduced
-    :data:`TP_TRAIN_MOE`'s steps without compression and its checkpoint
-    (``d``/ckpt_moe), the learning contract, and the launcher
-    (``d``/launch22)."""
+    :data:`TP_TRAIN_MOE`'s and :data:`TP_XLSTM`'s steps without
+    compression and their checkpoints (``d``/ckpt_moe, ``d``/ckpt_xlstm),
+    the learning contract, and the launcher (``d``/launch22)."""
     import dataclasses
 
     from repro_torch.checkpoint.checkpointer import Checkpointer
@@ -845,6 +868,14 @@ def tp_train_world(rank, world, d, mesh_shape, batches, learn_batch,
                   "moments": {n: tuple(t.shape)
                               for n, t in state.opt.m.items()}}
     Checkpointer(f"{d}/ckpt_moe").save(len(batches), state, block=True)
+    state, losses, params = _trajectory(
+        f"{d}/{TP_XLSTM}.npz", TP_XLSTM, mesh, batches,
+        dataclasses.replace(tcfg, compress_grads=False))
+    out["xlstm"] = {"losses": losses, "params": params,
+                    "parts": dict(state.model.tp.parts),
+                    "moments": {n: tuple(t.shape)
+                                for n, t in state.opt.m.items()}}
+    Checkpointer(f"{d}/ckpt_xlstm").save(len(batches), state, block=True)
     # the reference's SPMD contract: 8 steps at lr 5e-3 on one batch
     lcfg = TrainConfig(microbatches=1, peak_lr=5e-3, warmup_steps=1,
                        remat=False)
@@ -917,25 +948,65 @@ def tp_restore_world(rank, world, path, case, ckpt_dir, compress):
     return meta["step"], train_state_to_arrays(state, whole_state(state))
 
 
-def tp_refusals(rank, world, archs):
-    """``shard_lm`` on a (1, world) mesh of each reduced config of
-    ``archs``: the error's text (None when it shards)."""
-    from repro_torch.configs import get_config
+def tp_every_config(rank, world, tokens):
+    """``shard_lm`` on a (1, world) mesh of each of the ten reduced
+    configs (the vision config with its cross layer, fed seeded media;
+    musicgen-medium fed seeded embeddings): the largest |Δ| of the split
+    forward's logits against the plain model's on this rank, over the
+    plain logits' max |logits| (an exception's text when it does not
+    shard)."""
+    from repro_torch.configs import ARCH_IDS, get_config
     from repro_torch.distributed.mesh import make_test_mesh
     from repro_torch.distributed.tensor_parallel import shard_lm
     from repro_torch.models import DecoderLM
 
     mesh = make_test_mesh(1, world)
+    tok = torch.as_tensor(tokens)
     out = {}
-    for arch in archs:      # the vision config keeps its cross layer
+    for arch in ARCH_IDS:   # the vision config keeps its cross layer
         over = dict(num_layers=5) if arch == "llama-3.2-vision-11b" else {}
-        model = DecoderLM(get_config(arch).reduced(**over), seed=0,
-                          device="cpu")
+        cfg = get_config(arch).reduced(**over)
+        gen = torch.Generator().manual_seed(3)
+        kw = ({"media": torch.randn(
+            (tok.shape[0], cfg.vision_tokens, cfg.d_model), generator=gen)}
+            if cfg.cross_attn_every else {})
+        if not cfg.embed_inputs:
+            kw["embeds"] = torch.randn((*tok.shape, cfg.d_model),
+                                       generator=gen)
         try:
-            shard_lm(model, mesh)
-            out[arch] = None
-        except NotImplementedError as e:
-            out[arch] = str(e)
+            logits = []
+            for m in (None, mesh):
+                model = DecoderLM(cfg, seed=0, device="cpu")
+                if m is not None:
+                    shard_lm(model, m)
+                with torch.no_grad():
+                    logits.append(model(None if "embeds" in kw else tok,
+                                        mesh=m, **kw))
+            plain, split = logits
+            out[arch] = float((split - plain).abs().max()
+                              / plain.abs().max())
+        except Exception as e:          # noqa: BLE001 - reported whole
+            out[arch] = f"{type(e).__name__}: {e}"
+    return out
+
+
+def roles_world(rank, world):
+    """``shard_tensor`` and ``gather_tensor`` with roles side by side
+    (``parts`` 2: [a | b]; 4: [i f z o]) over (2, 2) and (1, 4) meshes:
+    per (M, parts) this rank's block and the round trip."""
+    from repro_torch.distributed.mesh import make_test_mesh
+    from repro_torch.distributed.sharding import gather_tensor, shard_tensor
+
+    out = {}
+    for shape in ((2, 2), (1, 4)):
+        mesh = make_test_mesh(*shape)
+        for parts in (2, 4):
+            full = torch.arange(3 * parts * 8, dtype=torch.float32) \
+                .reshape(3, parts * 8)
+            local = shard_tensor(full, (None, "model"), mesh, parts)
+            back = gather_tensor(local, (None, "model"), mesh, parts)
+            out[(shape[1], parts)] = (mesh.index("model"), local.numpy(),
+                                      bool(torch.equal(back, full)))
     return out
 
 
@@ -977,9 +1048,10 @@ def tp_world(rank, world, d, tokens, labels, media, steps, max_len,
     """``test_torch_dist_tp``: the models on the world's meshes ((1, 2) at
     world 2; (2, 2) and (1, 4) at world 4); world 4 also takes the MoE
     statistics over the data group at (2, 2), trains at (2, 2) and writes
-    ``d``/ckpt and ``d``/ckpt_moe, which world 2 restores at (1, 2);
-    world 2 also checks a model axis of one rank bit for bit, ZeRO-1
-    against whole moments at (2, 1), the refusals and the launcher."""
+    ``d``/ckpt, ``d``/ckpt_moe and ``d``/ckpt_xlstm, which world 2
+    restores at (1, 2); world 2 also checks a model axis of one rank bit
+    for bit, ZeRO-1 against whole moments at (2, 1) and the launcher; each
+    world shards the ten reduced configs at M = world."""
     shapes = [(1, 2)] if world == 2 else [(2, 2), (1, 4)]
     res = {"models": tp_model_world(rank, world, d, shapes, tokens, labels,
                                     media, steps, max_len)}
@@ -998,14 +1070,16 @@ def tp_world(rank, world, d, tokens, labels, media, steps, max_len,
         res["restore_moe"] = tp_restore_world(
             rank, world, f"{d}/{TP_TRAIN_MOE}.npz", TP_TRAIN_MOE,
             f"{d}/ckpt_moe", False)
+        res["restore_xlstm"] = tp_restore_world(
+            rank, world, f"{d}/{TP_XLSTM}.npz", TP_XLSTM, f"{d}/ckpt_xlstm",
+            False)
         res["launch"] = launcher_world(rank, world, f"{d}/launch12",
                                        [*launch_argv, "--mesh", "1x2"])
-        res["launch_moe"] = launcher_world(
-            rank, world, f"{d}/launch12_moe",
-            [*launch_argv, "--arch", TP_TRAIN_MOE, "--mesh", "1x2"])
-        res["refused"] = tp_refusals(rank, world, (
-            "deepseek-moe-16b", "xlstm-1.3b", "hymba-1.5b",
-            "deepseek-v2-lite-16b", "llama-3.2-vision-11b"))
+        res["launch_arch"] = {arch: launcher_world(
+            rank, world, f"{d}/launch12_{arch}",
+            [*launch_argv, "--arch", arch, "--mesh", "1x2"])
+            for arch in TP_LAUNCH_ARCHS}
+    res["every_config"] = tp_every_config(rank, world, tokens[:, :8])
     return res
 
 

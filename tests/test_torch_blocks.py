@@ -78,6 +78,54 @@ def test_ssd_chunked_matches_reference(S, chunk):
     close(h, jh)
 
 
+def _ssd_scan64(x, dt, log_a, Bm, Cm):
+    """The SSD recurrence step by step in float64: h_t = a_t h_{t-1} +
+    dt_t B_t x_tᵀ, y_t = C_t · h_t (no decay is ever exponentiated
+    above 0)."""
+    x, dt, log_a, Bm, Cm = (t.double() for t in (x, dt, log_a, Bm, Cm))
+    B, S, H, P = x.shape
+    h = torch.zeros(B, H, Bm.shape[-1], P, dtype=torch.float64)
+    ys = []
+    for t in range(S):
+        h = h * torch.exp(log_a[:, t])[..., None, None] + torch.einsum(
+            "bhn,bhp->bhnp", Bm[:, t] * dt[:, t, :, None], x[:, t])
+        ys.append(torch.einsum("bhn,bhnp->bhp", Cm[:, t], h))
+    return torch.stack(ys, dim=1)
+
+
+def test_ssd_gradient_is_finite_where_the_decay_overflows():
+    """A 256-token chunk whose summed log decay passes ~88 (Hymba's dt of
+    ~0.7 a step at A = -1): the forward within 1e-5 of its max of the
+    reference's and of the float64 recurrence's (256-term float32 sums),
+    and the gradient of every input finite and within 1e-5 of its max of
+    the float64 recurrence's, where the reference's expression turns
+    NaN (``where``'s masked branch passes 0 · exp(decay) = 0 · inf back;
+    the port masks the decay before its exp too)."""
+    rng = np.random.default_rng(3)
+    x, dt, _, Bm, Cm = ssd_inputs(rng, 1, 256, 2, 4, 3)
+    log_a = -rng.uniform(0.5, 1.0, dt.shape).astype(np.float32)
+    ins = (x, dt, log_a, Bm, Cm)
+    w = rand(rng, *x.shape)
+    ts = [T(a).requires_grad_(True) for a in ins]
+    y = tssm.ssd_chunked(*ts, chunk=256)
+    ts64 = [T(a).double().requires_grad_(True) for a in ins]
+    y64 = _ssd_scan64(*ts64)
+    jy = np.asarray(jssm.ssd_chunked(*map(jnp.asarray, ins), chunk=256))
+    for ref in (jy, y64.detach().numpy()):
+        err = float(np.max(np.abs(y.detach().numpy() - ref)))
+        assert err <= 1e-5 * float(np.max(np.abs(ref))), err
+    grads = torch.autograd.grad((y * T(w)).sum(), ts)
+    want = torch.autograd.grad((y64 * T(w).double()).sum(), ts64)
+    for g, g64 in zip(grads, want):
+        assert torch.isfinite(g).all()
+        err = float((g.double() - g64).abs().max())
+        assert err <= 1e-5 * float(g64.abs().max()), err
+    jgrads = jax.grad(lambda *a: jnp.sum(jssm.ssd_chunked(
+        *a, chunk=256) * w), argnums=(0, 1, 2, 3, 4))(
+        *map(jnp.asarray, ins))
+    assert np.isnan(np.asarray(jgrads[2])).any()   # the reference's
+
+
 def test_ssd_decode_step_replays_chunked():
     """Step by step from zeros ≡ the reference's steps ≡ the chunked form
     (last output and final state), with a nonzero initial state too."""

@@ -9,7 +9,9 @@ decode caches on the meta device laid out under the reference's paths
 leaf on meshes (16, 16), (2, 16, 16), (1, 1), (2, 2) and (4, 2), faked as
 ``tests/test_distributed.py`` fakes them.  The reference's divisibility,
 tree-cover and ZeRO-1 contracts hold on the port.  A mesh with no process
-group refuses.  No process group is made here.
+group refuses.  No process group is made here: the role-wise cut
+(``shard_tensor``/``gather_tensor`` with ``parts``) runs in a spawned
+gloo world of 4 ranks (``tests/_torch_dist.py::roles_world``).
 """
 
 import jax
@@ -25,6 +27,7 @@ from repro_torch.distributed import sharding as shd
 from repro_torch.launch.mesh import (init_distributed, make_production_mesh,
                                      make_test_mesh)
 from repro_torch.models import DecoderLM
+from tests import _torch_dist as td
 from tests._torch_threads import one_torch_thread  # noqa: F401
 
 MESHES = [(("data", "model"), (16, 16)),
@@ -205,3 +208,31 @@ def test_tp_plan_replicates_a_moe_layer_that_does_not_divide(M):
         for w in ("w_gate", "w_up", "w_down", "router", "shared.w_gate",
                   "shared.w_up", "shared.w_down"):
             assert specs[f"blocks.{i}.moe.{w}"] == (), w
+
+
+@pytest.fixture(scope="module")
+def roles(tmp_path_factory):
+    """``roles_world`` on 4 ranks: meshes (2, 2) and (1, 4)."""
+    return td.run_world(td.roles_world, 4, tmp_path_factory.mktemp("roles"))
+
+
+@pytest.mark.parametrize("parts", [2, 4])
+@pytest.mark.parametrize("M", [2, 4])
+def test_role_wise_cut_keeps_each_rank_s_channels_of_every_role(roles, M,
+                                                                 parts):
+    """A leaf of ``parts`` roles side by side ([a | b], [i f z o]) cut over
+    a model axis of ``M``: each rank's block holds the same channels of
+    every role, in role order (a contiguous cut would give rank 0 the
+    first roles whole), and the blocks gather back whole."""
+    width = parts * 8
+    full = np.arange(3 * width, dtype=np.float32).reshape(3, width)
+    c = 8 // M                                   # a role's channels a rank
+    seen = set()
+    for index, local, round_trip in (r[(M, parts)] for r in roles):
+        want = np.concatenate([full[:, j * 8 + index * c:
+                                    j * 8 + (index + 1) * c]
+                               for j in range(parts)], axis=1)
+        np.testing.assert_array_equal(local, want)
+        assert round_trip
+        seen.add(index)
+    assert seen == set(range(M))

@@ -5,17 +5,24 @@ one-device models.
 The reduced qwen3-0.6b (dense, tied head), gemma3-4b (local and global
 layers, 6 layers, window 16), glm4-9b (untied head), deepseek-moe-16b
 (GQA and a MoE of 8 routed and 2 shared experts), deepseek-v2-lite-16b
-(MLA and the MoE) and llama-3.2-vision-11b (5 layers, the last a cross
+(MLA and the MoE), llama-3.2-vision-11b (5 layers, the last a cross
 layer, fed seeded media, its gate opened to 0.5: a zero gate passes any
-parity), and two MoE variants (``tests/_torch_dist.py::TP_ARCHS``:
-int8 dispatch; grouped routing at a capacity that drops tokens), start
-from the reference's weights (``jlm.init_params``, carried by
-``repro_torch.convert.lm_from_arrays``), in float32.  The ranks
-(``tests/_torch_dist.py::tp_world``) cut them over meshes (1, 2) (world
-2), (2, 2) and (1, 4) (world 4) with ``shard_lm``.  At M = 4 the kv heads
-(2 in every reduced config) do not divide, so ``wk`` and ``wv`` are
-replicated (the cross layer's too); the test lists those leaves.  MLA's
-latent cache stays whole on every rank.
+parity), hymba-1.5b (hybrid: its 4 heads' attention split, the Mamba
+branch by channels), xlstm-1.3b with an sLSTM layer every 2nd (mLSTM and
+sLSTM by heads), and three variants (``tests/_torch_dist.py::TP_ARCHS``:
+int8 dispatch; grouped routing at a capacity that drops tokens; hymba's
+"+odd", 5 heads whose 64 Mamba channels straddle the ranks as the full
+width's 25 heads do), start from the reference's weights
+(``jlm.init_params``, carried by ``repro_torch.convert.lm_from_arrays``),
+in float32.  The ranks (``tests/_torch_dist.py::tp_world``) cut them over
+meshes (1, 2) (world 2), (2, 2) and (1, 4) (world 4) with ``shard_lm``.
+At M = 4 the kv heads (2 in every reduced config) do not divide, so
+``wk`` and ``wv`` are replicated (the cross layer's too); "+odd"'s 5
+heads replicate its attention; sLSTM's ``out_norm`` acts on h gathered
+whole, and its MLP (170 wide) stays whole at M = 4; the test lists
+those leaves.  MLA's latent cache stays whole on every rank; a Mamba
+cache holds this rank's channels as sub-heads of gcd(P, inner / M),
+an xLSTM cache this rank's heads.
 
 Contracts, against JAX's one-device ``lm`` and the port's one-device
 ``DecoderLM`` on the same weights:
@@ -52,13 +59,19 @@ over 8 steps at lr 5e-3 (the contract of the reference's
 ``test_spmd_train_step_runs``).  ZeRO-1 moments over a (2, 1) mesh equal
 whole moments bit for bit, parameters included.  The checkpoints written at
 (2, 2) (Qwen3's, int8, and the MoE's) restore at (1, 2) and at world 1
-bit for bit.  ``launch.train --mesh 1x2`` and ``2x2`` train and resume,
-losses within 1e-5 of a one-process run, the reduced
-deepseek-v2-lite-16b too at ``1x2``.  The hybrid and xLSTM configs at
-M = 2 raise ``NotImplementedError`` naming the next slice (the MoE, MLA
-and cross configs shard), and flash decoding on the model axis of a
-sharded model raises ``ValueError``.
+bit for bit.  The xLSTM case trains the same 5 steps at (2, 2) without
+compression, held as the MoE's (an embedding element whose gradient
+nearly cancels, as under data parallelism alone), its roles (``w_up``,
+``w_if``, ``w_gates``) cut role by role; its checkpoint restores at
+(1, 2) and at world 1 bit for bit.  ``launch.train --mesh 1x2`` and
+``2x2`` train and resume, losses within 1e-5 of a one-process run, the
+reduced deepseek-v2-lite-16b, hymba-1.5b and xlstm-1.3b too at ``1x2``.
+Each of the ten reduced configs shards at M = 2 and 4, its split logits
+within 1e-5 of the plain model's, and flash decoding on the model axis
+of a sharded model raises ``ValueError``.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -99,10 +112,6 @@ LAUNCH = ["--device", "cpu", "--reduced", "--batch", "4", "--seq", "16",
 MOE = td.TP_MOE
 CROSS_GATE = 0.5
 AUX_REL = 1e-6
-REFUSED = ("xlstm-1.3b", "hymba-1.5b")
-SHARDS = ("deepseek-moe-16b", "deepseek-v2-lite-16b", "llama-3.2-vision-11b")
-
-
 
 
 def _is_int8(case: str) -> bool:
@@ -247,9 +256,10 @@ def setup(tmp_path_factory):
         traj[compress] = _trajectory(d / "qwen3-0.6b.npz",
                                      ref["qwen3-0.6b"]["cfg"], batches, tcfg)
         if not compress:
-            traj["moe"] = _trajectory(d / f"{td.TP_TRAIN_MOE}.npz",
-                                      ref[td.TP_TRAIN_MOE]["cfg"], batches,
-                                      tcfg)
+            for key, case in (("moe", td.TP_TRAIN_MOE),
+                              ("xlstm", td.TP_XLSTM)):
+                traj[key] = _trajectory(d / f"{case}.npz",
+                                        ref[case]["cfg"], batches, tcfg)
     return d, tokens, labels, ref, batches, learn, traj, media
 
 
@@ -401,33 +411,67 @@ def test_tp_model_axis_of_one_is_bit_for_bit(worlds, arch):
 
 
 def _replicated_want(cfg, M: int) -> list:
-    """The leaves a model axis of ``M`` replicates against the rules: at
-    M = 4 the 2 kv heads of every GQA and cross layer (MLA has none)."""
-    if M == 2:
-        return []
-    return [f"blocks.{i}.attn.{w}" for i in range(cfg.num_layers)
-            for w in ("wk", "wv") if not cfg.mla_enabled]
+    """The leaves a model axis of ``M`` replicates against the rules: an
+    attention layer's four projections where its query heads do not
+    divide ("+odd"'s 5), else its ``wk``/``wv`` where its kv heads do not
+    (every reduced config's 2 at M = 4; MLA has none); every sLSTM
+    layer's ``out_norm``, and its ``w_ff2`` where the MLP's columns do
+    not divide (the rules would cut its d_model columns instead)."""
+    out = []
+    for i, kind in enumerate(cfg.layer_kinds):
+        if kind == "slstm":
+            out.append(f"blocks.{i}.mix.out_norm")
+            if (4 * cfg.d_model // 3) % M:
+                out.append(f"blocks.{i}.mix.w_ff2")
+        elif kind != "mlstm" and not cfg.mla_enabled:
+            held = (("wq", "wk", "wv", "wo") if cfg.num_heads % M else
+                    ("wk", "wv") if cfg.num_kv_heads % M else ())
+            out += [f"blocks.{i}.attn.{w}" for w in held]
+    return out
+
+
+def _caches_want(cfg, M: int) -> dict:
+    """What a rank's caches hold at a model axis of ``M``
+    (``tests/_torch_dist.py::_cache_widths``)."""
+    kinds = set(cfg.layer_kinds)
+    want = {"kv_heads": [], "latent": [], "ssm": [], "mlstm": [],
+            "slstm": []}
+    if cfg.mla_enabled:
+        want["latent"] = [cfg.mla.kv_lora_rank]
+    elif kinds - {"mlstm", "slstm"}:
+        want["kv_heads"] = [1]          # one kv head a rank, or held
+    if "hybrid" in kinds:
+        inner = cfg.ssm.expand * cfg.d_model // M
+        sub = math.gcd(cfg.ssm.expand * cfg.d_model // cfg.num_heads, inner)
+        want["ssm"] = [(inner, inner // sub, cfg.ssm.state_dim, sub)]
+    if "mlstm" in kinds:
+        want["mlstm"] = [cfg.num_heads // M]
+    if "slstm" in kinds:
+        want["slstm"] = [(cfg.d_model // M, cfg.num_heads // M)]
+    return want
 
 
 def test_head_split_leaves_replicated(setup, worlds):
     """Where a rule would cut inside a head, the leaf is replicated: every
     reduced config's 2 kv heads at M = 4 (glm4-9b's 2 kv heads at full
-    width too), nothing at M = 2; the GQA and cross caches hold each
-    rank's kv heads, an MLA cache its whole latent; the cut weights
-    gather back whole bit for bit."""
+    width too), "+odd"'s attention at M = 2 and 4, sLSTM's ``out_norm``
+    and its MLP at M = 4; the GQA and cross caches hold each rank's kv
+    heads, an MLA cache its whole latent, a Mamba cache this rank's
+    channels as sub-heads (P′ = 32 and 16 for "+odd"), an xLSTM cache
+    this rank's heads; the cut weights gather back whole bit for bit."""
     for shape in SHAPES:
         M = shape[1]
         for arch in ARCHS:
             cfg = setup[3][arch]["cfg"]
+            want = _caches_want(cfg, M)
             for r in _models(worlds, shape, arch):
                 assert sorted(r["replicated"]) == sorted(
-                    _replicated_want(cfg, M))
-                if cfg.mla_enabled:
-                    assert r["kv_heads"] == []
-                    assert r["latent"] == [cfg.mla.kv_lora_rank]
-                else:
-                    assert r["kv_heads"] == [1] and r["latent"] == []
+                    _replicated_want(cfg, M)), (arch, M)
+                for key, w in want.items():
+                    assert r[key] == w, (arch, M, key, r[key])
                 assert r["round_trip"]
+    odd = setup[3]["hymba-1.5b+odd"]["cfg"]
+    assert [_caches_want(odd, M)["ssm"][0][3] for M in (2, 4)] == [32, 16]
 
 
 def _trajectory_close(got_losses, got, want, amplified=False):
@@ -480,6 +524,29 @@ def test_tp_moe_training_trajectory_matches_one_device(setup, worlds):
         assert t["moments"]["blocks.1.moe.w_down"] == (E // 2, f, d // 2)
 
 
+def test_tp_xlstm_training_trajectory_matches_one_device(setup, worlds):
+    """The xLSTM case's 5 ZeRO-1 steps at (2, 2): its roles cut role by
+    role (a contiguous cut of ``w_up`` would hand rank 0 every value
+    channel and rank 1 every gate), the moments of a role-cut leaf split
+    by the data axis on its other dim.  Held as the MoE's trajectory: one
+    or two embedding elements whose gradient nearly cancels take another
+    Adam step past 1e-3 of the leaf's largest update (data parallelism
+    alone at (2, 1) moves them too)."""
+    cfg = setup[3][td.TP_XLSTM]["cfg"]
+    d, inner = cfg.d_model, 2 * cfg.d_model
+    for r in worlds[4]:
+        t = r["train"]["xlstm"]
+        _trajectory_close(t["losses"], t["params"], setup[6]["xlstm"],
+                          amplified=True)
+        assert t["losses"] == worlds[4][0]["train"]["xlstm"]["losses"]
+        assert t["parts"] == {"blocks.0.mix.w_up": 2, "blocks.0.mix.w_if": 2,
+                              "blocks.1.mix.w_gates": 4,
+                              "blocks.2.mix.w_up": 2, "blocks.2.mix.w_if": 2,
+                              "blocks.3.mix.w_gates": 4}
+        assert t["moments"]["blocks.0.mix.w_up"] == (d // 2, inner)
+        assert t["moments"]["blocks.1.mix.w_gates"] == (d // 2, 2 * d)
+
+
 def test_zero1_is_bit_for_bit_with_whole_moments(worlds):
     for r in worlds[2]:
         z = r["zero"]
@@ -525,9 +592,19 @@ def test_moe_checkpoint_from_2x2_restores_at_1x2_and_world_one(setup,
               False)
 
 
+def test_xlstm_checkpoint_from_2x2_restores_at_1x2_and_world_one(setup,
+                                                                  worlds):
+    """The role-cut leaves are whole in the file (gathered role by role:
+    the trajectory test holds the parameters it holds) and each mesh cuts
+    them again role by role."""
+    _restores(setup, worlds, td.TP_XLSTM, "ckpt_xlstm", "restore_xlstm",
+              False)
+
+
 @pytest.mark.parametrize("mesh,arch", [
     pytest.param("1x2", None, id="1x2"), pytest.param("2x2", None, id="2x2"),
-    pytest.param("1x2", td.TP_TRAIN_MOE, id=f"1x2-{td.TP_TRAIN_MOE}")])
+    *(pytest.param("1x2", arch, id=f"1x2-{arch}")
+      for arch in td.TP_LAUNCH_ARCHS)])
 def test_launcher_trains_and_resumes_over_a_model_axis(setup, worlds, mesh,
                                                        arch, tmp_path):
     d = setup[0]
@@ -536,14 +613,14 @@ def test_launcher_trains_and_resumes_over_a_model_axis(setup, worlds, mesh,
     first = launch.main([*argv, "--steps", "3", "--ckpt-dir", ckpt])
     second = launch.main([*argv, "--steps", "6", "--ckpt-dir", ckpt])
     world = 2 if mesh == "1x2" else 4
-    key = "launch_moe" if arch else "launch"
     for r in worlds[world]:
-        a, b = r[key] if world == 2 else r["train"]["launch"]
+        a, b = (r["train"]["launch"] if world == 4 else
+                r["launch_arch"][arch] if arch else r["launch"])
         assert len(a) == len(b) == 3
         np.testing.assert_allclose(a, first, rtol=1e-5)
         np.testing.assert_allclose(b, second, rtol=1e-5)
     out = ("launch22" if world == 4 else
-           "launch12_moe" if arch else "launch12")
+           f"launch12_{arch}" if arch else "launch12")
     steps = sorted(p.name for p in (d / out).iterdir())
     assert steps == ["step_3", "step_6"]
 
@@ -555,14 +632,16 @@ def test_tp_with_flash_decoding_is_refused(worlds):
                 assert "not combined" in r["flash"]
 
 
-def test_other_kinds_refused_at_model_axis_two(worlds):
-    """The hybrid and xLSTM configs refuse a model axis of 2, naming the
-    next slice; the MoE, MLA and cross configs shard."""
-    for r in worlds[2]:
-        assert sorted(r["refused"]) == sorted(REFUSED + SHARDS)
-        for arch in SHARDS:
-            assert r["refused"][arch] is None, arch
-        for arch in REFUSED:
-            msg = r["refused"][arch]
-            assert msg is not None and "next slice" in msg, arch
-            assert "queue 1 items 1.3 and 1.4" in msg, arch
+@pytest.mark.parametrize("M", [2, 4])
+def test_every_config_shards_over_the_model_axis(worlds, M):
+    """Each of the ten reduced configs shards at a model axis of ``M``
+    (nothing is refused: hybrid and xLSTM split too), and its split
+    logits are within 1e-5 of the plain model's on the same rank."""
+    from repro_torch.configs import ARCH_IDS
+
+    for r in worlds[M]:
+        got = r["every_config"]
+        assert sorted(got) == sorted(ARCH_IDS)
+        for arch, rel in got.items():
+            assert isinstance(rel, float), (arch, rel)
+            assert rel <= LOGIT_REL, (arch, rel)
